@@ -1,0 +1,144 @@
+"""Flash attention forward: plain and ragged (per-sequence lengths), with GQA.
+
+Counterpart of ``leetcuda_tpu/attention/flash.py`` (``make_flash_attention``
+and ``make_flash_attention_ragged``). Layouts are the JAX package's:
+q (B, H, N, D), k/v (B, Hkv, N, D), lengths (B,) int32.
+
+On CUDA tensors each wrapper launches the hand-written kernel in
+``csrc/flash_fwd.cu`` (bf16, head dim 64 or 128) and raises on what it does
+not take. On CPU tensors it runs the plain PyTorch version in this module,
+which the tests hold against the JAX kernel and ``chip_smoke.py`` holds the
+CUDA kernel against.
+
+``window``, ``softcap`` and ``with_lse`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
+
+_NEG_INF = -1e30  # big-negative instead of -inf, as the TPU kernel masks
+
+FLASH = LaunchCounter("flash_attention")
+FLASH_RAGGED = LaunchCounter("flash_attention_ragged")
+
+
+def _refuse_options(window, softcap, with_lse):
+    if window is not None or softcap is not None or with_lse:
+        raise NotImplementedError(
+            "flash attention: window / softcap / with_lse are not ported yet "
+            "(ROADMAP: kernel options of the flash forward)")
+
+
+def _check_qkv(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q (B,H,N,D), k/v (B,Hkv,N,D): got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[1]:
+        raise ValueError(f"incompatible q {tuple(q.shape)} / k {tuple(k.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must lie on one device")
+
+
+def flash_attention_plain(q, k, v, *, causal=False, sm_scale=None,
+                          lengths=None):
+    """Plain PyTorch version of the kernel: f32 scores, -1e30 mask, P cast
+    to v's dtype before P.V, divide by max(l, 1e-30); with ``lengths``, keys
+    at or past the length are masked (their V rows zeroed, so NaN padding
+    cannot leak) and query rows at or past it are zeros."""
+    B, H, N, D = q.shape
+    Hkv, Nk = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, group * N, D).float()
+    s = torch.matmul(qg, k.float().transpose(-1, -2)) * scale
+    s = s.reshape(B, Hkv, group, N, Nk)
+    rows = torch.arange(N, device=q.device)[:, None]
+    cols = torch.arange(Nk, device=q.device)[None, :]
+    keep = torch.ones(N, Nk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = rows >= cols
+    keep = keep.expand(B, 1, 1, N, Nk)
+    if lengths is not None:
+        lens = lengths.to(q.device).long().view(B, 1, 1, 1, 1)
+        keep = keep & (cols < lens)
+        v = torch.where(
+            torch.arange(Nk, device=q.device)[None, None, :, None]
+            < lengths.to(q.device).long().view(B, 1, 1, 1), v,
+            torch.zeros((), dtype=v.dtype, device=v.device))
+    s = torch.where(keep, s, torch.full((), _NEG_INF, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), torch.zeros((), device=q.device))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(v.dtype).float().reshape(B, Hkv, group * N, Nk),
+                      v.float()).reshape(B, Hkv, group, N, D)
+    out = pv / torch.clamp(l, min=1e-30)
+    if lengths is not None:
+        live = rows < lengths.to(q.device).long().view(B, 1, 1, 1, 1)
+        out = torch.where(live, out, torch.zeros((), device=q.device))
+    return out.reshape(B, H, N, D).to(q.dtype)
+
+
+def _launch(q, k, v, lengths, causal, scale, counter):
+    """Launch csrc/flash_fwd.cu on the current stream."""
+    from leetcuda_tpu_torch.build import load
+
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"flash kernel takes contiguous bf16 tensors; "
+                             f"{name} is {t.dtype}, contiguous="
+                             f"{t.is_contiguous()}")
+    B, H, N, D = q.shape
+    Hkv, Nk = k.shape[1], k.shape[2]
+    if D not in (64, 128):
+        raise ValueError(f"flash kernel: head dim {D} not in (64, 128)")
+    if B * H > 65535:
+        raise ValueError(f"flash kernel: B*H={B * H} exceeds the grid")
+    if lengths is not None:
+        if (lengths.device != q.device or lengths.dtype != torch.int32
+                or lengths.shape != (B,) or not lengths.is_contiguous()):
+            raise ValueError("lengths must be a contiguous (B,) int32 tensor "
+                             "on q's device")
+    out = torch.empty_like(q)
+    fn = load("flash_fwd").lc_flash_fwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if lengths is None else lengths.data_ptr(), out.data_ptr(),
+             B, H, Hkv, N, Nk, D, float(scale), int(causal),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(err, counter.name)
+    counter.add()
+    return out
+
+
+def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
+                    softcap=None, with_lse=False):
+    """(B, H, N, D) attention with GQA (k/v may have fewer heads)."""
+    _refuse_options(window, softcap, with_lse)
+    _check_qkv(q, k, v)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
+    return _launch(q, k, v, None, causal, scale, FLASH)
+
+
+def flash_attention_ragged(q, k, v, lengths, *, sm_scale=None, window=None,
+                           softcap=None, with_lse=False):
+    """Causal attention with per-sequence valid lengths (B,): keys at or
+    past lengths[b] are neither attended nor read, and query rows at or past
+    it are written as zeros. The batched-prefill primitive."""
+    _refuse_options(window, softcap, with_lse)
+    _check_qkv(q, k, v)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=True, sm_scale=scale,
+                                     lengths=lengths)
+    return _launch(q, k, v, lengths, True, scale, FLASH_RAGGED)

@@ -1,0 +1,98 @@
+"""Build the hand-written CUDA kernels under ``csrc/`` and load them.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+and ``ctypes`` loads it. No PyTorch header is included, so a source builds
+in seconds. The library name carries a hash of the source, the shared
+headers and the flags, so an edited source rebuilds and an unchanged one is
+reused. ``build_all`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the first wrapper call on a CUDA tensor
+builds its kernel (``load``), or a script calls ``build_all`` first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names (stems) of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built on the machine with the GPU")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: list[str] | None = None) -> dict[str, str]:
+    """Compile every named source (default: all) whose library is missing,
+    one ``nvcc`` per source, all started together. Returns {name: the
+    compiler's resource report (``-Xptxas -v``), or "" when cached}.
+    Raises with the compiler's output if any build fails."""
+    names = sources() if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {name: "" for name in names}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,428 @@
+"""Llama-style transformer in PyTorch: the serving model of the port.
+
+Counterpart of ``leetcuda_tpu/models/llama.py`` for dense weights and a
+contiguous KV cache. Parameters are a plain dict with the JAX pytree's keys
+(HF Llama naming): {"embed", "norm", ["lm_head"], "layers": [{"attn_norm",
+"wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down", ...}]}.
+
+Attention runs on the hand-written kernels (attention/flash.py,
+attention/decode.py); projections are ``torch.matmul``, norms, RoPE, the
+embedding gather and the MLP activation are plain PyTorch, as the JAX model
+left them to XLA. Rounding order follows the JAX model: ``_rms_norm``
+normalises in f32, casts, then multiplies by the weight; the MLP activation
+runs in f32; logits are the activation-dtype product cast to f32.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): quantized, LoRA and multi-LoRA weight packs, MoE and GPT-OSS experts,
+sliding windows, attention softcap and sinks, GLM partial rotary, quantized
+and paged KV caches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from leetcuda_tpu_torch.attention.decode import decode_attention
+from leetcuda_tpu_torch.attention.flash import (flash_attention,
+                                                flash_attention_ragged)
+from leetcuda_tpu_torch.core.runtime import resolve_device
+from leetcuda_tpu_torch.ops.rope import apply_rope_half
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The JAX ModelConfig's fields, with ``dtype`` a ``torch.dtype``. The
+    default is the flagship ~0.8B model."""
+    vocab_size: int = 32000
+    dim: int = 2048
+    n_layers: int = 16
+    n_heads: int = 16
+    n_kv_heads: int = 4
+    ffn_dim: int = 5632
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    n_experts: int = 0
+    expert_topk: int = 2
+    capacity_factor: float = 2.0
+    moe_renorm: bool = False
+    moe_ffn_dim: int = 0
+    moe_dropless: bool = False
+    hidden_act: str = "silu"          # "silu" | "gelu_tanh"
+    sliding_window: int | None = None
+    rms_offset: bool = False          # normalize * (1 + w) instead of * w
+    embed_scale: bool = False         # x = embed[tokens] * sqrt(dim)
+    head_dim_override: int | None = None
+    qk_norm: bool = False             # per-head RMS norm on q/k before rope
+    attn_softcap: float | None = None
+    attn_sinks: bool = False
+    glm_rope_dim: int = 0
+    nope_interval: int = 0            # every Nth layer skips rope
+    final_softcap: float | None = None
+    query_scale: float | None = None  # attention scale override
+    alt_window: bool = False
+    sandwich_norms: bool = False      # post-attn / post-mlp output norms
+    # ("llama3", factor, low_freq_factor, high_freq_factor, original_max_pos)
+    # | ("linear", factor)
+    # | ("yarn", factor, beta_fast, beta_slow, original_max_pos, truncate,
+    #    attention_factor_or_None)
+    rope_scaling: tuple | None = None
+
+    def rope_inv_freq(self):
+        """Scaled (head_dim/2,) inverse frequencies, or None (plain theta)."""
+        if self.rope_scaling is None:
+            return None
+        from leetcuda_tpu_torch.ops.rope import (llama3_scaled_inv_freq,
+                                                 yarn_scaled_inv_freq)
+        kind = self.rope_scaling[0]
+        if kind == "llama3":
+            _, f, lo, hi, orig = self.rope_scaling
+            return llama3_scaled_inv_freq(self.head_dim, self.rope_theta,
+                                          f, lo, hi, orig)
+        if kind == "linear":
+            half = self.head_dim // 2
+            base = self.rope_theta ** (
+                -torch.arange(half, dtype=torch.float32) / half)
+            return base / self.rope_scaling[1]
+        if kind == "yarn":
+            _, f, bf, bs, orig, trunc, af = self.rope_scaling
+            return yarn_scaled_inv_freq(self.head_dim, self.rope_theta, f,
+                                        bf, bs, orig, truncate=trunc,
+                                        attention_factor=af)[0]
+        raise NotImplementedError(f"rope_scaling kind {kind!r}")
+
+    def rope_mscale(self) -> float:
+        """YaRN attention factor scaling cos/sin (1.0 otherwise)."""
+        if self.rope_scaling is None or self.rope_scaling[0] != "yarn":
+            return 1.0
+        from leetcuda_tpu_torch.ops.rope import yarn_scaled_inv_freq
+        _, f, bf, bs, orig, trunc, af = self.rope_scaling
+        return yarn_scaled_inv_freq(self.head_dim, self.rope_theta, f, bf,
+                                    bs, orig, truncate=trunc,
+                                    attention_factor=af)[1]
+
+    def layer_rope(self, i: int | None = None) -> bool:
+        """NoPE: every nope_interval-th layer attends without rotation."""
+        if self.nope_interval and i is not None:
+            return (i + 1) % self.nope_interval != 0
+        return True
+
+    @property
+    def head_dim(self):
+        return self.head_dim_override or self.dim // self.n_heads
+
+
+def tiny_config(**kw) -> ModelConfig:
+    """Small f32 config for tests."""
+    base = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                ffn_dim=512, dtype=torch.float32)
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def _check_config(cfg: ModelConfig):
+    """Refuse switches whose kernel option this port does not have yet,
+    rather than compute something else."""
+    bad = [name for name in ("sliding_window", "alt_window", "attn_softcap",
+                             "attn_sinks", "n_experts", "glm_rope_dim")
+           if getattr(cfg, name)]
+    if bad:
+        raise NotImplementedError(
+            f"ModelConfig switches {bad} are not ported yet (ROADMAP: "
+            "kernel options of flash/decode attention, MoE, GLM rotary)")
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device="cuda"):
+    """Random-init parameter dict (HF Llama layout), drawn from
+    ``generator`` (on the generator's device, then moved to ``device``)."""
+    _check_config(cfg)
+    dev = resolve_device(device)
+    D, H, Hkv, Dh, F_ = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                         cfg.ffn_dim)
+
+    def dense(fan_in, shape):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device) / math.sqrt(fan_in)
+        return w.to(device=dev, dtype=cfg.dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=cfg.dtype, device=dev)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {
+            "attn_norm": ones(D),
+            "wq": dense(D, (D, H * Dh)),
+            "wk": dense(D, (D, Hkv * Dh)),
+            "wv": dense(D, (D, Hkv * Dh)),
+            "wo": dense(H * Dh, (H * Dh, D)),
+            "mlp_norm": ones(D),
+        }
+        if cfg.qk_norm:
+            layer["q_norm"] = ones(Dh)
+            layer["k_norm"] = ones(Dh)
+        if cfg.sandwich_norms:
+            layer["post_attn_norm"] = ones(D)
+            layer["post_mlp_norm"] = ones(D)
+        layer["w_gate"] = dense(D, (D, F_))
+        layer["w_up"] = dense(D, (D, F_))
+        layer["w_down"] = dense(F_, (F_, D))
+        layers.append(layer)
+    return {"embed": dense(D, (cfg.vocab_size, D)), "norm": ones(D),
+            "layers": layers}
+
+
+def linear(x, w, adapter_ids=None):
+    """x (..., K) @ w (K, N), dense only."""
+    if isinstance(w, dict):
+        kind = ("multi-LoRA" if "As" in w else "LoRA" if "A" in w
+                else "quantized")
+        raise NotImplementedError(
+            f"{kind} weight packs are not ported yet (ROADMAP: quantized "
+            "serving, w8a16/w4a16 kernels; LoRA with the model families)")
+    if adapter_ids is not None:
+        raise NotImplementedError("multi-LoRA adapter routing is not ported")
+    return x @ w
+
+
+def fuse_params(params):
+    """Concatenate wq|wk|wv into wqkv and w_gate|w_up into w_gate_up. A pure
+    layout transform: the fused params compute the same function."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = []
+    for layer in params["layers"]:
+        fused = {k: v for k, v in layer.items()
+                 if k in ("attn_norm", "mlp_norm", "wo", "w_down",
+                          "bq", "bk", "bv", "q_norm", "k_norm")}
+        fused["wqkv"] = torch.cat([layer["wq"], layer["wk"], layer["wv"]],
+                                  dim=1)
+        fused["w_gate_up"] = torch.cat([layer["w_gate"], layer["w_up"]], dim=1)
+        out["layers"].append(fused)
+    return out
+
+
+def _proj_qkv(h, layer, H, Hkv, Dh):
+    """Q/K/V projections, fused or split, with optional biases. Returns flat
+    (..., X*Dh) tensors."""
+    if "wqkv" in layer:
+        qkv = linear(h, layer["wqkv"])
+        q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    else:
+        q, k, v = (linear(h, layer["wq"]), linear(h, layer["wk"]),
+                   linear(h, layer["wv"]))
+    if "bq" in layer:
+        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    return q, k, v
+
+
+def _proj_mlp(h, layer, cfg: ModelConfig):
+    if "moe" in layer or "moe_oss" in layer:
+        raise NotImplementedError("MoE / GPT-OSS expert FFNs are not ported "
+                                  "yet (ROADMAP: model families, gmm kernel)")
+    if "w_gate_up" in layer:
+        gate, up = torch.chunk(linear(h, layer["w_gate_up"]), 2, dim=-1)
+    else:
+        gate, up = linear(h, layer["w_gate"]), linear(h, layer["w_up"])
+    if cfg.hidden_act == "silu":
+        gate = F.silu(gate.float())
+    else:
+        gate = F.gelu(gate.float(), approximate="tanh")
+    return linear((gate * up.float()).to(h.dtype), layer["w_down"])
+
+
+def _rms_norm(x, w, eps, offset: bool = False):
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    xhat = (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+    if offset:
+        return xhat * (1.0 + w.float()).to(x.dtype)
+    return xhat * w
+
+
+def _apply_rope(x, positions, cfg: ModelConfig):
+    if cfg.glm_rope_dim:
+        raise NotImplementedError("GLM partial rotary is not ported yet")
+    return apply_rope_half(x, positions, cfg.rope_theta,
+                           inv_freq=cfg.rope_inv_freq(),
+                           mscale=cfg.rope_mscale())
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        x = (x.float() * math.sqrt(cfg.dim)).to(x.dtype)
+    return x
+
+
+def _attn_in(layer, x, positions, cfg: ModelConfig, layer_idx):
+    """Input norm, QKV projection, q/k norms and RoPE of one layer over
+    (B, S, D) activations: q (B, S, H, Dh), k and v (B, S, Hkv, Dh)."""
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if "sinks" in layer:
+        raise NotImplementedError("attention sinks are not ported yet")
+    h = (_rms_norm(x, layer["attn_norm"], cfg.norm_eps, cfg.rms_offset)
+         if "attn_norm" in layer else x)
+    q, k, v = _proj_qkv(h, layer, H, Hkv, Dh)
+    if "q_norm" in layer and layer["q_norm"].shape[-1] == H * Dh:
+        # OLMo2: RMS norm over the flat projection, before the reshape
+        q = _rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = _rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = _rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = _rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    if cfg.layer_rope(layer_idx):
+        q = _apply_rope(q, positions, cfg)
+        k = _apply_rope(k, positions, cfg)
+    return q, k, v
+
+
+def _attn_out_and_mlp(layer, x, o, cfg: ModelConfig):
+    """Output projection, residual, MLP block and residual. o is the
+    attention output (..., H*Dh)."""
+    attn_out = linear(o, layer["wo"])
+    if "bo" in layer:
+        attn_out = attn_out + layer["bo"]
+    if "post_attn_norm" in layer:
+        attn_out = _rms_norm(attn_out, layer["post_attn_norm"], cfg.norm_eps,
+                             cfg.rms_offset)
+    x = x + attn_out
+    h = (_rms_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.rms_offset)
+         if "mlp_norm" in layer else x)
+    mlp_out = _proj_mlp(h, layer, cfg)
+    if "post_mlp_norm" in layer:
+        mlp_out = _rms_norm(mlp_out, layer["post_mlp_norm"], cfg.norm_eps,
+                            cfg.rms_offset)
+    return x + mlp_out
+
+
+def _logits(params, x, cfg: ModelConfig):
+    x = _rms_norm(x, params["norm"], cfg.norm_eps, cfg.rms_offset)
+    w_lm = params.get("lm_head", params["embed"])
+    logits = (x @ w_lm.T).float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def apply_layer(layer, x, positions=None, cfg: ModelConfig = None,
+                layer_idx: int | None = None):
+    """One transformer layer (prefill path). x (B, S, D) -> (x, (k, v)) with
+    the post-rope K/V (B, Hkv, S, Dh) that the decode path would cache."""
+    B, S, _ = x.shape
+    q, k, v = _attn_in(layer, x, positions, cfg, layer_idx)
+    k = k.transpose(1, 2).contiguous()
+    v = v.transpose(1, 2).contiguous()
+    o = flash_attention(q.transpose(1, 2).contiguous(), k, v, causal=True,
+                        sm_scale=cfg.query_scale)
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    return _attn_out_and_mlp(layer, x, o, cfg), (k, v)
+
+
+def forward(params, tokens, cfg: ModelConfig, positions=None,
+            return_kv: bool = False):
+    """Causal LM forward. tokens (B, S) int -> logits (B, S, V) f32; with
+    ``return_kv`` also the per-layer post-rope [(k, v)] of (B, Hkv, S, Dh)."""
+    _check_config(cfg)
+    B, S = tokens.shape
+    x = _embed(params, tokens, cfg)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    kvs = []
+    for i, layer in enumerate(params["layers"]):
+        x, kv = apply_layer(layer, x, positions, cfg, layer_idx=i)
+        if return_kv:
+            kvs.append(kv)
+    logits = _logits(params, x, cfg)
+    return (logits, kvs) if return_kv else logits
+
+
+def forward_ragged(params, tokens, lengths, cfg: ModelConfig):
+    """Batched prefill over prompts of different lengths padded to a common
+    S: logits (B, S, V) and per-layer K/V, attention masked to each row's
+    valid prefix (the ragged flash kernel). lengths (B,) int32 on the
+    tokens' device. Rows past a length are garbage the engine never reads."""
+    _check_config(cfg)
+    B, S = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    kvs = []
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _attn_in(layer, x, positions, cfg, li)
+        k = k.transpose(1, 2).contiguous()
+        v = v.transpose(1, 2).contiguous()
+        kvs.append((k, v))
+        o = flash_attention_ragged(q.transpose(1, 2).contiguous(), k, v,
+                                   lengths, sm_scale=cfg.query_scale)
+        o = o.transpose(1, 2).reshape(B, S, -1)
+        x = _attn_out_and_mlp(layer, x, o, cfg)
+    return _logits(params, x, cfg), kvs
+
+
+# --- decode path -------------------------------------------------------------------
+
+def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                   quant: str | None = None, device="cuda"):
+    """Contiguous caches [{"k", "v"}] of (batch, Hkv, max_seq, Dh), zeroed.
+    The decode path updates them in place."""
+    if quant is not None:
+        raise NotImplementedError(
+            f"quantized KV cache ({quant!r}) is not ported yet (ROADMAP: "
+            "quantized serving, quantized decode attention)")
+    dev = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+def _cache_append(cache, k, v, pos):
+    """Write this token's k/v (B, Hkv, Dh) at position ``pos`` (B,) of each
+    row, IN PLACE (``cache["k"][b, :, pos[b]] = k[b]``); returns ``cache``.
+    The JAX package's dynamic-update-slice chain (a TPU aliasing workaround)
+    has no counterpart here."""
+    if "k" not in cache or "k_scale" in cache:
+        raise NotImplementedError("paged / quantized caches are not ported")
+    bidx = torch.arange(k.shape[0], device=k.device)
+    p = pos.long()
+    cache["k"][bidx, :, p] = k.to(cache["k"].dtype)
+    cache["v"][bidx, :, p] = v.to(cache["v"].dtype)
+    return cache
+
+
+def _cache_attend(q, cache, lengths, sm_scale=None):
+    """Decode attention of q (B, H, Dh) over a contiguous cache."""
+    return decode_attention(q.contiguous(), cache["k"], cache["v"], lengths,
+                            sm_scale=sm_scale)
+
+
+def decode_step(params, tokens, caches, lengths, cfg: ModelConfig):
+    """One decode step for B sequences. tokens (B,) int; lengths (B,) int32
+    = context length EXCLUDING this token. Appends this token's K/V to
+    ``caches`` IN PLACE and returns (logits (B, V) f32, caches).
+
+    Fused params (``fuse_params``) take the same unfused math: the fused
+    norm->QKV->RoPE kernel is not ported yet (ROADMAP, next serving slice)."""
+    _check_config(cfg)
+    B = tokens.shape[0]
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = _embed(params, tokens, cfg)[:, None]  # (B, 1, D)
+    pos = lengths
+    attend_len = lengths + 1
+    for li, (layer, cache) in enumerate(zip(params["layers"], caches)):
+        q, k, v = _attn_in(layer, x, pos[:, None], cfg, li)
+        cache = _cache_append(cache, k[:, 0], v[:, 0], pos)
+        o = _cache_attend(q[:, 0].to(cfg.dtype), cache, attend_len,
+                          sm_scale=cfg.query_scale)
+        x = _attn_out_and_mlp(layer, x, o.reshape(B, 1, H * Dh).to(x.dtype),
+                              cfg)
+    return _logits(params, x[:, 0], cfg), caches

@@ -1,0 +1,180 @@
+"""The port's Engine, generate and samplers against the JAX package's.
+
+Greedy decoding on ``tiny_config()`` (f32) with one set of weights: the
+port's tokens must EQUAL the JAX engine's. The isolation tests check that
+the port imports nothing of JAX and refuses to run on a missing GPU.
+"""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from leetcuda_tpu.engine import Engine as JEngine
+from leetcuda_tpu.engine import EngineConfig as JEngineConfig
+from leetcuda_tpu.engine import generate_scan
+from leetcuda_tpu.engine.sampling import make_warper as j_make_warper
+from leetcuda_tpu.models import llama as jl
+from leetcuda_tpu_torch.engine import Engine, EngineConfig, generate
+from leetcuda_tpu_torch.engine.sampling import greedy, make_sampler, make_warper
+from leetcuda_tpu_torch.models import llama as tl
+from leetcuda_tpu_torch.models.convert import params_from_numpy
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def both():
+    jcfg = jl.tiny_config()
+    jparams = jl.init_params(jax.random.key(0), jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, jparams, tl.tiny_config(), tparams
+
+
+def _ecfg(cls, slots):
+    return cls(slots=slots, max_seq=256, prefill_bucket=16)
+
+
+def test_batched_admission_matches_jax_engine(both):
+    """The three same-tick arrivals of test_batched_admission_matches_solo:
+    one ragged prefill batch, then decode — tokens equal JAX's."""
+    jcfg, jparams, tcfg, tparams = both
+    rng = np.random.default_rng(11)
+    prompts = [list(rng.integers(0, 256, n)) for n in (5, 17, 9)]
+    want = JEngine(jparams, jcfg, _ecfg(JEngineConfig, 3)).run(prompts, 5)
+    eng = Engine(tparams, tcfg, _ecfg(EngineConfig, 3), device="cpu")
+    got = eng.run(prompts, 5)
+    assert list(got.values()) == [list(map(int, t)) for t in want.values()]
+    assert eng.recoveries == 0 and eng.stats()["finished"] == 3
+
+
+def test_staggered_slot_reuse_matches_jax_engine(both):
+    """More requests than slots plus a mid-flight arrival (which admits
+    alone, through forward): slot recycling keeps every stream exact."""
+    jcfg, jparams, tcfg, tparams = both
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(0, 256, n)) for n in (4, 4, 7, 3)]
+
+    def drive(eng):
+        uids = [eng.submit(p, max_new=3 + i)
+                for i, p in enumerate(prompts[:3])]
+        for _ in range(2):
+            eng.step()
+        uids.append(eng.submit(prompts[3], max_new=4))
+        while eng.waiting or eng.active:
+            eng.step()
+        return [list(map(int, eng.finished[u].generated)) for u in uids]
+
+    want = drive(JEngine(jparams, jcfg, _ecfg(JEngineConfig, 2)))
+    assert drive(Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
+                        device="cpu")) == want
+
+
+def test_recover_midflight_exact(both):
+    """recover() after a few ticks requeues in-flight requests for
+    recompute; the streams stay equal to an undisturbed run."""
+    _, _, tcfg, tparams = both
+    rng = np.random.default_rng(9)
+    prompts = [list(rng.integers(0, 256, n)) for n in (6, 10)]
+    want = Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
+                  device="cpu").run(prompts, 6)
+    eng = Engine(tparams, tcfg, _ecfg(EngineConfig, 2), device="cpu")
+    uids = [eng.submit(p, max_new=6) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    eng.recover()
+    while eng.waiting or eng.active:
+        eng.step()
+    assert [eng.finished[u].generated for u in uids] == list(want.values())
+    assert eng.recoveries == 1
+
+
+def test_generate_matches_generate_scan(both):
+    jcfg, jparams, tcfg, tparams = both
+    prompts = np.random.default_rng(2).integers(0, 256, (2, 16)).astype(
+        np.int32)
+    want = np.asarray(generate_scan(jparams, jcfg, jnp.asarray(prompts), 5))
+    got = generate(tparams, tcfg, torch.from_numpy(prompts), 5, device="cpu")
+    assert got.shape == (2, 5) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kw", [dict(temperature=0.7),
+                                dict(temperature=1.3, top_k=5),
+                                dict(temperature=0.9, top_p=0.8),
+                                dict(temperature=1.0, top_k=20, top_p=0.5)])
+def test_make_warper_matches_jax(kw):
+    logits = np.random.default_rng(3).standard_normal(
+        (3, 64), dtype=np.float32) * 3
+    want = np.asarray(j_make_warper(**kw)(jnp.asarray(logits)))
+    got = make_warper(**kw)(torch.from_numpy(logits)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+def test_sampler_draws_inside_warped_support():
+    logits = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 64), dtype=np.float32))
+    samp = make_sampler(temperature=1.0, top_k=3)
+    a = samp(logits, torch.Generator().manual_seed(0))
+    b = samp(logits, torch.Generator().manual_seed(0))
+    assert torch.equal(a, b) and a.dtype == torch.int32
+    top3 = torch.topk(logits, 3, dim=-1).indices
+    assert all(int(a[i]) in top3[i].tolist() for i in range(4))
+    assert make_sampler(temperature=0) is greedy
+
+
+def test_engine_unported_options_raise(both):
+    _, _, tcfg, tparams = both
+    for opt in (dict(paged=True), dict(spec_k=2), dict(prefix_cache=True),
+                dict(prefill_chunk=32), dict(kv_quant="int8")):
+        with pytest.raises(NotImplementedError):
+            Engine(tparams, tcfg, dataclasses.replace(
+                _ecfg(EngineConfig, 2), **opt), device="cpu")
+    with pytest.raises(NotImplementedError):
+        Engine(tparams, tcfg, _ecfg(EngineConfig, 2), mesh=object(),
+               device="cpu")
+
+
+def test_engine_default_device_raises_without_cuda(both):
+    """Entry points default to the GPU and refuse to fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the check is for CUDA-less hosts")
+    _, _, tcfg, tparams = both
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(tparams, tcfg, _ecfg(EngineConfig, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tl.init_kv_caches(tcfg, 1, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(tparams, tcfg, torch.zeros((1, 4), dtype=torch.int32), 2)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted((REPO / "leetcuda_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "leetcuda_tpu"), (path, mod)
