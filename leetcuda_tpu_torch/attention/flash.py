@@ -26,6 +26,10 @@ _NEG_INF = -1e30  # big-negative instead of -inf, as the TPU kernel masks
 
 FLASH = LaunchCounter("flash_attention")
 FLASH_RAGGED = LaunchCounter("flash_attention_ragged")
+# lc_flash_fwd_bf16(q, k, v, lengths, out, B, H, Hkv, N, Nk, D, scale,
+#                   causal, stream)
+_FLASH_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
+               + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def _refuse_options(window, softcap, with_lse):
@@ -87,7 +91,7 @@ def flash_attention_plain(q, k, v, *, causal=False, sm_scale=None,
 
 def _launch(q, k, v, lengths, causal, scale, counter):
     """Launch csrc/flash_fwd.cu on the current stream."""
-    from leetcuda_tpu_torch.build import load
+    from leetcuda_tpu_torch.build import kernel
 
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
@@ -106,10 +110,7 @@ def _launch(q, k, v, lengths, causal, scale, counter):
             raise ValueError("lengths must be a contiguous (B,) int32 tensor "
                              "on q's device")
     out = torch.empty_like(q)
-    fn = load("flash_fwd").lc_flash_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn = kernel("flash_fwd", "lc_flash_fwd_bf16", _FLASH_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if lengths is None else lengths.data_ptr(), out.data_ptr(),
              B, H, Hkv, N, Nk, D, float(scale), int(causal),

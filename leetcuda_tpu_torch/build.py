@@ -12,7 +12,8 @@ headers and the flags, so an edited source rebuilds and an unchanged one is
 reused. ``build_all`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the first wrapper call on a CUDA tensor
-builds its kernel (``load``), or a script calls ``build_all`` first.
+builds its kernel and binds its entry point (``kernel``), or a script calls
+``build_all`` first.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, str], object] = {}
 
 
 def sources() -> list[str]:
@@ -96,3 +98,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def kernel(name: str, symbol: str, argtypes: tuple):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, bound once: its
+    library loaded (built first if needed), ``argtypes`` set and an int
+    (CUDA error code) result. Later calls return the bound function."""
+    fn = _bound.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _bound[(name, symbol)] = fn
+    return fn

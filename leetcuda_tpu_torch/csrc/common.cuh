@@ -30,6 +30,20 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
          (static_cast<uint32_t>(f32_to_bf16(hi)) << 16);
 }
 
+// D (16 x 8, f32) += A (16 x 16, bf16, row-major) * B (16 x 8, bf16) on the
+// tensor cores. Fragments, lane = 4 * g + t: a0 = A[g][2t, 2t+1], a1 =
+// A[g+8][2t, 2t+1], a2 = A[g][2t+8, 2t+9], a3 = A[g+8][2t+8, 2t+9]; b0 =
+// B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g] (the smaller k in the low half);
+// c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

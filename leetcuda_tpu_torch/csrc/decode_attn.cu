@@ -1,13 +1,19 @@
 // Decode attention (one query token per sequence) over a contiguous KV
-// cache, for Hopper, bf16 in/out, f32 online softmax.
+// cache, for Hopper, bf16 q and output, f32 online softmax; the cache is
+// bf16 or quantized (int8 / e4m3 with f32 scales).
 //
-// Replaces: leetcuda_tpu/attention/decode.py make_decode_attention
-// (_decode_kernel). q (B, H, D); k/v caches (B, Hkv, S_max, D); lengths
-// (B,) int32 = valid positions per sequence (the current token's K/V already
-// appended). All contiguous.
+// Replaces: leetcuda_tpu/attention/decode.py make_decode_attention and
+// make_decode_attention_quantized (_decode_kernel, quantized=False/True).
+// q (B, H, D); k/v caches (B, Hkv, S_max, D); lengths (B,) int32 = valid
+// positions per sequence (the current token's K/V already appended); for a
+// quantized cache, k/v scales (B, Hkv, S_max) f32. All contiguous.
+// Quantized, the scales fold past the dots as on the TPU (decode.py:81-99):
+// scores are (q . k_raw) * scale * ks[j], the denominator l sums p, and
+// P . V takes p * vs[j].
 //
 // Bound on an H100 SXM: bytes. At B=8, Hkv=4, D=128 and a mean length of
-// 1024 the kernel must read 16.8 MB of K and V: 5 us at 3.35 TB/s; its
+// 1024 the kernel must read 16.8 MB of K and V: 5 us at 3.35 TB/s (an
+// int8 / e4m3 cache: 8.4 MB plus 0.13 MB of scales, 2.5 us); its
 // arithmetic (2 FLOP per byte) is negligible.
 // Design, simple first: one CTA of 128 threads per (b, kv head) computes
 // the whole GQA group of query rows, so each K/V byte is read once for the
@@ -17,11 +23,16 @@
 // on the TPU. Thread j of a tile scores key j against the group (its K row
 // read as 16-byte vectors); P goes through shared memory and thread d
 // accumulates output column d over the tile's valid keys only, reading V
-// rows coalesced. Positions at or past the length are never read, so NaN
-// padding (a torch.empty cache, the tail of a prompt bucket) cannot reach
-// the accumulator (decode.py:100-113 zeroes both sides of P.V instead).
+// rows coalesced. Positions at or past the length are never read, neither
+// their values nor their scales, so NaN padding (a torch.empty cache, the
+// tail of a prompt bucket, the e4m3 NaN bytes 0x7F / 0xFF) cannot reach the
+// accumulator (decode.py:100-113 zeroes both sides of P.V instead). The
+// cache type is a template policy: 16-byte K loads hold 8 bf16 or 16
+// one-byte values; e4m3 decodes through the hardware cvt.
 // At B=8, Hkv=4 this is only 32 CTAs on 132 SMs: a split-KV design that
 // spreads one sequence over several SMs is later work.
+#include <cuda_fp8.h>
+
 #include "common.cuh"
 
 namespace {
@@ -29,14 +40,68 @@ namespace {
 constexpr int kTK = 128;  // keys per tile = threads per CTA
 constexpr int kWarps = kTK / 32;
 
-template <int D, int G>
+// Cache element policies: the stored type, values per 16-byte vector, the
+// decode of one vector and of one element, and whether scales come along.
+struct CacheBf16 {
+  using T = uint16_t;
+  static constexpr int kVec = 8;
+  static constexpr bool kScaled = false;
+  __device__ static void vec(uint4 w, float f[kVec]) {
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] = __uint_as_float(ws[e] << 16);
+      f[2 * e + 1] = __uint_as_float(ws[e] & 0xffff0000u);
+    }
+  }
+  __device__ static float one(T x) { return lc::bf16_to_f32(x); }
+};
+
+struct CacheInt8 {
+  using T = int8_t;
+  static constexpr int kVec = 16;
+  static constexpr bool kScaled = true;
+  __device__ static void vec(uint4 w, float f[kVec]) {
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      f[e] = static_cast<float>(
+          static_cast<int8_t>((ws[e >> 2] >> (8 * (e & 3))) & 0xffu));
+  }
+  __device__ static float one(T x) { return static_cast<float>(x); }
+};
+
+struct CacheE4m3 {
+  using T = uint8_t;
+  static constexpr int kVec = 16;
+  static constexpr bool kScaled = true;
+  __device__ static void vec(uint4 w, float f[kVec]) {
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+      const auto two = static_cast<__nv_fp8x2_storage_t>(
+          (ws[h >> 1] >> (16 * (h & 1))) & 0xffffu);
+      const float2 v =
+          __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3)));
+      f[2 * h] = v.x;
+      f[2 * h + 1] = v.y;
+    }
+  }
+  __device__ static float one(T x) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
+  }
+};
+
+template <class C, int D, int G>
 __global__ void __launch_bounds__(kTK)
 decode_attn_kernel(const uint16_t* __restrict__ q,
-                   const uint16_t* __restrict__ kc,
-                   const uint16_t* __restrict__ vc,
+                   const typename C::T* __restrict__ kc,
+                   const typename C::T* __restrict__ vc,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
                    const int* __restrict__ lengths, uint16_t* __restrict__ o,
                    int Hkv, int S, float scale) {
-  static_assert(D % 8 == 0 && D <= kTK, "head dim");
+  static_assert(D % C::kVec == 0 && D <= kTK, "head dim");
   __shared__ float sq[G][D];
   __shared__ float sp[G][kTK];
   __shared__ float red[G][kWarps];
@@ -46,8 +111,10 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
   const int H = Hkv * G;
   const int len = min(lengths[b], S);
   const uint16_t* qb = q + ((size_t)b * H + kvh * G) * D;
-  const uint16_t* kb = kc + ((size_t)b * Hkv + kvh) * S * D;
-  const uint16_t* vb = vc + ((size_t)b * Hkv + kvh) * S * D;
+  const typename C::T* kb = kc + ((size_t)b * Hkv + kvh) * S * D;
+  const typename C::T* vb = vc + ((size_t)b * Hkv + kvh) * S * D;
+  const float* ksb = C::kScaled ? k_scale + ((size_t)b * Hkv + kvh) * S : nullptr;
+  const float* vsb = C::kScaled ? v_scale + ((size_t)b * Hkv + kvh) * S : nullptr;
 
   for (int i = tid; i < G * D; i += kTK) sq[i / D][i % D] = lc::bf16_to_f32(qb[i]);
   __syncthreads();
@@ -68,25 +135,29 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
     float s[G];
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
+    float ks = 1.f, vs = 1.f;  // this key's scales (quantized caches)
     if (valid) {
       const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)j * D);
 #pragma unroll 4
-      for (int c = 0; c < D / 8; ++c) {
-        const uint4 w = kr[c];
-        const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+      for (int c = 0; c < D / C::kVec; ++c) {
+        float kf[C::kVec];
+        C::vec(kr[c], kf);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float k0 = __uint_as_float(ws[e] << 16);
-          const float k1 = __uint_as_float(ws[e] & 0xffff0000u);
+        for (int e = 0; e < C::kVec; e += 2) {
 #pragma unroll
           for (int gi = 0; gi < G; ++gi)
-            s[gi] += sq[gi][c * 8 + 2 * e] * k0 + sq[gi][c * 8 + 2 * e + 1] * k1;
+            s[gi] += sq[gi][c * C::kVec + e] * kf[e] +
+                     sq[gi][c * C::kVec + e + 1] * kf[e + 1];
         }
+      }
+      if constexpr (C::kScaled) {
+        ks = ksb[j];
+        vs = vsb[j];
       }
     }
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
-      s[gi] = valid ? s[gi] * scale : lc::kNegInf;
+      s[gi] = valid ? s[gi] * scale * ks : lc::kNegInf;
       const float wm = lc::warp_max(s[gi]);
       if (lane == 0) red[gi][warp] = wm;
     }
@@ -103,7 +174,7 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
       const float p = valid ? expf(s[gi] - m_new[gi]) : 0.f;
-      sp[gi][tid] = p;
+      sp[gi][tid] = p * vs;  // l sums p; P.V takes p * vs
       const float ws = lc::warp_sum(p);
       if (lane == 0) red[gi][warp] = ws;
     }
@@ -120,9 +191,9 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
     }
     if (tid < D) {
       const int nvalid = min(kTK, len - j0);
-      const uint16_t* vcol = vb + (size_t)j0 * D + tid;
+      const typename C::T* vcol = vb + (size_t)j0 * D + tid;
       for (int jj = 0; jj < nvalid; ++jj) {
-        const float vv = lc::bf16_to_f32(vcol[(size_t)jj * D]);
+        const float vv = C::one(vcol[(size_t)jj * D]);
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) acc[gi] += sp[gi][jj] * vv;
       }
@@ -138,40 +209,65 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-template <int D>
-int launch_d(const void* q, const void* k, const void* v, const void* lengths,
-             void* o, int B, int H, int Hkv, int S, float scale,
-             cudaStream_t stream) {
+template <class C, int D>
+int launch_d(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* lengths, void* o, int B, int H,
+             int Hkv, int S, float scale, cudaStream_t stream) {
   const dim3 grid(Hkv, B);
   const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
+  const auto* kp = static_cast<const typename C::T*>(k);
+  const auto* vp = static_cast<const typename C::T*>(v);
+  const auto* ksp = static_cast<const float*>(ks);
+  const auto* vsp = static_cast<const float*>(vs);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<uint16_t*>(o);
   switch (H / Hkv) {
-    case 1: decode_attn_kernel<D, 1><<<grid, kTK, 0, stream>>>(qp, kp, vp, lp, op, Hkv, S, scale); break;
-    case 2: decode_attn_kernel<D, 2><<<grid, kTK, 0, stream>>>(qp, kp, vp, lp, op, Hkv, S, scale); break;
-    case 4: decode_attn_kernel<D, 4><<<grid, kTK, 0, stream>>>(qp, kp, vp, lp, op, Hkv, S, scale); break;
-    case 8: decode_attn_kernel<D, 8><<<grid, kTK, 0, stream>>>(qp, kp, vp, lp, op, Hkv, S, scale); break;
+    case 1: decode_attn_kernel<C, D, 1><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
+    case 2: decode_attn_kernel<C, D, 2><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
+    case 4: decode_attn_kernel<C, D, 4><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
+    case 8: decode_attn_kernel<C, D, 8><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class C>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* lengths, void* o, int B, int H,
+           int Hkv, int S, int D, float scale, void* stream) {
+  if (B > 65535 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_d<C, 64>(q, k, v, ks, vs, lengths, o, B, H, Hkv, S, scale, s);
+    case 128: return launch_d<C, 128>(q, k, v, ks, vs, lengths, o, B, H, Hkv, S, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched). GQA group
-// sizes 1, 2, 4, 8 and head dims 64, 128 are instantiated. Launches on
-// ``stream``; does not synchronise and allocates nothing.
+// Both entry points return cudaGetLastError() after the launch (0 =
+// launched). GQA group sizes 1, 2, 4, 8 and head dims 64, 128 are
+// instantiated. They launch on ``stream``, do not synchronise and allocate
+// nothing.
 extern "C" int lc_decode_attn_bf16(const void* q, const void* k, const void* v,
                                    const void* lengths, void* o, int B, int H,
                                    int Hkv, int S, int D, float scale,
                                    void* stream) {
-  if (B > 65535 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_d<64>(q, k, v, lengths, o, B, H, Hkv, S, scale, s);
-    case 128: return launch_d<128>(q, k, v, lengths, o, B, H, Hkv, S, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch<CacheBf16>(q, k, v, nullptr, nullptr, lengths, o, B, H, Hkv,
+                           S, D, scale, stream);
+}
+
+// A quantized cache: ``fp8`` selects e4m3 values (else int8); k_scale and
+// v_scale are (B, Hkv, S) f32.
+extern "C" int lc_decode_attn_q(const void* q, const void* k, const void* v,
+                                const void* k_scale, const void* v_scale,
+                                const void* lengths, void* o, int B, int H,
+                                int Hkv, int S, int D, int fp8, float scale,
+                                void* stream) {
+  if (fp8)
+    return launch<CacheE4m3>(q, k, v, k_scale, v_scale, lengths, o, B, H,
+                             Hkv, S, D, scale, stream);
+  return launch<CacheInt8>(q, k, v, k_scale, v_scale, lengths, o, B, H, Hkv,
+                           S, D, scale, stream);
 }

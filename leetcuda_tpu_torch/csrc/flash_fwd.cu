@@ -29,15 +29,6 @@ constexpr int kBQ = 64;  // query rows per CTA (16 per warp)
 constexpr int kBK = 64;  // keys per KV tile
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t ld_pair(const uint16_t* base, int row,
                                             int nrows, int col, int D) {
   if (row >= nrows) return 0u;
@@ -133,7 +124,7 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         const uint16_t* kr = sk + (nt * 8 + g) * LDS + ks * 16 + t * 2;
         uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(kr),
                           *reinterpret_cast<const uint32_t*>(kr + 8)};
-        mma_bf16_16816(s[nt], qa[ks], bf);
+        lc::mma_bf16_16816(s[nt], qa[ks], bf);
       }
     }
 
@@ -198,7 +189,7 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
             static_cast<uint32_t>(vc[0]) | (static_cast<uint32_t>(vc[LDS]) << 16),
             static_cast<uint32_t>(vc[8 * LDS]) |
                 (static_cast<uint32_t>(vc[9 * LDS]) << 16)};
-        mma_bf16_16816(acc[dt], pa[kk], bf);
+        lc::mma_bf16_16816(acc[dt], pa[kk], bf);
       }
     }
   }

@@ -1,7 +1,8 @@
 """Continuous-batching decode engine over contiguous KV caches, in PyTorch.
 
-Counterpart of ``leetcuda_tpu/engine/engine.py`` for bf16 (or f32) weights
-and a contiguous cache:
+Counterpart of ``leetcuda_tpu/engine/engine.py`` for dense or weight-only
+quantized params (``quantize_params``) and a contiguous cache, plain or
+quantized (``kv_quant`` "int8" | "fp8"):
 
 - A fixed pool of ``slots`` sequences shares one stacked KV cache (B =
   slots); per-slot ``lengths`` make decode attention read only each
@@ -16,8 +17,7 @@ and a contiguous cache:
   work.
 
 Not ported yet (raise ``NotImplementedError``): paged caches, speculative
-decoding, the prefix cache, chunked prefill, quantized KV, meshes and
-multi-LoRA serving.
+decoding, the prefix cache, chunked prefill, meshes and multi-LoRA serving.
 """
 
 from __future__ import annotations
@@ -33,18 +33,20 @@ from leetcuda_tpu_torch.core.runtime import (KernelLaunchError,
                                              resolve_device, round_up)
 from leetcuda_tpu_torch.engine.sampling import greedy
 from leetcuda_tpu_torch.models.llama import (
-    ModelConfig, decode_step, forward, forward_ragged, init_kv_caches)
+    ModelConfig, _quantize_token_kv, as_bytes, decode_step, forward,
+    forward_ragged, init_kv_caches)
 
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The JAX EngineConfig's fields. Only the defaults of ``kv_quant``,
-    ``paged``, ``spec_k``, ``prefix_cache`` and ``prefill_chunk`` are
-    served; the rest of the serving matrix is later slices."""
+    """The JAX EngineConfig's fields. ``kv_quant`` is None, "int8" or
+    "fp8"; only the defaults of ``paged``, ``spec_k``, ``prefix_cache`` and
+    ``prefill_chunk`` are served; the rest of the serving matrix is later
+    slices."""
     slots: int = 8
     max_seq: int = 1024
     prefill_bucket: int = 128
-    kv_quant: str | None = None
+    kv_quant: str | None = None      # None | "int8" | "fp8"
     eos_id: int | None = None
     paged: bool = False
     page_size: int = 128
@@ -74,13 +76,20 @@ class Request:
 
 def _insert_kvs(caches, kvs, slot: int):
     """Copy prefill K/V ((Bp, Hkv, S_pad, Dh) per layer) into the stacked
-    caches at slots [slot, slot + Bp), IN PLACE. Positions at or past a
-    prompt's length hold the padding's K/V; decode attention never reads
-    them (lengths mask) and later appends overwrite them in order."""
+    caches at slots [slot, slot + Bp), IN PLACE, quantized per position
+    (values and scales) when the cache is. Positions at or past a prompt's
+    length hold the padding's K/V; decode attention never reads them
+    (lengths mask) and later appends overwrite them in order."""
     for cache, (k, v) in zip(caches, kvs):
         bp, s_pad = k.shape[0], k.shape[2]
-        cache["k"][slot:slot + bp, :, :s_pad] = k.to(cache["k"].dtype)
-        cache["v"][slot:slot + bp, :, :s_pad] = v.to(cache["v"].dtype)
+        rows = (slice(slot, slot + bp), slice(None), slice(0, s_pad))
+        if "k_scale" in cache:
+            k, ks = _quantize_token_kv(k, cache["k"].dtype)
+            v, vs = _quantize_token_kv(v, cache["v"].dtype)
+            cache["k_scale"][rows] = ks
+            cache["v_scale"][rows] = vs
+        as_bytes(cache["k"])[rows] = as_bytes(k.to(cache["k"].dtype))
+        as_bytes(cache["v"])[rows] = as_bytes(v.to(cache["v"].dtype))
     return caches
 
 
@@ -109,7 +118,7 @@ class Engine:
             ("paged", ec.paged), ("spec_k", ec.spec_k),
             ("prefix_cache", ec.prefix_cache),
             ("prefill_chunk", ec.prefill_chunk is not None),
-            ("kv_quant", ec.kv_quant is not None), ("mesh", mesh is not None),
+            ("mesh", mesh is not None),
             ("draft", draft is not None)) if on]
         if any(isinstance(w, dict) and "As" in w
                for w in params["layers"][0].values()):
@@ -117,7 +126,7 @@ class Engine:
         if unported:
             raise NotImplementedError(
                 f"Engine options {unported} are not ported yet (ROADMAP: "
-                "paged KV, chunk paths, quantized serving, parallel layer)")
+                "paged KV, chunk paths, parallel layer)")
         if ec.max_seq % ec.prefill_bucket:
             raise ValueError("max_seq must be a multiple of prefill_bucket")
         self.params = params
@@ -134,7 +143,7 @@ class Engine:
     def _reset_device_state(self):
         ec = self.ec
         self.caches = init_kv_caches(self.cfg, ec.slots, ec.max_seq,
-                                     device=self.device)
+                                     quant=ec.kv_quant, device=self.device)
         self.lengths = torch.zeros(ec.slots, dtype=torch.int32,
                                    device=self.device)
         self.last_tokens = torch.zeros(ec.slots, dtype=torch.int32,
@@ -242,7 +251,7 @@ class Engine:
         }
 
     def kv_memory_report(self) -> dict:
-        """Bytes held by the KV cache."""
+        """Bytes held by the KV cache, scales included."""
         return {"target_bytes": int(sum(t.nbytes for c in self.caches
                                         for t in c.values()))}
 
@@ -277,18 +286,20 @@ class Engine:
 
 
 def generate(params, cfg: ModelConfig, prompts, max_new: int,
-             max_seq: int | None = None, sample_fn=None,
-             generator: torch.Generator | None = None, device="cuda"):
+             kv_quant: str | None = None, max_seq: int | None = None,
+             sample_fn=None, generator: torch.Generator | None = None,
+             device="cuda"):
     """Generate ``max_new`` tokens for a (B, S) prompt batch: one prefill,
     then ``max_new - 1`` decode steps (greedy by default, or ``sample_fn``
-    with ``generator``). Returns tokens (B, max_new) int32. The cache
-    capacity rounds up to a multiple of 1024, as ``generate_scan`` does."""
+    with ``generator``), over a cache quantized as ``kv_quant`` says (None,
+    "int8" or "fp8"). Returns tokens (B, max_new) int32. The cache capacity
+    rounds up to a multiple of 1024, as ``generate_scan`` does."""
     dev = _serving_device(params, device)
     sample_fn = sample_fn or greedy
     prompts = torch.as_tensor(prompts, device=dev)
     B, S = prompts.shape
     max_seq = max_seq or round_up(S + max_new, 1024)
-    caches = init_kv_caches(cfg, B, max_seq, device=dev)
+    caches = init_kv_caches(cfg, B, max_seq, quant=kv_quant, device=dev)
     logits, kvs = forward(params, prompts, cfg, return_kv=True)
     _insert_kvs(caches, kvs, 0)
     tok = sample_fn(logits[:, S - 1], generator)

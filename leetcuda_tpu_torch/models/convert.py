@@ -2,7 +2,9 @@
 
 The JAX parameter pytree, handed over as numpy arrays (``np.asarray`` of each
 leaf), becomes the port's dict of tensors. bf16 arrives as
-``ml_dtypes.bfloat16``; it crosses bit for bit through an int16 view.
+``ml_dtypes.bfloat16`` and e4m3 (fp8 weight packs and caches) as
+``ml_dtypes.float8_e4m3fn``, which ``torch.from_numpy`` refuses; they cross
+bit for bit through an int16 and a uint8 view.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device)

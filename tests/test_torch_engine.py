@@ -1,7 +1,8 @@
 """The port's Engine, generate and samplers against the JAX package's.
 
-Greedy decoding on ``tiny_config()`` (f32) with one set of weights: the
-port's tokens must EQUAL the JAX engine's. The isolation tests check that
+Greedy decoding on ``tiny_config()`` (f32) with one set of weights, dense
+or JAX's quantized packs converted bit for bit: the port's tokens must
+EQUAL the JAX engine's, over plain and quantized KV caches. The isolation tests check that
 the port imports nothing of JAX and refuses to run on a missing GPU.
 """
 
@@ -44,8 +45,16 @@ def both():
     return jcfg, jparams, tl.tiny_config(), tparams
 
 
-def _ecfg(cls, slots):
-    return cls(slots=slots, max_seq=256, prefill_bucket=16)
+def _ecfg(cls, slots, kv_quant=None):
+    return cls(slots=slots, max_seq=256, prefill_bucket=16,
+               kv_quant=kv_quant)
+
+
+def _quantized(both, fmt, fuse=True):
+    jcfg, jparams, tcfg, _ = both
+    jq = jl.quantize_params(jl.fuse_params(jparams) if fuse else jparams, fmt)
+    return jcfg, jq, tcfg, params_from_numpy(jax.tree.map(np.asarray, jq),
+                                             "cpu")
 
 
 def test_batched_admission_matches_jax_engine(both):
@@ -61,9 +70,31 @@ def test_batched_admission_matches_jax_engine(both):
     assert eng.recoveries == 0 and eng.stats()["finished"] == 3
 
 
-def test_staggered_slot_reuse_matches_jax_engine(both):
-    """More requests than slots plus a mid-flight arrival (which admits
-    alone, through forward): slot recycling keeps every stream exact."""
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+def test_batched_admission_quantized_matches_jax_engine(both, fmt):
+    """The same three arrivals with fused quantized weights over a KV cache
+    of the same format: the ragged prefill's K/V are quantized per position
+    over the whole padded bucket, as JAX does."""
+    jcfg, jparams, tcfg, tparams = _quantized(both, fmt)
+    rng = np.random.default_rng(11)
+    prompts = [list(rng.integers(0, 256, n)) for n in (5, 17, 9)]
+    want = JEngine(jparams, jcfg, _ecfg(JEngineConfig, 3, fmt)).run(
+        prompts, 5)
+    eng = Engine(tparams, tcfg, _ecfg(EngineConfig, 3, fmt), device="cpu")
+    got = eng.run(prompts, 5)
+    assert list(got.values()) == [list(map(int, t)) for t in want.values()]
+    assert eng.recoveries == 0
+    assert "k_scale" in eng.caches[0]
+    cache_bytes = sum(t.nbytes for c in eng.caches for t in c.values())
+    scale_bytes = sum(c[k].nbytes for c in eng.caches
+                      for k in ("k_scale", "v_scale"))
+    assert eng.kv_memory_report() == {"target_bytes": cache_bytes}
+    assert scale_bytes == 2 * tcfg.n_layers * 3 * tcfg.n_kv_heads * 256 * 4
+
+
+def _staggered_slot_reuse(both, kv_quant):
+    """Three requests on two slots, then a mid-flight arrival (which admits
+    alone, through forward); returns the JAX and the port's streams."""
     jcfg, jparams, tcfg, tparams = both
     rng = np.random.default_rng(1)
     prompts = [list(rng.integers(0, 256, n)) for n in (4, 4, 7, 3)]
@@ -78,9 +109,25 @@ def test_staggered_slot_reuse_matches_jax_engine(both):
             eng.step()
         return [list(map(int, eng.finished[u].generated)) for u in uids]
 
-    want = drive(JEngine(jparams, jcfg, _ecfg(JEngineConfig, 2)))
-    assert drive(Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
-                        device="cpu")) == want
+    want = drive(JEngine(jparams, jcfg, _ecfg(JEngineConfig, 2, kv_quant)))
+    got = drive(Engine(tparams, tcfg, _ecfg(EngineConfig, 2, kv_quant),
+                       device="cpu"))
+    return want, got
+
+
+def test_staggered_slot_reuse_matches_jax_engine(both):
+    """More requests than slots plus a mid-flight arrival: slot recycling
+    keeps every stream exact."""
+    want, got = _staggered_slot_reuse(both, None)
+    assert got == want
+
+
+def test_staggered_slot_reuse_int8_kv_matches_jax_engine(both):
+    """The same over an int8 KV cache: a recycled slot's stale values and
+    scales past the new length are never read, and dead slots' appends
+    write a scale inside the capacity."""
+    want, got = _staggered_slot_reuse(both, "int8")
+    assert got == want
 
 
 def test_recover_midflight_exact(both):
@@ -112,6 +159,18 @@ def test_generate_matches_generate_scan(both):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_generate_int4_int8_kv_matches_generate_scan(both):
+    """int4 weights over an int8 KV cache (generate_scan's kv_quant)."""
+    jcfg, jparams, tcfg, tparams = _quantized(both, "int4", fuse=False)
+    prompts = np.random.default_rng(2).integers(0, 256, (2, 16)).astype(
+        np.int32)
+    want = np.asarray(generate_scan(jparams, jcfg, jnp.asarray(prompts), 5,
+                                    kv_quant="int8"))
+    got = generate(tparams, tcfg, torch.from_numpy(prompts), 5,
+                   kv_quant="int8", device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("kw", [dict(temperature=0.7),
                                 dict(temperature=1.3, top_k=5),
                                 dict(temperature=0.9, top_p=0.8),
@@ -139,10 +198,12 @@ def test_sampler_draws_inside_warped_support():
 def test_engine_unported_options_raise(both):
     _, _, tcfg, tparams = both
     for opt in (dict(paged=True), dict(spec_k=2), dict(prefix_cache=True),
-                dict(prefill_chunk=32), dict(kv_quant="int8")):
+                dict(prefill_chunk=32)):
         with pytest.raises(NotImplementedError):
             Engine(tparams, tcfg, dataclasses.replace(
                 _ecfg(EngineConfig, 2), **opt), device="cpu")
+    with pytest.raises(ValueError):  # int8 and fp8 are the KV formats
+        Engine(tparams, tcfg, _ecfg(EngineConfig, 2, "int4"), device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(tparams, tcfg, _ecfg(EngineConfig, 2), mesh=object(),
                device="cpu")

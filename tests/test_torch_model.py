@@ -5,6 +5,15 @@ through ``params_from_numpy`` into the port, so both compute with identical
 weights. Logits and K/V are compared at atol/rtol 1e-4, the bar
 tests/test_engine.py sets for forward-vs-ragged logits (f32 math in a
 different order, over two layers).
+
+Quantized weights are JAX's packs (``quantize_params``) converted bit for
+bit. JAX's int8 ``linear`` always takes bf16 dots, which round f32
+activations to bf16, while its e4m3 and int4 packs take f32 dots on rows
+<= 256; on the bf16 activations the port serves with, both are one
+function. In f32 the quantized tests pin JAX's int8 ``linear`` to the f32-dot
+variant of the same kernel (``make_matmul_w8a16(compute_dtype=f32)``), so
+that all three formats are held at 1e-4. They call JAX eagerly, so no jit
+cache keeps the pinned variant.
 """
 
 import dataclasses
@@ -15,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from leetcuda_tpu.gemm.quant import make_matmul_w8a16
 from leetcuda_tpu.models import llama as jl
 from leetcuda_tpu.ops import rope as jrope
 from leetcuda_tpu_torch.models import llama as tl
@@ -176,8 +186,135 @@ def test_unported_switches_raise(both, switch):
 
 
 def test_quantized_packs_raise():
+    """Packs the port does not serve raise: LoRA packs (over a quantized
+    base too), unknown weight or KV quantization formats, weight bytes of
+    another type."""
+    base = {"q": torch.zeros(4, 4, dtype=torch.int8), "s": torch.ones(4)}
     with pytest.raises(NotImplementedError):
+        tl.linear(torch.zeros(2, 4), {"w": base, "A": torch.zeros(4, 2),
+                                      "B": torch.zeros(2, 4), "scale": 1.0})
+    with pytest.raises(ValueError):
         tl.linear(torch.zeros(2, 4), {"q": torch.zeros(4, 4),
                                       "s": torch.ones(4)})
-    with pytest.raises(NotImplementedError):
-        tl.init_kv_caches(tl.tiny_config(), 1, 16, quant="int8", device="cpu")
+    with pytest.raises(ValueError):
+        tl.quantize_params({"layers": []}, "int2")
+    with pytest.raises(ValueError):
+        tl.init_kv_caches(tl.tiny_config(), 1, 16, quant="int4", device="cpu")
+
+
+def _pin_jax_int8_to_f32_dots(monkeypatch):
+    monkeypatch.setattr(jl, "_w8a16",
+                        make_matmul_w8a16(compute_dtype=jnp.float32))
+
+
+def _quantized(jparams, fmt, fuse):
+    jq = jl.quantize_params(jl.fuse_params(jparams) if fuse else jparams, fmt)
+    return jq, params_from_numpy(jax.tree.map(np.asarray, jq), "cpu")
+
+
+def _raw(t):
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+@pytest.mark.parametrize("fmt,fuse", [("int8", True), ("fp8", True),
+                                      ("int4", False), ("int4", True)])
+def test_quantize_params_packs_equal_jax(both, fmt, fuse):
+    """The port's quantize_params(fuse_params(p)) gives JAX's packs byte for
+    byte; the embedding and norms stay as they were."""
+    _, jparams, _, tparams = both
+    _, want = _quantized(jparams, fmt, fuse)
+    got = tl.quantize_params(tl.fuse_params(tparams) if fuse else tparams,
+                             fmt)
+    assert got["embed"] is tparams["embed"]
+    for gl, wl in zip(got["layers"], want["layers"]):
+        assert gl.keys() == wl.keys()
+        for key in gl:
+            g, w = gl[key], wl[key]
+            if key.startswith("w"):
+                assert g.keys() == w.keys() == ({"q4", "s4"} if fmt == "int4"
+                                                else {"q", "s"})
+                for part in g:
+                    assert torch.equal(_raw(g[part]), _raw(w[part])), key
+            else:
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fmt,fuse", [("int8", True), ("fp8", True),
+                                      ("fp8", False), ("int4", False)])
+def test_forward_quantized(both, monkeypatch, fmt, fuse):
+    jcfg, jparams, tcfg, _ = both
+    _pin_jax_int8_to_f32_dots(monkeypatch)
+    jq, tq = _quantized(jparams, fmt, fuse)
+    toks = np.random.default_rng(5).integers(0, 256, (2, 16)).astype(np.int32)
+    jlog, jkv = jl.forward(jq, jnp.asarray(toks), jcfg, return_kv=True)
+    tlog, tkv = tl.forward(tq, torch.from_numpy(toks), tcfg, return_kv=True)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    for (jk, jv), (tk, tv) in zip(jkv, tkv):
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+
+
+@pytest.mark.parametrize("fmt,kv", [("int8", "int8"), ("fp8", "fp8"),
+                                    ("int4", "int8"), ("fp8", None)])
+def test_decode_step_quantized(both, monkeypatch, fmt, kv):
+    """One decode step with quantized weights over a (quantized) cache that
+    holds a JAX-quantized random prefix: logits, the appended values and
+    their scales match JAX's; the port appended in place."""
+    jcfg, jparams, tcfg, _ = both
+    _pin_jax_int8_to_f32_dots(monkeypatch)
+    jq, tq = _quantized(jparams, fmt, fuse=True)
+    rng = np.random.default_rng(6)
+    B, S = 2, 32
+    jcaches = jl.init_kv_caches(jcfg, B, S, quant=kv)
+    for c in jcaches:
+        for key in ("k", "v"):
+            x = jnp.asarray(rng.standard_normal(c[key].shape,
+                                                dtype=np.float32))
+            if kv is None:
+                c[key] = x
+            else:
+                c[key], c[key + "_scale"] = jl._quantize_token_kv(
+                    x, c[key].dtype)
+    tcaches = params_from_numpy(jax.tree.map(np.asarray, jcaches), "cpu")
+    toks = np.array([7, 201], np.int32)
+    lens = np.array([5, 17], np.int32)
+    jlog, jout = jl.decode_step_impl(jq, jnp.asarray(toks), jcaches,
+                                     jnp.asarray(lens), jcfg)
+    tlog, tout = tl.decode_step(tq, torch.from_numpy(toks), tcaches,
+                                torch.from_numpy(lens), tcfg)
+    assert tout is tcaches
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    for jc, tc in zip(jout, tcaches):
+        assert jc.keys() == tc.keys()
+        for key in tc:
+            np.testing.assert_allclose(tc[key].float().numpy(),
+                                       np.asarray(jc[key], np.float32), **TOL)
+
+
+@pytest.mark.parametrize("qdt,jdt", [(torch.int8, jnp.int8),
+                                     (torch.float8_e4m3fn,
+                                      jnp.float8_e4m3fn)])
+def test_quantize_token_kv_byte_equal(qdt, jdt):
+    x = np.random.default_rng(7).standard_normal((3, 2, 5, 64),
+                                                 dtype=np.float32) * 3
+    jxq, js = jl._quantize_token_kv(jnp.asarray(x), jdt)
+    txq, ts = tl._quantize_token_kv(torch.from_numpy(x), qdt)
+    assert txq.dtype == qdt and ts.shape == (3, 2, 5)
+    np.testing.assert_array_equal(_raw(txq).numpy().view(np.uint8),
+                                  np.asarray(jxq).view(np.uint8))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_init_kv_caches_quantized(quant):
+    jcfg, tcfg = jl.tiny_config(), tl.tiny_config()
+    want = jl.init_kv_caches(jcfg, 3, 48, quant=quant)
+    got = tl.init_kv_caches(tcfg, 3, 48, quant=quant, device="cpu")
+    assert len(got) == len(want) == tcfg.n_layers
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for key in g:
+            assert tuple(g[key].shape) == w[key].shape
+            assert str(g[key].dtype).split(".")[-1] == str(w[key].dtype)
+            np.testing.assert_array_equal(g[key].float().numpy(),
+                                          np.asarray(w[key], np.float32))
