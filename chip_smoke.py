@@ -13,7 +13,11 @@ Phases; any failure raises and the script exits non-zero:
    version's time, one PyTorch library call's time as a yardstick, and the
    least time the card could take (bound). The quantized matmuls run on
    the quantized paths' own weights at every row count each path gives
-   them, and are also timed in both of their tilings.
+   them, and are also timed in both of their tilings. Paged attention
+   runs over shuffled pools full of NaN wherever no row owns a position;
+   the fused norm->QKV->RoPE and norm->matmul kernels run on layer 0 of
+   path (d)'s params, beside the eager unfused sequence and the bare
+   ``torch.matmul``.
 4. Main paths, each with the launch counts zeroed just before it and read
    just after, on the full-width default ModelConfig() (random bf16 weights
    from a seed, quantized on the card):
@@ -26,15 +30,27 @@ Phases; any failure raises and the script exits non-zero:
    (b)    ``generate`` over fused int8 weights and an int8 KV cache, B=8,
           S=128, 32 new tokens;
    (c)    ``generate`` over int4 weights and an int8 KV cache, the same.
+   (d)    the paged Engine (pages of 128) over dense fused bf16 params
+          serves the bf16 path's requests from a pool one page short of
+          what they grow to, so that at least one sequence is preempted
+          and recomputed; every decode step goes through the paged kernel
+          and the fused norm->QKV->RoPE kernel, none through the
+          contiguous decode kernel;
+   (e)    the paged Engine over path (a)'s fused e4m3 packs and e4m3
+          pools (the full default pool): the quantized paged kernel and
+          w8a16, and no fused entry block (a pack is no dense ``wqkv``).
    Each path's tokens/s must stay under its weight-bandwidth ceiling.
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
-   replay's max logit. Printed, not asserted: each quantized model's top-1
+   replay's max logit. Paths (d) and (e) replay over a CONTIGUOUS cache
+   with UNFUSED math, so the replay shares neither the paged nor the fused
+   kernel with them. Printed, not asserted: each quantized model's top-1
    agreement and max |logit difference| against the bf16 model on one
    512-token prompt.
-6. Profile: one B=8 decode step at context 1024 of the bf16 path and of
-   path (a): wall time and, from torch.profiler, device time by kernel (the
-   device busy share).
+6. Profile: one B=8 decode step at context 1024 of the bf16 path (unfused
+   params), of the same step over dense fused params (the fused kernel's
+   A/B), of a paged step of path (d) and of path (a): wall time and, from
+   torch.profiler, device time by kernel (the device busy share).
 
 Prints the card line, a {"kernels": [...]} line, and last a
 {"ok": true, "device": {...}} line; with ``--json PATH`` also writes every
@@ -44,6 +60,7 @@ number it measured to PATH.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -80,7 +97,20 @@ PATH_KERNELS = {
           "decode_attention_quantized"),
     "b": ("flash_attention", "matmul_w8a16", "decode_attention_quantized"),
     "c": ("flash_attention", "matmul_w4a16", "decode_attention_quantized"),
+    "d": ("flash_attention", "flash_attention_ragged", "paged_attention",
+          "fused_norm_qkv_rope"),
+    "e": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
+          "paged_attention_quantized"),
 }
+# The kernels a path must NOT launch: a paged path never reads a contiguous
+# cache, and a quantized pack is no dense ``wqkv`` for the fused block.
+PATH_FORBIDDEN = {
+    "d": ("decode_attention", "decode_attention_quantized",
+          "paged_attention_quantized"),
+    "e": ("decode_attention", "decode_attention_quantized",
+          "paged_attention", "fused_norm_qkv_rope"),
+}
+PAGE = 128  # page size of the paged paths: the engine's default
 
 
 def card_line() -> str:
@@ -140,34 +170,216 @@ def matmul_cases(qparams, path_rows):
     return cases
 
 
-def check_kernels(flush, mm_cases, dev="cuda"):
-    """Phase 3: each kernel against its plain version at main-path shapes
-    (``mm_cases``: see matmul_cases). Returns one row per check; the first
-    check of a kernel is its row in the kernels line."""
-    from leetcuda_tpu_torch.attention import decode as dec
-    from leetcuda_tpu_torch.attention import flash as fl
-    from leetcuda_tpu_torch.gemm import quant as gq
-    from leetcuda_tpu_torch.models.llama import _quantize_token_kv, as_bytes
+# The decode and paged checks' batch: B = 8, H = 16, Hkv = 4, D = 128 over a
+# capacity of 2048 positions, lengths spread from 1 to 2000.
+DECODE_LENS = np.array([1, 100, 517, 1024, 1200, 1400, 1950, 2000], np.int32)
 
-    rng = np.random.default_rng(0)
-    bf = torch.bfloat16
-    rows = {}
 
-    def randn(*shape, scale=1.0):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                                * scale).to(dev, bf)
+class Recorder:
+    """Phase 3's seeded inputs and its rows: one per check, the kernel's
+    result held against its plain version at KERNEL_TOL."""
 
-    def record(check, name, src, replaces, got, want, ms, plain_ms, lib_ms,
-               flops, nbytes):
+    def __init__(self, dev="cuda"):
+        self.dev = dev
+        self.rng = np.random.default_rng(0)
+        self.rows = {}
+
+    def randn(self, *shape, scale=1.0):
+        return torch.from_numpy(
+            self.rng.standard_normal(shape, dtype=np.float32)
+            * scale).to(self.dev, torch.bfloat16)
+
+    def record(self, check, name, src, replaces, got, want, ms, plain_ms,
+               lib_ms, flops, nbytes):
         torch.testing.assert_close(got.float(), want.float(), **KERNEL_TOL)
         b_s, by = bound(flops, nbytes)
-        rows[check] = {
+        self.rows[check] = {
             "check": check, "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_s * 1e3,
             "bound_by": by, "library_ms": lib_ms,
             "flops": flops, "bytes": nbytes}
+
+
+def check_paged(rec, flush):
+    """Paged attention, plain and quantized pools, at the decode check's
+    batch with pages of 128 and 16. Physical pages are shuffled; every
+    position no row owns (page 0, unowned pages, the tail of each last
+    page) holds NaN values and NaN scales (e4m3: the NaN byte 0x7F), and
+    the table's filler is 0. Library yardstick: SDPA over the cache
+    gathered (and dequantized) beforehand."""
+    from leetcuda_tpu_torch.attention import paged as pg
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    dev, bf = rec.dev, torch.bfloat16
+    B, H, Hkv, S, D = 8, 16, 4, 2048, 128
+    lens_np = DECODE_LENS
+    lengths = torch.from_numpy(lens_np).to(dev)
+    n_valid = int(lens_np.sum())
+    q = rec.randn(B, H, D)
+    dmask = (torch.arange(S, device=dev)[None, :]
+             < lengths[:, None])[:, None, None, :]
+    past = ~(torch.arange(S, device=dev)[None, :]
+             < lengths[:, None])[:, None, :].expand(B, Hkv, S)
+
+    def to_pool(cache, page, table, owned, fill):
+        """Scatter a contiguous (B, Hkv, S[, D]) cache into a pool of
+        B * S / page + 1 pages filled with ``fill``."""
+        P = S // page
+        chunks = as_bytes(cache).reshape(B, Hkv, P, page, *cache.shape[3:])
+        chunks = chunks.transpose(1, 2)          # (B, P, Hkv, page[, D])
+        pool = torch.full((B * P + 1, Hkv, page, *cache.shape[3:]), fill,
+                          dtype=chunks.dtype, device=dev)
+        pool[table[owned].long()] = chunks[owned]
+        return pool.view(cache.dtype)
+
+    for page in (PAGE, 16):
+        P = S // page
+        n_pages = -(-lens_np // page)
+        owned = torch.from_numpy(np.arange(P)[None, :] < n_pages[:, None])
+        table = torch.zeros((B, P), dtype=torch.int32)
+        table[owned] = torch.from_numpy(rec.rng.permutation(
+            np.arange(1, B * P + 1))[:int(n_pages.sum())].astype(np.int32))
+        table, owned = table.to(dev), owned.to(dev)
+        tbl_bytes = 4.0 * int(n_pages.sum())
+
+        kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+        kc[past], vc[past] = float("nan"), float("nan")
+        kp = to_pool(kc, page, table, owned, float("nan"))
+        vp = to_pool(vc, page, table, owned, float("nan"))
+        args = (q, kp, vp, table, lengths)
+        got = pg.paged_attention(*args)
+        if not torch.isfinite(got).all():
+            raise AssertionError("paged kernel read a position no row owns")
+        kg, vg = pg._gather(kp, table), pg._gather(vp, table)
+        rec.record(f"paged_attention/page{page}", "paged_attention",
+                   "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                   "leetcuda_tpu/attention/paged.py:232", got,
+                   pg.paged_attention_plain(*args),
+                   time_ms(lambda: pg.paged_attention(*args), flush),
+                   time_ms(lambda: pg.paged_attention_plain(*args), flush,
+                           iters=5),
+                   time_ms(lambda: sdpa(q[:, :, None], kg, vg,
+                                        attn_mask=dmask), flush),
+                   4.0 * H * D * n_valid,
+                   2.0 * (2 * Hkv * n_valid * D + 2 * B * H * D) + 4 * B
+                   + tbl_bytes)
+
+        for fmt, qdt in (("fp8", torch.float8_e4m3fn), ("int8", torch.int8)):
+            kq, ks = _quantize_token_kv(rec.randn(B, Hkv, S, D), qdt)
+            vq, vs = _quantize_token_kv(rec.randn(B, Hkv, S, D), qdt)
+            ks[past], vs[past] = float("nan"), float("nan")
+            nan_byte = 0x7F if fmt == "fp8" else 0
+            as_bytes(kq)[past], as_bytes(vq)[past] = nan_byte, nan_byte
+            pools = [to_pool(c, page, table, owned, f) for c, f in (
+                (kq, nan_byte), (vq, nan_byte), (ks, float("nan")),
+                (vs, float("nan")))]
+            qargs = (q, *pools, table, lengths)
+            got = pg.paged_attention_quantized(*qargs)
+            if not torch.isfinite(got).all():
+                raise AssertionError("quantized paged kernel read a position "
+                                     "no row owns")
+            kd = (pg._gather(pools[0], table).float()
+                  * pg._gather(pools[2], table)[..., None]).to(bf)
+            vd = (pg._gather(pools[1], table).float()
+                  * pg._gather(pools[3], table)[..., None]).to(bf)
+            rec.record(
+                f"paged_attention_quantized/{fmt}/page{page}",
+                "paged_attention_quantized",
+                "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                "leetcuda_tpu/attention/paged.py:232", got,
+                pg.paged_attention_quantized_plain(*qargs),
+                time_ms(lambda: pg.paged_attention_quantized(*qargs), flush),
+                time_ms(lambda: pg.paged_attention_quantized_plain(*qargs),
+                        flush, iters=5),
+                time_ms(lambda: sdpa(q[:, :, None], kd, vd, attn_mask=dmask),
+                        flush),
+                4.0 * H * D * n_valid,
+                2 * Hkv * n_valid * D + 8.0 * Hkv * n_valid
+                + 4.0 * B * H * D + 4 * B + tbl_bytes)
+
+
+def check_fused(rec, flush, layer, cfg):
+    """The fused norm->QKV->RoPE kernel on ``layer``'s dense ``wqkv`` and
+    ``attn_norm`` (B = 8 with positions that differ per row, one of them 0,
+    up to 2047; B = 1; and B = 8 with a random norm weight and the (1 + w)
+    offset), and the fused norm->matmul kernel on its ``w_gate_up`` and
+    ``mlp_norm``. No single PyTorch call computes either: beside each are
+    the eager unfused sequence the model would run and the bare
+    ``torch.matmul`` on the same (B, D) x (D, X)."""
+    from leetcuda_tpu_torch.gemm import fused_decode as fd
+    from leetcuda_tpu_torch.models import llama as tl
+
+    dev = rec.dev
+    D, X = layer["wqkv"].shape
+    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                 head_dim=cfg.head_dim)
+    pos8 = torch.tensor([0, 5, 100, 517, 1024, 1500, 2000, 2047],
+                        dtype=torch.int32, device=dev)
+    rand_nw = rec.randn(D, scale=0.2)
+    cases = (("B=8", pos8, layer["attn_norm"], False),
+             ("B=1", pos8[-1:], layer["attn_norm"], False),
+             ("B=8 random norm weight, offset", pos8, rand_nw, True))
+    for label, pos, nw, offset in cases:
+        B = pos.shape[0]
+        x = rec.randn(B, D)
+        kw = dict(eps=cfg.norm_eps, theta=cfg.rope_theta, rms_offset=offset,
+                  **heads)
+        ocfg = dataclasses.replace(cfg, rms_offset=offset)
+        olayer = {"attn_norm": nw, "wqkv": layer["wqkv"]}
+        args = (x, nw, layer["wqkv"], pos)
+        check = f"fused_norm_qkv_rope/{label} D={D} X={X}"
+        rec.record(check, "fused_norm_qkv_rope",
+                   "leetcuda_tpu_torch/csrc/fused_decode.cu",
+                   "leetcuda_tpu/gemm/fused_decode.py:130",
+                   fd.fused_norm_qkv_rope(*args, **kw),
+                   fd.fused_norm_qkv_rope_plain(*args, **kw),
+                   time_ms(lambda: fd.fused_norm_qkv_rope(*args, **kw),
+                           flush),
+                   time_ms(lambda: fd.fused_norm_qkv_rope_plain(*args, **kw),
+                           flush, iters=5),
+                   None, 2.0 * B * D * X,
+                   2.0 * (B * D + D + D * X + B * X) + 4 * B)
+        rec.rows[check].update(
+            eager_unfused_ms=time_ms(lambda: tl._attn_in(
+                olayer, x[:, None], pos[:, None], ocfg, 0), flush),
+            matmul_ms=time_ms(lambda: torch.matmul(x, layer["wqkv"]), flush))
+
+    w, nw = layer["w_gate_up"], layer["mlp_norm"]
+    D, X = w.shape
+    x = rec.randn(8, D)
+    check = f"fused_norm_matmul/B=8 D={D} X={X}"
+    rec.record(check, "fused_norm_matmul",
+               "leetcuda_tpu_torch/csrc/fused_decode.cu",
+               "leetcuda_tpu/gemm/fused_decode.py:176",
+               fd.fused_norm_matmul(x, nw, w, eps=cfg.norm_eps),
+               fd.fused_norm_matmul_plain(x, nw, w, eps=cfg.norm_eps),
+               time_ms(lambda: fd.fused_norm_matmul(x, nw, w,
+                                                    eps=cfg.norm_eps), flush),
+               time_ms(lambda: fd.fused_norm_matmul_plain(
+                   x, nw, w, eps=cfg.norm_eps), flush, iters=5),
+               None, 2.0 * 8 * D * X, 2.0 * (8 * D + D + D * X + 8 * X))
+    rec.rows[check].update(
+        eager_unfused_ms=time_ms(
+            lambda: tl._rms_norm(x, nw, cfg.norm_eps) @ w, flush),
+        matmul_ms=time_ms(lambda: torch.matmul(x, w), flush))
+
+
+def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
+    """Phase 3: each kernel against its plain version at main-path shapes
+    (``mm_cases``: see matmul_cases; ``fused_layer``: layer 0 of the dense
+    fused params). Returns one row per check; the first check of a kernel
+    is its row in the kernels line."""
+    from leetcuda_tpu_torch.attention import decode as dec
+    from leetcuda_tpu_torch.attention import flash as fl
+    from leetcuda_tpu_torch.gemm import quant as gq
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv, as_bytes
+
+    rec = Recorder(dev)
+    rows, randn, record = rec.rows, rec.randn, rec.record
+    bf = torch.bfloat16
 
     # flash causal, (1, 16, 2048, 128), Hkv = 4
     B, H, Hkv, N, D = 1, 16, 4, 2048, 128
@@ -210,7 +422,7 @@ def check_kernels(flush, mm_cases, dev="cuda"):
 
     # decode, B = 8, H = 16, Hkv = 4, S_max = 2048, NaN past every length
     B, S = 8, 2048
-    lens_np = np.array([1, 100, 517, 1024, 1200, 1400, 1950, 2000], np.int32)
+    lens_np = DECODE_LENS
     lengths = torch.from_numpy(lens_np).to(dev)
     q, kc, vc = randn(B, H, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
     for b, n in enumerate(lens_np):
@@ -327,6 +539,9 @@ def check_kernels(flush, mm_cases, dev="cuda"):
         nan_k = torch.isnan(gq._launch_w8a16(x, wq, ws, decode_tile))
         if not (nan_k[:, :8].all() and torch.equal(nan_k, nan_p)):
             raise AssertionError("e4m3 bytes 0x7F / 0xFF do not decode to NaN")
+
+    check_paged(rec, flush)
+    check_fused(rec, flush, fused_layer, cfg)
     return rows
 
 
@@ -385,7 +600,7 @@ def sync(dev):
 
 
 def serve_engine(params, cfg, prompts, lone, max_new, max_seq, bucket,
-                 kv_quant=None):
+                 kv_quant=None, paged=False, num_pages=None):
     """The Engine serves ``prompts`` (one ragged admission), then ``lone``
     alone (the forward path). Returns timings and the served tokens."""
     from leetcuda_tpu_torch.engine import Engine, EngineConfig
@@ -394,7 +609,9 @@ def serve_engine(params, cfg, prompts, lone, max_new, max_seq, bucket,
     eng = Engine(params, cfg, EngineConfig(slots=len(prompts),
                                            max_seq=max_seq,
                                            prefill_bucket=bucket,
-                                           kv_quant=kv_quant),
+                                           kv_quant=kv_quant, paged=paged,
+                                           page_size=PAGE,
+                                           num_pages=num_pages),
                  device=dev)
     t0 = time.perf_counter()
     uids = [eng.submit(p, max_new) for p in prompts]
@@ -424,7 +641,8 @@ def serve_engine(params, cfg, prompts, lone, max_new, max_seq, bucket,
     return {"engine_batch_s": t_batch, "engine_admit_s": t_admit,
             "engine_ticks": ticks, "lone_request_s": t_lone,
             "engine_tok_s": len(prompts) * max_new / t_batch,
-            "kv_bytes": eng.kv_memory_report()["target_bytes"]}, served
+            "kv_bytes": eng.kv_memory_report()["target_bytes"],
+            "preemptions": eng.preemptions}, served
 
 
 def serve_generate(params, cfg, gprompts, g_new, kv_quant=None):
@@ -462,6 +680,9 @@ def drive(path, fn):
     missing = [n for n in PATH_KERNELS[path] if counts.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"path {path}: kernels not launched: {missing}")
+    stray = [n for n in PATH_FORBIDDEN.get(path, ()) if counts.get(n, 0)]
+    if stray:
+        raise AssertionError(f"path {path}: launched {stray}")
     return out, counts, peak
 
 
@@ -498,28 +719,48 @@ def agreement(params, qparams, cfg, prompt):
             "max_abs_dlogit": float((a - b).abs().max())}
 
 
-def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None):
+def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
+                   paged=False):
     """Phase 6: where a B=``batch`` decode step's time goes. The step's wall
     time (host clock, synchronised) without the profiler, then
     torch.profiler's device time by kernel over the same steps: the device
-    busy share is device time over wall time."""
+    busy share is device time over wall time. ``paged``: over page pools
+    (pages of PAGE) with every row's pages allocated. The table is uploaded
+    once, before the steps: the upload from pageable memory waits for the
+    stream, which costs the engine nothing (it reads the sampled tokens
+    back at the end of every step) but would serialise this loop, whose
+    host otherwise runs ahead of the device."""
     from torch.profiler import ProfilerActivity, profile
 
-    from leetcuda_tpu_torch.models.llama import decode_step, init_kv_caches
+    from leetcuda_tpu_torch.attention.paged import PageManager
+    from leetcuda_tpu_torch.models.llama import (decode_step, init_kv_caches,
+                                                 init_paged_kv_caches)
 
     dev = params["embed"].device
     capacity = context + 2 * steps
-    caches = init_kv_caches(cfg, batch, capacity + (-capacity % 1024),
-                            quant=kv_quant, device=dev)
+    capacity += -capacity % 1024
+    pm = None
+    if paged:
+        pm = PageManager(batch * capacity // PAGE + 1, PAGE, capacity // PAGE,
+                         batch)
+        for slot in range(batch):
+            if not pm.ensure(slot, capacity - 1):
+                raise AssertionError("profile pool too small")
+        caches = init_paged_kv_caches(cfg, batch * capacity // PAGE + 1, PAGE,
+                                      quant=kv_quant, device=dev)
+    else:
+        caches = init_kv_caches(cfg, batch, capacity, quant=kv_quant,
+                                device=dev)
     tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+    table = pm.device_table(dev) if paged else None
 
     def run():
         lengths = torch.full((batch,), context, dtype=torch.int32,
                              device=dev)
         for _ in range(steps):
-            decode_step(params, tok, caches, lengths, cfg)
+            decode_step(params, tok, caches, lengths, cfg, page_table=table)
             lengths += 1
-        torch.cuda.synchronize()
+        sync(dev)
 
     run()
     t0 = time.perf_counter()
@@ -537,7 +778,7 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None):
     device_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     return {"batch": batch, "context": context, "kv_quant": kv_quant,
-            "step_ms": step_ms, "device_ms_per_step": device_ms,
+            "paged": paged, "step_ms": step_ms, "device_ms_per_step": device_ms,
             "launches_per_step": sum(n for _, n in by_kernel.values()),
             "device_busy_share": device_ms / step_ms if device_ms else None,
             "top_kernels": [{"kernel": k[:90], "ms_per_step": ms,
@@ -593,8 +834,9 @@ def main() -> int:
     cfg = ModelConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(gen, cfg, device="cuda")
+    fparams = fuse_params(params)  # dense fused: path (d)
     qparams = {
-        name: quantize_params(fuse_params(params) if fuse else params, w)
+        name: quantize_params(fparams if fuse else params, w)
         for name, (w, fuse, _) in QUANT_PATHS.items()}
     rng = np.random.default_rng(1)
     plens = np.linspace(16, 1500, 8).astype(int)
@@ -619,15 +861,20 @@ def main() -> int:
                  "b": (8, gprompts.numel()),
                  "c": (8, gprompts.numel(), *sweep)}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    checks = check_kernels(flush, matmul_cases(qparams, path_rows))
+    checks = check_kernels(flush, matmul_cases(qparams, path_rows),
+                           fparams["layers"][0], cfg)
     for r in checks.values():
         tiles = ("" if "ms_decode_tile" not in r else
                  f" [decode tiling {r['ms_decode_tile']:.4f} ms, prefill "
                  f"tiling {r['ms_prefill_tile']:.4f} ms]")
+        lib = (f"library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else
+               f"library none [eager unfused {r['eager_unfused_ms']:.4f} ms, "
+               f"torch.matmul alone {r['matmul_ms']:.4f} ms]")
         print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
               f"kernel {r['ms']:.4f} ms{tiles} plain {r['plain_ms']:.4f} ms "
-              f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"{lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
     report["kernel_checks"] = checks
     del flush
 
@@ -699,18 +946,61 @@ def main() -> int:
         print(f"  launches: {counts}")
         report["paths"][name] = res
 
+    # the paged paths: (d) dense fused bf16 params over bf16 pools, one page
+    # short of what the requests grow to (their padded prompts fill it at
+    # admission, and the 228-token prompt crosses into its third page on the
+    # way to 32 tokens), so the youngest sequence is preempted and recomputed;
+    # (e) path (a)'s packs over e4m3 pools, the full default pool. Replayed
+    # with the unfused params (d) / the same packs (e) over a contiguous cache.
+    admit_pages = sum(pad(int(n)) // PAGE for n in plens)
+    paged_paths = {
+        "d": (fparams, None, admit_pages + 1, params,
+              "dense fused bf16 weights, bf16 pools"),
+        "e": (qparams["a"], QUANT_PATHS["a"][2], None, qparams["a"],
+              "fp8 fused weights, fp8 pools")}
+    for name, (pp, kvq, num_pages, _, label) in paged_paths.items():
+        (res, toks), counts, peak = drive(name, lambda: serve_engine(
+            pp, cfg, prompts, lone, max_new=32, max_seq=2048, bucket=bucket,
+            kv_quant=kvq, paged=True, num_pages=num_pages))
+        qserved[name] = list(zip(prompts + [lone], toks))
+        res.update(kv_quant=kvq, page_size=PAGE, num_pages=num_pages,
+                   launches=counts, weight_bytes=param_bytes(pp),
+                   peak_extra_bytes=peak)
+        res["tok_s_ceiling"] = 8 / (res["weight_bytes"] / HBM_BYTES_PER_S)
+        if res["engine_tok_s"] > res["tok_s_ceiling"]:
+            raise AssertionError(
+                f"path {name}: {res['engine_tok_s']:.0f} tok/s exceeds its "
+                f"ceiling {res['tok_s_ceiling']:.0f}")
+        if name == "d" and res["preemptions"] < 1:
+            raise AssertionError("path d: the short pool preempted nobody")
+        print(f"path ({name}) paged Engine, {label}, pages of {PAGE}, pool "
+              f"{num_pages or 'full'}: 8 requests x 32 tokens in "
+              f"{res['engine_batch_s']:.3f} s (admission "
+              f"{res['engine_admit_s']:.3f} s), lone request "
+              f"{res['lone_request_s']:.3f} s = {res['engine_tok_s']:.1f} "
+              f"tok/s; preemptions {res['preemptions']}; ceiling "
+              f"{res['tok_s_ceiling']:.0f} tok/s; params "
+              f"{res['weight_bytes'] / 2**30:.2f} GiB, pools "
+              f"{res['kv_bytes'] / 2**20:.1f} MiB, pools and activations at "
+              f"peak {peak / 2**30:.2f} GiB", flush=True)
+        print(f"  launches: {counts}")
+        report["paths"][name] = res
+
     # 5. teacher-forced checks against solo replays
     t3 = time.perf_counter()
     gaps = check_served(params, cfg, prompts + [lone], served, gprompts,
                         gtoks)
-    for name, (_, _, kvq) in QUANT_PATHS.items():
+    replay_of = {**{name: (qparams[name], kvq)
+                    for name, (_, _, kvq) in QUANT_PATHS.items()},
+                 **{name: (rp, kvq)
+                    for name, (_, kvq, _, rp, _) in paged_paths.items()}}
+    for name, (rp, kvq) in replay_of.items():
         for i, (prompt, toks) in enumerate(qserved[name]):
-            gaps[f"{name}/{i}"] = replay_gap(qparams[name], cfg, prompt, toks,
-                                             kvq)
+            gaps[f"{name}/{i}"] = replay_gap(rp, cfg, prompt, toks, kvq)
     worst = {p: max(g for k, g in gaps.items()
                     if k.split("/")[0] in ((p,) if p != "bf16"
                                            else ("engine", "generate")))
-             for p in ("bf16", *QUANT_PATHS)}
+             for p in ("bf16", *replay_of)}
     report["teacher_forced"] = {"tol": LOGIT_TOL, "worst": worst,
                                 "gaps": gaps,
                                 "seconds": time.perf_counter() - t3}
@@ -728,11 +1018,19 @@ def main() -> int:
           f"{report['vs_bf16']}")
 
     # 6. where a decode step's time goes
+    # (bf16 against bf16_fused is the fused kernel's A/B: the same step,
+    # the same contiguous cache, unfused against dense fused params)
     report["profile"] = {
         "bf16": profile_decode(params, cfg, batch=8, context=1024),
+        "bf16_fused": profile_decode(fparams, cfg, batch=8, context=1024),
+        "d": profile_decode(fparams, cfg, batch=8, context=1024, paged=True),
         "a": profile_decode(qparams["a"], cfg, batch=8, context=1024,
                             kv_quant=QUANT_PATHS["a"][2])}
-    print_profile("bf16", report["profile"]["bf16"])
+    print_profile("bf16, unfused params", report["profile"]["bf16"])
+    print_profile("bf16, dense fused params (fused norm->QKV->RoPE)",
+                  report["profile"]["bf16_fused"])
+    print_profile("(d) dense fused params, paged bf16 pools",
+                  report["profile"]["d"])
     print_profile("(a) fp8 weights + fp8 KV", report["profile"]["a"])
 
     kernels = {}

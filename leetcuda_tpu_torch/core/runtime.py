@@ -32,6 +32,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor as its uint8 view, anything else as it is: indexed
+    reads, writes and fills go through the bytes, which every device op
+    takes."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
 class KernelLaunchError(RuntimeError):
     """A hand-written kernel's launch returned a CUDA error code."""
 

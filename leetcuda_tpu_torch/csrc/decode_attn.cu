@@ -1,9 +1,11 @@
 // Decode attention (one query token per sequence) over a contiguous KV
-// cache, for Hopper, bf16 q and output, f32 online softmax; the cache is
-// bf16 or quantized (int8 / e4m3 with f32 scales).
+// cache or a paged pool, for Hopper, bf16 q and output, f32 online softmax;
+// the cache is bf16 or quantized (int8 / e4m3 with f32 scales).
 //
 // Replaces: leetcuda_tpu/attention/decode.py make_decode_attention and
-// make_decode_attention_quantized (_decode_kernel, quantized=False/True).
+// make_decode_attention_quantized (_decode_kernel, quantized=False/True),
+// and leetcuda_tpu/attention/paged.py make_paged_attention (_paged_kernel,
+// quantized=False/True).
 // q (B, H, D); k/v caches (B, Hkv, S_max, D); lengths (B,) int32 = valid
 // positions per sequence (the current token's K/V already appended); for a
 // quantized cache, k/v scales (B, Hkv, S_max) f32. All contiguous.
@@ -31,6 +33,19 @@
 // one-byte values; e4m3 decodes through the hardware cvt.
 // At B=8, Hkv=4 this is only 32 CTAs on 132 SMs: a split-KV design that
 // spreads one sequence over several SMs is later work.
+//
+// Paging is an addressing policy of the same kernel (kPaged). The pools are
+// (num_pages, Hkv, page, D), the scale pools (num_pages, Hkv, page), and
+// page_table (B, P_max) int32 maps a row's logical page to a physical one:
+// key j of row b lives in cache row (table[b][j / page] * Hkv + kvh) * page
+// + j % page. Thread j looks its own key's row up for the scores and leaves
+// it in shared memory for the V walk, so a tile may span any number of
+// pages and every page size works. The bound is the contiguous kernel's
+// (the valid K and V bytes) plus the table. The TPU kernel's G pages per
+// grid step, its clamped index maps and its VMEM scratch are DMA scheduling
+// and have no counterpart. Only pages below ceil(len / page) are looked up
+// and only positions below len are read: table filler, the null page 0 and
+// the tail of a row's last page may hold anything.
 #include <cuda_fp8.h>
 
 #include "common.cuh"
@@ -92,29 +107,32 @@ struct CacheE4m3 {
   }
 };
 
-template <class C, int D, int G>
+// S is the capacity in positions of one sequence: S_max of a contiguous
+// cache, P_max * page of a paged one (then ``table`` and ``page`` are set).
+template <class C, int D, int G, bool kPaged>
 __global__ void __launch_bounds__(kTK)
 decode_attn_kernel(const uint16_t* __restrict__ q,
                    const typename C::T* __restrict__ kc,
                    const typename C::T* __restrict__ vc,
                    const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale,
+                   const int* __restrict__ table,
                    const int* __restrict__ lengths, uint16_t* __restrict__ o,
-                   int Hkv, int S, float scale) {
+                   int Hkv, int S, int page, float scale) {
   static_assert(D % C::kVec == 0 && D <= kTK, "head dim");
   __shared__ float sq[G][D];
   __shared__ float sp[G][kTK];
   __shared__ float red[G][kWarps];
+  __shared__ uint32_t srow[kPaged ? kTK : 1];  // cache row of each tile key
 
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int H = Hkv * G;
   const int len = min(lengths[b], S);
   const uint16_t* qb = q + ((size_t)b * H + kvh * G) * D;
-  const typename C::T* kb = kc + ((size_t)b * Hkv + kvh) * S * D;
-  const typename C::T* vb = vc + ((size_t)b * Hkv + kvh) * S * D;
-  const float* ksb = C::kScaled ? k_scale + ((size_t)b * Hkv + kvh) * S : nullptr;
-  const float* vsb = C::kScaled ? v_scale + ((size_t)b * Hkv + kvh) * S : nullptr;
+  // Key j's row among the (rows, D) rows of the cache (and of its scales).
+  const size_t row0 = ((size_t)b * Hkv + kvh) * S;  // contiguous: row0 + j
+  const int* tb = kPaged ? table + (size_t)b * (S / page) : nullptr;
 
   for (int i = tid; i < G * D; i += kTK) sq[i / D][i % D] = lc::bf16_to_f32(qb[i]);
   __syncthreads();
@@ -137,7 +155,13 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
     for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
     float ks = 1.f, vs = 1.f;  // this key's scales (quantized caches)
     if (valid) {
-      const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)j * D);
+      size_t row = row0 + j;
+      if constexpr (kPaged) {
+        const int lp = j / page;  // this key's logical page
+        row = ((size_t)tb[lp] * Hkv + kvh) * page + (j - lp * page);
+        srow[tid] = static_cast<uint32_t>(row);
+      }
+      const uint4* kr = reinterpret_cast<const uint4*>(kc + row * D);
 #pragma unroll 4
       for (int c = 0; c < D / C::kVec; ++c) {
         float kf[C::kVec];
@@ -151,8 +175,8 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
         }
       }
       if constexpr (C::kScaled) {
-        ks = ksb[j];
-        vs = vsb[j];
+        ks = k_scale[row];
+        vs = v_scale[row];
       }
     }
 #pragma unroll
@@ -191,9 +215,11 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
     }
     if (tid < D) {
       const int nvalid = min(kTK, len - j0);
-      const typename C::T* vcol = vb + (size_t)j0 * D + tid;
+      const typename C::T* vcol = vc + tid;
       for (int jj = 0; jj < nvalid; ++jj) {
-        const float vv = C::one(vcol[(size_t)jj * D]);
+        size_t row = row0 + j0 + jj;
+        if constexpr (kPaged) row = srow[jj];
+        const float vv = C::one(vcol[row * D]);
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) acc[gi] += sp[gi][jj] * vv;
       }
@@ -209,44 +235,60 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-template <class C, int D>
+template <class C, int D, bool kPaged>
 int launch_d(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* lengths, void* o, int B, int H,
-             int Hkv, int S, float scale, cudaStream_t stream) {
+             const void* vs, const void* table, const void* lengths, void* o,
+             int B, int H, int Hkv, int S, int page, float scale,
+             cudaStream_t stream) {
   const dim3 grid(Hkv, B);
   const auto* qp = static_cast<const uint16_t*>(q);
   const auto* kp = static_cast<const typename C::T*>(k);
   const auto* vp = static_cast<const typename C::T*>(v);
   const auto* ksp = static_cast<const float*>(ks);
   const auto* vsp = static_cast<const float*>(vs);
+  const auto* tp = static_cast<const int*>(table);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<uint16_t*>(o);
+#define LC_DECODE_LAUNCH(G)                                                  \
+  decode_attn_kernel<C, D, G, kPaged><<<grid, kTK, 0, stream>>>(             \
+      qp, kp, vp, ksp, vsp, tp, lp, op, Hkv, S, page, scale)
   switch (H / Hkv) {
-    case 1: decode_attn_kernel<C, D, 1><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
-    case 2: decode_attn_kernel<C, D, 2><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
-    case 4: decode_attn_kernel<C, D, 4><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
-    case 8: decode_attn_kernel<C, D, 8><<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, lp, op, Hkv, S, scale); break;
+    case 1: LC_DECODE_LAUNCH(1); break;
+    case 2: LC_DECODE_LAUNCH(2); break;
+    case 4: LC_DECODE_LAUNCH(4); break;
+    case 8: LC_DECODE_LAUNCH(8); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LC_DECODE_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``page`` > 0 selects the paged addressing: k, v (and the scales) are pools,
+// ``table`` is (B, S / page) and S = P_max * page.
 template <class C>
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* lengths, void* o, int B, int H,
-           int Hkv, int S, int D, float scale, void* stream) {
+           const void* vs, const void* table, const void* lengths, void* o,
+           int B, int H, int Hkv, int S, int page, int D, float scale,
+           void* stream) {
   if (B > 65535 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (page > 0) {
+    switch (D) {
+      case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, lengths, o, B, H, Hkv, S, page, scale, s);
+      case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, lengths, o, B, H, Hkv, S, page, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (D) {
-    case 64: return launch_d<C, 64>(q, k, v, ks, vs, lengths, o, B, H, Hkv, S, scale, s);
-    case 128: return launch_d<C, 128>(q, k, v, ks, vs, lengths, o, B, H, Hkv, S, scale, s);
+    case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, lengths, o, B, H, Hkv, S, 1, scale, s);
+    case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, lengths, o, B, H, Hkv, S, 1, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// Both entry points return cudaGetLastError() after the launch (0 =
+// Every entry point returns cudaGetLastError() after the launch (0 =
 // launched). GQA group sizes 1, 2, 4, 8 and head dims 64, 128 are
 // instantiated. They launch on ``stream``, do not synchronise and allocate
 // nothing.
@@ -254,8 +296,8 @@ extern "C" int lc_decode_attn_bf16(const void* q, const void* k, const void* v,
                                    const void* lengths, void* o, int B, int H,
                                    int Hkv, int S, int D, float scale,
                                    void* stream) {
-  return launch<CacheBf16>(q, k, v, nullptr, nullptr, lengths, o, B, H, Hkv,
-                           S, D, scale, stream);
+  return launch<CacheBf16>(q, k, v, nullptr, nullptr, nullptr, lengths, o, B,
+                           H, Hkv, S, 0, D, scale, stream);
 }
 
 // A quantized cache: ``fp8`` selects e4m3 values (else int8); k_scale and
@@ -266,8 +308,40 @@ extern "C" int lc_decode_attn_q(const void* q, const void* k, const void* v,
                                 int Hkv, int S, int D, int fp8, float scale,
                                 void* stream) {
   if (fp8)
-    return launch<CacheE4m3>(q, k, v, k_scale, v_scale, lengths, o, B, H,
-                             Hkv, S, D, scale, stream);
-  return launch<CacheInt8>(q, k, v, k_scale, v_scale, lengths, o, B, H, Hkv,
-                           S, D, scale, stream);
+    return launch<CacheE4m3>(q, k, v, k_scale, v_scale, nullptr, lengths, o,
+                             B, H, Hkv, S, 0, D, scale, stream);
+  return launch<CacheInt8>(q, k, v, k_scale, v_scale, nullptr, lengths, o, B,
+                           H, Hkv, S, 0, D, scale, stream);
+}
+
+// Paged pools: k_pages, v_pages (num_pages, Hkv, page, D) bf16; page_table
+// (B, P_max) int32; lengths (B,) int32. Any page size >= 1; the pools must
+// hold fewer than 2^32 rows (num_pages * Hkv * page).
+extern "C" int lc_paged_attn_bf16(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* page_table,
+                                  const void* lengths, void* o, int B, int H,
+                                  int Hkv, int P_max, int page, int D,
+                                  float scale, void* stream) {
+  if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<CacheBf16>(q, k_pages, v_pages, nullptr, nullptr, page_table,
+                           lengths, o, B, H, Hkv, P_max * page, page, D, scale,
+                           stream);
+}
+
+// Quantized paged pools: int8 or (``fp8``) e4m3 values with f32 scale pools
+// (num_pages, Hkv, page).
+extern "C" int lc_paged_attn_q(const void* q, const void* k_pages,
+                               const void* v_pages, const void* k_scales,
+                               const void* v_scales, const void* page_table,
+                               const void* lengths, void* o, int B, int H,
+                               int Hkv, int P_max, int page, int D, int fp8,
+                               float scale, void* stream) {
+  if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (fp8)
+    return launch<CacheE4m3>(q, k_pages, v_pages, k_scales, v_scales,
+                             page_table, lengths, o, B, H, Hkv, P_max * page,
+                             page, D, scale, stream);
+  return launch<CacheInt8>(q, k_pages, v_pages, k_scales, v_scales,
+                           page_table, lengths, o, B, H, Hkv, P_max * page,
+                           page, D, scale, stream);
 }

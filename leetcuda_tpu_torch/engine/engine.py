@@ -1,12 +1,21 @@
-"""Continuous-batching decode engine over contiguous KV caches, in PyTorch.
+"""Continuous-batching decode engine over contiguous or paged KV caches, in
+PyTorch.
 
-Counterpart of ``leetcuda_tpu/engine/engine.py`` for dense or weight-only
-quantized params (``quantize_params``) and a contiguous cache, plain or
-quantized (``kv_quant`` "int8" | "fp8"):
+Counterpart of ``leetcuda_tpu/engine/engine.py`` for dense (fused or not) or
+weight-only quantized params (``quantize_params``) and a contiguous or paged
+cache, plain or quantized (``kv_quant`` "int8" | "fp8"):
 
 - A fixed pool of ``slots`` sequences shares one stacked KV cache (B =
   slots); per-slot ``lengths`` make decode attention read only each
   sequence's valid prefix.
+- ``paged=True`` replaces the per-slot reservation of ``max_seq`` positions
+  by a global pool of ``num_pages`` pages of ``page_size`` positions
+  (attention/paged.py): a ``PageManager`` hands pages to slots as their
+  sequences grow, the block table goes to the device once per step, and the
+  pool may hold fewer than ``slots * max_seq`` positions. When it runs dry
+  mid-decode the youngest sequence is preempted: its pages are released and
+  it is requeued for recompute with its generated tokens folded into the
+  prompt.
 - Admission prefills every waiting request that finds a free slot. More
   than one fresh request goes through ONE ragged-flash batch
   (``forward_ragged``, prompts padded to a common bucket); a lone arrival
@@ -16,8 +25,9 @@ quantized (``kv_quant`` "int8" | "fp8"):
   Python loop over ``decode_step``. Capturing it in a CUDA graph is later
   work.
 
-Not ported yet (raise ``NotImplementedError``): paged caches, speculative
-decoding, the prefix cache, chunked prefill, meshes and multi-LoRA serving.
+Not ported yet (raise ``NotImplementedError``): speculative decoding
+(``spec_k``, ``draft``), the prefix cache, chunked prefill, meshes and
+multi-LoRA serving. ``generate`` stays contiguous, as ``generate_scan`` is.
 """
 
 from __future__ import annotations
@@ -29,20 +39,23 @@ from typing import Callable
 import numpy as np
 import torch
 
-from leetcuda_tpu_torch.core.runtime import (KernelLaunchError,
+from leetcuda_tpu_torch.attention.paged import PageManager
+from leetcuda_tpu_torch.core.runtime import (KernelLaunchError, as_bytes,
                                              resolve_device, round_up)
 from leetcuda_tpu_torch.engine.sampling import greedy
 from leetcuda_tpu_torch.models.llama import (
-    ModelConfig, _quantize_token_kv, as_bytes, decode_step, forward,
-    forward_ragged, init_kv_caches)
+    ModelConfig, _quantize_token_kv, decode_step, forward, forward_ragged,
+    init_kv_caches, init_paged_kv_caches)
 
 
 @dataclasses.dataclass
 class EngineConfig:
     """The JAX EngineConfig's fields. ``kv_quant`` is None, "int8" or
-    "fp8"; only the defaults of ``paged``, ``spec_k``, ``prefix_cache`` and
-    ``prefill_chunk`` are served; the rest of the serving matrix is later
-    slices."""
+    "fp8". ``paged`` serves from a pool of ``num_pages`` pages of
+    ``page_size`` positions (default: a full ``slots * max_seq`` pool plus
+    the null page; ``prefill_bucket`` must be a multiple of ``page_size``).
+    Only the defaults of ``spec_k``, ``prefix_cache`` and ``prefill_chunk``
+    are served; the others raise."""
     slots: int = 8
     max_seq: int = 1024
     prefill_bucket: int = 128
@@ -93,6 +106,31 @@ def _insert_kvs(caches, kvs, slot: int):
     return caches
 
 
+def _insert_kvs_paged(caches, kvs, phys_pages, page: int):
+    """Write one sequence's padded prefill K/V ((1, Hkv, S_pad, Dh) per
+    layer, S_pad a multiple of ``page``) into its physical pages
+    (``phys_pages`` (S_pad / page,) int64 ids, the same for every layer),
+    IN PLACE, quantized per position with their scale chunks when the pools
+    are."""
+    for cache, (k, v) in zip(caches, kvs):
+        _, hkv, s_pad, _ = k.shape
+        n = s_pad // page
+
+        def chunks(x):  # (1, Hkv, S_pad[, D]) -> (n, Hkv, page[, D])
+            return x[0].reshape(hkv, n, page, *x.shape[3:]).transpose(0, 1)
+
+        if "k_scales" in cache:
+            k, ks = _quantize_token_kv(k, cache["k_pages"].dtype)
+            v, vs = _quantize_token_kv(v, cache["v_pages"].dtype)
+            cache["k_scales"][phys_pages] = chunks(ks)
+            cache["v_scales"][phys_pages] = chunks(vs)
+        as_bytes(cache["k_pages"])[phys_pages] = as_bytes(
+            chunks(k.to(cache["k_pages"].dtype)))
+        as_bytes(cache["v_pages"])[phys_pages] = as_bytes(
+            chunks(v.to(cache["v_pages"].dtype)))
+    return caches
+
+
 def _serving_device(params, device) -> torch.device:
     """The device the params lie on, which must be the ``device`` asked for
     (asking for CUDA on a host without it raises)."""
@@ -115,7 +153,7 @@ class Engine:
         self.cfg = cfg
         self.ec = ec = econfig or EngineConfig()
         unported = [name for name, on in (
-            ("paged", ec.paged), ("spec_k", ec.spec_k),
+            ("spec_k", ec.spec_k),
             ("prefix_cache", ec.prefix_cache),
             ("prefill_chunk", ec.prefill_chunk is not None),
             ("mesh", mesh is not None),
@@ -126,13 +164,16 @@ class Engine:
         if unported:
             raise NotImplementedError(
                 f"Engine options {unported} are not ported yet (ROADMAP: "
-                "paged KV, chunk paths, parallel layer)")
+                "chunk paths, parallel layer)")
         if ec.max_seq % ec.prefill_bucket:
             raise ValueError("max_seq must be a multiple of prefill_bucket")
+        if ec.paged and ec.prefill_bucket % ec.page_size:
+            raise ValueError("prefill_bucket must be a multiple of page_size")
         self.params = params
         self.sample_fn = sample_fn
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.recoveries = 0
+        self.preemptions = 0
         self.free: list[int] = list(range(ec.slots))
         self.active: dict[int, Request] = {}   # slot -> request
         self.waiting: deque[Request] = deque()
@@ -142,8 +183,22 @@ class Engine:
 
     def _reset_device_state(self):
         ec = self.ec
-        self.caches = init_kv_caches(self.cfg, ec.slots, ec.max_seq,
-                                     quant=ec.kv_quant, device=self.device)
+        self.pm = None
+        if ec.paged:
+            num_pages = ec.num_pages or (
+                ec.slots * ec.max_seq // ec.page_size + 1)
+            self.pm = PageManager(num_pages, ec.page_size,
+                                  ec.max_seq // ec.page_size, ec.slots)
+            self.caches = init_paged_kv_caches(
+                self.cfg, num_pages, ec.page_size, quant=ec.kv_quant,
+                device=self.device)
+        else:
+            self.caches = init_kv_caches(self.cfg, ec.slots, ec.max_seq,
+                                         quant=ec.kv_quant,
+                                         device=self.device)
+        # host-side copy of the live lengths: the page bookkeeping reads it
+        # instead of synchronising on the device lengths every step
+        self._hlen = np.zeros((ec.slots,), np.int64)
         self.lengths = torch.zeros(ec.slots, dtype=torch.int32,
                                    device=self.device)
         self.last_tokens = torch.zeros(ec.slots, dtype=torch.int32,
@@ -162,11 +217,27 @@ class Engine:
 
     def _admit(self):
         """Admit waiting requests into free slots. Several fresh requests
-        prefill in ONE ragged-flash batch; a single one takes ``forward``."""
+        prefill in ONE ragged-flash batch; a single one takes ``forward``.
+        A paged engine first reserves the pages of each request's own padded
+        prompt; when the pool cannot give them the request waits for pages
+        to be released, or the call raises if no active sequence holds any."""
         ec = self.ec
         batch: list[tuple[int, Request]] = []
         while self.free and self.waiting:
-            batch.append((self.free.pop(), self.waiting.popleft()))
+            req = self.waiting.popleft()
+            slot = self.free.pop()
+            need = round_up(len(req.prompt), ec.prefill_bucket)
+            if self.pm is not None and not self.pm.ensure(slot, need - 1):
+                self.pm.release(slot)
+                self.waiting.appendleft(req)
+                self.free.append(slot)
+                if not any(self.pm.used[s] for s in self.active):
+                    raise RuntimeError(
+                        f"prompt needs {need // ec.page_size} pages but "
+                        f"only {len(self.pm.free)} are free and no active "
+                        "sequence holds any to release; raise num_pages")
+                break
+            batch.append((slot, req))
         if not batch:
             return
         s_pad = round_up(max(len(r.prompt) for _, r in batch),
@@ -186,8 +257,19 @@ class Engine:
                                   return_kv=True)
         for i, (slot, req) in enumerate(batch):
             L = len(req.prompt)
-            _insert_kvs(self.caches, [(k[i:i + 1], v[i:i + 1])
-                                      for k, v in kvs], slot)
+            kvs_i = [(k[i:i + 1], v[i:i + 1]) for k, v in kvs]
+            if self.pm is not None:
+                # down to this request's own bucket (the batch-wide pad may
+                # be longer): only those pages were reserved
+                s_req = round_up(L, ec.prefill_bucket)
+                phys = torch.tensor(
+                    self.pm.used[slot][:s_req // ec.page_size],
+                    dtype=torch.long, device=self.device)
+                _insert_kvs_paged(
+                    self.caches, [(k[:, :, :s_req], v[:, :, :s_req])
+                                  for k, v in kvs_i], phys, ec.page_size)
+            else:
+                _insert_kvs(self.caches, kvs_i, slot)
             self._finish_admission(slot, req, logits[i, L - 1])
 
     def _finish_admission(self, slot: int, req: Request, last_logits):
@@ -195,6 +277,7 @@ class Engine:
         L = len(req.prompt)
         first = self.sample_fn(last_logits, self._gen)
         self.lengths[slot] = L
+        self._hlen[slot] = L
         self.last_tokens[slot] = first
         req.generated.append(int(first))
         self.active[slot] = req
@@ -211,6 +294,23 @@ class Engine:
             self.finished[req.uid] = req
             del self.active[slot]
             self.free.append(slot)
+            if self.pm is not None:
+                self.pm.release(slot)
+
+    def _preempt_youngest(self):
+        """The page pool ran dry mid-decode: evict the most recently
+        submitted active sequence. Its pages are released and it is requeued
+        for recompute with its generated tokens folded into the prompt; on
+        re-admission the prefill rebuilds its cache and sampling continues
+        from the next position (``context_len`` counts from the original
+        prompt, so its budgets are unaffected)."""
+        slot = max(self.active, key=lambda s: self.active[s].uid)
+        req = self.active.pop(slot)
+        req.prompt = req.prompt + req.generated
+        self.pm.release(slot)
+        self.free.append(slot)
+        self.waiting.appendleft(req)
+        self.preemptions += 1
 
     def step(self) -> dict[int, int]:
         """Admit waiting requests, then advance every live slot one token.
@@ -218,15 +318,28 @@ class Engine:
         self._admit()
         if not self.active:
             return {}
+        page_table = None
+        if self.pm is not None:
+            # pages for this step's appends; preempt when the pool is dry
+            for slot in sorted(self.active):
+                while (slot in self.active
+                       and not self.pm.ensure(slot, int(self._hlen[slot]))):
+                    self._preempt_youngest()
+            if not self.active:
+                return {}
+            page_table = self.pm.device_table(self.device)
         live = np.zeros((self.ec.slots,), bool)
         live[list(self.active)] = True
         live_t = torch.from_numpy(live).to(self.device)
         logits, self.caches = decode_step(self.params, self.last_tokens,
-                                          self.caches, self.lengths, self.cfg)
+                                          self.caches, self.lengths, self.cfg,
+                                          page_table=page_table)
         nxt = self.sample_fn(logits, self._gen)
         # dead slots keep their length: their append lands on a position the
-        # next admission's prefill overwrites
+        # next admission's prefill overwrites (paged: on the null page 0,
+        # which a released slot's table row points at)
         self.lengths = torch.where(live_t, self.lengths + 1, self.lengths)
+        self._hlen[live] += 1
         self.last_tokens = torch.where(live_t, nxt, self.last_tokens)
         out = {}
         nxt_np = nxt.cpu().numpy()
@@ -238,8 +351,8 @@ class Engine:
         return out
 
     def stats(self) -> dict:
-        """Queue depths, slot use and per-request progress."""
-        return {
+        """Queue depths, slot and page use and per-request progress."""
+        s = {
             "waiting": len(self.waiting),
             "active": len(self.active),
             "finished": len(self.finished),
@@ -249,16 +362,20 @@ class Engine:
                              for req in self.active.values()},
             "kv_memory": self.kv_memory_report(),
         }
+        if self.pm is not None:
+            s["free_pages"] = len(self.pm.free)
+            s["preemptions"] = self.preemptions
+        return s
 
     def kv_memory_report(self) -> dict:
-        """Bytes held by the KV cache, scales included."""
+        """Bytes held by the KV cache or page pools, scales included."""
         return {"target_bytes": int(sum(t.nbytes for c in self.caches
                                         for t in c.values()))}
 
     def recover(self):
-        """Drop all device state and requeue every in-flight request for
-        recompute: generated tokens fold into the prompts, so each request
-        still emits exactly its remaining tokens."""
+        """Drop all device state (pages included) and requeue every
+        in-flight request for recompute: generated tokens fold into the
+        prompts, so each request still emits exactly its remaining tokens."""
         for req in self.active.values():
             req.prompt = req.prompt + req.generated
             self.waiting.appendleft(req)

@@ -1,13 +1,16 @@
 """Llama-style transformer in PyTorch: the serving model of the port.
 
 Counterpart of ``leetcuda_tpu/models/llama.py`` for dense and weight-only
-quantized (int8, e4m3, int4) weights and a contiguous KV cache, plain or
-quantized (int8, e4m3). Parameters are a plain dict with the JAX pytree's keys
+quantized (int8, e4m3, int4) weights and a contiguous or paged KV cache,
+plain or quantized (int8, e4m3). Parameters are a plain dict with the JAX pytree's keys
 (HF Llama naming): {"embed", "norm", ["lm_head"], "layers": [{"attn_norm",
 "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down", ...}]}.
 
 Attention runs on the hand-written kernels (attention/flash.py,
-attention/decode.py), and so do the quantized projections (gemm/quant.py);
+attention/decode.py, attention/paged.py), and so do the quantized
+projections (gemm/quant.py) and, at decode, the entry block of a layer with
+a dense fused ``wqkv`` (gemm/fused_decode.py: norm, QKV projection and RoPE
+in one kernel); other
 dense projections are ``torch.matmul``, norms, RoPE, the
 embedding gather and the MLP activation are plain PyTorch, as the JAX model
 left them to XLA. Rounding order follows the JAX model: ``_rms_norm``
@@ -16,7 +19,7 @@ runs in f32; logits are the activation-dtype product cast to f32.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): LoRA and multi-LoRA weight packs, MoE and GPT-OSS experts, sliding
-windows, attention softcap and sinks, GLM partial rotary, paged KV caches.
+windows, attention softcap and sinks, GLM partial rotary.
 """
 
 from __future__ import annotations
@@ -31,7 +34,12 @@ from leetcuda_tpu_torch.attention.decode import (decode_attention,
                                                  decode_attention_quantized)
 from leetcuda_tpu_torch.attention.flash import (flash_attention,
                                                 flash_attention_ragged)
-from leetcuda_tpu_torch.core.runtime import resolve_device
+from leetcuda_tpu_torch.attention.paged import (paged_append,
+                                                paged_append_quantized,
+                                                paged_attention,
+                                                paged_attention_quantized)
+from leetcuda_tpu_torch.core.runtime import as_bytes, resolve_device
+from leetcuda_tpu_torch.gemm.fused_decode import fused_norm_qkv_rope
 from leetcuda_tpu_torch.gemm.quant import (matmul_w4a16, matmul_w8a16,
                                            quantize_groupwise_int4,
                                            quantize_rowwise_fp8,
@@ -414,10 +422,24 @@ def forward_ragged(params, tokens, lengths, cfg: ModelConfig):
 _KV_QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
-def as_bytes(t):
-    """A float8 tensor as its uint8 view, anything else as it is: indexed
-    writes and fills go through the bytes, which every device op takes."""
-    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+def _check_kv_quant(quant):
+    if quant is not None and quant not in _KV_QUANT:
+        raise ValueError(f"KV cache quant {quant!r} not in (None, 'int8', "
+                         "'fp8')")
+
+
+def _init_kv(shape, names, scale_names, n_layers, dtype, quant, dev):
+    """Zeroed value tensors ``names`` of ``shape`` per layer; with ``quant``
+    stored as int8 / e4m3 beside f32 scales ``scale_names`` of
+    ``shape[:3]``, which start at ones."""
+    if quant is None:
+        return [{n: torch.zeros(shape, dtype=dtype, device=dev)
+                 for n in names} for _ in range(n_layers)]
+    qdt = _KV_QUANT[quant]
+    return [{**{n: torch.zeros(shape, dtype=torch.uint8,
+                               device=dev).view(qdt) for n in names},
+             **{n: torch.ones(shape[:3], dtype=torch.float32, device=dev)
+                for n in scale_names}} for _ in range(n_layers)]
 
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -427,22 +449,26 @@ def init_kv_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     f32 scales per (batch, kv head, position), {"k_scale", "v_scale"} of
     (batch, Hkv, max_seq), which start at ones. The decode path updates the
     caches in place."""
-    if quant is not None and quant not in _KV_QUANT:
-        raise ValueError(f"KV cache quant {quant!r} not in (None, 'int8', "
-                         "'fp8')")
-    dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
-    if quant is None:
-        dtype = dtype or cfg.dtype
-        return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-                for _ in range(cfg.n_layers)]
-    qdt, sshape = _KV_QUANT[quant], shape[:3]
-    return [{"k": torch.zeros(shape, dtype=torch.uint8, device=dev).view(qdt),
-             "v": torch.zeros(shape, dtype=torch.uint8, device=dev).view(qdt),
-             "k_scale": torch.ones(sshape, dtype=torch.float32, device=dev),
-             "v_scale": torch.ones(sshape, dtype=torch.float32, device=dev)}
-            for _ in range(cfg.n_layers)]
+    _check_kv_quant(quant)
+    return _init_kv((batch, cfg.n_kv_heads, max_seq, cfg.head_dim),
+                    ("k", "v"), ("k_scale", "v_scale"), cfg.n_layers,
+                    dtype or cfg.dtype, quant, resolve_device(device))
+
+
+def init_paged_kv_caches(cfg: ModelConfig, num_pages: int, page_size: int,
+                         dtype=None, quant: str | None = None,
+                         device="cuda"):
+    """Paged caches (attention/paged.py): per-layer page pools [{"k_pages",
+    "v_pages"}] of (num_pages, Hkv, page_size, Dh), zeroed, sharing one
+    block table (kept host-side by ``PageManager``). With ``quant`` ("int8"
+    | "fp8") the pools store quantized values beside f32 scale pools
+    {"k_scales", "v_scales"} of (num_pages, Hkv, page_size), which start at
+    ones. The decode path updates the pools in place."""
+    _check_kv_quant(quant)
+    return _init_kv((num_pages, cfg.n_kv_heads, page_size, cfg.head_dim),
+                    ("k_pages", "v_pages"), ("k_scales", "v_scales"),
+                    cfg.n_layers, dtype or cfg.dtype, quant,
+                    resolve_device(device))
 
 
 def _quantize_token_kv(x, qdt):
@@ -459,14 +485,24 @@ def _quantize_token_kv(x, qdt):
     return xq.to(qdt), scale
 
 
-def _cache_append(cache, k, v, pos):
+def _cache_append(cache, k, v, pos, page_table=None):
     """Write this token's k/v (B, Hkv, Dh) at position ``pos`` (B,) of each
-    row, IN PLACE (``cache["k"][b, :, pos[b]] = k[b]``), quantizing first
-    (values and scales) when the cache is quantized; returns ``cache``.
-    The JAX package's dynamic-update-slice chain (a TPU aliasing workaround)
-    has no counterpart here."""
-    if "k" not in cache:
-        raise NotImplementedError("paged caches are not ported")
+    row, IN PLACE (``cache["k"][b, :, pos[b]] = k[b]``; a paged cache
+    indexes its pools through ``page_table``), quantizing first (values and
+    scales) when the cache is quantized; returns ``cache``. The JAX
+    package's dynamic-update-slice chain (a TPU aliasing workaround) has no
+    counterpart here."""
+    if "k_pages" in cache:
+        if "k_scales" in cache:
+            k, ks = _quantize_token_kv(k, cache["k_pages"].dtype)
+            v, vs = _quantize_token_kv(v, cache["v_pages"].dtype)
+            paged_append_quantized(
+                cache["k_pages"], cache["v_pages"], cache["k_scales"],
+                cache["v_scales"], k, v, ks, vs, page_table, pos)
+        else:
+            paged_append(cache["k_pages"], cache["v_pages"], k, v,
+                         page_table, pos)
+        return cache
     bidx = torch.arange(k.shape[0], device=k.device)
     p = pos.long()
     if "k_scale" in cache:
@@ -479,24 +515,49 @@ def _cache_append(cache, k, v, pos):
     return cache
 
 
-def _cache_attend(q, cache, lengths, sm_scale=None):
-    """Decode attention of q (B, H, Dh) over a contiguous cache, plain or
-    quantized."""
+def _cache_attend(q, cache, lengths, sm_scale=None, page_table=None):
+    """Decode attention of q (B, H, Dh) over a contiguous or paged cache,
+    plain or quantized."""
+    q = q.contiguous()
+    if "k_pages" in cache:
+        if "k_scales" in cache:
+            return paged_attention_quantized(
+                q, cache["k_pages"], cache["v_pages"], cache["k_scales"],
+                cache["v_scales"], page_table, lengths, sm_scale=sm_scale)
+        return paged_attention(q, cache["k_pages"], cache["v_pages"],
+                               page_table, lengths, sm_scale=sm_scale)
     if "k_scale" in cache:
         return decode_attention_quantized(
-            q.contiguous(), cache["k"], cache["v"], cache["k_scale"],
-            cache["v_scale"], lengths, sm_scale=sm_scale)
-    return decode_attention(q.contiguous(), cache["k"], cache["v"], lengths,
+            q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+            lengths, sm_scale=sm_scale)
+    return decode_attention(q, cache["k"], cache["v"], lengths,
                             sm_scale=sm_scale)
 
 
-def decode_step(params, tokens, caches, lengths, cfg: ModelConfig):
+def _takes_fused_qkv(layer, cfg: ModelConfig) -> bool:
+    """Whether the fused norm->QKV->RoPE kernel computes this layer's entry
+    block: a dense fused ``wqkv`` (a tensor, not a quantized pack) behind an
+    ``attn_norm``, no biases, no q/k norms, and the plain rotary on every
+    layer. The JAX model also asks for a cache capacity of 2048 (a TPU
+    measurement) and has an environment switch; the port has neither."""
+    return ("wqkv" in layer and not isinstance(layer["wqkv"], dict)
+            and "attn_norm" in layer and "bq" not in layer
+            and "q_norm" not in layer and "sinks" not in layer
+            and cfg.rope_scaling is None and not cfg.glm_rope_dim
+            and not cfg.nope_interval)
+
+
+def decode_step(params, tokens, caches, lengths, cfg: ModelConfig,
+                page_table=None):
     """One decode step for B sequences. tokens (B,) int; lengths (B,) int32
     = context length EXCLUDING this token. Appends this token's K/V to
-    ``caches`` IN PLACE and returns (logits (B, V) f32, caches).
+    ``caches`` IN PLACE and returns (logits (B, V) f32, caches). Paged
+    caches (``init_paged_kv_caches``) need ``page_table`` (B, P_max) int32
+    with the page of position ``lengths[b]`` already allocated.
 
-    Fused params (``fuse_params``) take the same unfused math: the fused
-    norm->QKV->RoPE kernel is not ported yet (ROADMAP, next serving slice)."""
+    A layer with a dense fused ``wqkv`` (``fuse_params``) takes the fused
+    norm->QKV->RoPE kernel (``_takes_fused_qkv``); every other layer the
+    unfused norm, projections and RoPE."""
     _check_config(cfg)
     B = tokens.shape[0]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -504,10 +565,20 @@ def decode_step(params, tokens, caches, lengths, cfg: ModelConfig):
     pos = lengths
     attend_len = lengths + 1
     for li, (layer, cache) in enumerate(zip(params["layers"], caches)):
-        q, k, v = _attn_in(layer, x, pos[:, None], cfg, li)
-        cache = _cache_append(cache, k[:, 0], v[:, 0], pos)
-        o = _cache_attend(q[:, 0].to(cfg.dtype), cache, attend_len,
-                          sm_scale=cfg.query_scale)
+        if _takes_fused_qkv(layer, cfg):
+            qkv = fused_norm_qkv_rope(
+                x[:, 0], layer["attn_norm"], layer["wqkv"], pos, n_heads=H,
+                n_kv_heads=Hkv, head_dim=Dh, eps=cfg.norm_eps,
+                theta=cfg.rope_theta, rms_offset=cfg.rms_offset)
+            q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+            q, k, v = (q.reshape(B, H, Dh), k.reshape(B, Hkv, Dh),
+                       v.reshape(B, Hkv, Dh))
+        else:
+            q, k, v = (t[:, 0] for t in
+                       _attn_in(layer, x, pos[:, None], cfg, li))
+        cache = _cache_append(cache, k, v, pos, page_table=page_table)
+        o = _cache_attend(q.to(cfg.dtype), cache, attend_len,
+                          sm_scale=cfg.query_scale, page_table=page_table)
         x = _attn_out_and_mlp(layer, x, o.reshape(B, 1, H * Dh).to(x.dtype),
                               cfg)
     return _logits(params, x[:, 0], cfg), caches

@@ -2,8 +2,10 @@
 
 Greedy decoding on ``tiny_config()`` (f32) with one set of weights, dense
 or JAX's quantized packs converted bit for bit: the port's tokens must
-EQUAL the JAX engine's, over plain and quantized KV caches. The isolation tests check that
-the port imports nothing of JAX and refuses to run on a missing GPU.
+EQUAL the JAX engine's, over plain and quantized KV caches, contiguous or
+paged (the JAX paged engine runs its Pallas paged kernel in interpret mode),
+with a preemption among the paged runs. The isolation tests check that the
+port imports nothing of JAX and refuses to run on a missing GPU.
 """
 
 import ast
@@ -195,13 +197,111 @@ def test_sampler_draws_inside_warped_support():
     assert make_sampler(temperature=0) is greedy
 
 
+def _paged(cfg, **kw):
+    return dataclasses.replace(cfg, paged=True, page_size=16, **kw)
+
+
+@pytest.mark.parametrize("case", ["f32 pools", "int8 pools", "fp8 pools",
+                                  "fused dense params"])
+def test_paged_engine_matches_jax_paged_engine(both, case):
+    """Three arrivals on two slots through the paged engines (pages of 16,
+    the full default pool): one ragged admission, a slot reused by a lone
+    arrival, pages released and handed out again. Fused dense params serve
+    at max_seq 2048, where the JAX model takes its fused Pallas block (the
+    port takes its fused wrapper at any capacity)."""
+    jcfg, jparams, tcfg, tparams = both
+    kv_quant, max_seq = None, 256
+    if case in ("int8 pools", "fp8 pools"):
+        kv_quant = case.split()[0]
+    elif case == "fused dense params":
+        jparams, tparams, max_seq = (jl.fuse_params(jparams),
+                                     tl.fuse_params(tparams), 2048)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, 256, n)) for n in (5, 12, 9)]
+    ecfg = dict(slots=2, max_seq=max_seq, prefill_bucket=16,
+                kv_quant=kv_quant, paged=True, page_size=16)
+    want = JEngine(jparams, jcfg, JEngineConfig(**ecfg)).run(prompts, 6)
+    eng = Engine(tparams, tcfg, EngineConfig(**ecfg), device="cpu")
+    got = eng.run(prompts, 6)
+    assert list(got.values()) == [list(map(int, t)) for t in want.values()]
+    stats = eng.stats()
+    assert stats["preemptions"] == 0 and stats["finished"] == 3
+    assert stats["free_pages"] == 2 * max_seq // 16  # every page came back
+    assert ("k_scales" in eng.caches[0]) == (kv_quant is not None)
+    assert eng.kv_memory_report() == {"target_bytes": sum(
+        t.nbytes for c in eng.caches for t in c.values())}
+
+
+def test_paged_engine_preemption_matches_jax_and_unpaged(both):
+    """A pool of 5 usable pages of 16 for two slots of 12 prompt + 24 new
+    tokens (3 pages each): the sequences collide mid-flight, the youngest
+    is preempted and recomputed, and every stream still equals the JAX
+    paged engine's under the same pool and the port's unpaged run."""
+    jcfg, jparams, tcfg, tparams = both
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(0, 256, 12)) for _ in range(3)]
+    unpaged = Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
+                     device="cpu").run(prompts, 24)
+    want = JEngine(jparams, jcfg, _paged(_ecfg(JEngineConfig, 2),
+                                         num_pages=6)).run(prompts, 24)
+    eng = Engine(tparams, tcfg, _paged(_ecfg(EngineConfig, 2), num_pages=6),
+                 device="cpu")
+    got = eng.run(prompts, 24)
+    assert eng.preemptions >= 1 and eng.stats()["preemptions"] >= 1
+    assert list(got.values()) == list(unpaged.values())
+    assert list(got.values()) == [list(map(int, t)) for t in want.values()]
+    assert eng.stats()["free_pages"] == 5 and eng.recoveries == 0
+
+
+def test_paged_engine_recover_midflight_exact(both):
+    """recover() on a paged engine with a short pool drops the pools and
+    the page bookkeeping (a fresh PageManager) and requeues the in-flight
+    requests; with the preemptions that follow, the streams still equal the
+    unpaged run's."""
+    _, _, tcfg, tparams = both
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(0, 256, 12)) for _ in range(3)]
+    want = Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
+                  device="cpu").run(prompts, 24)
+    eng = Engine(tparams, tcfg, _paged(_ecfg(EngineConfig, 2), num_pages=6),
+                 device="cpu")
+    uids = [eng.submit(p, max_new=24) for p in prompts]
+    for _ in range(4):
+        eng.step()
+    old_pm = eng.pm
+    eng.recover()
+    assert eng.pm is not old_pm and len(eng.pm.free) == 5
+    while eng.waiting or eng.active:
+        eng.step()
+    assert [eng.finished[u].generated for u in uids] == list(want.values())
+    assert eng.recoveries == 1 and eng.preemptions >= 1
+
+
+def test_paged_engine_unservable_prompt_raises(both):
+    """A prompt that can never fit the pool raises instead of spinning."""
+    _, _, tcfg, tparams = both
+    eng = Engine(tparams, tcfg, EngineConfig(
+        slots=2, max_seq=256, prefill_bucket=64, paged=True, page_size=16,
+        num_pages=3), device="cpu")  # 2 usable pages; the prefill needs 4
+    with pytest.raises(RuntimeError, match="pages"):
+        eng.run([list(range(1, 40))], max_new=4)
+
+
 def test_engine_unported_options_raise(both):
     _, _, tcfg, tparams = both
-    for opt in (dict(paged=True), dict(spec_k=2), dict(prefix_cache=True),
-                dict(prefill_chunk=32)):
+    for opt in (dict(spec_k=2), dict(prefix_cache=True),
+                dict(paged=True, page_size=16, prefix_cache=True),
+                dict(prefill_chunk=32),
+                dict(paged=True, page_size=16, prefill_chunk=32)):
         with pytest.raises(NotImplementedError):
             Engine(tparams, tcfg, dataclasses.replace(
                 _ecfg(EngineConfig, 2), **opt), device="cpu")
+    with pytest.raises(NotImplementedError):
+        Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
+               draft=(tparams, tcfg), device="cpu")
+    with pytest.raises(ValueError):  # a bucket must hold whole pages
+        Engine(tparams, tcfg, dataclasses.replace(
+            _ecfg(EngineConfig, 2), paged=True, page_size=32), device="cpu")
     with pytest.raises(ValueError):  # int8 and fp8 are the KV formats
         Engine(tparams, tcfg, _ecfg(EngineConfig, 2, "int4"), device="cpu")
     with pytest.raises(NotImplementedError):
