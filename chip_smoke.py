@@ -17,7 +17,9 @@ Phases; any failure raises and the script exits non-zero:
    runs over shuffled pools full of NaN wherever no row owns a position;
    the fused norm->QKV->RoPE and norm->matmul kernels run on layer 0 of
    path (d)'s params, beside the eager unfused sequence and the bare
-   ``torch.matmul``.
+   ``torch.matmul``. The chunk kernel's four entry points run at the
+   verify shape (B = 8, T = 4) and at admission shapes (B = 1, T = 256 and
+   1024), NaN in every position at or past base + T.
 4. Main paths, each with the launch counts zeroed just before it and read
    just after, on the full-width default ModelConfig() (random bf16 weights
    from a seed, quantized on the card):
@@ -39,18 +41,40 @@ Phases; any failure raises and the script exits non-zero:
    (e)    the paged Engine over path (a)'s fused e4m3 packs and e4m3
           pools (the full default pool): the quantized paged kernel and
           w8a16, and no fused entry block (a pack is no dense ``wqkv``).
-   Each path's tokens/s must stay under its weight-bandwidth ceiling.
+   (f)    the speculative Engine, greedy, spec_k = 3: target = path (d)'s
+          dense fused bf16 params over paged bf16 pools, draft = path (a)'s
+          e4m3 pack of the same weights on a contiguous bf16 cache (it
+          agrees with the target on about two thirds of the positions, so
+          ticks accept 0..3 proposals); the same 8 requests and the lone
+          one. Every target tick is one T = 4 ``decode_chunk`` through the
+          paged chunk kernel; no decode step of the target runs;
+   (g)    the Engine with the prefix cache and ``prefill_chunk`` = 256 over
+          path (a)'s packs and e4m3 pools: four requests sharing a
+          1024-token prefix (suffixes of 16..400 tokens) stream in 256
+          prompt tokens a tick beside the decode of those already live,
+          then four more with the same prefix adopt its 8 pages each;
+   (h)    ``speculative_generate`` at B=8, S=128, 32 tokens, k = 3, over
+          contiguous bf16 caches with (f)'s target and draft; the
+          speculative Engine over an int8 contiguous cache, 4 requests; one
+          short ``speculative_sample_generate`` (temperature 0.8, top_k 50).
+   Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings.
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
-   replay's max logit. Paths (d) and (e) replay over a CONTIGUOUS cache
-   with UNFUSED math, so the replay shares neither the paged nor the fused
-   kernel with them. Printed, not asserted: each quantized model's top-1
-   agreement and max |logit difference| against the bf16 model on one
-   512-token prompt.
+   replay's max logit. Paths (d), (e) and (f) replay over a CONTIGUOUS cache
+   with UNFUSED math, so the replay shares neither the paged, the fused nor
+   the chunk kernel with them; (g) replays token by token through
+   ``decode_step`` over a contiguous e4m3 cache (the shared prefix once),
+   as its whole prompt went through the chunk kernel over quantized pools.
+   Printed, not asserted: each quantized model's top-1 agreement and max
+   |logit difference| against the bf16 model on one 512-token prompt, and
+   the share of (f)'s and (h)'s greedy tokens equal to plain greedy
+   decoding.
 6. Profile: one B=8 decode step at context 1024 of the bf16 path (unfused
    params), of the same step over dense fused params (the fused kernel's
-   A/B), of a paged step of path (d) and of path (a): wall time and, from
-   torch.profiler, device time by kernel (the device busy share).
+   A/B), of a paged step of path (d) and of path (a), and one speculative
+   tick of path (f) (three draft steps, the draft's catch-up step and the
+   T = 4 verify): wall time and, from torch.profiler, device time by
+   kernel (the device busy share).
 
 Prints the card line, a {"kernels": [...]} line, and last a
 {"ok": true, "device": {...}} line; with ``--json PATH`` also writes every
@@ -101,16 +125,37 @@ PATH_KERNELS = {
           "fused_norm_qkv_rope"),
     "e": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
           "paged_attention_quantized"),
+    "f": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
+          "decode_attention", "paged_chunk_attention"),
+    "g": ("matmul_w8a16", "paged_attention_quantized",
+          "paged_chunk_attention_quantized"),
+    "h": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
+          "decode_attention", "chunk_attention", "chunk_attention_quantized"),
 }
 # The kernels a path must NOT launch: a paged path never reads a contiguous
-# cache, and a quantized pack is no dense ``wqkv`` for the fused block.
+# cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
+# speculative target takes no decode step, a chunk-prefilled prompt no flash
+# kernel, and each chunk path only its own cache layout's entry point.
 PATH_FORBIDDEN = {
     "d": ("decode_attention", "decode_attention_quantized",
           "paged_attention_quantized"),
     "e": ("decode_attention", "decode_attention_quantized",
           "paged_attention", "fused_norm_qkv_rope"),
+    "f": ("paged_attention", "paged_attention_quantized",
+          "decode_attention_quantized", "chunk_attention",
+          "chunk_attention_quantized", "paged_chunk_attention_quantized"),
+    "g": ("flash_attention", "flash_attention_ragged", "decode_attention",
+          "decode_attention_quantized", "paged_attention", "chunk_attention",
+          "chunk_attention_quantized", "paged_chunk_attention"),
+    "h": ("paged_attention", "paged_attention_quantized",
+          "paged_chunk_attention", "paged_chunk_attention_quantized"),
 }
 PAGE = 128  # page size of the paged paths: the engine's default
+SPEC_K = 3  # draft proposals per tick of the speculative paths
+# Path (g): a shared prefix of 8 pages, then two waves of suffix lengths,
+# prefilled 256 prompt tokens a tick.
+PREFIX_LEN, PREFILL_CHUNK = 1024, 256
+PREFIX_WAVES = ((16, 144, 272, 400), (16, 48, 80, 112))
 
 
 def card_line() -> str:
@@ -202,6 +247,34 @@ class Recorder:
             "flops": flops, "bytes": nbytes}
 
 
+def to_pool(cache, page, table, owned, fill):
+    """Scatter a contiguous (B, Hkv, S[, D]) cache into a pool of
+    B * S / page + 1 pages filled with ``fill``: logical page i of row b
+    goes to physical page ``table[b, i]`` where ``owned[b, i]``."""
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+
+    B, Hkv, S = cache.shape[:3]
+    P = S // page
+    chunks = as_bytes(cache).reshape(B, Hkv, P, page, *cache.shape[3:])
+    chunks = chunks.transpose(1, 2)          # (B, P, Hkv, page[, D])
+    pool = torch.full((B * P + 1, Hkv, page, *cache.shape[3:]), fill,
+                      dtype=chunks.dtype, device=cache.device)
+    pool[table[owned].long()] = chunks[owned]
+    return pool.view(cache.dtype)
+
+
+def shuffled_table(rng, n_pages, P, dev):
+    """A block table (B, P) whose row b owns its first ``n_pages[b]`` logical
+    pages, on physical pages drawn without repeat from 1..B * P; filler 0.
+    Returns (table, owned) on ``dev``."""
+    B = len(n_pages)
+    owned = torch.from_numpy(np.arange(P)[None, :] < n_pages[:, None])
+    table = torch.zeros((B, P), dtype=torch.int32)
+    table[owned] = torch.from_numpy(rng.permutation(
+        np.arange(1, B * P + 1))[:int(n_pages.sum())].astype(np.int32))
+    return table.to(dev), owned.to(dev)
+
+
 def check_paged(rec, flush):
     """Paged attention, plain and quantized pools, at the decode check's
     batch with pages of 128 and 16. Physical pages are shuffled; every
@@ -224,25 +297,10 @@ def check_paged(rec, flush):
     past = ~(torch.arange(S, device=dev)[None, :]
              < lengths[:, None])[:, None, :].expand(B, Hkv, S)
 
-    def to_pool(cache, page, table, owned, fill):
-        """Scatter a contiguous (B, Hkv, S[, D]) cache into a pool of
-        B * S / page + 1 pages filled with ``fill``."""
-        P = S // page
-        chunks = as_bytes(cache).reshape(B, Hkv, P, page, *cache.shape[3:])
-        chunks = chunks.transpose(1, 2)          # (B, P, Hkv, page[, D])
-        pool = torch.full((B * P + 1, Hkv, page, *cache.shape[3:]), fill,
-                          dtype=chunks.dtype, device=dev)
-        pool[table[owned].long()] = chunks[owned]
-        return pool.view(cache.dtype)
-
     for page in (PAGE, 16):
         P = S // page
         n_pages = -(-lens_np // page)
-        owned = torch.from_numpy(np.arange(P)[None, :] < n_pages[:, None])
-        table = torch.zeros((B, P), dtype=torch.int32)
-        table[owned] = torch.from_numpy(rec.rng.permutation(
-            np.arange(1, B * P + 1))[:int(n_pages.sum())].astype(np.int32))
-        table, owned = table.to(dev), owned.to(dev)
+        table, owned = shuffled_table(rec.rng, n_pages, P, dev)
         tbl_bytes = 4.0 * int(n_pages.sum())
 
         kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
@@ -299,6 +357,118 @@ def check_paged(rec, flush):
                 4.0 * H * D * n_valid,
                 2 * Hkv * n_valid * D + 8.0 * Hkv * n_valid
                 + 4.0 * B * H * D + 4 * B + tbl_bytes)
+
+
+# The chunk checks' verify batch: B = 8, T = 4 (k = 3) over a capacity of
+# 2048 positions, bases spread from 0 to 2044 (the last chunk ends at 2048).
+CHUNK_BASES = np.array([0, 100, 517, 1024, 1200, 1400, 1950, 2044], np.int32)
+CHUNK_SRC = "leetcuda_tpu_torch/csrc/chunk_attn.cu"
+
+
+def check_chunk(rec, flush):
+    """The chunk kernel's four entry points at the verify shape (B = 8,
+    T = 4: contiguous bf16 / int8 / e4m3, paged bf16 / e4m3, one window
+    case) and at admission shapes (B = 1: T = 256 at base 1024 over paged
+    e4m3 pools; T = 1024 at base 0 and at base 1024 over a contiguous bf16
+    cache). Every position at or past base + T holds NaN values and NaN
+    scales (e4m3: the NaN bytes 0x7F / 0xFF); paged, the pages of 128 are
+    shuffled, and page 0, every unowned page and the tail of each last page
+    hold NaN too. Library yardstick: SDPA with an explicit mask over the
+    cache gathered and dequantized beforehand."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    dev, bf = rec.dev, torch.bfloat16
+    H, Hkv, S, D = 16, 4, 2048, 128
+    qdts = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
+    cases = (  # label, T, bases, format, paged, window
+        ("verify", 4, CHUNK_BASES, None, False, None),
+        ("verify", 4, CHUNK_BASES, "int8", False, None),
+        ("verify", 4, CHUNK_BASES, "fp8", False, None),
+        ("verify", 4, CHUNK_BASES, None, True, None),
+        ("verify", 4, CHUNK_BASES, "fp8", True, None),
+        ("verify window 256", 4, CHUNK_BASES, None, False, 256),
+        ("admit T=256 base 1024", 256, np.array([1024], np.int32), "fp8",
+         True, None),
+        ("admit T=1024 base 0", 1024, np.array([0], np.int32), None, False,
+         None),
+        ("admit T=1024 base 1024", 1024, np.array([1024], np.int32), None,
+         False, None))
+    for label, T, bases_np, fmt, paged, window in cases:
+        B = len(bases_np)
+        base = torch.from_numpy(bases_np).to(dev)
+        end_np = np.minimum(bases_np + T, S)
+        cols = torch.arange(S, device=dev)
+        past = (cols[None, :] >= torch.from_numpy(end_np).to(dev)[:, None])
+        past = past[:, None, :].expand(B, Hkv, S)
+        q = rec.randn(B, H, T, D)
+        kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+        if fmt is None:
+            kc[past], vc[past] = float("nan"), float("nan")
+            tensors, fills = [kc, vc], [float("nan")] * 2
+            kd, vd = kc, vc
+        else:
+            kq, ks = _quantize_token_kv(kc, qdts[fmt])
+            vq, vs = _quantize_token_kv(vc, qdts[fmt])
+            kd = (kq.float() * ks[..., None]).to(bf)
+            vd = (vq.float() * vs[..., None]).to(bf)
+            ks[past], vs[past] = float("nan"), float("nan")
+            kbyte, vbyte = (0x7F, 0xFF) if fmt == "fp8" else (0, 0)
+            as_bytes(kq)[past], as_bytes(vq)[past] = kbyte, vbyte
+            tensors = [kq, vq, ks, vs]
+            fills = [kbyte, vbyte, float("nan"), float("nan")]
+        tbl_bytes = 0.0
+        if paged:
+            n_pages = -(-end_np // PAGE)
+            table, owned = shuffled_table(rec.rng, n_pages, S // PAGE, dev)
+            tensors = [to_pool(t, PAGE, table, owned, f)
+                       for t, f in zip(tensors, fills)] + [table]
+            tbl_bytes = 4.0 * int(n_pages.sum())
+        args = (q, *tensors, base)
+        kw = {} if window is None else {"window": window}
+        wrapper, plain = {
+            (False, False): (ck.chunk_attention, ck.chunk_attention_plain),
+            (True, False): (ck.chunk_attention_quantized,
+                            ck.chunk_attention_quantized_plain),
+            (False, True): (ck.paged_chunk_attention,
+                            ck.paged_chunk_attention_plain),
+            (True, True): (ck.paged_chunk_attention_quantized,
+                           ck.paged_chunk_attention_quantized_plain),
+        }[(fmt is not None, paged)]
+        got = wrapper(*args, **kw)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"chunk kernel ({label}, {fmt}, paged="
+                                 f"{paged}) read a position no row owns")
+        # what this case's data needs: the (row, column) pairs each row
+        # attends and the positions any row reads
+        limit = np.minimum(bases_np[:, None] + np.arange(T)[None, :] + 1, S)
+        low = (np.zeros_like(limit) if window is None else np.maximum(
+            bases_np[:, None] + np.arange(T)[None, :] + 1 - window, 0))
+        pairs = int(np.maximum(limit - low, 0).sum())
+        n_pos = int((end_np - low[:, 0]).sum())
+        elt = 2 if fmt is None else 1
+        nbytes = (2.0 * Hkv * n_pos * D * elt
+                  + (8.0 * Hkv * n_pos if fmt else 0.0)
+                  + 2 * 2.0 * B * H * T * D + 4 * B + tbl_bytes)
+        t_idx = torch.arange(T, device=dev)
+        lim_t = base[:, None] + t_idx[None, :] + 1               # (B, T)
+        mask = cols[None, None, :] < lim_t[:, :, None]
+        if window is not None:
+            mask &= cols[None, None, :] >= lim_t[:, :, None] - window
+        mask = mask[:, None]                                      # (B,1,T,S)
+        kd, vd = torch.nan_to_num(kd), torch.nan_to_num(vd)
+        name = wrapper.__name__
+        check = (f"{name}/{label} {fmt or 'bf16'}"
+                 + (f" page{PAGE}" if paged else ""))
+        rec.record(check, name, CHUNK_SRC,
+                   "leetcuda_tpu/attention/chunk.py:"
+                   + ("287" if paged else "207"), got, plain(*args, **kw),
+                   time_ms(lambda: wrapper(*args, **kw), flush),
+                   time_ms(lambda: plain(*args, **kw), flush, iters=5),
+                   time_ms(lambda: sdpa(q, kd, vd, attn_mask=mask), flush),
+                   4.0 * H * D * pairs, nbytes)
+        rec.rows[check].update(T=T, mean_base=float(bases_np.mean()))
 
 
 def check_fused(rec, flush, layer, cfg):
@@ -542,6 +712,7 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
 
     check_paged(rec, flush)
     check_fused(rec, flush, fused_layer, cfg)
+    check_chunk(rec, flush)
     return rows
 
 
@@ -600,9 +771,11 @@ def sync(dev):
 
 
 def serve_engine(params, cfg, prompts, lone, max_new, max_seq, bucket,
-                 kv_quant=None, paged=False, num_pages=None):
+                 kv_quant=None, paged=False, num_pages=None, spec_k=0,
+                 draft=None):
     """The Engine serves ``prompts`` (one ragged admission), then ``lone``
-    alone (the forward path). Returns timings and the served tokens."""
+    alone (the forward path; None: no lone request). ``spec_k`` and
+    ``draft``: speculative mode. Returns timings and the served tokens."""
     from leetcuda_tpu_torch.engine import Engine, EngineConfig
 
     dev = params["embed"].device
@@ -611,8 +784,9 @@ def serve_engine(params, cfg, prompts, lone, max_new, max_seq, bucket,
                                            prefill_bucket=bucket,
                                            kv_quant=kv_quant, paged=paged,
                                            page_size=PAGE,
-                                           num_pages=num_pages),
-                 device=dev)
+                                           num_pages=num_pages,
+                                           spec_k=spec_k),
+                 draft=draft, device=dev)
     t0 = time.perf_counter()
     uids = [eng.submit(p, max_new) for p in prompts]
     eng.step()  # admits all of them in one ragged batch, one decode step
@@ -624,8 +798,10 @@ def serve_engine(params, cfg, prompts, lone, max_new, max_seq, bucket,
         ticks += 1
     sync(dev)
     t_batch = time.perf_counter() - t0
+    batch_ticks = ticks
     t1 = time.perf_counter()
-    uids.append(eng.submit(lone, max_new))  # admits alone: forward path
+    if lone is not None:
+        uids.append(eng.submit(lone, max_new))  # admits alone: forward path
     while eng.waiting or eng.active:
         eng.step()
         ticks += 1
@@ -638,11 +814,22 @@ def serve_engine(params, cfg, prompts, lone, max_new, max_seq, bucket,
         if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
                                            for t in toks):
             raise AssertionError(f"request {u} answered {toks}")
-    return {"engine_batch_s": t_batch, "engine_admit_s": t_admit,
-            "engine_ticks": ticks, "lone_request_s": t_lone,
-            "engine_tok_s": len(prompts) * max_new / t_batch,
-            "kv_bytes": eng.kv_memory_report()["target_bytes"],
-            "preemptions": eng.preemptions}, served
+    res = {"engine_batch_s": t_batch, "engine_admit_s": t_admit,
+           "engine_ticks": ticks, "lone_request_s": t_lone,
+           "engine_tok_s": len(prompts) * max_new / t_batch,
+           "kv_bytes": eng.kv_memory_report()["target_bytes"],
+           "preemptions": eng.preemptions}
+    if spec_k:
+        res.update(acceptance_rate=eng.acceptance_rate,
+                   accepted=eng._accepted, proposed=eng._proposed,
+                   tokens_per_tick=len(prompts) * max_new / batch_ticks,
+                   kv_memory=eng.kv_memory_report())
+        if not 0 < eng._accepted < eng._proposed:
+            raise AssertionError(
+                f"speculative engine accepted {eng._accepted} of "
+                f"{eng._proposed} proposals: the path exercises only one "
+                "side of the accept rule")
+    return res, served
 
 
 def serve_generate(params, cfg, gprompts, g_new, kv_quant=None):
@@ -660,6 +847,142 @@ def serve_generate(params, cfg, gprompts, g_new, kv_quant=None):
         raise AssertionError(f"generate returned {gtoks}")
     return {"generate_s": t_gen,
             "generate_tok_s": gprompts.shape[0] * g_new / t_gen}, gtoks
+
+
+def serve_prefix_waves(params, cfg, prefix, waves, max_new, kv_quant, chunk,
+                       bucket):
+    """Path (g): a paged Engine with the prefix cache and ``prefill_chunk``
+    = ``chunk`` serves each wave of requests (``prefix`` + one suffix each)
+    to its end before the next is submitted. Returns per-wave ticks, seconds
+    until every request of the wave is live, total seconds, prefix pages
+    adopted and the ticks that both advanced a filling slot and decoded a
+    live one; and the served tokens in submission order."""
+    from leetcuda_tpu_torch.engine import Engine, EngineConfig
+
+    dev = params["embed"].device
+    eng = Engine(params, cfg, EngineConfig(
+        slots=len(waves[0]), max_seq=2048, prefill_bucket=bucket,
+        kv_quant=kv_quant, paged=True, page_size=PAGE, prefix_cache=True,
+        prefill_chunk=chunk), device=dev)
+    res, served = [], []
+    for suffixes in waves:
+        hits0, t0 = eng.pm.hits, time.perf_counter()
+        uids = [eng.submit(prefix + suffix, max_new) for suffix in suffixes]
+        ticks = fill_and_decode = 0
+        t_live = None
+        while eng.waiting or eng.active or eng.filling:
+            before = {s: r.n_filled for s, r in eng.filling.items()}
+            out = eng.step()
+            ticks += 1
+            advanced = any(s not in eng.filling or eng.filling[s].n_filled > n
+                           for s, n in before.items())
+            fill_and_decode += bool(out) and advanced
+            if t_live is None and not eng.waiting and not eng.filling:
+                sync(dev)
+                t_live = time.perf_counter() - t0
+        sync(dev)
+        res.append({"ticks": ticks, "all_live_s": t_live,
+                    "total_s": time.perf_counter() - t0,
+                    "prefix_pages_hit": eng.pm.hits - hits0,
+                    "fill_and_decode_ticks": fill_and_decode})
+        served += [eng.finished[u].generated for u in uids]
+    for toks in served:
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+            raise AssertionError(f"path g answered {toks}")
+    stats = eng.stats()
+    n_prefix_pages = len(prefix) // PAGE
+    if stats["prefix_pages_hit"] < n_prefix_pages * len(waves[1]) \
+            or res[1]["prefix_pages_hit"] < n_prefix_pages * len(waves[1]):
+        raise AssertionError(f"path g: the second wave adopted "
+                             f"{res[1]['prefix_pages_hit']} prefix pages")
+    if not any(w["fill_and_decode_ticks"] for w in res):
+        raise AssertionError("path g: no tick both filled and decoded")
+    if eng.recoveries or eng.preemptions:
+        raise AssertionError(f"path g: {eng.recoveries} recoveries, "
+                             f"{eng.preemptions} preemptions")
+    n_tok = sum(len(t) for t in served)
+    return {"waves": res, "tok_s": n_tok / sum(w["total_s"] for w in res),
+            "prefix_pages_hit": stats["prefix_pages_hit"],
+            "prefix_pages_prefilled": stats["prefix_pages_prefilled"],
+            "prefix_pages_cached": stats["prefix_pages_cached"],
+            "kv_bytes": stats["kv_memory"]["target_bytes"]}, served
+
+
+def serve_speculative(target, draft, cfg, gprompts, g_new, k, prompts,
+                      max_new, bucket):
+    """Path (h): ``speculative_generate`` over ``gprompts``; the speculative
+    Engine over an int8 contiguous cache serving ``prompts``; one short
+    ``speculative_sample_generate``. Returns timings, the generator's
+    tokens and the engine's served tokens."""
+    from leetcuda_tpu_torch.engine.speculative import (
+        speculative_generate, speculative_sample_generate)
+
+    dev = target["embed"].device
+    t0 = time.perf_counter()
+    gtoks, rate = speculative_generate(target, cfg, draft, cfg, gprompts,
+                                       g_new, k=k, device=dev)
+    sync(dev)
+    t_gen = time.perf_counter() - t0
+    if tuple(gtoks.shape) != (gprompts.shape[0], g_new) or not bool(
+            ((gtoks >= 0) & (gtoks < cfg.vocab_size)).all()):
+        raise AssertionError(f"speculative_generate returned {gtoks}")
+    if not 0 < rate < 1:
+        raise AssertionError(f"speculative_generate accepted {rate} of its "
+                             "proposals")
+    eng, served = serve_engine(target, cfg, prompts, None, max_new=max_new,
+                               max_seq=2048, bucket=bucket, kv_quant="int8",
+                               spec_k=k, draft=(draft, cfg))
+    t1 = time.perf_counter()
+    stoks, srate = speculative_sample_generate(
+        target, cfg, draft, cfg, gprompts[:2], 8,
+        torch.Generator(device=dev).manual_seed(0), k=k, temperature=0.8,
+        top_k=50, device=dev)
+    sync(dev)
+    if tuple(stoks.shape) != (2, 8) or not bool(
+            ((stoks >= 0) & (stoks < cfg.vocab_size)).all()):
+        raise AssertionError(f"speculative_sample_generate returned {stoks}")
+    return {"generate_s": t_gen,
+            "generate_tok_s": gprompts.shape[0] * g_new / t_gen,
+            "generate_acceptance_rate": rate, "engine": eng,
+            "sample_s": time.perf_counter() - t1,
+            "sample_acceptance_rate": srate}, gtoks, served
+
+
+def stepwise_gaps(params, cfg, prefix, tails, kv_quant):
+    """Teacher-forced gaps of streams that share ``prefix``: a solo B=1
+    replay, token by token through ``decode_step`` over a contiguous cache
+    of the path's type, the prefix once (its cache is copied for every
+    stream). ``tails``: (suffix, served tokens) per stream."""
+    from leetcuda_tpu_torch.models.llama import decode_step, init_kv_caches
+
+    dev = params["embed"].device
+    n = len(prefix) + max(len(s) + len(t) for s, t in tails)
+    caches = init_kv_caches(cfg, 1, n + (-n % 128), quant=kv_quant,
+                            device=dev)
+    lengths = torch.zeros(1, dtype=torch.int32, device=dev)
+    toks = torch.tensor(prefix, dtype=torch.int32, device=dev)
+    for t in range(len(prefix)):
+        decode_step(params, toks[t:t + 1], caches, lengths, cfg)
+        lengths += 1
+    snapshot = [{k: v.clone() for k, v in c.items()} for c in caches]
+    worst = []
+    for suffix, tokens in tails:
+        for c, snap in zip(caches, snapshot):
+            for k, v in snap.items():
+                c[k].copy_(v)
+        lengths.fill_(len(prefix))
+        seq = torch.tensor(list(suffix) + list(tokens), dtype=torch.int32,
+                           device=dev)
+        gaps = []
+        for t in range(len(seq) - 1):
+            logits, _ = decode_step(params, seq[t:t + 1], caches, lengths,
+                                    cfg)
+            lengths += 1
+            if t >= len(suffix) - 1:
+                gaps.append(logits[0].max() - logits[0, seq[t + 1].long()])
+        worst.append(float(torch.stack(gaps).max()))
+    return worst
 
 
 def drive(path, fn):
@@ -730,8 +1053,6 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
     stream, which costs the engine nothing (it reads the sampled tokens
     back at the end of every step) but would serialise this loop, whose
     host otherwise runs ahead of the device."""
-    from torch.profiler import ProfilerActivity, profile
-
     from leetcuda_tpu_torch.attention.paged import PageManager
     from leetcuda_tpu_torch.models.llama import (decode_step, init_kv_caches,
                                                  init_paged_kv_caches)
@@ -762,6 +1083,16 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
             lengths += 1
         sync(dev)
 
+    return {"batch": batch, "context": context, "kv_quant": kv_quant,
+            "paged": paged, **profile_run(run, steps)}
+
+
+def profile_run(run, steps):
+    """``run()`` performs ``steps`` steps and synchronises: its wall time per
+    step without the profiler (after one warm-up run), then torch.profiler's
+    device time by kernel over one more run."""
+    from torch.profiler import ProfilerActivity, profile
+
     run()
     t0 = time.perf_counter()
     run()
@@ -777,8 +1108,7 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
             by_kernel[e.key] = (us / 1e3 / steps, e.count // steps)
     device_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"batch": batch, "context": context, "kv_quant": kv_quant,
-            "paged": paged, "step_ms": step_ms, "device_ms_per_step": device_ms,
+    return {"step_ms": step_ms, "device_ms_per_step": device_ms,
             "launches_per_step": sum(n for _, n in by_kernel.values()),
             "device_busy_share": device_ms / step_ms if device_ms else None,
             "top_kernels": [{"kernel": k[:90], "ms_per_step": ms,
@@ -786,9 +1116,47 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
                             for k, (ms, n) in top]}
 
 
-def print_profile(label, prof):
+def profile_verify_tick(target, draft, cfg, batch, context, k, ticks=4):
+    """Phase 6: one speculative tick of path (f) at B=``batch``: k draft
+    proposals and the draft's catch-up step over a contiguous bf16 cache,
+    then the (k + 1)-token verify over paged bf16 pools and the greedy accept
+    rule; nothing is read back, and every tick starts at ``context``."""
+    from leetcuda_tpu_torch.attention.paged import PageManager
+    from leetcuda_tpu_torch.engine.speculative import (_draft_propose,
+                                                       decode_chunk,
+                                                       greedy_verdict)
+    from leetcuda_tpu_torch.models.llama import (init_kv_caches,
+                                                 init_paged_kv_caches)
+
+    dev = target["embed"].device
+    capacity = context + 1024 - context % 1024
+    n_pages = batch * capacity // PAGE + 1
+    pm = PageManager(n_pages, PAGE, capacity // PAGE, batch)
+    for slot in range(batch):
+        if not pm.ensure(slot, capacity - 1):
+            raise AssertionError("profile pool too small")
+    caches = init_paged_kv_caches(cfg, n_pages, PAGE, device=dev)
+    caches_d = init_kv_caches(cfg, batch, capacity, device=dev)
+    table = pm.device_table(dev)
+    tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+    lengths = torch.full((batch,), context, dtype=torch.int32, device=dev)
+
+    def run():
+        for _ in range(ticks):
+            chunk, _ = _draft_propose(draft, cfg, caches_d, tok, lengths, k,
+                                      capacity)
+            logits, _ = decode_chunk(target, chunk, caches, lengths, cfg,
+                                     page_table=table)
+            greedy_verdict(chunk, logits)
+        sync(dev)
+
+    return {"batch": batch, "context": context, "kv_quant": None,
+            "paged": True, "spec_k": k, **profile_run(run, ticks)}
+
+
+def print_profile(label, prof, what="decode step"):
     busy = prof["device_busy_share"]
-    print(f"decode step {label} B={prof['batch']} at context "
+    print(f"{what} {label} B={prof['batch']} at context "
           f"{prof['context']}: {prof['step_ms']:.3f} ms wall, "
           f"{prof['device_ms_per_step']:.3f} ms on the device in "
           f"{prof['launches_per_step']} launches (busy share "
@@ -825,10 +1193,13 @@ def main() -> int:
     reports = build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {sorted(reports)} in {report['build_s']:.1f} s")
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    report["build_resources"] = {
+        name: [line.strip() for line in log.splitlines()
+               if "registers" in line or "spill" in line]
+        for name, log in reports.items()}
+    for name, lines in report["build_resources"].items():
+        for line in lines:
+            print(f"  {name}: {line}")
 
     # the full-width model, its quantized params and the paths' requests
     cfg = ModelConfig()
@@ -986,6 +1357,70 @@ def main() -> int:
         print(f"  launches: {counts}")
         report["paths"][name] = res
 
+    # the chunk paths. Target of (f) and (h): path (d)'s dense fused bf16
+    # params; draft: path (a)'s e4m3 pack of the same weights.
+    draft = qparams["a"]
+    (res, toks), counts, peak = drive("f", lambda: serve_engine(
+        fparams, cfg, prompts, lone, max_new=32, max_seq=2048, bucket=bucket,
+        paged=True, spec_k=SPEC_K, draft=(draft, cfg)))
+    qserved["f"] = list(zip(prompts + [lone], toks))
+    res.update(page_size=PAGE, spec_k=SPEC_K, launches=counts,
+               peak_extra_bytes=peak)
+    print(f"path (f) speculative paged Engine, spec_k {SPEC_K}, dense fused "
+          f"bf16 target over bf16 pools, fp8 draft: 8 requests x 32 tokens "
+          f"in {res['engine_batch_s']:.3f} s (admission "
+          f"{res['engine_admit_s']:.3f} s), lone request "
+          f"{res['lone_request_s']:.3f} s = {res['engine_tok_s']:.1f} tok/s; "
+          f"acceptance {res['acceptance_rate']:.3f} ({res['accepted']} of "
+          f"{res['proposed']}), {res['tokens_per_tick']:.2f} tokens per tick "
+          f"over the batch; kv_memory {res['kv_memory']}; pools, draft cache "
+          f"and activations at peak {peak / 2**30:.2f} GiB", flush=True)
+    print(f"  launches: {counts}")
+    report["paths"]["f"] = res
+
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    waves = [[rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+             for lens in PREFIX_WAVES]
+    (res, toks), counts, peak = drive("g", lambda: serve_prefix_waves(
+        draft, cfg, prefix, waves, max_new=32, kv_quant=QUANT_PATHS["a"][2],
+        chunk=PREFILL_CHUNK, bucket=bucket))
+    g_tails = list(zip(waves[0] + waves[1], toks))
+    res.update(page_size=PAGE, prefill_chunk=PREFILL_CHUNK, launches=counts,
+               peak_extra_bytes=peak)
+    w1, w2 = res["waves"]
+    print(f"path (g) prefix-cached Engine, prefill_chunk {PREFILL_CHUNK}, "
+          f"fp8 fused weights, fp8 pools: wave 1 (prefix {PREFIX_LEN} + "
+          f"{list(PREFIX_WAVES[0])}) {w1['ticks']} ticks, all live after "
+          f"{w1['all_live_s']:.3f} s, done in {w1['total_s']:.3f} s, "
+          f"{w1['fill_and_decode_ticks']} ticks filled and decoded; wave 2 "
+          f"(+ {list(PREFIX_WAVES[1])}) {w2['ticks']} ticks, all live after "
+          f"{w2['all_live_s']:.3f} s, done in {w2['total_s']:.3f} s, "
+          f"{w2['prefix_pages_hit']} prefix pages adopted; hits "
+          f"{res['prefix_pages_hit']}, prefilled "
+          f"{res['prefix_pages_prefilled']}, cached "
+          f"{res['prefix_pages_cached']}; {res['tok_s']:.1f} tok/s; pools "
+          f"{res['kv_bytes'] / 2**20:.1f} MiB, pools and activations at peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"  launches: {counts}")
+    report["paths"]["g"] = res
+
+    (res, h_gtoks, toks), counts, peak = drive("h", lambda: serve_speculative(
+        fparams, draft, cfg, gprompts, 32, SPEC_K, prompts[:4], 32, bucket))
+    qserved["h"] = list(zip(prompts[:4], toks))
+    res.update(spec_k=SPEC_K, launches=counts, peak_extra_bytes=peak)
+    eng = res["engine"]
+    print(f"path (h) speculative_generate B=8 S=128 x 32, k {SPEC_K}, "
+          f"contiguous bf16: {res['generate_s']:.3f} s = "
+          f"{res['generate_tok_s']:.1f} tok/s, acceptance "
+          f"{res['generate_acceptance_rate']:.3f}; speculative Engine, int8 "
+          f"KV, 4 requests x 32 in {eng['engine_batch_s']:.3f} s = "
+          f"{eng['engine_tok_s']:.1f} tok/s, acceptance "
+          f"{eng['acceptance_rate']:.3f}; sampled (temperature 0.8, top_k "
+          f"50) 2 x 8 tokens in {res['sample_s']:.3f} s, acceptance "
+          f"{res['sample_acceptance_rate']:.3f}", flush=True)
+    print(f"  launches: {counts}")
+    report["paths"]["h"] = res
+
     # 5. teacher-forced checks against solo replays
     t3 = time.perf_counter()
     gaps = check_served(params, cfg, prompts + [lone], served, gprompts,
@@ -993,10 +1428,18 @@ def main() -> int:
     replay_of = {**{name: (qparams[name], kvq)
                     for name, (_, _, kvq) in QUANT_PATHS.items()},
                  **{name: (rp, kvq)
-                    for name, (_, kvq, _, rp, _) in paged_paths.items()}}
+                    for name, (_, kvq, _, rp, _) in paged_paths.items()},
+                 "f": (params, None), "h": (params, "int8")}
     for name, (rp, kvq) in replay_of.items():
         for i, (prompt, toks) in enumerate(qserved[name]):
             gaps[f"{name}/{i}"] = replay_gap(rp, cfg, prompt, toks, kvq)
+    for b, toks in enumerate(h_gtoks.tolist()):
+        gaps[f"h/generate{b}"] = replay_gap(params, cfg, gprompts[b].tolist(),
+                                            toks, None)
+    replay_of["g"] = (draft, QUANT_PATHS["a"][2])
+    for i, gap in enumerate(stepwise_gaps(draft, cfg, prefix, g_tails,
+                                          QUANT_PATHS["a"][2])):
+        gaps[f"g/{i}"] = gap
     worst = {p: max(g for k, g in gaps.items()
                     if k.split("/")[0] in ((p,) if p != "bf16"
                                            else ("engine", "generate")))
@@ -1009,6 +1452,15 @@ def main() -> int:
           flush=True)
     if max(worst.values()) > LOGIT_TOL:
         raise AssertionError(f"served tokens off the solo replay: {gaps}")
+    # greedy speculative decoding is exact up to bf16 near-ties between the
+    # T-row verify and the one-row decode: printed, not asserted
+    plain_g = generate(fparams, cfg, gprompts, 32)
+    report["equal_to_plain_greedy"] = {
+        "f_vs_d": float(np.mean([a == b for (_, ta), (_, tb) in zip(
+            qserved["f"], qserved["d"]) for a, b in zip(ta, tb)])),
+        "h_vs_generate": float((h_gtoks == plain_g).float().mean())}
+    print(f"share of tokens equal to plain greedy decoding: "
+          f"{report['equal_to_plain_greedy']}")
     prompt512 = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, 512)).astype(np.int32)).cuda()
     report["vs_bf16"] = {name: agreement(params, qparams[name], cfg,
@@ -1032,6 +1484,11 @@ def main() -> int:
     print_profile("(d) dense fused params, paged bf16 pools",
                   report["profile"]["d"])
     print_profile("(a) fp8 weights + fp8 KV", report["profile"]["a"])
+    report["profile"]["f_tick"] = profile_verify_tick(
+        fparams, draft, cfg, batch=8, context=1024, k=SPEC_K)
+    print_profile(f"(f) {SPEC_K} fp8 draft steps + catch-up + T={SPEC_K + 1} "
+                  "verify over paged bf16 pools", report["profile"]["f_tick"],
+                  what="speculative tick")
 
     kernels = {}
     for r in checks.values():  # first check of a kernel is its row

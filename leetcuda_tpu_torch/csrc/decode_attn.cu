@@ -29,8 +29,9 @@
 // their values nor their scales, so NaN padding (a torch.empty cache, the
 // tail of a prompt bucket, the e4m3 NaN bytes 0x7F / 0xFF) cannot reach the
 // accumulator (decode.py:100-113 zeroes both sides of P.V instead). The
-// cache type is a template policy: 16-byte K loads hold 8 bf16 or 16
-// one-byte values; e4m3 decodes through the hardware cvt.
+// cache type is a template policy (cache_policy.cuh, shared with the chunk
+// kernel): 16-byte K loads hold 8 bf16 or 16 one-byte values; e4m3 decodes
+// through the hardware cvt.
 // At B=8, Hkv=4 this is only 32 CTAs on 132 SMs: a split-KV design that
 // spreads one sequence over several SMs is later work.
 //
@@ -46,66 +47,16 @@
 // and have no counterpart. Only pages below ceil(len / page) are looked up
 // and only positions below len are read: table filler, the null page 0 and
 // the tail of a row's last page may hold anything.
-#include <cuda_fp8.h>
-
-#include "common.cuh"
+#include "cache_policy.cuh"
 
 namespace {
 
 constexpr int kTK = 128;  // keys per tile = threads per CTA
 constexpr int kWarps = kTK / 32;
 
-// Cache element policies: the stored type, values per 16-byte vector, the
-// decode of one vector and of one element, and whether scales come along.
-struct CacheBf16 {
-  using T = uint16_t;
-  static constexpr int kVec = 8;
-  static constexpr bool kScaled = false;
-  __device__ static void vec(uint4 w, float f[kVec]) {
-    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      f[2 * e] = __uint_as_float(ws[e] << 16);
-      f[2 * e + 1] = __uint_as_float(ws[e] & 0xffff0000u);
-    }
-  }
-  __device__ static float one(T x) { return lc::bf16_to_f32(x); }
-};
-
-struct CacheInt8 {
-  using T = int8_t;
-  static constexpr int kVec = 16;
-  static constexpr bool kScaled = true;
-  __device__ static void vec(uint4 w, float f[kVec]) {
-    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int e = 0; e < 16; ++e)
-      f[e] = static_cast<float>(
-          static_cast<int8_t>((ws[e >> 2] >> (8 * (e & 3))) & 0xffu));
-  }
-  __device__ static float one(T x) { return static_cast<float>(x); }
-};
-
-struct CacheE4m3 {
-  using T = uint8_t;
-  static constexpr int kVec = 16;
-  static constexpr bool kScaled = true;
-  __device__ static void vec(uint4 w, float f[kVec]) {
-    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int h = 0; h < 8; ++h) {
-      const auto two = static_cast<__nv_fp8x2_storage_t>(
-          (ws[h >> 1] >> (16 * (h & 1))) & 0xffffu);
-      const float2 v =
-          __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3)));
-      f[2 * h] = v.x;
-      f[2 * h + 1] = v.y;
-    }
-  }
-  __device__ static float one(T x) {
-    return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
-  }
-};
+using lc::CacheBf16;
+using lc::CacheE4m3;
+using lc::CacheInt8;
 
 // S is the capacity in positions of one sequence: S_max of a contiguous
 // cache, P_max * page of a paged one (then ``table`` and ``page`` are set).

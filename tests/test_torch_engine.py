@@ -4,8 +4,11 @@ Greedy decoding on ``tiny_config()`` (f32) with one set of weights, dense
 or JAX's quantized packs converted bit for bit: the port's tokens must
 EQUAL the JAX engine's, over plain and quantized KV caches, contiguous or
 paged (the JAX paged engine runs its Pallas paged kernel in interpret mode),
-with a preemption among the paged runs. The isolation tests check that the
-port imports nothing of JAX and refuses to run on a missing GPU.
+with a preemption among the paged runs, and through the chunk paths: the
+prefix cache and bounded chunked prefill (their token-for-token runs against
+the JAX engine are in test_torch_engine_chunk.py, the speculative engine's
+in test_torch_speculative.py). The isolation tests check that the port
+imports nothing of JAX and refuses to run on a missing GPU.
 """
 
 import ast
@@ -288,17 +291,23 @@ def test_paged_engine_unservable_prompt_raises(both):
 
 
 def test_engine_unported_options_raise(both):
+    """Meshes still raise; the chunk-path options are served, and refuse
+    only what their JAX counterparts assert against."""
     _, _, tcfg, tparams = both
-    for opt in (dict(spec_k=2), dict(prefix_cache=True),
-                dict(paged=True, page_size=16, prefix_cache=True),
-                dict(prefill_chunk=32),
+    for opt in (dict(paged=True, page_size=16, prefix_cache=True),
                 dict(paged=True, page_size=16, prefill_chunk=32)):
-        with pytest.raises(NotImplementedError):
+        Engine(tparams, tcfg, dataclasses.replace(
+            _ecfg(EngineConfig, 2), **opt), device="cpu")
+    Engine(tparams, tcfg, dataclasses.replace(_ecfg(EngineConfig, 2),
+                                              spec_k=2),
+           draft=(tparams, tcfg), device="cpu")
+    for opt in (dict(spec_k=2),                       # no draft
+                dict(prefix_cache=True),              # needs paged
+                dict(prefill_chunk=32),               # needs paged
+                dict(paged=True, page_size=16, prefill_chunk=24)):  # bucket
+        with pytest.raises(ValueError):
             Engine(tparams, tcfg, dataclasses.replace(
                 _ecfg(EngineConfig, 2), **opt), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
-               draft=(tparams, tcfg), device="cpu")
     with pytest.raises(ValueError):  # a bucket must hold whole pages
         Engine(tparams, tcfg, dataclasses.replace(
             _ecfg(EngineConfig, 2), paged=True, page_size=32), device="cpu")
@@ -307,6 +316,92 @@ def test_engine_unported_options_raise(both):
     with pytest.raises(NotImplementedError):
         Engine(tparams, tcfg, _ecfg(EngineConfig, 2), mesh=object(),
                device="cpu")
+
+
+# --- the chunk paths: prefix cache and chunked prefill ------------------------
+
+
+def _chunk_ecfg(cls, slots=2, **kw):
+    return cls(slots=slots, max_seq=256, prefill_bucket=16, paged=True,
+               page_size=16, **kw)
+
+
+def _tokens(out):
+    return [list(map(int, t)) for t in out.values()]
+
+
+def test_suffix_admission_is_bounded(both, monkeypatch):
+    """With the per-call cap at one bucket a 100-token suffix takes seven
+    chunk calls; the tokens do not depend on the cap."""
+    import leetcuda_tpu_torch.engine.engine as eng_mod
+    _, _, tcfg, tparams = both
+    rng = np.random.default_rng(4)
+    common = list(rng.integers(0, 256, 32))
+    p1 = common + list(rng.integers(0, 256, 100))
+
+    def serve():
+        eng = Engine(tparams, tcfg, _chunk_ecfg(EngineConfig, 1,
+                                                prefix_cache=True),
+                     device="cpu")
+        eng.run([common + [1, 2, 3]], 2)
+        calls = []
+        admit = eng._chunk_admit
+        eng._chunk_admit = lambda *a: calls.append(a[1]) or admit(*a)
+        out = _tokens(eng.run([p1], 5))
+        assert eng.stats()["prefix_pages_hit"] == 2
+        return out, calls
+
+    want, calls = serve()
+    assert calls == [32]
+    monkeypatch.setattr(eng_mod, "_SUFFIX_T_CAP", 16)
+    got, calls = serve()
+    assert got == want and calls == list(range(32, 132, 16))
+
+
+def test_chunked_prefill_stall_and_preemption(both):
+    """A pool that can never hold the prompt raises instead of spinning; a
+    pool that runs dry mid-decode preempts the youngest sequence, a filling
+    one included, and the streams still equal the unpaged run's."""
+    _, _, tcfg, tparams = both
+    eng = Engine(tparams, tcfg, _chunk_ecfg(EngineConfig, 1, prefill_chunk=16,
+                                            num_pages=3), device="cpu")
+    with pytest.raises(RuntimeError, match="stall|pages"):
+        eng.run([list(range(1, 60))], max_new=4)
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(0, 256, 12)) for _ in range(3)]
+    want = _tokens(Engine(tparams, tcfg, _ecfg(EngineConfig, 2),
+                          device="cpu").run(prompts, 24))
+    eng = Engine(tparams, tcfg, _chunk_ecfg(EngineConfig, prefill_chunk=16,
+                                            num_pages=6), device="cpu")
+    assert _tokens(eng.run(prompts, 24)) == want
+    assert eng.preemptions >= 1 and eng.stats()["pages_free"] == 5
+
+
+def test_engine_stats_keys_cover_jax_engine(both):
+    """``stats()`` has every key of the JAX engine's, for each engine mode,
+    and beside them only ``recoveries``, ``free_pages`` and
+    ``preemptions``."""
+    jcfg, jparams, tcfg, tparams = both
+    modes = (dict(), dict(paged=True, page_size=16),
+             dict(paged=True, page_size=16, prefix_cache=True,
+                  prefill_chunk=16))
+    for mode in modes:
+        jstats = JEngine(jparams, jcfg, dataclasses.replace(
+            _ecfg(JEngineConfig, 2), **mode)).stats()
+        eng = Engine(tparams, tcfg, dataclasses.replace(
+            _ecfg(EngineConfig, 2), **mode), device="cpu")
+        eng.submit([1, 2, 3], 4)
+        if mode.get("prefill_chunk"):
+            eng._admit()  # a filling slot shows as "n_filled/prompt length"
+            assert list(eng.stats()["filling"].values()) == ["0/3"]
+        stats = eng.stats()
+        extra = {"recoveries"} | ({"free_pages", "preemptions"}
+                                  if mode else set())
+        assert set(stats) == set(jstats) | extra
+        assert set(stats["kv_memory"]) == set(jstats["kv_memory"])
+        if mode:
+            assert stats["free_pages"] == stats["pages_free"]
+            assert 0.0 <= stats["page_utilization"] <= 1.0
 
 
 def test_engine_default_device_raises_without_cuda(both):
