@@ -19,7 +19,12 @@ Phases; any failure raises and the script exits non-zero:
    path (d)'s params, beside the eager unfused sequence and the bare
    ``torch.matmul``. The chunk kernel's four entry points run at the
    verify shape (B = 8, T = 4) and at admission shapes (B = 1, T = 256 and
-   1024), NaN in every position at or past base + T.
+   1024), NaN in every position at or past base + T. The flash forward's
+   lse (causal and ragged), then the FA-2 backward's dQ and dK/dV kernels
+   at training's shape (8, 16, 2048, 128), 4 KV heads: causal, non-causal,
+   head dim 64 and with an lse cotangent, by relative L2 error (BWD_REL_L2)
+   and elementwise; beside them SDPA's backward (``torch.autograd.grad``)
+   and the name of its longest kernel.
 4. Main paths, each with the launch counts zeroed just before it and read
    just after, on the full-width default ModelConfig() (random bf16 weights
    from a seed, quantized on the card):
@@ -57,10 +62,25 @@ Phases; any failure raises and the script exits non-zero:
           contiguous bf16 caches with (f)'s target and draft; the
           speculative Engine over an int8 contiguous cache, 4 requests; one
           short ``speculative_sample_generate`` (temperature 0.8, top_k 50).
-   Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings.
+   (i)    training, on its own random params: one B=2, S=2048 step's loss
+          and every gradient through the kernels, replayed with the
+          model's attention swapped for the plain forward and backward
+          (REPLAY_LOSS_TOL, REPLAY_GRAD_TOL), and for the kernel forward
+          with the plain backward (REPLAY_BWD_TOL; each layer's backward
+          kernels against the plain backward on its activations,
+          REPLAY_CALL_TOL; a roundoff control); then 12 AdamW steps of
+          ``make_train_step`` (remat, lr 3e-4) at B=8, S=2048 over crops of
+          a permutation-walk corpus: finite losses that fall, each step
+          launching the forward with its lse twice per layer and dQ and
+          dK/dV once, nothing else; tokens/s and model-FLOP share after two
+          warm-up steps, peak device memory.
+   Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings;
+   no serving path launches a training kernel.
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
-   replay's max logit. Paths (d), (e) and (f) replay over a CONTIGUOUS cache
+   replay's max logit. A prompt the Engine admitted in a ragged batch
+   replays through a B=1 ``forward``; the bf16 path's lone request and its
+   ``generate`` streams replay token by token through ``decode_step``. Paths (d), (e) and (f) replay over a CONTIGUOUS cache
    with UNFUSED math, so the replay shares neither the paged, the fused nor
    the chunk kernel with them; (g) replays token by token through
    ``decode_step`` over a contiguous e4m3 cache (the shared prefix once),
@@ -73,8 +93,9 @@ Phases; any failure raises and the script exits non-zero:
    params), of the same step over dense fused params (the fused kernel's
    A/B), of a paged step of path (d) and of path (a), and one speculative
    tick of path (f) (three draft steps, the draft's catch-up step and the
-   T = 4 verify): wall time and, from torch.profiler, device time by
-   kernel (the device busy share).
+   T = 4 verify), and one training step of path (i): wall time and, from
+   torch.profiler, device time by kernel (the device busy share); for the
+   training step also by class (attention kernels, matmuls, the rest).
 
 Prints the card line, a {"kernels": [...]} line, and last a
 {"ok": true, "device": {...}} line; with ``--json PATH`` also writes every
@@ -131,7 +152,11 @@ PATH_KERNELS = {
           "paged_chunk_attention_quantized"),
     "h": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
           "decode_attention", "chunk_attention", "chunk_attention_quantized"),
+    "i": ("flash_attention_lse", "flash_attention_bwd_dq",
+          "flash_attention_bwd_dkv"),
 }
+# The kernels of training (path (i)): no serving path launches them.
+TRAIN_KERNELS = PATH_KERNELS["i"]
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
@@ -150,6 +175,36 @@ PATH_FORBIDDEN = {
     "h": ("paged_attention", "paged_attention_quantized",
           "paged_chunk_attention", "paged_chunk_attention_quantized"),
 }
+# (Training, path (i), has no list: ``train`` asserts each step's launches
+# exactly, the training kernels and nothing else.)
+# The backward kernels against their plain version: relative L2 error per
+# gradient. One bf16 rounding is 2^-9 relative; P and dS are rounded to bf16
+# on both sides, so the two differ by f32 summation order (dK and dV sum
+# 2048 q rows x 4 heads of the group) and by ties that round P or dS one bf16
+# ulp apart: well under 1e-2, where a wrong mask, scale or fragment gives
+# O(1).
+BWD_REL_L2 = 1e-2
+# Path (i): the full-width model trains at B=8, S=2048 (train_bench's
+# shape), 12 AdamW steps at lr 3e-4 under remat, timed after 2 warm-up
+# steps, on crops of a learnable corpus. First one B=2 step is replayed
+# with the plain attention forward and backward: the losses must agree
+# within REPLAY_LOSS_TOL, relative, and each parameter's gradient by
+# relative L2 error within REPLAY_GRAD_TOL. It is replayed once more with
+# the kernel forward and the plain backward, so that only the backward
+# kernels differ: each gradient within REPLAY_BWD_TOL of that run, and the
+# backward kernels of each layer within REPLAY_CALL_TOL of the plain
+# backward on that layer's own activations. The gradient gaps are roundoff
+# grown through 16 layers of bf16 backward: nudging the lse by a few f32
+# ulps in the plain backward alone moves layer 0's gradients by 0.0142 on
+# an H100
+# (the backward kernels: 0.0141; layer 15's wq: 6e-4), and the kernel
+# forward's own bf16 O adds the rest of the 0.026 against the plain forward.
+# So REPLAY_GRAD_TOL and REPLAY_BWD_TOL sit at ~2x those readings, and
+# REPLAY_CALL_TOL at 4x the per-layer kernels' worst (5.0e-4), the bar that
+# a fault on model-shaped inputs (a nearly flat P at init) would cross.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 2048, 12, 2, 3e-4
+REPLAY_B, REPLAY_LOSS_TOL = 2, 1e-3
+REPLAY_GRAD_TOL, REPLAY_BWD_TOL, REPLAY_CALL_TOL = 5e-2, 3e-2, 2e-3
 PAGE = 128  # page size of the paged paths: the engine's default
 SPEC_K = 3  # draft proposals per tick of the speculative paths
 # Path (g): a shared prefix of 8 pages, then two waves of suffix lengths,
@@ -537,6 +592,166 @@ def check_fused(rec, flush, layer, cfg):
         matmul_ms=time_ms(lambda: torch.matmul(x, w), flush))
 
 
+def rel_l2(got, want):
+    """||got - want|| / ||want|| in f32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm())
+
+
+def sdpa_backward(q, k, v, do, causal, flush):
+    """The library yardstick of the backward: ``torch.autograd.grad``
+    through ``sdpa`` (dq, dk and dv in one call) after one forward, timed as
+    the kernels are; and the name of its longest device kernel, which says
+    which backend PyTorch picked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qr, kr, vr, is_causal=causal)
+
+    def run():
+        return torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
+
+    ms = time_ms(run, flush)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    times = {e.key: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()}
+    return ms, max(times, key=times.get)[:100] if times else "not measured"
+
+
+FLASH_SRC = "leetcuda_tpu_torch/csrc/flash_fwd.cu"
+FLASH_BWD_SRC = "leetcuda_tpu_torch/csrc/flash_bwd.cu"
+
+
+def check_flash_bwd(rec, flush):
+    """The forward's lse (causal at training's shape (8, 16, 2048, 128)
+    with 4 KV heads, and the ragged batch of the ragged check: rows past a
+    length -1e30), then the dQ and dK/dV kernels against
+    ``flash_attention_bwd_plain`` at training's shape: causal, non-causal,
+    head dim 64, and with a random lse cotangent; ``out`` and ``lse`` from
+    the kernel forward, held against the plain forward's first, and a
+    random ``do``. Each backward case holds dq, dk and dv by
+    relative L2 error (BWD_REL_L2) and elementwise (KERNEL_TOL). The plain
+    time is the whole plain backward and the library time SDPA's (both give
+    all three gradients)."""
+    from leetcuda_tpu_torch.attention import flash as fl
+    from leetcuda_tpu_torch.attention import flash_bwd as fb
+
+    dev, H, Hkv = rec.dev, 16, 4
+    B, N, D = TRAIN_B, TRAIN_S, 128
+    q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, N, D), rec.randn(
+        B, Hkv, N, D)
+    out, lse = fl.flash_attention(q, k, v, causal=True, with_lse=True)
+    w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=True,
+                                            with_lse=True)
+    torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
+    pairs = N * (N + 1) // 2
+    check = "flash_attention_lse/causal"
+    rec.record(check, "flash_attention_lse", FLASH_SRC,
+               "leetcuda_tpu/attention/flash.py:259", lse, w_lse,
+               time_ms(lambda: fl.flash_attention(q, k, v, causal=True,
+                                                  with_lse=True), flush),
+               time_ms(lambda: fl.flash_attention_plain(
+                   q, k, v, causal=True, with_lse=True), flush, iters=5),
+               time_ms(lambda: sdpa(q, k, v, is_causal=True), flush),
+               4.0 * B * H * D * pairs,
+               2.0 * (2 * B * H * N * D + 2 * B * Hkv * N * D)
+               + 4.0 * B * H * N)
+    rec.rows[check]["out_max_abs_err"] = float(
+        (out.float() - w_out.float()).abs().max())
+
+    B, N = 8, 1536
+    lens_np = np.linspace(1, N, B).astype(np.int32)
+    lengths = torch.from_numpy(lens_np).to(dev)
+    q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, N, D), rec.randn(
+        B, Hkv, N, D)
+    out, lse = fl.flash_attention_ragged(q, k, v, lengths, with_lse=True)
+    w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=True,
+                                            lengths=lengths, with_lse=True)
+    torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
+    dead = torch.arange(N, device=dev)[None, None, :] >= lengths[:, None,
+                                                                None]
+    if not bool((lse[dead.expand_as(lse)] == -1e30).all()):
+        raise AssertionError("ragged lse: rows past a length are not -1e30")
+    cols = torch.arange(N, device=dev)
+    mask = ((cols[None, :] <= cols[:, None])[None]
+            & (cols[None, None, :] < lengths[:, None, None]))[:, None]
+    n_valid = int(lens_np.sum())
+    check = "flash_attention_lse/ragged"
+    rec.record(check, "flash_attention_lse", FLASH_SRC,
+               "leetcuda_tpu/attention/flash.py:367", lse, w_lse,
+               time_ms(lambda: fl.flash_attention_ragged(
+                   q, k, v, lengths, with_lse=True), flush),
+               time_ms(lambda: fl.flash_attention_plain(
+                   q, k, v, causal=True, lengths=lengths, with_lse=True),
+                   flush, iters=5),
+               time_ms(lambda: sdpa(q, k, v, attn_mask=mask), flush),
+               4.0 * H * D * int(sum(n * (n + 1) // 2 for n in lens_np)),
+               2.0 * (H * n_valid * D + 2 * Hkv * n_valid * D + B * H * N * D)
+               + 4.0 * B * H * N)
+    rec.rows[check]["out_max_abs_err"] = float(
+        (out.float() - w_out.float()).abs().max())
+
+    B, N = TRAIN_B, TRAIN_S
+    for label, D, causal, with_dlse in (("causal", 128, True, False),
+                                        ("non-causal", 128, False, False),
+                                        ("causal D=64", 64, True, False),
+                                        ("causal, dlse", 128, True, True)):
+        scale = 1.0 / np.sqrt(D)
+        q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, N, D), rec.randn(
+            B, Hkv, N, D)
+        out, lse = fl.flash_attention(q, k, v, causal=causal, with_lse=True)
+        w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=causal,
+                                                with_lse=True)
+        torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
+        torch.testing.assert_close(lse, w_lse, **KERNEL_TOL)
+        del w_out, w_lse
+        do = rec.randn(B, H, N, D)
+        dlse = rec.randn(B, H, N).float() if with_dlse else None
+        got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
+                                     causal=causal)
+        want = fb.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse,
+                                            causal=causal, sm_scale=scale)
+        errs = {f"d{n}": rel_l2(g, w) for n, g, w in zip("qkv", got, want)}
+        if max(errs.values()) > BWD_REL_L2:
+            raise AssertionError(f"flash backward ({label}): relative L2 "
+                                 f"errors {errs} over {BWD_REL_L2}")
+        delta = fb._delta(out, do, dlse).contiguous()
+        plain_ms = time_ms(lambda: fb.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, dlse, causal=causal, sm_scale=scale),
+            flush, iters=5)
+        lib_ms, lib_kernel = sdpa_backward(q, k, v, do, causal, flush)
+        whole_ms = time_ms(lambda: fb.flash_attention_bwd(
+            q, k, v, out, lse, do, dlse, causal=causal), flush)
+        pairs = N * (N + 1) // 2 if causal else N * N
+        product = 2.0 * B * H * D * pairs  # FLOPs of one N x N x D product
+        q_bytes, kv_bytes = 2.0 * B * H * N * D, 2.0 * B * Hkv * N * D
+        row_bytes = 8.0 * B * H * N  # lse and delta, f32
+        extra = dict(rel_l2=errs, library_kernel=lib_kernel,
+                     backward_ms=whole_ms,
+                     backward_bound_ms=5 * product / BF16_FLOP_PER_S * 1e3)
+        check = f"flash_attention_bwd_dq/{label}"
+        rec.record(check, "flash_attention_bwd_dq", FLASH_BWD_SRC,
+                   "leetcuda_tpu/attention/flash_bwd.py:196", got[0], want[0],
+                   time_ms(lambda: fb._launch_dq(q, k, v, do, lse, delta,
+                                                 causal, scale), flush),
+                   plain_ms, lib_ms, 3 * product,
+                   3 * q_bytes + 2 * kv_bytes + row_bytes)
+        rec.rows[check].update(extra)
+        check = f"flash_attention_bwd_dkv/{label}"
+        rec.record(check, "flash_attention_bwd_dkv", FLASH_BWD_SRC,
+                   "leetcuda_tpu/attention/flash_bwd.py:215",
+                   torch.cat([got[1].flatten(), got[2].flatten()]),
+                   torch.cat([want[1].flatten(), want[2].flatten()]),
+                   time_ms(lambda: fb._launch_dkv(q, k, v, do, lse, delta,
+                                                  causal, scale), flush),
+                   plain_ms, lib_ms, 4 * product,
+                   2 * q_bytes + 4 * kv_bytes + row_bytes)
+        rec.rows[check].update(extra)
+
+
 def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
     """Phase 3: each kernel against its plain version at main-path shapes
     (``mm_cases``: see matmul_cases; ``fused_layer``: layer 0 of the dense
@@ -713,6 +928,7 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
     check_paged(rec, flush)
     check_fused(rec, flush, fused_layer, cfg)
     check_chunk(rec, flush)
+    check_flash_bwd(rec, flush)
     return rows
 
 
@@ -985,6 +1201,189 @@ def stepwise_gaps(params, cfg, prefix, tails, kv_quant):
     return worst
 
 
+def train_corpus(vocab, n, seed):
+    """A learnable synthetic corpus, as ``examples/train.py --loader`` makes
+    it: a walk along a fixed random permutation, so the next token is a
+    function of the current one."""
+    perm = np.random.default_rng(seed).permutation(vocab)
+    x = np.zeros(n, np.int64)
+    for t in range(1, n):
+        x[t] = perm[x[t - 1]]
+    return x
+
+
+def crops(corpus, rng, B, S, dev):
+    """(B, S) int32 crops of ``corpus`` at random offsets, on ``dev``."""
+    starts = rng.integers(0, len(corpus) - S, B)
+    return torch.from_numpy(np.stack([corpus[s:s + S] for s in starts])
+                            .astype(np.int32)).to(dev)
+
+
+class PlainBwdFlash(torch.autograd.Function):
+    """The model's attention with the plain backward, ``flash_attention_
+    bwd_plain``, called explicitly. Its forward is ``flash_attention_plain``
+    (``kernel_fwd`` False) or the kernel forward with its lse (True). The
+    backward reads the lse times (1 + ``nudge``): 0, or 2**-22 (a few f32
+    ulps), a control of how far roundoff alone carries through the model's
+    bf16 backward. With a list ``gaps``, it also runs the backward kernels
+    on the same inputs and appends their worst relative L2 error against
+    the plain backward: the kernels held on the model's own activations."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kernel_fwd, nudge, gaps):
+        from leetcuda_tpu_torch.attention import flash as fl
+
+        fwd = fl.flash_attention if kernel_fwd else fl.flash_attention_plain
+        out, lse = fwd(q, k, v, causal=causal, sm_scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.nudge, ctx.gaps = causal, scale, nudge, gaps
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from leetcuda_tpu_torch.attention import flash_bwd as fb
+
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        want = fb.flash_attention_bwd_plain(
+            q, k, v, out, lse + ctx.nudge * lse, do, causal=ctx.causal,
+            sm_scale=ctx.scale)
+        if ctx.gaps is not None:
+            got = fb.flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal, sm_scale=ctx.scale)
+            ctx.gaps.append(max(rel_l2(g, w) for g, w in zip(got, want)))
+        return (*want, None, None, None, None, None)
+
+
+def plain_bwd_trainable(kernel_fwd, nudge=0.0, gaps=None):
+    """A stand-in for ``make_flash_attention_trainable`` over
+    PlainBwdFlash."""
+    def make(*, causal=False, sm_scale=None):
+        def fa(q, k, v):
+            scale = (sm_scale if sm_scale is not None
+                     else 1 / np.sqrt(q.shape[3]))
+            return PlainBwdFlash.apply(q, k, v, causal, float(scale),
+                                       kernel_fwd, nudge, gaps)
+        return fa
+    return make
+
+
+def replay_train_step(cfg, params, tokens):
+    """Path (i)'s check: the loss and every parameter's gradient of one
+    step (no remat), through the kernels and three times more with the
+    model's attention swapped for PlainBwdFlash: ``plain`` (the plain
+    forward and backward); ``plain_bwd`` (the kernel forward and the plain
+    backward: only the backward kernels differ from the kernels' run; each
+    layer's backward kernels are also held against the plain backward on
+    that layer's inputs); ``nudged`` (``plain_bwd`` with the lse nudged by
+    a few f32 ulps: roundoff alone, the floor of the gradient gap). Fails
+    over REPLAY_LOSS_TOL, REPLAY_GRAD_TOL (against ``plain``),
+    REPLAY_BWD_TOL (against ``plain_bwd``), REPLAY_CALL_TOL (per layer), or
+    if the kernels' run did not launch each training kernel once per layer
+    (forward with lse, dQ, dK/dV)."""
+    from leetcuda_tpu_torch.core.runtime import launch_counts
+    from leetcuda_tpu_torch.models import llama as tl
+
+    names, leaves = zip(*tl.named_leaves(params))
+    kernel_fa = tl.make_flash_attention_trainable
+
+    def run(make_fa):
+        tl.make_flash_attention_trainable = make_fa
+        try:
+            loss = tl.loss_fn(params, tokens, cfg)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        finally:
+            tl.make_flash_attention_trainable = kernel_fa
+
+    calls = []  # in backward order: layer n_layers - 1 first
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        before = launch_counts()
+        loss_k, grads_k = run(kernel_fa)
+        after = launch_counts()
+        loss_p, grads_p = run(plain_bwd_trainable(False))
+        _, grads_b = run(plain_bwd_trainable(True, gaps=calls))
+        _, grads_n = run(plain_bwd_trainable(True, nudge=2.0 ** -22))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    moved = {n: after[n] - before[n] for n in TRAIN_KERNELS}
+    if moved != {n: cfg.n_layers for n in TRAIN_KERNELS}:
+        raise AssertionError(f"replayed step launched {moved}")
+    res = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k / loss_p - 1),
+           "call_rel_l2": calls[::-1], "worst_call_rel_l2": max(calls)}
+    for ref, a, b in (("plain", grads_k, grads_p),
+                      ("plain_bwd", grads_k, grads_b),
+                      ("nudged", grads_b, grads_n)):
+        errs = {n: rel_l2(x, y) for n, x, y in zip(names, a, b)}
+        res[f"grad_rel_l2_{ref}"] = errs
+        res[f"worst_grad_{ref}"] = max(errs, key=errs.get)
+        res[f"worst_grad_rel_l2_{ref}"] = max(errs.values())
+    if res["loss_rel_err"] > REPLAY_LOSS_TOL or not np.isfinite(loss_k):
+        raise AssertionError(f"replayed loss {loss_k} against the plain "
+                             f"attention's {loss_p}")
+    if res["worst_call_rel_l2"] > REPLAY_CALL_TOL:
+        raise AssertionError(f"backward kernels off the plain backward on "
+                             f"the model's activations: {res['call_rel_l2']}")
+    for ref, tol in (("plain", REPLAY_GRAD_TOL),
+                     ("plain_bwd", REPLAY_BWD_TOL)):
+        if res[f"worst_grad_rel_l2_{ref}"] > tol:
+            raise AssertionError(f"replayed gradients off the {ref} "
+                                 f"attention's: {res[f'grad_rel_l2_{ref}']}")
+    return res
+
+
+def train(cfg, params, corpus, rng):
+    """Path (i): TRAIN_STEPS steps of ``make_train_step`` (remat, AdamW at
+    TRAIN_LR) at TRAIN_B x TRAIN_S over crops of ``corpus`` uploaded
+    beforehand; the first TRAIN_WARMUP steps are not timed, and nothing is
+    read back until the last step. Asserts finite losses, a fall (mean of
+    the last three below the first) and each step's launches: the forward
+    with its lse twice per layer (remat), dQ and dK/dV once, nothing else.
+    Returns the numbers and (step, opt) for the profile."""
+    from leetcuda_tpu_torch.core.runtime import launch_counts
+    from leetcuda_tpu_torch.models.llama import make_train_step, named_leaves
+
+    dev = params["embed"].device
+    B, S, L = TRAIN_B, TRAIN_S, cfg.n_layers
+    init_opt, step = make_train_step(cfg, learning_rate=TRAIN_LR, remat=True)
+    opt = init_opt(params)
+    batches = [crops(corpus, rng, B, S, dev) for _ in range(TRAIN_STEPS)]
+    want = {"flash_attention_lse": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    losses, t0 = [], None
+    for i, tokens in enumerate(batches):
+        if i == TRAIN_WARMUP:
+            sync(dev)
+            t0 = time.perf_counter()
+        before = launch_counts()
+        params, opt, loss = step(params, opt, tokens)
+        after = launch_counts()
+        moved = {n: c - before[n] for n, c in after.items() if c != before[n]}
+        if moved != want:
+            raise AssertionError(f"training step {i} launched {moved}")
+        losses.append(loss)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    losses = torch.stack(losses).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    n_timed = TRAIN_STEPS - TRAIN_WARMUP
+    n_params = sum(p.numel() for _, p in named_leaves(params))
+    flops_per_tok = (6 * n_params  # train_bench.py:61
+                     + 3 * 2 * 2 * L * cfg.n_heads * cfg.head_dim * S / 2)
+    tok_s = n_timed * B * S / seconds
+    return {"batch": B, "seq": S, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+            "remat": True, "losses": losses, "step_s": seconds / n_timed,
+            "tok_s": tok_s, "n_params": n_params,
+            "model_flop_share": tok_s * flops_per_tok / BF16_FLOP_PER_S,
+            "launches_per_step": want}, step, opt, batches[-1]
+
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -1003,7 +1402,9 @@ def drive(path, fn):
     missing = [n for n in PATH_KERNELS[path] if counts.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"path {path}: kernels not launched: {missing}")
-    stray = [n for n in PATH_FORBIDDEN.get(path, ()) if counts.get(n, 0)]
+    forbidden = PATH_FORBIDDEN.get(path, ()) + (
+        TRAIN_KERNELS if path != "i" else ())
+    stray = [n for n in forbidden if counts.get(n, 0)]
     if stray:
         raise AssertionError(f"path {path}: launched {stray}")
     return out, counts, peak
@@ -1020,10 +1421,18 @@ def param_bytes(params):
 
 
 def check_served(params, cfg, prompts, served, gprompts, gtoks):
-    """Phase 5 (bf16 path): teacher-forced gaps of every served stream."""
+    """Phase 5 (bf16 path): teacher-forced gaps of every served stream. The
+    requests of the ragged admission (all but the last) replay their prompt
+    through a B=1 ``forward``, as the other paths' replays do (a kernel the
+    ragged admission never ran); the lone request, which the Engine
+    prefilled through ``forward``, and the ``generate`` streams replay token
+    by token through ``decode_step``."""
     gaps = {}
     for i, (prompt, toks) in enumerate(zip(prompts, served)):
-        gaps[f"engine/{i}"] = teacher_forced_gap(params, cfg, prompt, toks)
+        if i == len(prompts) - 1:
+            gaps[f"engine/{i}"] = teacher_forced_gap(params, cfg, prompt, toks)
+        else:
+            gaps[f"engine/{i}"] = replay_gap(params, cfg, prompt, toks, None)
     g_np = gtoks.cpu().numpy()
     for b in range(g_np.shape[0]):
         gaps[f"generate/{b}"] = teacher_forced_gap(
@@ -1087,10 +1496,18 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
             "paged": paged, **profile_run(run, steps)}
 
 
-def profile_run(run, steps):
+# Device time of a training step by kind of kernel (substrings of the
+# kernel names): the hand-written attention kernels and cuBLAS's products.
+TRAIN_CLASSES = {"attention": ("flash_fwd", "flash_bwd"),
+                 "matmul": ("gemm", "sm90", "nvjet", "cutlass", "cublas")}
+
+
+def profile_run(run, steps, classes=None):
     """``run()`` performs ``steps`` steps and synchronises: its wall time per
     step without the profiler (after one warm-up run), then torch.profiler's
-    device time by kernel over one more run."""
+    device time by kernel over one more run; with ``classes`` ({label:
+    name substrings}) also the device ms per step of each class and of the
+    rest."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1108,7 +1525,13 @@ def profile_run(run, steps):
             by_kernel[e.key] = (us / 1e3 / steps, e.count // steps)
     device_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    by_class = {}
+    for name, (ms, _) in by_kernel.items():
+        label = next((c for c, subs in (classes or {}).items()
+                      if any(x in name.lower() for x in subs)), "other")
+        by_class[label] = by_class.get(label, 0.0) + ms
     return {"step_ms": step_ms, "device_ms_per_step": device_ms,
+            "device_ms_by_class": by_class,
             "launches_per_step": sum(n for _, n in by_kernel.values()),
             "device_busy_share": device_ms / step_ms if device_ms else None,
             "top_kernels": [{"kernel": k[:90], "ms_per_step": ms,
@@ -1192,6 +1615,13 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build_all()
     report["build_s"] = time.perf_counter() - t0
+    phase_s = report["phase_s"] = {}
+    marks = [t0]
+
+    def phase_done(name):  # seconds since the previous phase ended
+        marks.append(time.perf_counter())
+        phase_s[name] = marks[-1] - marks[-2]
+
     print(f"build: {sorted(reports)} in {report['build_s']:.1f} s")
     report["build_resources"] = {
         name: [line.strip() for line in log.splitlines()
@@ -1242,11 +1672,17 @@ def main() -> int:
                if r["library_ms"] is not None else
                f"library none [eager unfused {r['eager_unfused_ms']:.4f} ms, "
                f"torch.matmul alone {r['matmul_ms']:.4f} ms]")
+        if "rel_l2" in r:  # the backward: SDPA's backend and the whole
+            errs = ", ".join(f"{n} {e:.3g}" for n, e in r["rel_l2"].items())
+            lib += (f" ({r['library_kernel']}); relative L2 {errs}; whole "
+                    f"backward {r['backward_ms']:.4f} ms, bound of its 5 "
+                    f"products {r['backward_bound_ms']:.4f} ms;")
         print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
               f"kernel {r['ms']:.4f} ms{tiles} plain {r['plain_ms']:.4f} ms "
               f"{lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
     report["kernel_checks"] = checks
+    phase_done("build_and_kernel_checks")
     del flush
 
     # 4. the main paths at full width
@@ -1420,6 +1856,49 @@ def main() -> int:
           f"{res['sample_acceptance_rate']:.3f}", flush=True)
     print(f"  launches: {counts}")
     report["paths"]["h"] = res
+    phase_done("serving_paths")
+
+    # path (i): training, on its own full-width params (seed 2); first the
+    # replayed B=2 step against the plain attention, then the steps
+    tparams = init_params(torch.Generator(device="cuda").manual_seed(2), cfg,
+                          device="cuda")
+    corpus = train_corpus(cfg.vocab_size, 200_000, seed=0)
+    trng = np.random.default_rng(3)
+    t_replay = time.perf_counter()
+    replay = replay_train_step(cfg, tparams, crops(corpus, trng, REPLAY_B,
+                                                   TRAIN_S, "cuda"))
+    replay["seconds"] = time.perf_counter() - t_replay
+    print(f"path (i) replayed step B={REPLAY_B} S={TRAIN_S}: loss "
+          f"{replay['loss_kernels']:.6f} through the kernels, "
+          f"{replay['loss_plain']:.6f} through the plain attention (relative "
+          f"{replay['loss_rel_err']:.2e}, tol {REPLAY_LOSS_TOL}); worst "
+          f"gradient relative L2 {replay['worst_grad_rel_l2_plain']:.2e} "
+          f"({replay['worst_grad_plain']}, tol {REPLAY_GRAD_TOL}); against "
+          f"the kernel forward with the plain backward "
+          f"{replay['worst_grad_rel_l2_plain_bwd']:.2e} "
+          f"({replay['worst_grad_plain_bwd']}, tol {REPLAY_BWD_TOL}), "
+          f"roundoff floor {replay['worst_grad_rel_l2_nudged']:.2e}; "
+          f"backward kernels per layer on its activations "
+          f"{replay['worst_call_rel_l2']:.2e} at worst (tol "
+          f"{REPLAY_CALL_TOL}) in {replay['seconds']:.1f} s", flush=True)
+    (res, train_step, opt, last_batch), counts, peak = drive(
+        "i", lambda: train(cfg, tparams, corpus, trng))
+    res.update(replay=replay, launches=counts, peak_extra_bytes=peak,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               corpus_distinct_tokens=int(np.unique(corpus).size))
+    print(f"path (i) training, make_train_step remat, AdamW lr {TRAIN_LR}, "
+          f"B={TRAIN_B} S={TRAIN_S}, {res['n_params'] / 1e9:.3f}B params: "
+          f"losses {[round(x, 4) for x in res['losses']]}; after "
+          f"{TRAIN_WARMUP} warm-up steps {res['step_s']:.4f} s a step = "
+          f"{res['tok_s']:.1f} tok/s, model-FLOP share "
+          f"{res['model_flop_share']:.4f} of {BF16_FLOP_PER_S / 1e12:.0f} "
+          f"TFLOP/s; peak device memory {res['peak_bytes'] / 2**30:.2f} GiB "
+          f"({peak / 2**30:.2f} GiB above the resident params of every "
+          f"path); corpus cycle {res['corpus_distinct_tokens']} tokens",
+          flush=True)
+    print(f"  launches: {counts}")
+    report["paths"]["i"] = res
+    phase_done("training_path")
 
     # 5. teacher-forced checks against solo replays
     t3 = time.perf_counter()
@@ -1469,6 +1948,8 @@ def main() -> int:
     print(f"quantized forward vs bf16 (512-token prompt): "
           f"{report['vs_bf16']}")
 
+    phase_done("checks")
+
     # 6. where a decode step's time goes
     # (bf16 against bf16_fused is the fused kernel's A/B: the same step,
     # the same contiguous cache, unfused against dense fused params)
@@ -1489,7 +1970,17 @@ def main() -> int:
     print_profile(f"(f) {SPEC_K} fp8 draft steps + catch-up + T={SPEC_K + 1} "
                   "verify over paged bf16 pools", report["profile"]["f_tick"],
                   what="speculative tick")
+    report["profile"]["i_step"] = {
+        "batch": TRAIN_B, "context": TRAIN_S, **profile_run(
+            lambda: (train_step(tparams, opt, last_batch), sync(tparams[
+                "embed"].device)), 1, TRAIN_CLASSES)}
+    print_profile("(i) remat, AdamW", report["profile"]["i_step"],
+                  what="training step")
+    print(f"  device ms by class: "
+          f"{report['profile']['i_step']['device_ms_by_class']}")
 
+    phase_done("profiles")
+    print(f"phase seconds: {phase_s}")
     kernels = {}
     for r in checks.values():  # first check of a kernel is its row
         row = kernels.setdefault(r["name"], dict(r))

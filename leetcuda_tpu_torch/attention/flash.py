@@ -10,7 +10,10 @@ not take. On CPU tensors it runs the plain PyTorch version in this module,
 which the tests hold against the JAX kernel and ``chip_smoke.py`` holds the
 CUDA kernel against.
 
-``window``, ``softcap`` and ``with_lse`` are not ported yet and raise.
+``with_lse=True`` also returns each query row's log-sum-exp (B, H, N) f32,
+the residual of the backward (attention/flash_bwd.py); its launches count
+on their own counter. ``window`` and ``softcap`` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -26,16 +29,18 @@ _NEG_INF = -1e30  # big-negative instead of -inf, as the TPU kernel masks
 
 FLASH = LaunchCounter("flash_attention")
 FLASH_RAGGED = LaunchCounter("flash_attention_ragged")
-# lc_flash_fwd_bf16(q, k, v, lengths, out, B, H, Hkv, N, Nk, D, scale,
+# either entry point with ``with_lse=True``: the forward of training
+FLASH_LSE = LaunchCounter("flash_attention_lse")
+# lc_flash_fwd_bf16(q, k, v, lengths, out, lse, B, H, Hkv, N, Nk, D, scale,
 #                   causal, stream)
-_FLASH_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
+_FLASH_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
-def _refuse_options(window, softcap, with_lse):
-    if window is not None or softcap is not None or with_lse:
+def _refuse_options(window, softcap):
+    if window is not None or softcap is not None:
         raise NotImplementedError(
-            "flash attention: window / softcap / with_lse are not ported yet "
+            "flash attention: window / softcap are not ported yet "
             "(ROADMAP: kernel options of the flash forward)")
 
 
@@ -51,11 +56,12 @@ def _check_qkv(q, k, v):
 
 
 def flash_attention_plain(q, k, v, *, causal=False, sm_scale=None,
-                          lengths=None):
+                          lengths=None, with_lse=False):
     """Plain PyTorch version of the kernel: f32 scores, -1e30 mask, P cast
     to v's dtype before P.V, divide by max(l, 1e-30); with ``lengths``, keys
     at or past the length are masked (their V rows zeroed, so NaN padding
-    cannot leak) and query rows at or past it are zeros."""
+    cannot leak) and query rows at or past it are zeros. ``with_lse``: also
+    (B, H, N) f32 m + log(max(l, 1e-30)), -1e30 on rows past a length."""
     B, H, N, D = q.shape
     Hkv, Nk = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -83,14 +89,21 @@ def flash_attention_plain(q, k, v, *, causal=False, sm_scale=None,
     pv = torch.matmul(p.to(v.dtype).float().reshape(B, Hkv, group * N, Nk),
                       v.float()).reshape(B, Hkv, group, N, D)
     out = pv / torch.clamp(l, min=1e-30)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
     if lengths is not None:
         live = rows < lengths.to(q.device).long().view(B, 1, 1, 1, 1)
         out = torch.where(live, out, torch.zeros((), device=q.device))
-    return out.reshape(B, H, N, D).to(q.dtype)
+        lse = torch.where(live, lse, torch.full((), _NEG_INF,
+                                                device=q.device))
+    out = out.reshape(B, H, N, D).to(q.dtype)
+    if with_lse:
+        return out, lse.reshape(B, H, N)
+    return out
 
 
-def _launch(q, k, v, lengths, causal, scale, counter):
-    """Launch csrc/flash_fwd.cu on the current stream."""
+def _launch(q, k, v, lengths, causal, scale, counter, with_lse):
+    """Launch csrc/flash_fwd.cu on the current stream; ``with_lse``: also
+    write the (B, H, N) f32 lse and count on FLASH_LSE."""
     from leetcuda_tpu_torch.build import kernel
 
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -110,36 +123,44 @@ def _launch(q, k, v, lengths, causal, scale, counter):
             raise ValueError("lengths must be a contiguous (B,) int32 tensor "
                              "on q's device")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if with_lse:
+        counter = FLASH_LSE
     fn = kernel("flash_fwd", "lc_flash_fwd_bf16", _FLASH_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if lengths is None else lengths.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(),
              B, H, Hkv, N, Nk, D, float(scale), int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, counter.name)
     counter.add()
-    return out
+    return (out, lse) if with_lse else out
 
 
 def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
                     softcap=None, with_lse=False):
-    """(B, H, N, D) attention with GQA (k/v may have fewer heads)."""
-    _refuse_options(window, softcap, with_lse)
+    """(B, H, N, D) attention with GQA (k/v may have fewer heads);
+    ``with_lse``: (out, lse (B, H, N) f32)."""
+    _refuse_options(window, softcap)
     _check_qkv(q, k, v)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
-    return _launch(q, k, v, None, causal, scale, FLASH)
+        return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale,
+                                     with_lse=with_lse)
+    return _launch(q, k, v, None, causal, scale, FLASH, with_lse)
 
 
 def flash_attention_ragged(q, k, v, lengths, *, sm_scale=None, window=None,
                            softcap=None, with_lse=False):
     """Causal attention with per-sequence valid lengths (B,): keys at or
     past lengths[b] are neither attended nor read, and query rows at or past
-    it are written as zeros. The batched-prefill primitive."""
-    _refuse_options(window, softcap, with_lse)
+    it are written as zeros (their lse, with ``with_lse``, as -1e30). The
+    batched-prefill primitive."""
+    _refuse_options(window, softcap)
     _check_qkv(q, k, v)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=True, sm_scale=scale,
-                                     lengths=lengths)
-    return _launch(q, k, v, lengths, True, scale, FLASH_RAGGED)
+                                     lengths=lengths, with_lse=with_lse)
+    return _launch(q, k, v, lengths, True, scale, FLASH_RAGGED, with_lse)

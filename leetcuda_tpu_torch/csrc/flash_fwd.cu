@@ -6,7 +6,10 @@
 // array of valid lengths for the ragged one, as _fa_body takes len_ref.
 //
 // Layouts are the JAX package's: q, o (B, H, Nq, D); k, v (B, Hkv, Nk, D),
-// all contiguous; GQA reads kv head h / (H / Hkv).
+// all contiguous; GQA reads kv head h / (H / Hkv). ``lse`` is null, or a
+// (B, H, Nq) f32 array that receives each row's natural-log log-sum-exp of
+// the scaled scores, m + log(max(l, 1e-30)), and -1e30 on ragged rows past
+// the length (_fa_body with with_lse=True): the residual of the backward.
 //
 // Bound on an H100 SXM: operations. Causal prefill at (1, 16, 2048, 128)
 // does 17.2 GFLOP of Q.K^T and P.V and moves 34 MB: 17 us at the 989
@@ -35,12 +38,14 @@ __device__ __forceinline__ uint32_t ld_pair(const uint16_t* base, int row,
   return *reinterpret_cast<const uint32_t*>(base + (size_t)row * D + col);
 }
 
-template <int D>
+// kLse: write the lse (a separate instantiation, so the inference kernel
+// carries no trace of it)
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  const uint16_t* __restrict__ v, const int* __restrict__ lengths,
-                 uint16_t* __restrict__ o, int H, int Hkv, int Nq, int Nk,
-                 float scale_log2, int causal) {
+                 uint16_t* __restrict__ o, float* __restrict__ lse, int H,
+                 int Hkv, int Nq, int Nk, float scale_log2, int causal) {
   constexpr int LDS = D + 8;      // padded smem row: conflict-free fragments
   constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
   constexpr int DT = D / 8;       // n-tiles of the output
@@ -61,16 +66,19 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const uint16_t* kb = k + (size_t)(b * Hkv + kvh) * Nk * D;
   const uint16_t* vb = v + (size_t)(b * Hkv + kvh) * Nk * D;
   uint16_t* ob = o + (size_t)bh * Nq * D;
+  float* lseb = kLse ? lse + (size_t)bh * Nq : nullptr;
 
   if (lengths && q0 >= seq_len) {
     // the whole tile lies past the valid length: rows are written as zeros
-    // (flash.py:163-171), nothing is computed
+    // and their lse as -1e30 (flash.py:163-178), nothing is computed
     for (int i = threadIdx.x; i < kBQ * (D / 8); i += kThreads) {
       const int row = q0 + i / (D / 8), col = (i % (D / 8)) * 8;
       if (row < Nq)
         *reinterpret_cast<uint4*>(ob + (size_t)row * D + col) =
             make_uint4(0u, 0u, 0u, 0u);
     }
+    if (kLse && threadIdx.x < kBQ && q0 + threadIdx.x < Nq)
+      lseb[q0 + threadIdx.x] = lc::kNegInf;
     return;
   }
 
@@ -194,13 +202,17 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
   }
 
-  // out = acc / max(l, 1e-30); ragged rows past the length are zeros
+  // out = acc / max(l, 1e-30); ragged rows past the length are zeros. The
+  // lse leaves the log2 domain of m: ln2 * (m + log2(max(l, 1e-30))).
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + i * 8;
     if (row >= Nq) continue;
     const bool zero = lengths != nullptr && row >= seq_len;
     const float den = fmaxf(l[i], 1e-30f);
+    if (kLse && t == 0)
+      lseb[row] = zero ? lc::kNegInf
+                       : 0.6931471805599453f * (m[i] + log2f(den));
     uint16_t* orow = ob + (size_t)row * D + t * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
@@ -211,15 +223,15 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* o, int B, int H, int Hkv, int Nq, int Nk, float scale,
-           int causal, cudaStream_t stream) {
+           void* o, void* lse, int B, int H, int Hkv, int Nq, int Nk,
+           float scale, int causal, cudaStream_t stream) {
   dim3 grid((Nq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<D, kLse><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const int*>(lengths),
-      static_cast<uint16_t*>(o), H, Hkv, Nq, Nk,
+      static_cast<uint16_t*>(o), static_cast<float*>(lse), H, Hkv, Nq, Nk,
       scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -227,19 +239,28 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). ``lengths``
-// may be null (plain flash attention). Launches on ``stream``; does not
-// synchronise and allocates nothing.
+// may be null (plain flash attention), and so may ``lse`` (no LSE output).
+// Launches on ``stream``; does not synchronise and allocates nothing.
 extern "C" int lc_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                 const void* lengths, void* o, int B, int H,
-                                 int Hkv, int Nq, int Nk, int D, float scale,
-                                 int causal, void* stream) {
+                                 const void* lengths, void* o, void* lse,
+                                 int B, int H, int Hkv, int Nq, int Nk, int D,
+                                 float scale, int causal, void* stream) {
   if (B * H > 65535 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool with_lse = lse != nullptr;
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, lengths, o, B, H, Hkv, Nq, Nk, scale, causal, s);
+      return with_lse
+          ? launch<64, true>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
+                             scale, causal, s)
+          : launch<64, false>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
+                              scale, causal, s);
     case 128:
-      return launch<128>(q, k, v, lengths, o, B, H, Hkv, Nq, Nk, scale, causal, s);
+      return with_lse
+          ? launch<128, true>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
+                              scale, causal, s)
+          : launch<128, false>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
+                               scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

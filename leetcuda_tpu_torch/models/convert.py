@@ -1,10 +1,12 @@
-"""Parameters from numpy: the bridge that gives both packages one set of weights.
+"""Parameters from and to numpy: one set of weights for both packages.
 
 The JAX parameter pytree, handed over as numpy arrays (``np.asarray`` of each
 leaf), becomes the port's dict of tensors. bf16 arrives as
 ``ml_dtypes.bfloat16`` and e4m3 (fp8 weight packs and caches) as
 ``ml_dtypes.float8_e4m3fn``, which ``torch.from_numpy`` refuses; they cross
-bit for bit through an int16 and a uint8 view.
+bit for bit through an int16 and a uint8 view. ``params_to_numpy`` is the
+way back (``ml_dtypes``, which JAX installs, is imported only for a bf16 or
+e4m3 tensor).
 """
 
 from __future__ import annotations
@@ -41,3 +43,28 @@ def params_from_numpy(tree, device="cuda"):
         return tensor_from_numpy(np.asarray(x), dev)
 
     return conv(tree)
+
+
+def tensor_to_numpy(t: torch.Tensor):
+    """One tensor as a numpy array on the host, bit for bit: bf16 and e4m3
+    through their int16 / uint8 views into ``ml_dtypes``' types."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    if t.dtype == torch.float8_e4m3fn:
+        import ml_dtypes
+
+        return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
+    return t.numpy()
+
+
+def params_to_numpy(tree):
+    """The inverse of ``params_from_numpy``: a nested dict/list/tuple of
+    tensors as numpy arrays, keeping its structure and keys."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    return tensor_to_numpy(tree)

@@ -1,4 +1,4 @@
-"""Llama-style transformer in PyTorch: the serving model of the port.
+"""Llama-style transformer in PyTorch: the port's serving and training model.
 
 Counterpart of ``leetcuda_tpu/models/llama.py`` for dense and weight-only
 quantized (int8, e4m3, int4) weights and a contiguous or paged KV cache,
@@ -17,9 +17,15 @@ left them to XLA. Rounding order follows the JAX model: ``_rms_norm``
 normalises in f32, casts, then multiplies by the weight; the MLP activation
 runs in f32; logits are the activation-dtype product cast to f32.
 
+Training is ported too: ``loss_fn`` (next-token cross-entropy) and
+``make_train_step`` (AdamW with optax's defaults, per-layer recompute under
+``remat``) differentiate attention through the FA-2 backward kernels
+(attention/flash_bwd.py) and everything else through PyTorch's autograd.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): LoRA and multi-LoRA weight packs, MoE and GPT-OSS experts, sliding
-windows, attention softcap and sinks, GLM partial rotary.
+windows, attention softcap and sinks, GLM partial rotary, training under a
+mesh or FSDP.
 """
 
 from __future__ import annotations
@@ -29,11 +35,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from leetcuda_tpu_torch.attention.decode import (decode_attention,
                                                  decode_attention_quantized)
-from leetcuda_tpu_torch.attention.flash import (flash_attention,
-                                                flash_attention_ragged)
+from leetcuda_tpu_torch.attention.flash import flash_attention_ragged
+from leetcuda_tpu_torch.attention.flash_bwd import \
+    make_flash_attention_trainable
 from leetcuda_tpu_torch.attention.paged import (paged_append,
                                                 paged_append_quantized,
                                                 paged_attention,
@@ -365,22 +373,28 @@ def _logits(params, x, cfg: ModelConfig):
 
 def apply_layer(layer, x, positions=None, cfg: ModelConfig = None,
                 layer_idx: int | None = None):
-    """One transformer layer (prefill path). x (B, S, D) -> (x, (k, v)) with
-    the post-rope K/V (B, Hkv, S, Dh) that the decode path would cache."""
+    """One transformer layer (prefill and training path). x (B, S, D) ->
+    (x, (k, v)) with the post-rope K/V (B, Hkv, S, Dh) that the decode path
+    would cache. Attention is the trainable flash attention: the inference
+    kernel when nothing requires a gradient, else the forward with its lse
+    and the FA-2 backward kernels."""
     B, S, _ = x.shape
     q, k, v = _attn_in(layer, x, positions, cfg, layer_idx)
     k = k.transpose(1, 2).contiguous()
     v = v.transpose(1, 2).contiguous()
-    o = flash_attention(q.transpose(1, 2).contiguous(), k, v, causal=True,
-                        sm_scale=cfg.query_scale)
+    fa = make_flash_attention_trainable(causal=True, sm_scale=cfg.query_scale)
+    o = fa(q.transpose(1, 2).contiguous(), k, v)
     o = o.transpose(1, 2).reshape(B, S, -1)
     return _attn_out_and_mlp(layer, x, o, cfg), (k, v)
 
 
 def forward(params, tokens, cfg: ModelConfig, positions=None,
-            return_kv: bool = False):
+            return_kv: bool = False, remat: bool = False):
     """Causal LM forward. tokens (B, S) int -> logits (B, S, V) f32; with
-    ``return_kv`` also the per-layer post-rope [(k, v)] of (B, Hkv, S, Dh)."""
+    ``return_kv`` also the per-layer post-rope [(k, v)] of (B, Hkv, S, Dh).
+    ``remat=True`` checkpoints each layer (non-reentrant
+    ``torch.utils.checkpoint``): its activations are recomputed in the
+    backward, so each layer's forward runs twice per training step."""
     _check_config(cfg)
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
@@ -388,11 +402,73 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     kvs = []
     for i, layer in enumerate(params["layers"]):
-        x, kv = apply_layer(layer, x, positions, cfg, layer_idx=i)
+        if remat:
+            x, kv = torch.utils.checkpoint.checkpoint(
+                apply_layer, layer, x, positions, cfg, i, use_reentrant=False)
+        else:
+            x, kv = apply_layer(layer, x, positions, cfg, layer_idx=i)
         if return_kv:
             kvs.append(kv)
     logits = _logits(params, x, cfg)
     return (logits, kvs) if return_kv else logits
+
+
+def loss_fn(params, tokens, cfg: ModelConfig, remat: bool = False):
+    """Next-token cross-entropy, mean over (B, S - 1) in f32. The model runs
+    at the full S and the last position's logits are dropped, rather than
+    feeding the kernels an S - 1 sequence."""
+    logits = forward(params, tokens, cfg, remat=remat)[:, :-1]
+    targets = tokens[:, 1:].long()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def named_leaves(tree, prefix=""):
+    """[(name, tensor)] of a parameter tree, depth first in its own order
+    (``embed``, ``layers.0.wq``, ...)."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def make_train_step(cfg: ModelConfig, learning_rate: float = 3e-4,
+                    remat: bool = True, mesh=None, fsdp: bool = False):
+    """AdamW train step: returns ``(init_opt, step)`` with the JAX
+    signatures. ``init_opt(params)`` marks every parameter as requiring a
+    gradient and returns a ``torch.optim.AdamW`` over them with optax's
+    ``adamw`` defaults written out (betas (0.9, 0.999), eps 1e-8, weight
+    decay 1e-4; moments in the parameters' dtype, as optax keeps them).
+    ``step(params, opt_state, tokens)`` -> ``(params, opt_state, loss)``
+    updates ``params`` and ``opt_state`` IN PLACE (where JAX donates and
+    returns new buffers) and returns them with the 0-d loss tensor; nothing
+    in the step waits for the device. ``remat`` (default on) recomputes each
+    layer's activations in the backward. ``mesh`` and ``fsdp`` are not
+    ported yet."""
+    if mesh is not None or fsdp:
+        raise NotImplementedError(
+            "make_train_step: training under a mesh or FSDP is not ported "
+            "yet (ROADMAP item 12, the parallel layer)")
+    _check_config(cfg)
+
+    def init_opt(params):
+        leaves = [p for _, p in named_leaves(params)]
+        for p in leaves:
+            p.requires_grad_(True)
+        return torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=1e-4)
+
+    def step(params, opt_state, tokens):
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, cfg, remat=remat)
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return init_opt, step
 
 
 def forward_ragged(params, tokens, lengths, cfg: ModelConfig):

@@ -116,13 +116,19 @@ def test_cpu_tensors_take_plain_path_uncounted():
 @pytest.mark.parametrize("opt", [{"window": 8}, {"softcap": 30.0},
                                  {"with_lse": True}])
 def test_unported_options_raise(opt):
+    """window and softcap raise everywhere; with_lse is taken by the flash
+    wrappers (the forward of training) and raises in decode."""
     q, k, v = (torch.from_numpy(x) for x in
                _qkv(np.random.default_rng(5), 1, 2, 1, 16, 64))
     lengths = torch.tensor([9], dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, causal=True, **opt)
-    with pytest.raises(NotImplementedError):
-        flash_attention_ragged(q, k, v, lengths, **opt)
+    for call in (lambda: flash_attention(q, k, v, causal=True, **opt),
+                 lambda: flash_attention_ragged(q, k, v, lengths, **opt)):
+        if "with_lse" in opt:
+            out, lse = call()
+            assert out.shape == q.shape and lse.shape == q.shape[:3]
+        else:
+            with pytest.raises(NotImplementedError):
+                call()
     with pytest.raises(NotImplementedError):
         decode_attention(q[:, :, 0], k, v, lengths, **opt)
 
