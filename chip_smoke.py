@@ -74,8 +74,28 @@ Phases; any failure raises and the script exits non-zero:
           launching the forward with its lse twice per layer and dQ and
           dK/dV once, nothing else; tokens/s and model-FLOP share after two
           warm-up steps, peak device memory.
+   (j)    the GEMM library (after phase 3, before the serving paths), in
+          three parts, each with the counts zeroed: every one of the 25
+          registered ops at its ``make_args`` inputs against its plain
+          version at its registry tolerance (hgemm_w8a8_i32 exactly); the
+          headline, ``hgemm`` at bf16 and f16 8192^3 beside torch.matmul,
+          the 12 rungs at 2048^3 in their dtypes, the JAX tests' ragged
+          shapes (the swizzled rungs also where the group does not divide
+          the tile columns); then the full-width model's shapes:
+          ``matmul_auto`` at training's 16384 rows over layer 0's
+          projections and the output projection, and at the skewed shapes
+          of tests/test_gemm.py; ``gemv`` / ``hgemv`` of one decode row and
+          ``rms_norm_gemv`` against layer 0's weights; the int8 matmul at
+          8192^3 and on the projections' int8 packs beside torch._int_mm.
+          Each case is held against its plain version (f32 at 1e-3, int8
+          exactly) and timed beside it and the library call, with the
+          launch counts left as they were (``uncounted``); at the headline
+          and the matmul_auto shapes every tensor-core tile is timed with
+          and without a grouped walk (the A/B behind pick_matmul_config),
+          and at the gemv shapes each ``k_lanes``.
    Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings;
-   no serving path launches a training kernel.
+   no serving path launches a training kernel, and no serving or training
+   path launches a GEMM library kernel.
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
    replay's max logit. A prompt the Engine admitted in a ragged batch
@@ -97,14 +117,17 @@ Phases; any failure raises and the script exits non-zero:
    torch.profiler, device time by kernel (the device busy share); for the
    training step also by class (attention kernels, matmuls, the rest).
 
-Prints the card line, a {"kernels": [...]} line, and last a
-{"ok": true, "device": {...}} line; with ``--json PATH`` also writes every
-number it measured to PATH.
+Prints the card line, path (j)'s headline line
+({"hgemm_bf16_8192cubed_tflops": ..., "cublas_tflops": ..., "ratio": ...,
+"card": ...}), a {"kernels": [...]} line, and last a {"ok": true,
+"device": {...}} line; with ``--json PATH`` also writes every number it
+measured to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -121,9 +144,14 @@ sys.path.insert(0, str(ROOT))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
-# the bf16 tensor-core rate (every kernel here multiplies in bf16 or f32).
+# its datapath's peak: the tensor cores' for bf16 / f16 and int8, the CUDA
+# cores' for f32 (the GEMM library computes f32 without TF32).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
+F32_FLOP_PER_S = 67e12
+PEAK_RATE = {torch.bfloat16: BF16_FLOP_PER_S, torch.float16: BF16_FLOP_PER_S,
+             torch.float32: F32_FLOP_PER_S, torch.int8: INT8_OP_PER_S}
 KERNEL_TOL = dict(atol=1e-2, rtol=1e-2)  # the flash registry bar
 # Teacher-forced check: a served token must score within this of the solo
 # replay's max logit. The random model's logits have unit scale (unit-rms
@@ -155,8 +183,19 @@ PATH_KERNELS = {
     "i": ("flash_attention_lse", "flash_attention_bwd_dq",
           "flash_attention_bwd_dkv"),
 }
+# Path (j), the GEMM library, in three parts: the registry sweep (which also
+# reaches the quantized matmuls' registered rungs), the ladder with the
+# headline, and the model's shapes.
+PATH_KERNELS.update({
+    "j1": ("matmul", "matmul_i8i8i32", "gemv", "matmul_w8a16",
+           "matmul_w4a16"),
+    "j2": ("matmul",),
+    "j3": ("matmul", "matmul_i8i8i32", "gemv", "rms_norm_gemv")})
 # The kernels of training (path (i)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
+# The GEMM library's kernels: no serving or training path launches them (the
+# model's projections are torch.matmul, as the JAX model left them to XLA).
+GEMM_KERNELS = PATH_KERNELS["j3"]
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
@@ -237,8 +276,10 @@ def time_ms(fn, flush, iters=20, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(flops, nbytes, rate=BF16_FLOP_PER_S):
+    """The least time for ``flops`` operations at the datapath's peak
+    ``rate`` and ``nbytes`` at the memory rate, and which of the two it is."""
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
 
 
@@ -275,6 +316,18 @@ def matmul_cases(qparams, path_rows):
 DECODE_LENS = np.array([1, 100, 517, 1024, 1200, 1400, 1950, 2000], np.int32)
 
 
+def hold(got, want, tol=KERNEL_TOL):
+    """Assert ``got`` close to ``want`` at ``tol`` (integers: equal) and
+    return the largest absolute difference."""
+    if not got.dtype.is_floating_point:
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"integer result differs from the plain "
+                                 f"version ({got.dtype}, {want.dtype})")
+        return 0.0
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    return float((got.float() - want.float()).abs().max())
+
+
 class Recorder:
     """Phase 3's seeded inputs and its rows: one per check, the kernel's
     result held against its plain version at KERNEL_TOL."""
@@ -290,13 +343,12 @@ class Recorder:
             * scale).to(self.dev, torch.bfloat16)
 
     def record(self, check, name, src, replaces, got, want, ms, plain_ms,
-               lib_ms, flops, nbytes):
-        torch.testing.assert_close(got.float(), want.float(), **KERNEL_TOL)
-        b_s, by = bound(flops, nbytes)
+               lib_ms, flops, nbytes, tol=KERNEL_TOL, rate=BF16_FLOP_PER_S):
+        err = hold(got, want, tol)
+        b_s, by = bound(flops, nbytes, rate)
         self.rows[check] = {
             "check": check, "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "replaces": replaces, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_s * 1e3,
             "bound_by": by, "library_ms": lib_ms,
             "flops": flops, "bytes": nbytes}
@@ -1384,6 +1436,367 @@ def train(cfg, params, corpus, rng):
             "launches_per_step": want}, step, opt, batches[-1]
 
 
+# --- path (j): the GEMM library -----------------------------------------------
+
+GEMM_SRC = {
+    "matmul": ("leetcuda_tpu_torch/csrc/matmul.cu",
+               "leetcuda_tpu/gemm/matmul.py:173"),
+    "matmul_i8i8i32": ("leetcuda_tpu_torch/csrc/i8_matmul.cu",
+                       "leetcuda_tpu/gemm/quant.py:191"),
+    "gemv": ("leetcuda_tpu_torch/csrc/gemv.cu",
+             "leetcuda_tpu/gemm/gemv.py:64"),
+    "rms_norm_gemv": ("leetcuda_tpu_torch/csrc/gemv.cu",
+                      "leetcuda_tpu/gemm/gemv.py:127"),
+}
+F32_TOL = dict(atol=1e-3, rtol=1e-3)  # tests/test_gemm.py's f32 bar
+EXACT = dict(atol=0, rtol=0)
+HEADLINE_MNK = 8192  # bench.py's and the reference's headline shape
+LADDER_MNK = 2048
+# The JAX tests' ragged shapes (tests/test_gemm.py): every rung takes the
+# first; the swizzled rungs the other two, where the group of 4 does not
+# divide the tile-column count. (200, 130, 261) has K and N off a multiple
+# of 8, so the tensor-core tiles load element by element.
+RAGGED_MNK = ((200, 136, 264), (200, 130, 261))
+SWIZZLE_MNK = ((512, 256, 2048), (256, 640, 384))
+TRAIN_ROWS = TRAIN_B * TRAIN_S  # training's M = B * S = 16384
+# matmul_auto's skewed shapes: tests/test_gemm.py:148-151 without 16384^3
+SKEWED_MNK = ((8192, 1024, 8192), (1024, 8192, 8192), (4096, 14336, 4096),
+              (8192, 8192, 1024), (384, 640, 264))
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside (timing a kernel beside its plain version) leave the
+    launch counts as they were."""
+    from leetcuda_tpu_torch.core.runtime import _COUNTERS
+
+    saved = {n: c.launches for n, c in _COUNTERS.items()}
+    try:
+        yield
+    finally:
+        for n, c in _COUNTERS.items():
+            c.launches = saved[n]
+
+
+def tflops(flops, ms):
+    return flops / (ms * 1e-3) / 1e12
+
+
+class GemmRun:
+    """Path (j)'s inputs (a seeded CUDA generator) and its rows: each case
+    runs its entry point once (counted), is held against its plain version
+    and, unless told otherwise, timed beside it and beside one library call
+    (uncounted)."""
+
+    def __init__(self, flush):
+        self.flush = flush
+        self.gen = torch.Generator(device="cuda").manual_seed(5)
+        self.rec = Recorder()
+        self.checks = {}  # untimed checks: max abs error
+
+    def rand(self, *shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=self.gen, device="cuda")
+                * scale).to(dtype)
+
+    def ints(self, *shape):
+        return torch.randint(-128, 128, shape, generator=self.gen,
+                             device="cuda", dtype=torch.int8)
+
+    def case(self, check, kernel, call, plain, lib, flops, nbytes, dtype,
+             tol=KERNEL_TOL, timed=True, **extra):
+        got = call()
+        want = plain()
+        err = hold(got, want, tol)
+        if not timed:
+            self.checks[check] = err
+            return None
+        with uncounted():
+            ms = time_ms(call, self.flush)
+            plain_ms = time_ms(plain, self.flush, iters=5)
+            lib_ms = None if lib is None else time_ms(lib, self.flush)
+        src, replaces = GEMM_SRC[kernel]
+        self.rec.record(check, kernel, src, replaces, got, want, ms, plain_ms,
+                        lib_ms, flops, nbytes, tol=tol, rate=PEAK_RATE[dtype])
+        row = self.rec.rows[check]
+        row.update(extra, tflops=tflops(flops, ms),
+                   gbytes_s=nbytes / (ms * 1e-3) / 1e9,
+                   library_tflops=None if lib_ms is None else
+                   tflops(flops, lib_ms))
+        return row
+
+
+def _mm_bytes(M, N, K, dtype):
+    return float((M * K + K * N + M * N) * dtype.itemsize)
+
+
+def _mm_case(run, check, fn, M, N, K, dtype, layout="nn", timed=True,
+             **extra):
+    """One matmul case through ``fn`` on random (M, K) and (K, N) operands
+    ((N, K) for layout "tn"), beside torch.matmul in the same dtype."""
+    from leetcuda_tpu_torch.gemm.matmul import matmul_plain
+
+    scale = 1.0 if K <= 4096 else 0.5
+    x = run.rand(M, K, dtype=dtype, scale=scale)
+    y = run.rand(*((K, N) if layout == "nn" else (N, K)), dtype=dtype,
+                 scale=scale)
+    yl = y if layout == "nn" else y.t()
+    tol = F32_TOL if dtype == torch.float32 else KERNEL_TOL
+    return run.case(check, "matmul", lambda: fn(x, y),
+                    lambda: matmul_plain(x, y, layout),
+                    lambda: torch.matmul(x, yl), 2.0 * M * N * K,
+                    _mm_bytes(M, N, K, dtype), dtype, tol=tol, timed=timed,
+                    M=M, N=N, K=K, **extra)
+
+
+def interleaved_ms(fns, flush, rounds=5, iters=7):
+    """{name: median over ``rounds`` of each function's ``time_ms``}, the
+    functions taken in turn within each round, so that a drift of the
+    card's clock under sustained load (a later timing of one kernel read up
+    to 15% slower than an earlier one in a run) falls on all alike.
+    Launches uncounted."""
+    times = {name: [] for name in fns}
+    with uncounted():
+        for _ in range(rounds):
+            for name, fn in fns.items():
+                times[name].append(time_ms(fn, flush, iters=iters, warmup=1))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def config_times(run, x, y):
+    """Times of every tensor-core instantiation of csrc/matmul.cu, with and
+    without a grouped tile walk, on (x, y): the A/B behind
+    ``pick_matmul_config``."""
+    from leetcuda_tpu_torch.gemm import matmul as mm
+
+    fns = {}
+    for blk, (_, path) in mm.BLOCKS.items():
+        if path == "tensor-core":
+            for g in (None, 8):
+                fn = mm.make_matmul(block=blk, swizzle_group=g)
+                fns[f"{blk}/{g or 'rows'}"] = lambda fn=fn: fn(x, y)
+    return interleaved_ms(fns, run.flush)
+
+
+def _int_mm(x, w):
+    """torch._int_mm as the int8 library yardstick, or None where this
+    torch refuses the operands."""
+    try:
+        torch._int_mm(x, w)
+    except (RuntimeError, AttributeError) as e:
+        print(f"  torch._int_mm refuses {tuple(x.shape)} x {tuple(w.shape)}:"
+              f" {str(e).splitlines()[0]}")
+        return None
+    return lambda: torch._int_mm(x, w)
+
+
+def gemm_registry_sweep():
+    """Path (j), part 1: every registered op of the port on the card at its
+    ``make_args`` inputs against its plain version at its registry
+    tolerance (hgemm_w8a8_i32 exactly). Returns {name: max abs error}."""
+    from leetcuda_tpu_torch.core.registry import OPS, load_all
+    from leetcuda_tpu_torch.core.testing import make_args
+
+    load_all()
+    rng = np.random.default_rng(0)
+    errs = {}
+    for name, spec in OPS.items():
+        args = make_args(spec, rng, "cuda")
+        errs[name] = hold(spec.fn(*args), spec.ref(*args),
+                          dict(atol=spec.atol, rtol=spec.rtol))
+    if len(errs) != 25:
+        raise AssertionError(f"the port registers {len(errs)} ops, not 25")
+    return errs
+
+
+def gemm_ladder(run):
+    """Path (j), part 2: the headline (``hgemm`` at bf16 and f16 8192^3
+    beside torch.matmul), the 12 rungs at 2048^3 in their dtypes, and the
+    ragged shapes (every rung; the swizzled rungs also where the group does
+    not divide the tile columns; a bf16 rung with an f32 output)."""
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.gemm import matmul as mm
+
+    n = HEADLINE_MNK
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        row = _mm_case(run, f"matmul/hgemm {tag} {n}^3", mm.hgemm, n, n, n,
+                       dt, rung="hgemm", block=mm.hgemm.block,
+                       swizzle_group=mm.hgemm.swizzle_group)
+        if dt == torch.bfloat16:
+            row["ms_by_config"] = config_times(
+                run, run.rand(n, n, scale=0.5), run.rand(n, n, scale=0.5))
+    for name, blk, layout, swz in mm.VARIANTS:
+        dt = torch.bfloat16 if name.startswith("hgemm") else torch.float32
+        fn = OPS[name].fn
+        _mm_case(run, f"matmul/{name} {LADDER_MNK}^3", fn, LADDER_MNK,
+                 LADDER_MNK, LADDER_MNK, dt, layout, rung=name, block=blk,
+                 swizzle_group=swz)
+        shapes = RAGGED_MNK + (SWIZZLE_MNK if swz else ())
+        for M, N, K in shapes:
+            _mm_case(run, f"matmul/{name} ({M}, {N}, {K})", fn, M, N, K, dt,
+                     layout, timed=False)
+    M, N, K = RAGGED_MNK[0]
+    _mm_case(run, f"matmul/hgemm bf16 -> f32 ({M}, {N}, {K})",
+             mm.make_matmul(out_dtype=torch.float32), M, N, K,
+             torch.bfloat16, timed=False)
+
+
+def gemm_model_shapes(run, layer, embed):
+    """Path (j), part 3: the full-width ModelConfig()'s shapes. matmul_auto
+    at training's rows over layer 0's projections (the output projection:
+    ``embed`` transposed) and at the skewed shapes; gemv / hgemv of one
+    decode row against those weights (and in f32 and f16 on ``wqkv``, and
+    with an epilogue); rms_norm_gemv with the layer's norms (all ones at
+    init, so also once with random norm weights); the int8 matmul at 8192^3
+    and on the int8 packs of the projections."""
+    import torch.nn.functional as F
+    from leetcuda_tpu_torch.gemm import gemv as gv
+    from leetcuda_tpu_torch.gemm import matmul as mm
+    from leetcuda_tpu_torch.gemm import quant as gq
+
+    bf = torch.bfloat16
+    weights = {"wqkv": layer["wqkv"], "wo": layer["wo"],
+               "w_gate_up": layer["w_gate_up"], "w_down": layer["w_down"],
+               "lm_out": embed.t().contiguous()}
+    for key, w in weights.items():
+        K, N = w.shape
+        x = run.rand(TRAIN_ROWS, K)
+        cfg = mm.pick_matmul_config(TRAIN_ROWS, N, K, bf)
+        row = run.case(
+            f"matmul/matmul_auto {key} ({TRAIN_ROWS}, {N}, {K})", "matmul",
+            lambda: mm.matmul_auto(x, w), lambda: mm.matmul_plain(x, w),
+            lambda: torch.matmul(x, w), 2.0 * TRAIN_ROWS * N * K,
+            _mm_bytes(TRAIN_ROWS, N, K, bf), bf, M=TRAIN_ROWS, N=N, K=K,
+            rung="matmul_auto", block=cfg["block"],
+            swizzle_group=cfg["swizzle_group"])
+        row["ms_by_config"] = config_times(run, x, w)
+    for M, N, K in SKEWED_MNK:
+        cfg = mm.pick_matmul_config(M, N, K, bf)
+        row = _mm_case(run, f"matmul/matmul_auto ({M}, {N}, {K})",
+                       mm.matmul_auto, M, N, K, bf, rung="matmul_auto",
+                       block=cfg["block"], swizzle_group=cfg["swizzle_group"])
+        row["ms_by_config"] = config_times(
+            run, run.rand(M, K, scale=0.5), run.rand(K, N, scale=0.5))
+
+    gemv_cases = [(name, fn, key, weights[key]) for name, fn in
+                  (("gemv", gv.gemv), ("hgemv", gv.hgemv))
+                  for key in ("w_gate_up", "wqkv", "w_down", "lm_out")]
+    gemv_cases += [("gemv", gv.gemv, f"wqkv {dt}".replace("torch.", ""),
+                    layer["wqkv"].to(dt))
+                   for dt in (torch.float32, torch.float16)]
+    for name, fn, key, w in gemv_cases:
+        K, N = w.shape
+        x = run.rand(K, dtype=w.dtype)
+        isz = w.element_size()
+        row = run.case(f"gemv/{name} {key} K={K} N={N}", "gemv",
+                       lambda: fn(x, w), lambda: gv.gemv_plain(x, w),
+                       lambda: torch.matmul(x.reshape(1, -1), w), 2.0 * K * N,
+                       float((K + K * N + N) * isz), w.dtype,
+                       tol=F32_TOL if w.dtype == torch.float32 else KERNEL_TOL,
+                       K=K, N=N)
+        row["ms_by_k_lanes"] = interleaved_ms(  # behind DEFAULT_K_LANES
+            {kl: lambda f=gv.make_gemv(k_lanes=kl): f(x, w)
+             for kl in gv.K_LANES}, run.flush)
+    w = weights["w_gate_up"]
+    x = run.rand(w.shape[0])
+    silu = gv.make_gemv(epilogue=F.silu)
+    run.case("gemv/epilogue silu w_gate_up", "gemv", lambda: silu(x, w),
+             lambda: gv.gemv_plain(x, w, F.silu), None, 0.0, 0.0, bf,
+             timed=False)
+
+    eps = 1e-5
+    for key, norm in (("wqkv", layer["attn_norm"]),
+                      ("w_gate_up", layer["mlp_norm"]),
+                      ("wqkv, random norm_w", run.rand(2048, scale=0.3) + 1)):
+        w = weights[key.split(",")[0]]
+        K, N = w.shape
+        x = run.rand(K)
+
+        def eager(x=x, norm=norm, w=w):
+            xf = x.float()
+            xn = xf * torch.rsqrt(xf.square().mean() + eps) * norm.float()
+            return torch.matmul(xn.to(bf).reshape(1, -1), w)
+
+        row = run.case(f"rms_norm_gemv/{key} K={K} N={N}", "rms_norm_gemv",
+                       lambda: gv.rms_norm_gemv(x, norm, w),
+                       lambda: gv.rms_norm_gemv_plain(x, norm, w, eps), None,
+                       2.0 * K * N + 4.0 * K, float((2 * K + K * N + N) * 2),
+                       bf, K=K, N=N)
+        with uncounted():
+            row["eager_unfused_ms"] = time_ms(eager, run.flush)
+            row["matmul_ms"] = time_ms(
+                lambda: torch.matmul(x.reshape(1, -1), w), run.flush)
+
+    n = HEADLINE_MNK
+    i8_cases = [(f"{n}^3", run.ints(n, n), run.ints(n, n))]
+    i8_cases += [(f"{key} int8 pack", run.ints(TRAIN_ROWS, w.shape[0]),
+                  gq.quantize_rowwise_int8(w)[0])
+                 for key, w in weights.items()]
+    for key, x, w in i8_cases:
+        (M, K), N = x.shape, w.shape[1]
+        run.case(f"matmul_i8i8i32/{key} ({M}, {N}, {K})", "matmul_i8i8i32",
+                 lambda: gq.matmul_i8i8i32(x, w),
+                 lambda: gq.matmul_i8i8i32_plain(x, w), _int_mm(x, w),
+                 2.0 * M * N * K, float(M * K + K * N + 4 * M * N),
+                 torch.int8, tol=EXACT, M=M, N=N, K=K)
+
+
+def gemm_library(layer, embed, card):
+    """Path (j): the GEMM library on the card, in three parts, each driven
+    with the launch counts zeroed just before it and read just after.
+    Returns (rows for the kernels line, the path's report)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    run = GemmRun(flush)
+    res = {"launches": {}}
+    t0 = time.perf_counter()
+    for part, fn in (("j1", gemm_registry_sweep),
+                     ("j2", lambda: gemm_ladder(run)),
+                     ("j3", lambda: gemm_model_shapes(run, layer, embed))):
+        out, counts, _ = drive(part, fn)
+        if part == "j1":
+            res["registry_max_abs_err"] = out
+        res[f"launches_{part}"] = counts
+        for k, v in counts.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+    res["untimed_checks"] = run.checks
+    res["seconds"] = time.perf_counter() - t0
+    rows = run.rec.rows
+    bf, f16 = (rows[f"matmul/hgemm {t} {HEADLINE_MNK}^3"]
+               for t in ("bf16", "f16"))
+    res["headline"] = {
+        "hgemm_bf16_8192cubed_tflops": bf["tflops"],
+        "cublas_tflops": bf["library_tflops"],
+        "ratio": bf["tflops"] / bf["library_tflops"], "card": card,
+        "hgemm_f16_8192cubed_tflops": f16["tflops"],
+        "cublas_f16_tflops": f16["library_tflops"]}
+    return rows, res
+
+
+def print_gemm(rows, res):
+    print(f"path (j) GEMM library: {len(res['registry_max_abs_err'])} "
+          f"registered ops held at their registry tolerances; "
+          f"{len(res['untimed_checks'])} ragged / swizzle / epilogue checks; "
+          f"{len(rows)} timed cases in {res['seconds']:.1f} s", flush=True)
+    for r in rows.values():
+        byte_bound = r["bound_by"] == "bytes"
+        lib = ("library none [eager unfused "
+               f"{r['eager_unfused_ms']:.4f} ms, torch.matmul alone "
+               f"{r['matmul_ms']:.4f} ms]" if r["library_ms"] is None else
+               f"library {r['library_ms']:.4f} ms" + (
+                   "" if byte_bound else
+                   f" ({r['library_tflops']:.1f} TFLOPS)"))
+        rate = (f"{r['gbytes_s']:.0f} GB/s" if byte_bound
+                else f"{r['tflops']:.1f} TFLOPS")
+        print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
+              f"{r['ms']:.4f} ms ({rate}) plain "
+              f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+        for key in ("ms_by_config", "ms_by_k_lanes"):
+            if key in r:
+                print("    " + ", ".join(f"{k}: {v:.4f}"
+                                         for k, v in r[key].items()))
+    print(f"  launches: {res['launches']}")
+
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -1402,8 +1815,9 @@ def drive(path, fn):
     missing = [n for n in PATH_KERNELS[path] if counts.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"path {path}: kernels not launched: {missing}")
-    forbidden = PATH_FORBIDDEN.get(path, ()) + (
-        TRAIN_KERNELS if path != "i" else ())
+    forbidden = (PATH_FORBIDDEN.get(path, ())
+                 + (TRAIN_KERNELS if path != "i" else ())
+                 + (GEMM_KERNELS if not path.startswith("j") else ()))
     stray = [n for n in forbidden if counts.get(n, 0)]
     if stray:
         raise AssertionError(f"path {path}: launched {stray}")
@@ -1685,6 +2099,12 @@ def main() -> int:
     phase_done("build_and_kernel_checks")
     del flush
 
+    # path (j): the GEMM library on layer 0 of the dense fused params
+    jrows, jres = gemm_library(fparams["layers"][0], fparams["embed"], card)
+    print_gemm(jrows, jres)
+    checks.update(jrows)
+    phase_done("gemm_library")
+
     # 4. the main paths at full width
     # warm-up: cuBLAS, library loads
     generate(params, cfg, gprompts[:1, :16], 2)
@@ -1719,7 +2139,7 @@ def main() -> int:
           f"{main_path['weight_bytes'] / 2**30:.2f} GiB, caches and "
           f"activations at peak {peak / 2**30:.2f} GiB", flush=True)
     print(f"  launches: {counts}")
-    report["paths"] = {"bf16": main_path}
+    report["paths"] = {"bf16": main_path, "j": jres}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():
@@ -1994,6 +2414,8 @@ def main() -> int:
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps({**report, **line}, indent=1))
+    print(json.dumps({k: jres["headline"][k] for k in (
+        "hgemm_bf16_8192cubed_tflops", "cublas_tflops", "ratio", "card")}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

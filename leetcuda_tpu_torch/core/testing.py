@@ -1,0 +1,66 @@
+"""Canonical test inputs per op family, the counterpart of
+``leetcuda_tpu/core/testing.py`` for the families the port registers
+(``gemm``, ``gemv``, ``gemm-quant``).
+
+``make_args`` takes the same draws from the numpy ``rng``, in the same order,
+as the JAX package's ``make_args`` and rounds them as JAX does (float64 ->
+the op's dtype in one rounding; for float16 through numpy, since torch's
+float64 -> float16 cast rounds through float32), so one seed gives both
+packages the same numbers. The weight packs come from the port's quantizers,
+which produce the JAX packs byte for byte.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _from_f64(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A float64 array rounded once to ``dtype``, as ``jnp.asarray`` does."""
+    if dtype == torch.float16:
+        return torch.from_numpy(a.astype(np.float16))
+    return torch.from_numpy(a).to(dtype)
+
+
+def make_args(spec, rng: np.random.Generator, device="cpu"):
+    """Inputs of ``spec`` (an ``OpSpec``) as tensors on ``device``, or None
+    for a family the port does not register."""
+    from leetcuda_tpu_torch.gemm.quant import (quantize_groupwise_int4,
+                                               quantize_rowwise_fp8)
+
+    fam, tags = spec.family, set(spec.tags)
+
+    def randn(shape, dtype, scale=1.0):
+        return _from_f64(rng.standard_normal(shape) * scale, dtype)
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8))
+
+    if fam == "gemm":
+        d = torch.bfloat16 if "f16" in tags else torch.float32
+        a = randn((128, 256), d, 0.3)
+        b = randn((128, 256) if "tn" in tags else (256, 128), d, 0.3)
+        args = (a, b)
+    elif fam == "gemm-quant":
+        x = randn((64, 256), torch.bfloat16, 0.3)
+        if "int4" in tags:
+            args = (x, *quantize_groupwise_int4(
+                randn((256, 128), torch.float32, 0.3), group=128))
+        elif "a8w8" in tags:
+            args = (ints(-8, 8, (64, 256)), ints(-8, 8, (256, 128)))
+        elif "fp8" in tags:
+            args = (x, *quantize_rowwise_fp8(
+                randn((256, 128), torch.float32, 0.3)))
+        else:
+            wq = ints(-127, 127, (256, 128))
+            scale = torch.from_numpy(
+                (np.abs(rng.standard_normal((128,))) * 0.01 + 1e-3)
+                .astype(np.float32))
+            args = (x, wq, scale)
+    elif fam == "gemv":
+        d = torch.bfloat16 if spec.name.startswith("hgemv") else torch.float32
+        args = (randn((256,), d, 0.3), randn((256, 128), d, 0.3))
+    else:
+        return None
+    return tuple(t.to(device) for t in args)

@@ -21,8 +21,11 @@ once per group for w4a16), one rounding to the activation dtype.
 
 The JAX package picks f32 or bf16 dots by row count and has an fp8
 bit-surgery variant; on bf16 activations these compute one function (the
-weights and x convert exactly), so the port has one kernel per pack format.
-The int8 x int8 -> int32 matmul (``make_matmul_i8i8i32``) is not ported.
+weights and x convert exactly), so the port has one kernel per pack format,
+and the six registered w8a16 / w4a16 rungs go to those two functions.
+
+``make_matmul_i8i8i32`` is the exact int8 x int8 -> int32 matmul
+(``csrc/i8_matmul.cu`` on CUDA tensors, registered as ``hgemm_w8a8_i32``).
 """
 
 from __future__ import annotations
@@ -31,14 +34,18 @@ import ctypes
 
 import torch
 
+from leetcuda_tpu_torch.core.registry import register_op
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
 
 W8A16 = LaunchCounter("matmul_w8a16")
 W4A16 = LaunchCounter("matmul_w4a16")
+I8I8I32 = LaunchCounter("matmul_i8i8i32")
 # lc_wq_matmul_bf16(x, w, s, out, M, N, K, fp8, decode_tile, stream)
 _W8A16_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 # lc_w4_matmul_bf16(x, packed, scales, out, M, N, K, decode_tile, stream)
 _W4A16_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# lc_i8_matmul(x, w, out, M, N, K, stream)
+_I8_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 # Each kernel has two tilings: a decode tiling (16-row CTA tiles, 128-deep
 # k steps: many CTAs for a few rows) and a prefill tiling (64-row tiles,
@@ -224,3 +231,79 @@ def matmul_w4a16(x, packed, scales, group: int = 128):
     _check_kernel_operands("w4a16", x, packed=packed, scales=scales)
     return _launch_w4a16(x, packed, scales,
                          x.shape[0] <= DECODE_TILE_MAX_ROWS)
+
+
+# --- int8 x int8 -> int32 -----------------------------------------------------
+
+def matmul_i8i8i32_plain(x, w):
+    """The exact int product. On the CPU in int32; on the GPU, where
+    ``torch.matmul`` takes no integers, as an f64 product of the int values,
+    exact while K * 127^2 < 2^53, rounded to int32."""
+    if x.device.type == "cpu":
+        return x.int() @ w.int()
+    return torch.round(x.double() @ w.double()).to(torch.int32)
+
+
+def make_matmul_i8i8i32():
+    """x (M, K) int8 @ w (K, N) int8 -> (M, N) int32, exact. The kernel
+    takes any M, and K and N that are multiples of 16 (16-byte rows). Its
+    one tile is 128 x 128 x 64, so the JAX factory's ``block`` (a TPU VMEM
+    tile) is not taken."""
+
+    def fn(x, w):
+        if (x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]
+                or x.dtype != torch.int8 or w.dtype != torch.int8):
+            raise ValueError(f"i8 matmul: int8 x (M, K) and w (K, N), got "
+                             f"{x.dtype} {tuple(x.shape)}, {w.dtype} "
+                             f"{tuple(w.shape)}")
+        if x.device != w.device:
+            raise ValueError("i8 matmul: x and w must lie on one device")
+        (M, K), N = x.shape, w.shape[1]
+        if K % 16 or N % 16:
+            raise ValueError(f"i8 matmul needs K % 16 == 0 and N % 16 == 0 "
+                             f"(16-byte rows), got K={K}, N={N}")
+        if x.device.type == "cpu":
+            return matmul_i8i8i32_plain(x, w)
+        for name, t in (("x", x), ("w", w)):
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"i8 matmul kernel: {name} must be "
+                                 "contiguous and 16-byte aligned")
+        from leetcuda_tpu_torch.build import kernel
+
+        out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+        err = kernel("i8_matmul", "lc_i8_matmul", _I8_ARGS)(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(err, I8I8I32.name)
+        I8I8I32.add()
+        return out
+
+    return fn
+
+
+matmul_i8i8i32 = make_matmul_i8i8i32()
+
+
+# --- the registered gemm-quant rungs (the JAX names, tags and tolerances) ----
+
+def _wq_flops(x, w_q, *_):
+    return float(2 * x.shape[0] * x.shape[1] * w_q.shape[1])
+
+
+for _name, _plain, _fn, _tol, _tags in (
+        ("hgemm_w8a16_dequant", matmul_w8a16_plain, matmul_w8a16, 5e-2,
+         ("int8", "weight-only")),
+        ("hgemm_w8a16_dequant_fp8", matmul_w8a16_plain, matmul_w8a16, 8e-2,
+         ("fp8", "weight-only")),
+        ("hgemm_w8a16_dequant_fp8_bits", matmul_w8a16_plain, matmul_w8a16,
+         8e-2, ("fp8", "weight-only", "bits-decode", "f32-dots")),
+        ("hgemm_w8a8_i32", matmul_i8i8i32_plain, matmul_i8i8i32, 0,
+         ("int8", "a8w8")),
+        ("hgemm_w4a16_dequant", matmul_w4a16_plain, matmul_w4a16, 5e-2,
+         ("int4", "weight-only")),
+        ("hgemm_w4a16_dequant_bits", matmul_w4a16_plain, matmul_w4a16, 5e-2,
+         ("int4", "weight-only", "bits-unpack")),
+        ("hgemm_w4a16_dequant_floor_f32", matmul_w4a16_plain, matmul_w4a16,
+         5e-2, ("int4", "weight-only", "floor-unpack", "f32-dots"))):
+    register_op(_name, ref=_plain, flops=_wq_flops, atol=_tol, rtol=_tol,
+                family="gemm-quant", tags=_tags)(_fn)
