@@ -93,9 +93,35 @@ Phases; any failure raises and the script exits non-zero:
           and the matmul_auto shapes every tensor-core tile is timed with
           and without a grouped walk (the A/B behind pick_matmul_config),
           and at the gemv shapes each ``k_lanes``.
+   (k)    the row ops and split-KV attention (after path (j)), in three
+          parts, each with the counts zeroed: the 27 registered ops of the
+          rms-norm, layer-norm, softmax and attention-utils families at
+          their ``make_args`` inputs against their registry oracles at
+          their registry tolerances; then the full-width model's shapes:
+          ``rms_norm`` with layer 0's attn_norm in bf16 at training's 16384
+          rows and a decode step's 8, every rms-norm rung at 16384 rows in
+          its dtype and at (4096, 2050) (a scalar tail, misaligned rows);
+          ``layer_norm``, its backward kernel (twice, bit for bit) and
+          ``layer_norm_trainable``'s gradients against autograd through
+          the plain forward, at (16384, 2048) in bf16 and f32 with random
+          gamma and beta; every layer-norm rung; rows offset by 1e3 against
+          float64; the three softmax forms in f32 at (2048, 32000) and (8,
+          32000), every softmax rung at 16384 rows, and rows that overflow
+          the naive form (NaN as its plain version); then
+          ``flash_attention_splitkv`` in bf16 at decode (q (8, 16, 1, 128)
+          over 2048 keys, 4 KV heads, num_splits 2, 4, 8) and prefill (q (1,
+          16, 2048, 128), num_splits 2, 4) against the plain attention and
+          the unsplit flash kernel (each call: num_splits flash forwards
+          with their lse and num_splits - 1 merges, asserted), the flash
+          forward with its lse at each split's key count against its plain
+          version, and ``merge_attn_states`` alone at (2048, 16, 128) and
+          with empty and NaN lse. Every call's inputs are checked
+          unchanged; each timed case beside its plain version and
+          F.rms_norm, F.layer_norm (and its autograd backward),
+          torch.softmax or SDPA (the merge has no library call).
    Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings;
-   no serving path launches a training kernel, and no serving or training
-   path launches a GEMM library kernel.
+   no serving path launches a training kernel, no serving or training
+   path launches a GEMM library kernel, and none but (k) a row-op kernel.
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
    replay's max logit. A prompt the Engine admitted in a ragged batch
@@ -191,11 +217,22 @@ PATH_KERNELS.update({
            "matmul_w4a16"),
     "j2": ("matmul",),
     "j3": ("matmul", "matmul_i8i8i32", "gemv", "rms_norm_gemv")})
+# Path (k), the row ops and split-KV attention, in three parts: the registry
+# sweep of the four families, the model's shapes, and split-KV with the
+# merge (the flash forward with its lse, once per split).
+PATH_KERNELS.update({
+    "k1": ("rms_norm", "layer_norm", "softmax", "merge_attn_states"),
+    "k2": ("rms_norm", "layer_norm", "layer_norm_bwd", "softmax"),
+    "k3": ("flash_attention_lse", "merge_attn_states")})
 # The kernels of training (path (i)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
 # The GEMM library's kernels: no serving or training path launches them (the
 # model's projections are torch.matmul, as the JAX model left them to XLA).
 GEMM_KERNELS = PATH_KERNELS["j3"]
+# The row ops' kernels: no serving, training or GEMM path launches them (the
+# model leaves its norms and softmax to eager PyTorch, as the JAX model left
+# them to XLA).
+ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_bwd",)
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
@@ -1448,6 +1485,7 @@ GEMM_SRC = {
     "rms_norm_gemv": ("leetcuda_tpu_torch/csrc/gemv.cu",
                       "leetcuda_tpu/gemm/gemv.py:127"),
 }
+GEMM_FAMILIES = ("gemm", "gemv", "gemm-quant")
 F32_TOL = dict(atol=1e-3, rtol=1e-3)  # tests/test_gemm.py's f32 bar
 EXACT = dict(atol=0, rtol=0)
 HEADLINE_MNK = 8192  # bench.py's and the reference's headline shape
@@ -1589,10 +1627,12 @@ def _int_mm(x, w):
     return lambda: torch._int_mm(x, w)
 
 
-def gemm_registry_sweep():
-    """Path (j), part 1: every registered op of the port on the card at its
-    ``make_args`` inputs against its plain version at its registry
-    tolerance (hgemm_w8a8_i32 exactly). Returns {name: max abs error}."""
+def registry_sweep(families, n_ops):
+    """Every registered op of the port in ``families`` on the card at its
+    ``make_args`` inputs against its registry oracle at its registry
+    tolerance (hgemm_w8a8_i32 exactly; both outputs of a tuple), its inputs
+    unchanged; the sweep must cover ``n_ops`` ops. Returns {name: max abs
+    error}."""
     from leetcuda_tpu_torch.core.registry import OPS, load_all
     from leetcuda_tpu_torch.core.testing import make_args
 
@@ -1600,12 +1640,29 @@ def gemm_registry_sweep():
     rng = np.random.default_rng(0)
     errs = {}
     for name, spec in OPS.items():
+        if spec.family not in families:
+            continue
         args = make_args(spec, rng, "cuda")
-        errs[name] = hold(spec.fn(*args), spec.ref(*args),
-                          dict(atol=spec.atol, rtol=spec.rtol))
-    if len(errs) != 25:
-        raise AssertionError(f"the port registers {len(errs)} ops, not 25")
+        before = [a.clone() for a in args]
+        got, want = spec.fn(*args), spec.ref(*args)
+        unchanged(name, args, before)
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        errs[name] = max(hold(g, w, dict(atol=spec.atol, rtol=spec.rtol))
+                         for g, w in zip(got, want))
+    if len(errs) != n_ops:
+        raise AssertionError(f"the port registers {len(errs)} ops of "
+                             f"{families}, not {n_ops}")
     return errs
+
+
+def unchanged(what, inputs, before):
+    """Fail if a call wrote into one of its inputs: every byte of each as
+    it was in ``before`` (its clone), float8 and NaN alike."""
+    for t, b in zip(inputs, before):
+        if not torch.equal(t.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{what}: an input was written")
 
 
 def gemm_ladder(run):
@@ -1748,7 +1805,7 @@ def gemm_library(layer, embed, card):
     run = GemmRun(flush)
     res = {"launches": {}}
     t0 = time.perf_counter()
-    for part, fn in (("j1", gemm_registry_sweep),
+    for part, fn in (("j1", lambda: registry_sweep(GEMM_FAMILIES, 25)),
                      ("j2", lambda: gemm_ladder(run)),
                      ("j3", lambda: gemm_model_shapes(run, layer, embed))):
         out, counts, _ = drive(part, fn)
@@ -1797,6 +1854,379 @@ def print_gemm(rows, res):
     print(f"  launches: {res['launches']}")
 
 
+# --- path (k): the row ops and split-KV attention -----------------------------
+
+ROW_SRC = {
+    "rms_norm": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                 "leetcuda_tpu/ops/rms_norm.py:43"),
+    "layer_norm": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                   "leetcuda_tpu/ops/layer_norm.py:50"),
+    "layer_norm_bwd": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                       "leetcuda_tpu/ops/layer_norm.py:174"),
+    "softmax": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                "leetcuda_tpu/ops/softmax.py:83"),
+    "merge_attn_states": ("leetcuda_tpu_torch/csrc/merge_attn.cu",
+                          "leetcuda_tpu/ops/merge_attn_states.py:70"),
+}
+ROW_FAMILIES = ("softmax", "layer-norm", "rms-norm", "attention-utils")
+# Rows of the model's shapes: a decode step's 8, training's B * S = 16384;
+# 2050 columns put a scalar tail after the last whole vector of every rung
+# and start most rows off a 16-byte boundary (a scalar head).
+ROW_DIM, TAIL_DIM, TAIL_ROWS = 2048, 2050, 4096
+VOCAB_ROWS = 2048  # softmax over 2048 rows of 32000 logits
+SPLITS_DECODE, SPLITS_PREFILL = (2, 4, 8), (2, 4)
+# 1e3-offset rows against float64: each f32 mean carries ~1e-4 of rounding
+# at 1e3, where E[x^2] - mean^2 would be off by ~0.06 in a variance of 1
+OFFSET_TOL = dict(atol=2e-3, rtol=2e-3)
+
+
+def half_or_f32(name):
+    """A rung's dtype, as make_args picks it: f16 where the name says so."""
+    return torch.float16 if "f16" in name else torch.float32
+
+
+class RowRun:
+    """Path (k)'s inputs (a seeded CUDA generator) and its rows: each case
+    runs its entry point once (counted) with its inputs checked unchanged,
+    is held against its plain version and, unless told otherwise, timed
+    beside it and one library call (uncounted)."""
+
+    def __init__(self, flush):
+        self.flush = flush
+        self.gen = torch.Generator(device="cuda").manual_seed(7)
+        self.rec = Recorder()
+        self.checks = {}  # untimed checks: max abs error
+        self.composite = {}  # split-KV: flash and merge launches together
+
+    def rand(self, *shape, dtype=torch.float32, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=self.gen, device="cuda")
+                * scale + offset).to(dtype)
+
+    def case(self, check, kernel, call, plain, lib, nbytes, inputs,
+             tol=KERNEL_TOL, timed=True, flops=0.0, **extra):
+        before = [t.clone() for t in inputs]
+        got = call()
+        unchanged(check, inputs, before)
+        want = plain()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        err = max(hold(g, w, tol) for g, w in zip(got, want))
+        if not timed:
+            self.checks[check] = err
+            return None
+        with uncounted():
+            ms = time_ms(call, self.flush)
+            plain_ms = time_ms(plain, self.flush, iters=5)
+            lib_ms = None if lib is None else time_ms(lib, self.flush)
+        src, replaces = ROW_SRC[kernel]
+        self.rec.record(check, kernel, src, replaces, got[0], want[0], ms,
+                        plain_ms, lib_ms, flops, nbytes, tol=tol,
+                        rate=F32_FLOP_PER_S)
+        row = self.rec.rows[check]
+        row.update(extra, max_abs_err=err,
+                   gbytes_s=nbytes / (ms * 1e-3) / 1e9)
+        return row
+
+
+def _rms_cases(run, layer):
+    """rms_norm on layer 0's attn_norm in bf16 at training's and a decode
+    step's rows, every rung at training's rows in its dtype, and every rung
+    at (4096, 2050)."""
+    import torch.nn.functional as F
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import rms_norm as rms
+
+    K, w = ROW_DIM, layer["attn_norm"]
+    for S in (TRAIN_ROWS, 8):  # the kernels line's row first
+        x = run.rand(S, K, dtype=torch.bfloat16)
+        run.case(f"rms_norm/bf16 ({S}, {K}) attn_norm", "rms_norm",
+                 lambda: rms.rms_norm(x, w), lambda: rms.rms_norm_plain(x, w),
+                 lambda: F.rms_norm(x, (K,), w, eps=rms.EPS),
+                 4.0 * x.numel() + 2 * K, (x, w), flops=4.0 * x.numel(),
+                 S=S, K=K, dtype="bf16")
+    for S, k_ in ((TRAIN_ROWS, K), (TAIL_ROWS, TAIL_DIM)):
+        for name, spec in OPS.items():
+            if spec.family != "rms-norm":
+                continue
+            dt = half_or_f32(name)
+            x, wr = run.rand(S, k_, dtype=dt), run.rand(k_, dtype=dt,
+                                                        scale=0.5)
+            run.case(f"rms_norm/{name} ({S}, {k_})", "rms_norm",
+                     lambda: spec.fn(x, wr),
+                     lambda: rms.rms_norm_plain(x, wr),
+                     lambda: F.rms_norm(x, (k_,), wr, eps=rms.EPS),
+                     2.0 * x.numel() * x.element_size()
+                     + k_ * wr.element_size(), (x, wr),
+                     tol=dict(atol=spec.atol, rtol=spec.rtol),
+                     timed=k_ == K, flops=4.0 * x.numel(), rung=name, S=S,
+                     K=k_)
+    x = run.rand(TAIL_ROWS, TAIL_DIM, dtype=torch.bfloat16)
+    wt = run.rand(TAIL_DIM, dtype=torch.bfloat16, scale=0.3, offset=1.0)
+    run.case(f"rms_norm/bf16 ({TAIL_ROWS}, {TAIL_DIM})", "rms_norm",
+             lambda: rms.rms_norm(x, wt), lambda: rms.rms_norm_plain(x, wt),
+             None, 0.0, (x, wt), timed=False)
+
+
+def _layer_norm_cases(run):
+    """layer_norm and its backward at training's rows in bf16 and f32 with
+    random gamma and beta (the backward twice, bit for bit), the trainable
+    form's gradients against autograd through the plain forward, every
+    rung, and rows offset by 1e3 against float64."""
+    import torch.nn.functional as F
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import layer_norm as ln
+
+    K = ROW_DIM
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = run.rand(TRAIN_ROWS, K, dtype=dt)
+        g = run.rand(K, dtype=dt, scale=0.3, offset=1.0)
+        b = run.rand(K, dtype=dt, scale=0.3)
+        dy = run.rand(TRAIN_ROWS, K, dtype=dt)
+        tol = KERNEL_TOL if dt == torch.bfloat16 else F32_TOL
+        isz = x.element_size()
+        run.case(f"layer_norm/{tag} ({TRAIN_ROWS}, {K})", "layer_norm",
+                 lambda: ln.layer_norm(x, g, b),
+                 lambda: ln.layer_norm_plain(x, g, b),
+                 lambda: F.layer_norm(x, (K,), g, b, eps=ln.EPS),
+                 2.0 * x.numel() * isz + 2 * K * isz, (x, g, b), tol=tol,
+                 flops=8.0 * x.numel(), S=TRAIN_ROWS, K=K, dtype=tag)
+        lib_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (x, g, b)]
+        y_lib = F.layer_norm(lib_leaves[0], (K,), *lib_leaves[1:],
+                             eps=ln.EPS)
+        row = run.case(
+            f"layer_norm_bwd/{tag} ({TRAIN_ROWS}, {K})", "layer_norm_bwd",
+            lambda: ln.layer_norm_bwd(x, g, dy),
+            lambda: ln.layer_norm_bwd_plain(x, g, dy),
+            lambda: torch.autograd.grad(y_lib, lib_leaves, dy,
+                                        retain_graph=True),
+            3.0 * x.numel() * isz + 3 * K * isz, (x, g, dy), tol=tol,
+            flops=12.0 * x.numel(), S=TRAIN_ROWS, K=K, dtype=tag)
+        first, second = (ln.layer_norm_bwd(x, g, dy) for _ in range(2))
+        row["bitwise_repeat"] = all(torch.equal(p, q)
+                                    for p, q in zip(first, second))
+        if not row["bitwise_repeat"]:
+            raise AssertionError(f"layer_norm_bwd {tag}: two runs differ")
+
+        def grads(fn, dy=dy, inputs=(x, g, b)):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+            fn(*leaves).backward(dy)
+            return tuple(t.grad for t in leaves)
+
+        run.case(f"layer_norm_trainable/{tag} grads ({TRAIN_ROWS}, {K})",
+                 "layer_norm_bwd", lambda: grads(ln.layer_norm_trainable),
+                 lambda: grads(ln.layer_norm_plain), None, 0.0,
+                 (x, g, b, dy), tol=tol, timed=False)
+    for name, spec in OPS.items():
+        if spec.family != "layer-norm":
+            continue
+        dt = half_or_f32(name)
+        x = run.rand(TRAIN_ROWS, K, dtype=dt)
+        g, b = run.rand(K, dtype=dt, scale=0.5), run.rand(K, dtype=dt,
+                                                          scale=0.5)
+        isz = x.element_size()
+        run.case(f"layer_norm/{name} ({TRAIN_ROWS}, {K})", "layer_norm",
+                 lambda: spec.fn(x, g, b),
+                 lambda: ln.layer_norm_plain(x, g, b),
+                 lambda: F.layer_norm(x, (K,), g, b, eps=ln.EPS),
+                 2.0 * x.numel() * isz + 2 * K * isz, (x, g, b),
+                 tol=dict(atol=spec.atol, rtol=spec.rtol),
+                 flops=8.0 * x.numel(), rung=name, S=TRAIN_ROWS, K=K)
+    x = run.rand(TAIL_ROWS, K, offset=1e3)
+    g, b = run.rand(K, scale=0.3, offset=1.0), run.rand(K, scale=0.3)
+    run.case(f"layer_norm/f32 rows offset by 1e3 ({TAIL_ROWS}, {K})",
+             "layer_norm", lambda: ln.layer_norm(x, g, b),
+             lambda: F.layer_norm(x.double(), (K,), g.double(), b.double(),
+                                  eps=ln.EPS).float(),
+             None, 0.0, (x, g, b), tol=OFFSET_TOL, timed=False)
+
+
+def _softmax_cases(run):
+    """The three softmax forms in f32 at 2048 rows of logits and at a
+    decode step's 8, every registered rung at training's rows in its dtype,
+    and rows that overflow the naive form (NaN where exp overflows, as in
+    its plain version; none in the other two forms)."""
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import softmax as sm
+
+    forms = {"safe": sm.softmax, "online": sm.online_softmax,
+             "naive": sm.make_softmax(vec=8, pack=True)}
+    tols = {"safe": dict(atol=1e-5, rtol=1e-5),
+            "online": dict(atol=1e-5, rtol=1e-5),
+            "naive": dict(atol=1e-4, rtol=1e-4)}  # the registry's
+    V = 32000
+    for S in (VOCAB_ROWS, 8):  # the kernels line's row first
+        x = run.rand(S, V, scale=2.0)
+        for form, fn in forms.items():
+            run.case(f"softmax/{form} f32 ({S}, {V})", "softmax",
+                     lambda: fn(x), lambda: sm.PLAIN[fn.mode](x),
+                     lambda: torch.softmax(x, dim=-1), 8.0 * x.numel(), (x,),
+                     tol=tols[form], flops=5.0 * x.numel(), form=form, S=S,
+                     K=V)
+    for name, spec in OPS.items():
+        if spec.family != "softmax":
+            continue
+        x = run.rand(TRAIN_ROWS, ROW_DIM, dtype=half_or_f32(name))
+        run.case(f"softmax/{name} ({TRAIN_ROWS}, {ROW_DIM})", "softmax",
+                 lambda: spec.fn(x), lambda: sm.PLAIN[spec.fn.mode](x),
+                 lambda: torch.softmax(x, dim=-1),
+                 2.0 * x.numel() * x.element_size(), (x,),
+                 tol=dict(atol=spec.atol, rtol=spec.rtol),
+                 flops=5.0 * x.numel(), rung=name, S=TRAIN_ROWS, K=ROW_DIM)
+    x = run.rand(64, 4001)
+    x[1, 7], x[2, :3] = 100.0, 95.0
+    before = [x.clone()]
+    for form, fn in forms.items():
+        got, want = fn(x), sm.PLAIN[fn.mode](x)
+        unchanged(f"softmax/{form} overflowing rows", (x,), before)
+        nan = got.isnan()
+        if not torch.equal(nan, want.isnan()) or (
+                form == "naive") != bool(nan.any()):
+            raise AssertionError(f"softmax {form}: NaN where its plain "
+                                 "version has none, or none where it has")
+        run.checks[f"softmax/{form} overflowing rows"] = hold(
+            got.nan_to_num(), want.nan_to_num(), tols[form])
+
+
+def row_ops_shapes(run, layer):
+    """Path (k), part 2: the norms and softmax at the full-width model's
+    shapes."""
+    _rms_cases(run, layer)
+    _layer_norm_cases(run)
+    _softmax_cases(run)
+
+
+def splitkv_and_merge(run):
+    """Path (k), part 3: flash_attention_splitkv at decode (B = 8, one query
+    row) and prefill (B = 1, 2048 rows) over 2048 keys, 16 / 4 heads, head
+    dim 128, in bf16, held against the plain attention and against the
+    port's unsplit flash forward, each call launching num_splits flash
+    forwards with their lse and num_splits - 1 merges; the flash forward
+    with its lse at each split's key count first, against its plain version
+    (at Nq = 1 its query tile is almost all padding); then
+    merge_attn_states alone at the prefill merge's shape and with empty and
+    NaN lse."""
+    from leetcuda_tpu_torch.attention import flash as fl
+    from leetcuda_tpu_torch.attention.splitkv import flash_attention_splitkv
+    from leetcuda_tpu_torch.core.runtime import launch_counts
+    from leetcuda_tpu_torch.ops import merge_attn_states as mg
+
+    bf = torch.bfloat16
+    H, Hkv, N, D = 16, 4, 2048, 128
+    for B, Nq, splits in ((8, 1, SPLITS_DECODE), (1, N, SPLITS_PREFILL)):
+        q = run.rand(B, H, Nq, D, dtype=bf)
+        k, v = run.rand(B, Hkv, N, D, dtype=bf), run.rand(B, Hkv, N, D,
+                                                          dtype=bf)
+        with uncounted():
+            for nk in sorted({N // s for s in splits} | {N}):
+                ks, vs = k[:, :, :nk].contiguous(), v[:, :, :nk].contiguous()
+                got = fl.flash_attention(q, ks, vs, with_lse=True)
+                want = fl.flash_attention_plain(q, ks, vs, with_lse=True)
+                run.checks[f"flash_attention_lse/B={B} Nq={Nq} Nk={nk}"] = \
+                    max(hold(got[0], want[0]), hold(got[1], want[1]))
+            unsplit = fl.flash_attention(q, k, v)
+        want = fl.flash_attention_plain(q, k, v)
+        for s in splits:
+            before = [t.clone() for t in (q, k, v)]
+            counts0 = launch_counts()
+            got = flash_attention_splitkv(q, k, v, num_splits=s)
+            counts1 = launch_counts()
+            unchanged("flash_attention_splitkv", (q, k, v), before)
+            made = {n: counts1[n] - counts0[n] for n in counts1
+                    if counts1[n] != counts0[n]}
+            if made != {"flash_attention_lse": s, "merge_attn_states": s - 1}:
+                raise AssertionError(f"split-KV num_splits={s} launched "
+                                     f"{made}")
+            err, err_unsplit = hold(got, want), hold(got, unsplit)
+            with uncounted():
+                ms = time_ms(lambda: flash_attention_splitkv(
+                    q, k, v, num_splits=s), run.flush)
+                times = {
+                    "plain_ms": time_ms(lambda: fl.flash_attention_plain(
+                        q, k, v), run.flush, iters=5),
+                    "unsplit_flash_ms": time_ms(
+                        lambda: fl.flash_attention(q, k, v), run.flush),
+                    "library_ms": time_ms(lambda: sdpa(q, k, v), run.flush)}
+            b_s, by = bound(4.0 * B * H * Nq * N * D,
+                            2.0 * (2 * B * H * Nq * D + 2 * B * Hkv * N * D))
+            run.composite[f"splitkv/B={B} Nq={Nq} num_splits={s}"] = {
+                "max_abs_err": err, "max_abs_err_vs_unsplit": err_unsplit,
+                "ms": ms, **times, "bound_ms": b_s * 1e3, "bound_by": by,
+                "launches": made}
+
+    T = N
+    po, so = run.rand(T, H, D, dtype=bf), run.rand(T, H, D, dtype=bf)
+    pl, sl = (run.rand(T, H, scale=2.0, offset=5.0) for _ in range(2))
+    run.case(f"merge_attn_states/bf16 ({T}, {H}, {D})", "merge_attn_states",
+             lambda: mg.merge_attn_states(po, pl, so, sl),
+             lambda: mg.merge_attn_states_plain(po, pl, so, sl), None,
+             3.0 * T * H * D * 2 + 3.0 * T * H * 4, (po, pl, so, sl),
+             flops=6.0 * T * H * D, T=T, H=H, D=D)
+    inf, nan = float("inf"), float("nan")
+    po, so = po[:64], so[:64]
+    for case, (fp, fs) in {"prefix empty": (-inf, None),
+                           "suffix empty": (None, inf),
+                           "both empty": (-inf, -inf),
+                           "nan": (nan, None)}.items():
+        a, b = pl[:64].clone(), sl[:64].clone()
+        if fp is not None:
+            a[::2] = fp
+        if fs is not None:
+            b[::2] = fs
+        run.case(f"merge_attn_states/{case}", "merge_attn_states",
+                 lambda: mg.merge_attn_states(po, a, so, b),
+                 lambda: mg.merge_attn_states_plain(po, a, so, b),
+                 None, 0.0, (po, a, so, b), timed=False)
+
+
+def row_ops_path(layer):
+    """Path (k): the row ops and split-KV attention on the card, in three
+    parts, each driven with the launch counts zeroed just before it and read
+    just after. Returns (rows for the kernels line, the path's report)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    run = RowRun(flush)
+    res = {"launches": {}}
+    t0 = time.perf_counter()
+    for part, fn in (("k1", lambda: registry_sweep(ROW_FAMILIES, 27)),
+                     ("k2", lambda: row_ops_shapes(run, layer)),
+                     ("k3", lambda: splitkv_and_merge(run))):
+        out, counts, _ = drive(part, fn)
+        if part == "k1":
+            res["registry_max_abs_err"] = out
+        res[f"launches_{part}"] = counts
+        for k, v in counts.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+    res.update(untimed_checks=run.checks, splitkv=run.composite,
+               seconds=time.perf_counter() - t0)
+    return run.rec.rows, res
+
+
+def print_row_ops(rows, res):
+    print(f"path (k) row ops and split-KV: "
+          f"{len(res['registry_max_abs_err'])} registered ops held at their "
+          f"registry tolerances; {len(res['untimed_checks'])} untimed checks;"
+          f" {len(rows)} timed cases in {res['seconds']:.1f} s", flush=True)
+    for r in rows.values():
+        lib = ("library none" if r["library_ms"] is None
+               else f"library {r['library_ms']:.4f} ms")
+        rep = ("" if "bitwise_repeat" not in r
+               else f"; repeat bit for bit {r['bitwise_repeat']}")
+        print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
+              f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
+              f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){rep}", flush=True)
+    for name, r in res["splitkv"].items():
+        print(f"  {name}: max_abs_err {r['max_abs_err']:.3g} (against the "
+              f"unsplit kernel {r['max_abs_err_vs_unsplit']:.3g}) "
+              f"{r['ms']:.4f} ms, unsplit flash {r['unsplit_flash_ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); launches {r['launches']}", flush=True)
+    print(f"  untimed checks, max abs error: {res['untimed_checks']}")
+    print(f"  launches: {res['launches']}")
+
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -1817,8 +2247,10 @@ def drive(path, fn):
         raise AssertionError(f"path {path}: kernels not launched: {missing}")
     forbidden = (PATH_FORBIDDEN.get(path, ())
                  + (TRAIN_KERNELS if path != "i" else ())
-                 + (GEMM_KERNELS if not path.startswith("j") else ()))
-    stray = [n for n in forbidden if counts.get(n, 0)]
+                 + (GEMM_KERNELS if not path.startswith("j") else ())
+                 + (ROW_KERNELS if not path.startswith("k") else ()))
+    stray = [n for n in forbidden
+             if counts.get(n, 0) and n not in PATH_KERNELS[path]]
     if stray:
         raise AssertionError(f"path {path}: launched {stray}")
     return out, counts, peak
@@ -2105,6 +2537,12 @@ def main() -> int:
     checks.update(jrows)
     phase_done("gemm_library")
 
+    # path (k): the row ops and split-KV attention (layer 0's attn_norm)
+    krows, kres = row_ops_path(params["layers"][0])
+    print_row_ops(krows, kres)
+    checks.update(krows)
+    phase_done("row_ops")
+
     # 4. the main paths at full width
     # warm-up: cuBLAS, library loads
     generate(params, cfg, gprompts[:1, :16], 2)
@@ -2139,7 +2577,7 @@ def main() -> int:
           f"{main_path['weight_bytes'] / 2**30:.2f} GiB, caches and "
           f"activations at peak {peak / 2**30:.2f} GiB", flush=True)
     print(f"  launches: {counts}")
-    report["paths"] = {"bf16": main_path, "j": jres}
+    report["paths"] = {"bf16": main_path, "j": jres, "k": kres}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():

@@ -9,3 +9,5 @@ from leetcuda_tpu_torch.attention.paged import (  # noqa: F401
 from leetcuda_tpu_torch.attention.chunk import (  # noqa: F401
     chunk_attention, chunk_attention_quantized, paged_chunk_attention,
     paged_chunk_attention_quantized)
+from leetcuda_tpu_torch.attention.splitkv import (  # noqa: F401
+    flash_attention_splitkv)

@@ -6,11 +6,14 @@ variant registers itself under the JAX registration's name, family, tags and
 atol/rtol, so that one sweep (``core/testing.make_args`` for the inputs)
 covers the corpus on either device. ``fn`` is the port's wrapper: it launches
 the hand-written kernel on CUDA tensors and runs the plain PyTorch version on
-CPU tensors. ``ref`` is the plain version itself.
+CPU tensors. ``ref`` is the JAX registration's oracle in plain PyTorch:
+the plain version itself, except for the naive softmax rungs, whose oracle
+is the safe softmax (as in JAX).
 
 The JAX registry wraps every op in ``_f16_compat``, which upcasts f16 to f32
-because the TPU has no f16 compute. Hopper computes in f16, so the port's
-f16 rungs compute in f16 and are held at the registry's atol/rtol.
+because the TPU has no f16 compute. The port has no such wrapper: its GEMM
+library's f16 rungs compute in f16 on Hopper, the row ops' rungs in f32 as
+every JAX row-op body does, and all are held at the registry's atol/rtol.
 """
 
 from __future__ import annotations
@@ -84,3 +87,7 @@ def load_all():
     import leetcuda_tpu_torch.gemm.gemv  # noqa: F401
     import leetcuda_tpu_torch.gemm.matmul  # noqa: F401
     import leetcuda_tpu_torch.gemm.quant  # noqa: F401
+    import leetcuda_tpu_torch.ops.layer_norm  # noqa: F401
+    import leetcuda_tpu_torch.ops.merge_attn_states  # noqa: F401
+    import leetcuda_tpu_torch.ops.rms_norm  # noqa: F401
+    import leetcuda_tpu_torch.ops.softmax  # noqa: F401

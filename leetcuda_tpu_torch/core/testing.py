@@ -1,6 +1,7 @@
 """Canonical test inputs per op family, the counterpart of
 ``leetcuda_tpu/core/testing.py`` for the families the port registers
-(``gemm``, ``gemv``, ``gemm-quant``).
+(``gemm``, ``gemv``, ``gemm-quant``, ``softmax``, ``layer-norm``,
+``rms-norm``, ``attention-utils``).
 
 ``make_args`` takes the same draws from the numpy ``rng``, in the same order,
 as the JAX package's ``make_args`` and rounds them as JAX does (float64 ->
@@ -37,7 +38,23 @@ def make_args(spec, rng: np.random.Generator, device="cpu"):
     def ints(lo, hi, shape):
         return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8))
 
-    if fam == "gemm":
+    rdt = torch.float16 if "f16" in spec.name else torch.float32
+    S, K = 64, 256
+    if fam == "softmax":
+        args = (randn((S, K), rdt),)
+    elif fam == "layer-norm":
+        args = (randn((S, K), rdt), randn((K,), rdt, 0.5),
+                randn((K,), rdt, 0.5))
+    elif fam == "rms-norm":
+        args = (randn((S, K), rdt), randn((K,), rdt, 0.5))
+    elif fam == "attention-utils":
+        T, H, D = 16, 4, 64
+        po = randn((T, H, D), torch.float32)
+        so = randn((T, H, D), torch.float32)
+        plse = randn((T, H), torch.float32)
+        slse = randn((T, H), torch.float32)
+        args = (po, plse, so, slse)
+    elif fam == "gemm":
         d = torch.bfloat16 if "f16" in tags else torch.float32
         a = randn((128, 256), d, 0.3)
         b = randn((128, 256) if "tn" in tags else (256, 128), d, 0.3)

@@ -37,7 +37,7 @@ from leetcuda_tpu_torch.gemm import quant as tq
 
 load_all()
 FAMILIES = ("gemm", "gemv", "gemm-quant")
-PORT_NAMES = sorted(OPS)
+PORT_NAMES = sorted(n for n, s in OPS.items() if s.family in FAMILIES)
 
 
 @pytest.fixture(autouse=True, scope="module")
