@@ -119,9 +119,29 @@ Phases; any failure raises and the script exits non-zero:
           unchanged; each timed case beside its plain version and
           F.rms_norm, F.layer_norm (and its autograd backward),
           torch.softmax or SDPA (the merge has no library call).
+   (l)    the op corpus's transpose, embedding gathers, RoPE and resident
+          matmul chain (after path (k)), in three parts, each with the
+          counts zeroed: the 24 registered ops of the transpose, embedding,
+          rope and gemm-resident families at their ``make_args`` inputs
+          against their registry oracles at their registry tolerances;
+          then, timed: the full-width model's embedding table (32000, 2048)
+          bf16 gathered at training's 16384 ids and a decode step's 8,
+          directly and through the serving view, and every embedding rung
+          at 16384 ids in its dtype (bit for bit, beside F.embedding);
+          every RoPE rung in f32 at (65536, 128) and (4096, 2048) at 1e-4
+          (no library call); ``mat_transpose`` and every transpose rung at
+          8192^2 f32 bit for bit beside ``x.t().contiguous()``; the
+          resident chain at 4096^3 bf16, 5 reps, at 2e-2 beside 5
+          torch.matmul (the library) and 5 of the port's hgemm; then,
+          untimed: every transpose rung at (4097, 3001) in f32, bf16 and
+          bytes; ids that clamp (negative, past V - 1), NaN rows with
+          distinct payloads and int64 ids, bit for bit; RoPE in bf16; the
+          chain in f16 and f32 at 1024^2, 1 and 4 reps. Every call's
+          inputs are checked unchanged.
    Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings;
    no serving path launches a training kernel, no serving or training
-   path launches a GEMM library kernel, and none but (k) a row-op kernel.
+   path launches a GEMM library kernel, none but (k) a row-op kernel, and
+   none but (l) a kernel of path (l).
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
    replay's max logit. A prompt the Engine admitted in a ragged batch
@@ -224,6 +244,15 @@ PATH_KERNELS.update({
     "k1": ("rms_norm", "layer_norm", "softmax", "merge_attn_states"),
     "k2": ("rms_norm", "layer_norm", "layer_norm_bwd", "softmax"),
     "k3": ("flash_attention_lse", "merge_attn_states")})
+# Path (l), the op corpus's transpose, embedding gathers, RoPE and resident
+# matmul chain, in three parts: the registry sweep of the four families, the
+# timed full-size cases, and the untimed checks.
+PATH_KERNELS.update({
+    "l1": ("transpose", "embedding", "embedding_tiled", "rope", "rope_lane",
+           "matmul_resident"),
+    "l3": ("transpose", "embedding", "embedding_tiled", "rope_lane",
+           "matmul_resident")})
+PATH_KERNELS["l2"] = PATH_KERNELS["l1"]
 # The kernels of training (path (i)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
 # The GEMM library's kernels: no serving or training path launches them (the
@@ -233,6 +262,10 @@ GEMM_KERNELS = PATH_KERNELS["j3"]
 # model leaves its norms and softmax to eager PyTorch, as the JAX model left
 # them to XLA).
 ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_bwd",)
+# The op corpus's kernels of path (l): no other path launches them (the
+# model's embedding is an indexing op and its RoPE the half rotation, as the
+# JAX model's are; nothing calls the resident chain).
+CORPUS_KERNELS = PATH_KERNELS["l1"]
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
@@ -1886,13 +1919,15 @@ def half_or_f32(name):
 
 
 class RowRun:
-    """Path (k)'s inputs (a seeded CUDA generator) and its rows: each case
-    runs its entry point once (counted) with its inputs checked unchanged,
-    is held against its plain version and, unless told otherwise, timed
-    beside it and one library call (uncounted)."""
+    """Path (k)'s (and path (l)'s) inputs (a seeded CUDA generator) and its
+    rows: each case runs its entry point once (counted) with its inputs
+    checked unchanged, is held against its plain version and, unless told
+    otherwise, timed beside it and one library call (uncounted). ``src``
+    gives each kernel's source and the JAX kernel it replaces."""
 
-    def __init__(self, flush):
+    def __init__(self, flush, src=None):
         self.flush = flush
+        self.src = ROW_SRC if src is None else src
         self.gen = torch.Generator(device="cuda").manual_seed(7)
         self.rec = Recorder()
         self.checks = {}  # untimed checks: max abs error
@@ -1903,7 +1938,8 @@ class RowRun:
                 * scale + offset).to(dtype)
 
     def case(self, check, kernel, call, plain, lib, nbytes, inputs,
-             tol=KERNEL_TOL, timed=True, flops=0.0, **extra):
+             tol=KERNEL_TOL, timed=True, flops=0.0, rate=F32_FLOP_PER_S,
+             **extra):
         before = [t.clone() for t in inputs]
         got = call()
         unchanged(check, inputs, before)
@@ -1918,10 +1954,9 @@ class RowRun:
             ms = time_ms(call, self.flush)
             plain_ms = time_ms(plain, self.flush, iters=5)
             lib_ms = None if lib is None else time_ms(lib, self.flush)
-        src, replaces = ROW_SRC[kernel]
+        src, replaces = self.src[kernel]
         self.rec.record(check, kernel, src, replaces, got[0], want[0], ms,
-                        plain_ms, lib_ms, flops, nbytes, tol=tol,
-                        rate=F32_FLOP_PER_S)
+                        plain_ms, lib_ms, flops, nbytes, tol=tol, rate=rate)
         row = self.rec.rows[check]
         row.update(extra, max_abs_err=err,
                    gbytes_s=nbytes / (ms * 1e-3) / 1e9)
@@ -2227,6 +2262,281 @@ def print_row_ops(rows, res):
     print(f"  launches: {res['launches']}")
 
 
+# --- path (l): the op corpus's transpose, gathers, RoPE and resident chain -----
+
+CORPUS_SRC = {
+    "transpose": ("leetcuda_tpu_torch/csrc/transpose.cu",
+                  "leetcuda_tpu/ops/transpose.py:71"),
+    "embedding": ("leetcuda_tpu_torch/csrc/embedding.cu",
+                  "leetcuda_tpu/ops/embedding.py:76"),
+    "embedding_tiled": ("leetcuda_tpu_torch/csrc/embedding.cu",
+                        "leetcuda_tpu/ops/embedding.py:141"),
+    "rope": ("leetcuda_tpu_torch/csrc/rope.cu", "leetcuda_tpu/ops/rope.py:57"),
+    "rope_lane": ("leetcuda_tpu_torch/csrc/rope.cu",
+                  "leetcuda_tpu/ops/rope.py:105"),
+    "matmul_resident": ("leetcuda_tpu_torch/csrc/matmul.cu",
+                        "leetcuda_tpu/gemm/matmul.py:412"),
+}
+CORPUS_FAMILIES = ("transpose", "embedding", "rope", "gemm-resident")
+# RoPE at 65536 positions (where the TPU kernels' exp-form frequencies would
+# be off by ~4e-3) and at the model's width over 4096 rows; the transpose at
+# 8192^2 f32 (537 MB moved, past the L2) and ragged; the resident chain at
+# JAX's ablation setting (RESIDENT_ABLATE.json: 4096^3 bf16, 5 reps).
+ROPE_SHAPES = ((65536, 128), (4096, 2048))
+TRANSPOSE_DIM, RAGGED_T = 8192, (4097, 3001)
+RESIDENT_DIM, RESIDENT_REPS, RESIDENT_SMALL = 4096, 5, 1024
+# a (M, N) with N % 8 != 0: the tiles' element-by-element loads and a
+# partial last row block, where a rep reads back rows through plain loads.
+RESIDENT_RAGGED = (1000, 1030)
+# The registry's; A is drawn at unit scale and B at N^-0.5, so every rep's
+# output has RMS ~1 and 2e-2 is a few bf16 ulps there.
+RESIDENT_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def bits(t):
+    """A tensor as the integers of its bytes, for bit-for-bit checks."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _embedding_cases(run, embed):
+    """The model's table (``embed``, (32000, 2048) bf16) gathered at
+    training's ids and a decode step's, directly and through the serving
+    view, bit for bit; every registered rung at training's ids over a table
+    of the rung's dtype and width."""
+    import torch.nn.functional as F
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import embedding as em
+
+    V, D = embed.shape
+    isz = embed.element_size()
+    view = em.to_serving_layout(embed)
+    for S in (TRAIN_ROWS, 8):  # the kernels line's row first
+        ids = torch.randint(0, V, (S,), generator=run.gen, device="cuda",
+                            dtype=torch.int32)
+        run.case(f"embedding/bf16 {S} ids of ({V}, {D})", "embedding",
+                 lambda: bits(em.embedding(ids, embed)),
+                 lambda: bits(em.embedding_plain(ids, embed)),
+                 lambda: F.embedding(ids, embed), 2.0 * S * D * isz,
+                 (ids, embed), tol=EXACT, S=S, V=V, D=D)
+        run.case(f"embedding_tiled/bf16 {S} ids of ({V}, {D // 128}, 128)",
+                 "embedding_tiled",
+                 lambda: bits(em.embedding_serving(ids, embed)),
+                 lambda: bits(em.embedding_plain(ids, embed)),
+                 lambda: F.embedding(ids, embed), 2.0 * S * D * isz,
+                 (ids, embed), tol=EXACT, S=S, V=V, D=D)
+    ids = torch.randint(0, V, (TRAIN_ROWS,), generator=run.gen, device="cuda",
+                        dtype=torch.int32)
+    for name, spec in OPS.items():
+        if spec.family != "embedding":
+            continue
+        dt = (torch.bfloat16 if "bf16" in name else torch.float16
+              if "f16" in name else torch.float32)
+        table = run.rand(V, D, dtype=dt)
+        arg = em.to_serving_layout(table) if "tiled" in spec.tags else table
+        run.case(f"{'embedding_tiled' if 'tiled' in spec.tags else 'embedding'}"
+                 f"/{name} {TRAIN_ROWS} ids",
+                 "embedding_tiled" if "tiled" in spec.tags else "embedding",
+                 lambda: bits(spec.fn(ids, arg)),
+                 lambda: bits(em.embedding_plain(ids, arg)),
+                 lambda: F.embedding(ids, table),
+                 2.0 * TRAIN_ROWS * D * table.element_size(), (ids, arg),
+                 tol=EXACT, rung=name, S=TRAIN_ROWS, V=V, D=D)
+
+
+def _rope_cases(run):
+    """Every RoPE rung in f32 at 65536 rows of 128 and 4096 rows of 2048,
+    at the registry's 1e-4."""
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import rope as rp
+
+    for S, D in ROPE_SHAPES:
+        x = run.rand(S, D)
+        for name, spec in OPS.items():
+            if spec.family != "rope":
+                continue
+            run.case(f"{'rope_lane' if 'lane' in spec.tags else 'rope'}/"
+                     f"{name} ({S}, {D})",
+                     "rope_lane" if "lane" in spec.tags else "rope",
+                     lambda: spec.fn(x), lambda: rp.rope_plain(x), None,
+                     2.0 * x.numel() * 4, (x,),
+                     tol=dict(atol=spec.atol, rtol=spec.rtol),
+                     flops=6.0 * x.numel(), rung=name, S=S, D=D)
+
+
+def _transpose_cases(run):
+    """mat_transpose and every rung at 8192^2 f32, bit for bit, beside
+    ``x.t().contiguous()`` (which is also the plain version)."""
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import transpose as tr
+
+    n = TRANSPOSE_DIM
+    x = run.rand(n, n)
+    fns = {"mat_transpose": tr.mat_transpose,
+           **{name: spec.fn for name, spec in OPS.items()
+              if spec.family == "transpose"}}
+    for name, fn in fns.items():
+        run.case(f"transpose/{name} ({n}, {n})", "transpose",
+                 lambda: bits(fn(x)), lambda: bits(tr.transpose_plain(x)),
+                 lambda: x.t().contiguous(), 2.0 * x.numel() * 4, (x,),
+                 tol=EXACT, rung=name, variant=fn.variant, order=fn.order,
+                 S=n, K=n)
+
+
+def _resident_cases(run):
+    """The resident chain at 4096^3 bf16, 5 reps, beside 5 torch.matmul
+    (the library) and 5 of the port's hgemm (uncounted)."""
+    from leetcuda_tpu_torch.gemm import matmul as mm
+
+    n, reps = RESIDENT_DIM, RESIDENT_REPS
+    a = run.rand(n, n, dtype=torch.bfloat16)
+    b = run.rand(n, n, dtype=torch.bfloat16, scale=n ** -0.5)
+    chain = mm.make_matmul_resident(reps=reps)
+
+    def lib():
+        c = a
+        for _ in range(reps):
+            c = torch.matmul(c, b)
+        return c
+
+    def hgemm5():
+        c = a
+        for _ in range(reps):
+            c = mm.hgemm(c, b)
+        return c
+
+    row = run.case(f"matmul_resident/bf16 {n}^3 reps {reps}",
+                   "matmul_resident", lambda: chain(a, b),
+                   lambda: mm.matmul_chain_plain(a, b, reps), lib,
+                   3.0 * n * n * 2, (a, b), tol=RESIDENT_TOL,
+                   flops=2.0 * reps * n ** 3, rate=BF16_FLOP_PER_S,
+                   M=n, reps=reps, ctas=-(-n // mm.RESIDENT_ROWS))
+    with uncounted():
+        row["hgemm_x5_ms"] = time_ms(hgemm5, run.flush)
+        row["max_abs_err_vs_library"] = float(
+            (chain(a, b).float() - lib().float()).abs().max())
+    row["tflops"] = tflops(row["flops"], row["ms"])
+
+
+def corpus_shapes(run, embed):
+    """Path (l), part 2: the gathers, RoPE, the transpose and the resident
+    chain at full size, timed."""
+    _embedding_cases(run, embed)
+    _rope_cases(run)
+    _transpose_cases(run)
+    _resident_cases(run)
+
+
+def corpus_checks(run, embed):
+    """Path (l), part 3, untimed: the transpose's rungs on a ragged shape in
+    f32, bf16 and bytes; ids that clamp, NaN rows and int64 ids; RoPE in
+    bf16; the resident chain in f16 and f32 at 1024^2, and in bf16 and f32
+    at the ragged (1000, 1030), 1 and 4 reps."""
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.gemm import matmul as mm
+    from leetcuda_tpu_torch.ops import embedding as em
+    from leetcuda_tpu_torch.ops import rope as rp
+    from leetcuda_tpu_torch.ops import transpose as tr
+
+    x32 = run.rand(*RAGGED_T)
+    for dt, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16)),
+                  ("u8", bits(x32).to(torch.uint8))):
+        for name, spec in OPS.items():
+            if spec.family == "transpose":
+                run.case(f"transpose/{name} {dt} {RAGGED_T}", "transpose",
+                         lambda: bits(spec.fn(x)),
+                         lambda: bits(tr.transpose_plain(x)), None, 0.0,
+                         (x,), tol=EXACT, timed=False)
+
+    V, D = embed.shape
+    ids = torch.randint(0, V, (64,), generator=run.gen, device="cuda",
+                        dtype=torch.int32)
+    ids[:6] = torch.tensor([-1, -7, V, V + 50, 0, V - 1], device="cuda")
+    table = embed.clone()
+    nan_bits = torch.tensor([0x7FC1, 0x7F81, -0x003F, 0x7FFF],
+                            dtype=torch.int16, device="cuda")
+    bits(table)[5, :4] = nan_bits  # NaNs with distinct payloads
+    ids[10:14] = 5
+    for what, idx in (("int32", ids), ("int64", ids.long())):
+        run.case(f"embedding/clamped ids and NaN rows, {what}", "embedding",
+                 lambda: bits(em.embedding(idx, table)),
+                 lambda: bits(em.embedding_plain(idx, table)), None, 0.0,
+                 (idx, table), tol=EXACT, timed=False)
+        run.case(f"embedding_tiled/clamped ids and NaN rows, {what}",
+                 "embedding_tiled",
+                 lambda: bits(em.embedding_serving(idx, table)),
+                 lambda: bits(em.embedding_plain(idx, table)), None, 0.0,
+                 (idx, table), tol=EXACT, timed=False)
+    got = bits(em.embedding(ids, table))
+    if not (torch.equal(got[0], bits(table)[0])
+            and torch.equal(got[2], bits(table)[V - 1])
+            and torch.equal(got[10, :4], nan_bits)):
+        raise AssertionError("embedding: ids did not clamp to the table's "
+                             "ends, or a NaN payload changed")
+
+    x = run.rand(2048, 128, dtype=torch.bfloat16)
+    run.case("rope_lane/bf16 (2048, 128)", "rope_lane", lambda: rp.rope(x),
+             lambda: rp.rope_plain(x), None, 0.0, (x,), timed=False)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 plain chain must not take TF32")
+    for (m, n), dt, tol in (
+            ((RESIDENT_SMALL, RESIDENT_SMALL), torch.float16, RESIDENT_TOL),
+            ((RESIDENT_SMALL, RESIDENT_SMALL), torch.float32, F32_TOL),
+            (RESIDENT_RAGGED, torch.bfloat16, RESIDENT_TOL),
+            (RESIDENT_RAGGED, torch.float32, F32_TOL)):
+        a = run.rand(m, n, dtype=dt)
+        b = run.rand(n, n, dtype=dt, scale=n ** -0.5)
+        for reps in (1, 4):
+            run.case(f"matmul_resident/{dt} ({m}, {n}) reps {reps}",
+                     "matmul_resident",
+                     lambda: mm.make_matmul_resident(reps=reps)(a, b),
+                     lambda: mm.matmul_chain_plain(a, b, reps), None, 0.0,
+                     (a, b), tol=tol, timed=False)
+
+
+def corpus_path(embed):
+    """Path (l): the op corpus's transpose, embedding gathers, RoPE and
+    resident matmul chain on the card, in three parts, each driven with the
+    launch counts zeroed just before it and read just after. Returns (rows
+    for the kernels line, the path's report)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    run = RowRun(flush, src=CORPUS_SRC)
+    res = {"launches": {}}
+    t0 = time.perf_counter()
+    for part, fn in (("l1", lambda: registry_sweep(CORPUS_FAMILIES, 24)),
+                     ("l2", lambda: corpus_shapes(run, embed)),
+                     ("l3", lambda: corpus_checks(run, embed))):
+        out, counts, _ = drive(part, fn)
+        if part == "l1":
+            res["registry_max_abs_err"] = out
+        res[f"launches_{part}"] = counts
+        for k, v in counts.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+    res.update(untimed_checks=run.checks, seconds=time.perf_counter() - t0)
+    return run.rec.rows, res
+
+
+def print_corpus(rows, res):
+    print(f"path (l) transpose, embedding, RoPE, resident chain: "
+          f"{len(res['registry_max_abs_err'])} registered ops held at their "
+          f"registry tolerances; {len(res['untimed_checks'])} untimed checks;"
+          f" {len(rows)} timed cases in {res['seconds']:.1f} s", flush=True)
+    for r in rows.values():
+        lib = ("library none" if r["library_ms"] is None
+               else f"library {r['library_ms']:.4f} ms")
+        extra = ("" if "hgemm_x5_ms" not in r else
+                 f"; {r['tflops']:.1f} TFLOP/s on {r['ctas']} CTAs, 5 x "
+                 f"hgemm {r['hgemm_x5_ms']:.4f} ms, max_abs_err against the "
+                 f"library {r['max_abs_err_vs_library']:.3g}")
+        print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
+              f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
+              f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){extra}", flush=True)
+    print(f"  untimed checks, max abs error: {res['untimed_checks']}")
+    print(f"  launches: {res['launches']}")
+
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -2248,7 +2558,8 @@ def drive(path, fn):
     forbidden = (PATH_FORBIDDEN.get(path, ())
                  + (TRAIN_KERNELS if path != "i" else ())
                  + (GEMM_KERNELS if not path.startswith("j") else ())
-                 + (ROW_KERNELS if not path.startswith("k") else ()))
+                 + (ROW_KERNELS if not path.startswith("k") else ())
+                 + (CORPUS_KERNELS if not path.startswith("l") else ()))
     stray = [n for n in forbidden
              if counts.get(n, 0) and n not in PATH_KERNELS[path]]
     if stray:
@@ -2543,6 +2854,12 @@ def main() -> int:
     checks.update(krows)
     phase_done("row_ops")
 
+    # path (l): transpose, embedding (the model's table), RoPE, the chain
+    lrows, lres = corpus_path(params["embed"])
+    print_corpus(lrows, lres)
+    checks.update(lrows)
+    phase_done("corpus")
+
     # 4. the main paths at full width
     # warm-up: cuBLAS, library loads
     generate(params, cfg, gprompts[:1, :16], 2)
@@ -2577,7 +2894,7 @@ def main() -> int:
           f"{main_path['weight_bytes'] / 2**30:.2f} GiB, caches and "
           f"activations at peak {peak / 2**30:.2f} GiB", flush=True)
     print(f"  launches: {counts}")
-    report["paths"] = {"bf16": main_path, "j": jres, "k": kres}
+    report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():

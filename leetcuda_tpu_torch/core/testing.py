@@ -1,7 +1,8 @@
 """Canonical test inputs per op family, the counterpart of
 ``leetcuda_tpu/core/testing.py`` for the families the port registers
-(``gemm``, ``gemv``, ``gemm-quant``, ``softmax``, ``layer-norm``,
-``rms-norm``, ``attention-utils``).
+(``gemm``, ``gemv``, ``gemm-quant``, ``gemm-resident``, ``softmax``,
+``layer-norm``, ``rms-norm``, ``attention-utils``, ``rope``, ``embedding``,
+``transpose``).
 
 ``make_args`` takes the same draws from the numpy ``rng``, in the same order,
 as the JAX package's ``make_args`` and rounds them as JAX does (float64 ->
@@ -78,6 +79,20 @@ def make_args(spec, rng: np.random.Generator, device="cpu"):
     elif fam == "gemv":
         d = torch.bfloat16 if spec.name.startswith("hgemv") else torch.float32
         args = (randn((256,), d, 0.3), randn((256, 128), d, 0.3))
+    elif fam == "gemm-resident":
+        M = 128
+        args = (randn((M, M), torch.bfloat16, 1 / np.sqrt(M)),
+                randn((M, M), torch.bfloat16, 1 / np.sqrt(M)))
+    elif fam == "rope":
+        args = (randn((S, 128), torch.float32),)
+    elif fam == "embedding":
+        d = (torch.bfloat16 if "bf16" in spec.name
+             else torch.float16 if "f16" in spec.name else torch.float32)
+        idx = torch.from_numpy(rng.integers(0, 104, (32,)).astype(np.int32))
+        table = randn((104, 2, 128) if "tiled" in tags else (104, 128), d)
+        args = (idx, table)
+    elif fam == "transpose":
+        args = (randn((S, K), torch.float32),)
     else:
         return None
     return tuple(t.to(device) for t in args)

@@ -28,6 +28,11 @@
 // narrower (the _swizzled_ij semantics); on Hopper its point is L2 reuse of
 // the B panels. wgmma, TMA, warp specialisation and a persistent walk are
 // later work.
+//
+// Also replaces make_matmul_resident (gemm/matmul.py, the VMEM-resident
+// chain A <- cast(A @ B), ``reps`` times in one call): the same tiles, a CTA
+// owning a block of rows for every rep (mm_resident below). Bound:
+// operations (4096^3 bf16, reps 5: 687 GFLOP, 0.695 ms at 989 TFLOP/s).
 #include <cuda_fp16.h>
 
 #include "common.cuh"
@@ -102,18 +107,17 @@ mm_naive(const T* __restrict__ x, const T* __restrict__ y, void* o, int M,
 // Shared-memory tiles (BM x BK of x, BK x BN of y, both as f32, k-major),
 // each thread a TM x TN register block; kDbuf: two tile buffers, the next
 // one loaded while this one is multiplied, one barrier a k step.
+// The CTA's output tile at (m0, n0). x and y are not __restrict__ here: the
+// resident chain reads rows that the same kernel wrote.
 template <class T, int BM, int BN, int BK, int TM, int TN, bool kDbuf,
           bool kTN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-mm_simt(const T* __restrict__ x, const T* __restrict__ y, void* o, int M,
-        int N, int K, int odt, int group) {
+__device__ __forceinline__ void simt_tile(const T* x, const T* y, void* o,
+                                          int M, int N, int K, int odt,
+                                          int m0, int n0) {
   constexpr int kThreads = (BM / TM) * (BN / TN), kS = kDbuf ? 2 : 1;
   __shared__ __align__(16) float sa[kS][BK][BM + 4];
   __shared__ __align__(16) float sb[kS][BK][BN + 4];
   const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
-  int ti, tj;
-  tile_ij(blockIdx.x, (M + BM - 1) / BM, (N + BN - 1) / BN, group, ti, tj);
-  const int m0 = ti * BM, n0 = tj * BN;
 
   auto load = [&](int s, int k0) {
     for (int c = tid; c < BM * BK; c += kThreads) {
@@ -170,6 +174,17 @@ mm_simt(const T* __restrict__ x, const T* __restrict__ y, void* o, int M,
       if (col < N) store_out(o, (size_t)row * N + col, acc[r][c], odt);
     }
   }
+}
+
+template <class T, int BM, int BN, int BK, int TM, int TN, bool kDbuf,
+          bool kTN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+mm_simt(const T* __restrict__ x, const T* __restrict__ y, void* o, int M,
+        int N, int K, int odt, int group) {
+  int ti, tj;
+  tile_ij(blockIdx.x, (M + BM - 1) / BM, (N + BN - 1) / BN, group, ti, tj);
+  simt_tile<T, BM, BN, BK, TM, TN, kDbuf, kTN>(x, y, o, M, N, K, odt,
+                                               ti * BM, tj * BN);
 }
 
 // -------------------------------------------------------------- tensor cores
@@ -247,7 +262,7 @@ struct Tc {
 // Chunk (row, col .. col + 7) of a row-major 16-bit matrix (rows x cols,
 // row stride ld) into shared memory at ``dst``; zeros past rows or cols.
 __device__ __forceinline__ void load_chunk(uint16_t* dst,
-                                           const uint16_t* __restrict__ src,
+                                           const uint16_t* src,
                                            int row, int col, int rows,
                                            int cols, int ld, bool vec) {
   if (vec) {  // cols and ld are multiples of 8: the chunk is all in or out
@@ -261,19 +276,17 @@ __device__ __forceinline__ void load_chunk(uint16_t* dst,
   }
 }
 
+// The CTA's output tile at (m0, n0), staged through ``smem`` (T::STAGES
+// stages). x and y are not __restrict__ here (see simt_tile).
 template <class T, bool kF16In, bool kTN>
-__global__ void __launch_bounds__(T::THREADS)
-mm_tc(const uint16_t* __restrict__ x, const uint16_t* __restrict__ y,
-      void* o, int M, int N, int K, int odt, int group, int vec) {
-  extern __shared__ __align__(16) uint16_t smem[];
+__device__ __forceinline__ void tc_tile(const uint16_t* x, const uint16_t* y,
+                                        void* o, int M, int N, int K, int odt,
+                                        int m0, int n0, int vec,
+                                        uint16_t* smem) {
   constexpr int LDB = kTN ? T::BK + 8 : T::BN + 8;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm0 = (warp / T::WARPS_N) * T::WTM;
   const int wn0 = (warp % T::WARPS_N) * T::WTN;
-  int ti, tj;
-  tile_ij(blockIdx.x, (M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN, group,
-          ti, tj);
-  const int m0 = ti * T::BM, n0 = tj * T::BN;
 
   auto load_stage = [&](int s, int k0) {
     uint16_t* sa = smem + s * T::STAGE_ELEMS;
@@ -362,6 +375,76 @@ mm_tc(const uint16_t* __restrict__ x, const uint16_t* __restrict__ y,
     }
 }
 
+template <class T, bool kF16In, bool kTN>
+__global__ void __launch_bounds__(T::THREADS)
+mm_tc(const uint16_t* __restrict__ x, const uint16_t* __restrict__ y,
+      void* o, int M, int N, int K, int odt, int group, int vec) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  int ti, tj;
+  tile_ij(blockIdx.x, (M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN, group,
+          ti, tj);
+  tc_tile<T, kF16In, kTN>(x, y, o, M, N, K, odt, ti * T::BM, tj * T::BN, vec,
+                          smem);
+}
+
+// ------------------------------------------------------ the resident chain
+
+// A <- cast(A @ B), ``reps`` times in one launch, B (N, N). B is constant,
+// so row block i evolves on its own (C[i] = A[i] B^reps, rounded each rep):
+// a CTA owns Step::BM rows for every rep, with no grid-wide barrier. Rep r
+// reads its rows from ``a`` (r = 0) or the previous rep's buffer and writes
+// them, tile by tile across N, to ``out`` or ``scratch``, the parity chosen
+// so that the last rep writes ``out``; a fence and a barrier between reps
+// make the rows visible to the whole CTA. B is re-read from L2 every rep
+// (32 MB at 4096^2 bf16 fits the H100's 50 MB), and A and the result cross
+// HBM once. ``Step`` is the tile: TcStep (tensor cores) or SimtStep (f32).
+template <class Step>
+__global__ void __launch_bounds__(Step::THREADS)
+mm_resident(const typename Step::E* a, const typename Step::E* b,
+            typename Step::E* out, typename Step::E* scratch, int M, int N,
+            int reps, int odt, int vec) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  const int m0 = blockIdx.x * Step::BM;
+  const typename Step::E* src = a;
+  for (int r = 0; r < reps; ++r) {
+    typename Step::E* dst = ((reps - 1 - r) & 1) ? scratch : out;
+    for (int n0 = 0; n0 < N; n0 += Step::BN) {
+      __syncthreads();  // the previous tile's reads of smem are done
+      Step::tile(src, b, dst, M, N, odt, m0, n0, vec, smem);
+    }
+    // this rep's rows, written by all, reach L2 (where cp.async.cg reads)
+    // before any thread reads them
+    __threadfence();
+    __syncthreads();
+    src = dst;
+  }
+}
+
+// The chain's tiles: (M, N) @ (N, N), NN.
+template <class T, bool kF16In>
+struct TcStep {
+  using E = uint16_t;
+  static constexpr int BM = T::BM, BN = T::BN, THREADS = T::THREADS,
+                       SMEM_BYTES = T::SMEM_BYTES;
+  __device__ static void tile(const E* x, const E* y, void* o, int M, int N,
+                              int odt, int m0, int n0, int vec,
+                              uint16_t* smem) {
+    tc_tile<T, kF16In, false>(x, y, o, M, N, N, odt, m0, n0, vec, smem);
+  }
+};
+
+template <int BM_, int BN_, int BK, int TM, int TN>
+struct SimtStep {  // f32 on the CUDA cores (no TF32); static shared memory
+  using E = float;
+  static constexpr int BM = BM_, BN = BN_, THREADS = (BM / TM) * (BN / TN),
+                       SMEM_BYTES = 0;
+  __device__ static void tile(const E* x, const E* y, void* o, int M, int N,
+                              int odt, int m0, int n0, int, uint16_t*) {
+    simt_tile<float, BM, BN, BK, TM, TN, true, false>(x, y, o, M, N, N, odt,
+                                                       m0, n0);
+  }
+};
+
 // ---------------------------------------------------------------- launches
 
 // The instantiations ``config`` selects (gemm/matmul.py BLOCKS names them).
@@ -378,6 +461,10 @@ enum Config {
 using Tc64 = Tc<64, 64, 2, 2, 2>;
 using Tc128 = Tc<128, 128, 2, 4, 3>;
 using Tc256 = Tc<128, 256, 2, 4, 3>;
+// The resident chain's tile: 64 rows (a CTA's rows for every rep; 64 CTAs
+// at 4096 rows on the 132 SMs) by 256 columns, 8 warps 2 x 4, 3 stages.
+using TcRes = Tc<64, 256, 2, 4, 3>;
+constexpr int kResRows = 64;  // rows of a CTA of the f32 chain too
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -466,6 +553,24 @@ int dispatch(int config, int dtype, const void* x, const void* y, void* o,
                                          st);
 }
 
+template <class Step>
+int launch_resident(const void* a, const void* b, void* o, void* scratch,
+                    int M, int N, int reps, int odt, cudaStream_t st) {
+  using E = typename Step::E;
+  auto kern = mm_resident<Step>;
+  static bool attr_set = false;  // once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Step::SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  kern<<<cdiv(M, Step::BM), Step::THREADS, Step::SMEM_BYTES, st>>>(
+      static_cast<const E*>(a), static_cast<const E*>(b), static_cast<E*>(o),
+      static_cast<E*>(scratch), M, N, reps, odt, N % 8 == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). ``dtype`` is
@@ -483,4 +588,27 @@ extern "C" int lc_matmul(const void* x, const void* y, void* o, int M, int N,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tn ? dispatch<true>(config, dtype, x, y, o, M, N, K, odt, group, st)
             : dispatch<false>(config, dtype, x, y, o, M, N, K, odt, group, st);
+}
+
+// The resident chain: o (M, N) = a (M, N) @ b^reps, b (N, N), rounded to
+// ``dtype`` (0 f32, 1 f16, 2 bf16) after every rep, in one launch of
+// cdiv(M, 64) CTAs. ``scratch`` (M, N, of the same dtype) holds every other
+// rep's rows (unused when reps == 1); a and b are never written. Needs
+// M, N > 0, reps >= 1, contiguous 16-byte aligned operands. Returns
+// cudaGetLastError() after the launch (0 = launched) on ``stream``; does
+// not synchronise and allocates nothing.
+extern "C" int lc_matmul_resident(const void* a, const void* b, void* o,
+                                  void* scratch, int M, int N, int reps,
+                                  int dtype, void* stream) {
+  if (M <= 0 || N <= 0 || reps < 1 || dtype < 0 || dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF16)
+    return launch_resident<TcStep<TcRes, true>>(a, b, o, scratch, M, N, reps,
+                                                dtype, st);
+  if (dtype == kBF16)
+    return launch_resident<TcStep<TcRes, false>>(a, b, o, scratch, M, N, reps,
+                                                 dtype, st);
+  return launch_resident<SimtStep<kResRows, 128, 16, 4, 8>>(
+      a, b, o, scratch, M, N, reps, dtype, st);
 }

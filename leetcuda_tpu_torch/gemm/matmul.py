@@ -15,6 +15,11 @@ port's own choosing, under the JAX name, family, tags and tolerance.
 ``swizzle_group`` walks the output tiles ``group`` tile-columns at a time,
 as the JAX ``_swizzled_ij`` does (L2 reuse of the B panels on the GPU).
 ``vmem_limit_mb`` is TPU-only and not taken.
+
+``make_matmul_resident`` is the chain A <- cast(A @ B), ``reps`` times in
+one launch of ``lc_matmul_resident`` (the same source), a CTA owning a
+block of ``RESIDENT_ROWS`` rows for every rep; ``block_m`` and
+``vmem_limit_mb`` are the TPU's tiling and are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -28,9 +33,14 @@ from leetcuda_tpu_torch.core.registry import register_op
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, cdiv, check_launch
 
 MATMUL = LaunchCounter("matmul")
+MATMUL_RESIDENT = LaunchCounter("matmul_resident")
 # lc_matmul(x, y, out, M, N, K, dtype, odt, tn, config, group, stream)
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# lc_matmul_resident(a, b, out, scratch, M, N, reps, dtype, stream)
+_RES_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+RESIDENT_ROWS = 64  # csrc/matmul.cu TcRes::BM, kResRows: rows of a CTA
 
 # (BM, BN, BK) -> (the source's config id, datapath). CUDA cores: one thread
 # per output with BK 1 (naive), or shared-memory tiles with a register block
@@ -179,6 +189,72 @@ matmul = make_matmul()
 sgemm = make_matmul(block=F32_DEFAULT)
 hgemm = make_matmul(block=HALF_DEFAULT)
 hgemm_tn = make_matmul(block=HALF_DEFAULT, layout="tn")
+
+
+# --- the resident chain -------------------------------------------------------
+
+def matmul_chain_plain(a, b, reps: int):
+    """``reps`` times a <- matmul_plain(a, b): f32 sums, rounded to a's
+    dtype each rep (JAX's ``matmul_chain_ref``)."""
+    for _ in range(reps):
+        a = matmul_plain(a, b)
+    return a
+
+
+matmul_chain_ref = matmul_chain_plain
+
+
+def make_matmul_resident(*, reps: int, block_m: int = 1024,
+                         vmem_limit_mb: int = 100):
+    """chain(a (M, K), b (K, N)) with K == N: a @ b ``reps`` times, rounded
+    to a's dtype after each, in one kernel launch."""
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+
+    def fn(a, b):
+        if a.dim() != 2 or b.dim() != 2:
+            raise ValueError(f"the chain takes 2-D a and b, got "
+                             f"{tuple(a.shape)}, {tuple(b.shape)}")
+        M, K = a.shape
+        K2, N = b.shape
+        if not (K == K2 and K == N):
+            raise ValueError(f"chained matmul needs square-compatible B: a "
+                             f"{tuple(a.shape)}, b {tuple(b.shape)}")
+        if a.dtype != b.dtype or a.dtype not in _DTYPES:
+            raise ValueError(f"the chain takes a and b of one dtype among "
+                             f"f32, f16, bf16; got {a.dtype}, {b.dtype}")
+        if a.device != b.device:
+            raise ValueError("the chain: a and b must lie on one device")
+        if a.device.type == "cpu":
+            return matmul_chain_plain(a, b, reps)
+        for name, t in (("a", a), ("b", b)):
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"resident chain kernel: {name} must be "
+                                 "contiguous and 16-byte aligned")
+        from leetcuda_tpu_torch.build import kernel
+
+        out = torch.empty_like(a)
+        if a.numel() == 0:
+            return out
+        scratch = torch.empty_like(a) if reps > 1 else out
+        err = kernel("matmul", "lc_matmul_resident", _RES_ARGS)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            M, N, reps, _DTYPES[a.dtype],
+            torch.cuda.current_stream(a.device).cuda_stream)
+        check_launch(err, MATMUL_RESIDENT.name)
+        MATMUL_RESIDENT.add()
+        return out
+
+    return fn
+
+
+register_op(
+    "hgemm_resident_chain",
+    ref=functools.partial(matmul_chain_ref, reps=3),
+    flops=lambda a, b: float(2 * 3 * a.shape[0] * a.shape[1] * b.shape[1]),
+    atol=2e-2, rtol=2e-2,
+    family="gemm-resident", tags=("f16", "resident"),
+)(make_matmul_resident(reps=3, block_m=64))
 
 
 # --- shape-adaptive config selection -----------------------------------------

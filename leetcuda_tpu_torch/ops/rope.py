@@ -1,19 +1,42 @@
-"""Model-level RoPE in plain PyTorch.
+"""RoPE: the op corpus's interleaved-pair kernel and the model-level
+rotations.
 
-Counterpart of the jnp functions of ``leetcuda_tpu/ops/rope.py``
-(``_rope_angles``, ``apply_rope_half``, ``llama3_scaled_inv_freq``,
-``yarn_scaled_inv_freq``). The model path never reached the Pallas RoPE
-kernels there (``make_rope``, ``make_rope_lane``); those stay in ROADMAP's
-kernel queue.
+Counterpart of ``leetcuda_tpu/ops/rope.py``: ``make_rope``,
+``make_rope_lane``, ``rope_ref`` and the 3 registrations, and the jnp
+functions (``_rope_angles``, ``apply_rope_half``, ``apply_rope_interleaved``,
+``llama3_scaled_inv_freq``, ``yarn_scaled_inv_freq``) in plain PyTorch.
+
+``make_rope`` and ``make_rope_lane`` compute one function, interleaved
+pairs on (S, D) with position = row, in f32 and cast to x's dtype. On CUDA
+tensors they launch ``lc_rope`` of ``csrc/rope.cu`` out of place; on CPU
+tensors they run ``rope_plain``. The kernel reads the (D / 2,) frequency
+table that the wrapper builds once per width and device with the plain
+version's formula, so that position times frequency is the same f32
+product on both sides (the Pallas kernels' exp(i * -ln(theta) / half)
+drifts from it by 1e-4 at position 2048). A rung is the pairs a thread
+rotates: ``make_rope`` 1 (``f32``) or 2 (``f32_v2``), element by element;
+``make_rope_lane`` 2 in one 4-element word (``f32x4_pack``).
+``rows_per_step`` is the TPU's tiling and is accepted and ignored. The model path (``apply_rope_half``) stays plain PyTorch, as
+the JAX model's does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from leetcuda_tpu_torch.core.registry import register_op
+from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
+
 DEFAULT_THETA = 10000.0
+ROPE = LaunchCounter("rope")
+ROPE_LANE = LaunchCounter("rope_lane")
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# lc_rope(x, inv_freq, out, S, D, dtype, pairs, pack, stream)
+_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) + (ctypes.c_int,) * 4 \
+    + (ctypes.c_void_p,)
 
 
 def _plain_inv_freq(half: int, theta: float, device=None):
@@ -92,3 +115,106 @@ def apply_rope_half(x, positions, theta: float = DEFAULT_THETA,
     x1 = x[..., :half].float()
     x2 = x[..., half:].float()
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def apply_rope_interleaved(x, positions, theta: float = DEFAULT_THETA):
+    """Interleaved-pair RoPE for models: x (..., S, H, D), positions
+    (..., S). Lane pairs (2i, 2i+1) rotate by pos * theta^(-2i/D) (the
+    DeepSeek / complex convention), in f32, cast back to x's dtype."""
+    D = x.shape[-1]
+    half = D // 2
+    c, s = _rope_angles(positions, D, theta)
+    xf = x.float().reshape(*x.shape[:-1], half, 2)
+    x1, x2 = xf[..., 0], xf[..., 1]
+    out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# --- the op corpus's kernel --------------------------------------------------
+
+def rope_plain(x, theta: float = DEFAULT_THETA):
+    """Interleaved RoPE of x (S, D), position = row, in f32 (JAX's
+    ``rope_ref``)."""
+    S, D = x.shape
+    half = D // 2
+    xf = x.float().reshape(S, half, 2)
+    pos = torch.arange(S, dtype=torch.float32, device=x.device)[:, None]
+    ang = pos * _plain_inv_freq(half, theta, x.device)
+    c, s = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xf[..., 0], xf[..., 1]
+    out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.reshape(S, D).to(x.dtype)
+
+
+rope_ref = rope_plain
+
+
+def _make(counter, theta, pairs, pack):
+    freqs = {}  # (half, device) -> the (half,) f32 frequency table
+
+    def fn(x):
+        if x.dim() != 2 or x.shape[1] % 2:
+            raise ValueError(f"rope takes (S, D) with D even, got "
+                             f"{tuple(x.shape)}")
+        if x.device.type == "cpu":
+            return rope_plain(x, theta)
+        from leetcuda_tpu_torch.build import kernel
+
+        if x.dtype not in _DTYPES or not x.is_contiguous():
+            raise ValueError("rope kernel: x must be contiguous f32, f16 or "
+                             "bf16")
+        S, D = x.shape
+        out = torch.empty_like(x)
+        if x.numel() == 0:
+            return out
+        key = (D // 2, x.device)
+        if key not in freqs:
+            freqs[key] = _plain_inv_freq(D // 2, theta, x.device)
+        err = kernel("rope", "lc_rope", _ARGS)(
+            x.data_ptr(), freqs[key].data_ptr(), out.data_ptr(), S, D,
+            _DTYPES[x.dtype], pairs, int(pack),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(err, counter.name)
+        counter.add()
+        return out
+
+    return fn
+
+
+def make_rope(*, theta: float = DEFAULT_THETA, rows_per_step: int = 8,
+              pairs: int = 1):
+    """rope(x): x (S, D) with interleaved pairs, position = row index;
+    ``pairs`` (1 or 2) a thread rotates."""
+    if pairs not in (1, 2):
+        raise ValueError(f"pairs must be 1 or 2, got {pairs}")
+    return _make(ROPE, theta, pairs, False)
+
+
+def make_rope_lane(*, theta: float = DEFAULT_THETA,
+                   rows_per_step: int = 1024):
+    """The same function, JAX's native-lane factory (its top rung)."""
+    return _make(ROPE_LANE, theta, 2, True)
+
+
+def _rope_flops(x):
+    return float(6 * x.numel())
+
+
+def _rope_bytes(x):
+    return float(2 * x.numel() * x.element_size())
+
+
+for _suffix, _rows, _pairs in [("f32", 8, 1), ("f32_v2", 512, 2)]:
+    register_op(
+        f"rope_{_suffix}",
+        ref=rope_ref, flops=_rope_flops, bytes=_rope_bytes,
+        atol=1e-4, rtol=1e-4, family="rope", tags=(_suffix,),
+    )(make_rope(rows_per_step=_rows, pairs=_pairs))
+
+register_op(
+    "rope_f32x4_pack",
+    ref=rope_ref, flops=_rope_flops, bytes=_rope_bytes,
+    atol=1e-4, rtol=1e-4, family="rope", tags=("f32x4_pack", "lane"),
+)(make_rope_lane(rows_per_step=2048))
+
+rope = make_rope_lane(rows_per_step=2048)
