@@ -138,10 +138,36 @@ Phases; any failure raises and the script exits non-zero:
           distinct payloads and int64 ids, bit for bit; RoPE in bf16; the
           chain in f16 and f32 at 1024^2, 1 and 4 reps. Every call's
           inputs are checked unchanged.
+   (m)    the op corpus's add, activations, reductions, dot product and
+          histogram (after path (l)), in three parts, each with the counts
+          zeroed: the 136 registered ops of the elementwise, activation,
+          reduce, dot-product and histogram families at their
+          ``make_args`` inputs against their registry oracles at their
+          registry tolerances; then, timed: the bf16 residual add at
+          training's (16384, 2048) bit for bit beside torch.add, swish and
+          gelu in bf16 at its FFN hidden (16384, 5632) beside F.silu and
+          F.gelu, the f32 max beside torch.amax, a histogram of training's
+          (8, 2048) token ids over the 32000-token vocabulary beside
+          torch.bincount, every add and activation rung at 4096^2 and every
+          sum and dot rung and both histogram rungs at (16384, 2048) in
+          their dtypes, and NMS (torch ops and a host walk, no kernel)
+          over Faster R-CNN's 1000 and 6000 proposals, 6000 with ramped
+          scores and a 6000-box suppression chain, keep-equal to nms_ref;
+          then, untimed: every rung and the max at (700, 4000), (1300,
+          2500), (3, 130), (1, 1) and one element off an aligned base;
+          NaN, infinities and signed zeros through the add (bit for bit)
+          and every activation (NaN where the plain version has it); NaN
+          in the f32 sum and the max, e4m3's NaN bytes in its sum, an int8
+          sum that wraps; every float sum, the max and every dot twice,
+          bit for bit; histogram values outside the bins, dropped, at 128,
+          32000 and 128256 bins (past the shared memory). Outside the
+          registry sweep, a float sum or dot is held to one ulp of its
+          accumulator plus f32 reordering (``flat_tol``). Every call's
+          inputs are checked unchanged.
    Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings;
    no serving path launches a training kernel, no serving or training
-   path launches a GEMM library kernel, none but (k) a row-op kernel, and
-   none but (l) a kernel of path (l).
+   path launches a GEMM library kernel, none but (k) a row-op kernel,
+   none but (l) a kernel of path (l) and none but (m) one of path (m).
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
    replay's max logit. A prompt the Engine admitted in a ragged batch
@@ -176,6 +202,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -253,6 +280,15 @@ PATH_KERNELS.update({
     "l3": ("transpose", "embedding", "embedding_tiled", "rope_lane",
            "matmul_resident")})
 PATH_KERNELS["l2"] = PATH_KERNELS["l1"]
+# Path (m), the op corpus's add, activations, reductions, dot product and
+# histogram, in three parts: the registry sweep of the five families (the
+# max has no registration), the timed full-size cases, the untimed checks.
+PATH_KERNELS.update({
+    "m1": ("elementwise_add", "activation", "block_all_reduce_sum",
+           "dot_product", "histogram"),
+    "m2": ("elementwise_add", "activation", "block_all_reduce_sum",
+           "block_all_reduce_max", "dot_product", "histogram")})
+PATH_KERNELS["m3"] = PATH_KERNELS["m2"]
 # The kernels of training (path (i)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
 # The GEMM library's kernels: no serving or training path launches them (the
@@ -266,6 +302,10 @@ ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_bwd",)
 # model's embedding is an indexing op and its RoPE the half rotation, as the
 # JAX model's are; nothing calls the resident chain).
 CORPUS_KERNELS = PATH_KERNELS["l1"]
+# The kernels of path (m): no other path launches them (the model leaves its
+# activations, residual adds and loss reductions to eager PyTorch, as the
+# JAX model leaves them to XLA).
+FLAT_KERNELS = PATH_KERNELS["m2"]
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
@@ -2537,6 +2577,513 @@ def print_corpus(rows, res):
     print(f"  launches: {res['launches']}")
 
 
+# --- path (m): the op corpus's add, activations, reductions, dot, histogram ----
+
+FLAT_SRC = {
+    "elementwise_add": ("leetcuda_tpu_torch/csrc/elementwise.cu",
+                        "leetcuda_tpu/ops/elementwise.py:62"),
+    "activation": ("leetcuda_tpu_torch/csrc/elementwise.cu",
+                   "leetcuda_tpu/ops/activations.py:99"),
+    "block_all_reduce_sum": ("leetcuda_tpu_torch/csrc/reduce.cu",
+                             "leetcuda_tpu/ops/reduce.py:103"),
+    "block_all_reduce_max": ("leetcuda_tpu_torch/csrc/reduce.cu",
+                             "leetcuda_tpu/ops/reduce.py:143"),
+    "dot_product": ("leetcuda_tpu_torch/csrc/reduce.cu",
+                    "leetcuda_tpu/ops/dot_product.py:56"),
+    "histogram": ("leetcuda_tpu_torch/csrc/histogram.cu",
+                  "leetcuda_tpu/ops/histogram.py:42"),
+}
+FLAT_FAMILIES = ("elementwise", "activation", "reduce", "dot-product",
+                 "histogram")
+FLAT_KERNEL = {"elementwise": "elementwise_add", "activation": "activation",
+               "reduce": "block_all_reduce_sum", "dot-product": "dot_product",
+               "histogram": "histogram"}
+# Training's residual stream (B * S, dim) and FFN hidden (B * S, ffn); every
+# rung of the add and the activations at 4096^2 (the reference harness's
+# largest); the reductions at the residual stream's shape; ragged shapes
+# (ROADMAP's two reduce shapes, a tail-only one, a single element) and one
+# shape with every operand one element past an aligned base.
+MODEL_DIM, FFN_DIM, FLAT_DIM = 2048, 5632, 4096
+FLAT_RAGGED = (((700, 4000), 0), ((1300, 2500), 0), ((3, 130), 0),
+               ((1, 1), 0), ((1300, 2500), 1))
+VOCAB_BINS = 32000  # the model's vocabulary: a histogram of token ids
+# Llama 3's vocabulary (its config's vocab_size): more bins than an H100's
+# opt-in shared memory holds (58112 int32), so the device-memory branch
+LARGE_VOCAB_BINS = 128256
+# Faster R-CNN's region proposals at test time (Ren et al., NeurIPS 2015,
+# section 3.1.1; py-faster-rcnn's TEST config): anchors of 3 sizes (128,
+# 256, 512) and 3 ratios (1:2, 1:1, 2:1) at stride 16 over a 600 x 1000
+# image, RPN_PRE_NMS_TOP_N 6000 (and 1000), RPN_NMS_THRESH 0.7. Integer
+# box corners in the image, so that f32 and float64 IoUs fall on one side
+# of the threshold (p / q != 0.7 stands 1 / (10 q) > 7.2e-8 off it for
+# unions q below 1.39e6, past f32's rounding of the IoU and of 0.7)
+NMS_BOXES, NMS_THRESHOLD = (1000, 6000), 0.7
+RPN_IMAGE, RPN_STRIDE = (600, 1000), 16
+# NaN, infinities, signed zeros and the points where the activations
+# change form (the sigmoid clamp, hardswish's knees, hardshrink's lambda)
+SPECIALS = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1.0, -1.0,
+            0.5, -0.5, 0.25, 3.0, -3.0, 6.0, -6.0, 88.0, 88.5, -88.0, -88.5,
+            100.0, -100.0, 1e30, -1e30, 1e-30, -1e-30)
+
+
+def _act_library():
+    import torch.nn.functional as F
+
+    return {"relu": torch.relu, "sigmoid": torch.sigmoid,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "swish": F.silu, "elu": F.elu, "hardswish": F.hardswish,
+            "hardshrink": lambda x: F.hardshrink(x, 0.5)}
+
+
+def flat_dtype(spec):
+    """The element dtype of a path (m) op's inputs, as make_args picks it."""
+    from leetcuda_tpu_torch.ops.reduce import _MATRIX
+
+    if spec.family == "reduce":
+        return {sfx: e for sfx, e, _, _ in _MATRIX}[spec.tags[0]]
+    if spec.family == "dot-product":
+        return half_or_f32(spec.name)
+    if spec.family == "histogram":
+        return torch.int32
+    tags = spec.tags
+    return (torch.bfloat16 if "bf16" in tags else torch.float16
+            if "f16" in tags else torch.float32)
+
+
+def flat_args(run, spec, shape, offset=0):
+    """Inputs of a path (m) op at ``shape``, drawn as make_args draws them:
+    unit normal for the add and the activations, 0.1-scaled for sums and
+    dots, int8 in [-128, 128), values in [0, 128) for the histogram; each
+    ``offset`` elements past an aligned base."""
+    dt = flat_dtype(spec)
+    n_args = 2 if spec.family in ("elementwise", "dot-product") else 1
+    out = []
+    for _ in range(n_args):
+        if dt == torch.int8:
+            t = torch.randint(-128, 128, shape, generator=run.gen,
+                              device="cuda", dtype=torch.int8)
+        elif dt == torch.int32:
+            t = torch.randint(0, 128, shape, generator=run.gen,
+                              device="cuda", dtype=torch.int32)
+        else:
+            scale = 1.0 if spec.family in ("elementwise", "activation") else 0.1
+            t = run.rand(*shape, scale=scale).to(dt)
+        if offset:
+            buf = torch.empty(t.numel() + offset, dtype=dt, device="cuda")
+            bits(buf)[offset:] = bits(t).reshape(-1)
+            t = buf[offset:].view(shape)
+        out.append(t)
+    return tuple(out)
+
+
+def flat_plain(spec):
+    """The plain version of a registered path (m) op."""
+    from leetcuda_tpu_torch.ops import activations as act
+    from leetcuda_tpu_torch.ops import dot_product as dp
+    from leetcuda_tpu_torch.ops import elementwise as ew
+    from leetcuda_tpu_torch.ops import histogram as hi
+    from leetcuda_tpu_torch.ops import reduce as rd
+
+    if spec.family == "elementwise":
+        return ew.add_plain
+    if spec.family == "activation":
+        f = act.ACTIVATIONS[spec.tags[0]]
+        return lambda x: act.activation_plain(f, x)
+    if spec.family == "reduce":
+        return lambda x: rd.sum_plain(x, spec.fn.acc_dtype)
+    if spec.family == "dot-product":
+        return dp.dot_plain
+    return lambda x: hi.histogram_plain(x, hi.BINS)
+
+
+def ulp(dtype, a):
+    """The spacing of ``dtype``'s values at magnitude ``a``."""
+    fi = torch.finfo(dtype)
+    if a < fi.tiny:
+        return fi.eps * fi.tiny
+    return fi.eps * 2.0 ** (math.frexp(a)[1] - 1)
+
+
+def flat_tol(spec, args):
+    """Bit for bit for the add, the histogram and the int8 sum. A float sum
+    or dot on ``args`` is held to what f32 accumulation in another order
+    and one rounding to the accumulator allow: one ulp of the accumulator
+    at the plain result, plus 1e-6 sqrt(n) times its largest term. The
+    activations at the registry's tolerance."""
+    if spec.family in ("elementwise", "histogram"):
+        return EXACT
+    if spec.family in ("reduce", "dot-product"):
+        want = flat_plain(spec)(*args)
+        if not want.dtype.is_floating_point:
+            return EXACT
+        terms = args[0].float()
+        if len(args) > 1:
+            terms = terms * args[1].float()
+        return dict(atol=ulp(want.dtype, abs(float(want)))
+                    + 1e-6 * math.sqrt(terms.numel())
+                    * float(terms.abs().max()), rtol=0.0)
+    return dict(atol=spec.atol, rtol=spec.rtol)
+
+
+def _sum_library(x, acc):
+    """torch.sum(x, dtype=acc), or x.to(acc).sum() where torch.sum refuses
+    x's dtype: (call, its name)."""
+    try:
+        torch.sum(x, dtype=acc)
+        return (lambda: torch.sum(x, dtype=acc)), "torch.sum(x, dtype=acc)"
+    except (RuntimeError, TypeError):
+        return (lambda: x.to(acc).sum()), "x.to(acc).sum()"
+
+
+def _flat_case(run, spec, args, check, timed=True, **extra):
+    """One registered op of path (m) on ``args``, held against its plain
+    version (the add through its bits) and, if ``timed``, timed beside one
+    PyTorch call."""
+    from leetcuda_tpu_torch.ops import reduce as rd
+
+    kernel, plain, x = FLAT_KERNEL[spec.family], flat_plain(spec), args[0]
+    call, want = (lambda: spec.fn(*args)), (lambda: plain(*args))
+    if spec.family == "elementwise":
+        call, want = (lambda: bits(spec.fn(*args))), (lambda: bits(
+            plain(*args)))
+    lib = None
+    if timed:
+        if spec.family == "elementwise":
+            lib = lambda: torch.add(*args)  # noqa: E731
+        elif spec.family == "activation":
+            lib = lambda f=_act_library()[spec.tags[0]]: f(x)  # noqa: E731
+        elif spec.family == "reduce":
+            lib, extra["library"] = _sum_library(x, spec.fn.acc_dtype)
+        elif spec.family == "dot-product":
+            xf, yf = x.reshape(-1), args[1].reshape(-1)
+            lib = ((lambda: torch.dot(xf, yf)) if x.dtype == torch.float32
+                   else (lambda: torch.dot(xf.float(), yf.float())))
+        else:
+            lib = lambda: torch.bincount(x.reshape(-1),  # noqa: E731
+                                         minlength=spec.fn.num_bins)
+    nbytes = (spec.bytes(*args) if spec.bytes is not None
+              else 4.0 * (x.numel() + spec.fn.num_bins))
+    flops = spec.flops(*args) if spec.flops is not None else 0.0
+    return run.case(check, kernel, call, want, lib, nbytes, args,
+                    tol=flat_tol(spec, args), timed=timed, flops=flops,
+                    rung=spec.name, **extra)
+
+
+def _flat_model_cases(run):
+    """The model's shapes: the residual add in bf16 at training's (16384,
+    2048) bit for bit beside torch.add; swish and gelu in bf16 at its FFN
+    hidden (16384, 5632) beside F.silu and F.gelu(approximate="tanh"); the
+    f32 max at (16384, 2048) beside torch.amax; 128 bins over (16384, 2048)
+    values and training's (8, 2048) token ids over the vocabulary, beside
+    torch.bincount."""
+    import torch.nn.functional as F
+    from leetcuda_tpu_torch.ops import activations as act
+    from leetcuda_tpu_torch.ops import elementwise as ew
+    from leetcuda_tpu_torch.ops import histogram as hi
+    from leetcuda_tpu_torch.ops import reduce as rd
+
+    M, D = TRAIN_ROWS, MODEL_DIM
+    x = run.rand(M, D, dtype=torch.bfloat16)
+    y = run.rand(M, D, dtype=torch.bfloat16)
+    run.case(f"elementwise_add/bf16 ({M}, {D})", "elementwise_add",
+             lambda: bits(ew.elementwise_add_bf16(x, y)),
+             lambda: bits(ew.add_plain(x, y)), lambda: torch.add(x, y),
+             3.0 * x.numel() * 2, (x, y), tol=EXACT, flops=float(x.numel()),
+             S=M, K=D)
+    h = run.rand(M, FFN_DIM, dtype=torch.bfloat16)
+    for name, fn, lib in (("swish", act.swish, F.silu),
+                          ("gelu", act.gelu,
+                           lambda t: F.gelu(t, approximate="tanh"))):
+        math = act.ACTIVATIONS[name]
+        run.case(f"activation/{name} bf16 ({M}, {FFN_DIM})", "activation",
+                 lambda: fn(h), lambda: act.activation_plain(math, h),
+                 lambda: lib(h), 2.0 * h.numel() * 2, (h,),
+                 tol=dict(atol=2e-2, rtol=1e-2), flops=float(h.numel()),
+                 S=M, K=FFN_DIM)
+    xf = run.rand(M, D)
+    run.case(f"block_all_reduce_max/f32 ({M}, {D})", "block_all_reduce_max",
+             lambda: rd.block_all_reduce_max_f32(xf),
+             lambda: rd.max_plain(xf, torch.float32),
+             lambda: torch.amax(xf), 4.0 * xf.numel(), (xf,), tol=EXACT,
+             flops=float(xf.numel()), S=M, K=D)
+    v = torch.randint(0, hi.BINS, (M, D), generator=run.gen, device="cuda",
+                      dtype=torch.int32)
+    run.case(f"histogram/{hi.BINS} bins ({M}, {D})", "histogram",
+             lambda: hi.histogram(hi.BINS)(v),
+             lambda: hi.histogram_plain(v, hi.BINS),
+             lambda: torch.bincount(v.reshape(-1), minlength=hi.BINS),
+             4.0 * (v.numel() + hi.BINS), (v,), tol=EXACT, S=M, K=D,
+             bins=hi.BINS)
+    ids = torch.randint(0, VOCAB_BINS, (TRAIN_B, TRAIN_S), generator=run.gen,
+                        device="cuda", dtype=torch.int32)
+    vocab_hist = hi.make_histogram(VOCAB_BINS)
+    run.case(f"histogram/{VOCAB_BINS} bins, ({TRAIN_B}, {TRAIN_S}) token ids",
+             "histogram", lambda: vocab_hist(ids),
+             lambda: hi.histogram_plain(ids, VOCAB_BINS),
+             lambda: torch.bincount(ids.reshape(-1), minlength=VOCAB_BINS),
+             4.0 * (ids.numel() + VOCAB_BINS), (ids,), tol=EXACT,
+             S=TRAIN_B, K=TRAIN_S, bins=VOCAB_BINS)
+
+
+def rpn_proposals(gen, n, ramp=False):
+    """The ``n`` best-scored of Faster R-CNN's 9 anchors a position
+    (``RPN_STRIDE`` over ``RPN_IMAGE``), each corner moved by up to half a
+    stride as a regression would move it and clipped to the image: (boxes
+    (n, 4) f32, scores (n,)) on the card. Scores are uniform, or with
+    ``ramp`` fall along the anchors' raster order (a smooth objectness
+    map), so that each box's fate hangs on its neighbour's."""
+    (height, width), st = RPN_IMAGE, RPN_STRIDE
+    root = torch.tensor([0.5, 1.0, 2.0], device="cuda").sqrt()[:, None]
+    sizes = torch.tensor([128.0, 256.0, 512.0], device="cuda")
+    w, h = (sizes / root).round().reshape(-1), (sizes * root).round().reshape(-1)
+    gy, gx = torch.meshgrid(torch.arange(-(-height // st), device="cuda"),
+                            torch.arange(-(-width // st), device="cuda"),
+                            indexing="ij")
+    x1 = (gx.reshape(-1, 1) * st + st // 2) - (w / 2).floor()
+    y1 = (gy.reshape(-1, 1) * st + st // 2) - (h / 2).floor()
+    boxes = torch.stack([x1, y1, x1 + w, y1 + h], -1).reshape(-1, 4)
+    boxes = boxes + torch.randint(-(st // 2), st // 2 + 1, boxes.shape,
+                                  generator=gen, device="cuda")
+    boxes = torch.minimum(boxes.clamp(min=0), torch.tensor(
+        [width, height, width, height], device="cuda", dtype=boxes.dtype))
+    m = boxes.shape[0]
+    scores = (1.0 - torch.arange(m, device="cuda") / m if ramp
+              else torch.rand(m, generator=gen, device="cuda"))
+    top = torch.topk(scores, n).indices
+    return boxes[top].float(), scores[top]
+
+
+def suppression_chain(n):
+    """``n`` 128-pixel boxes in a row 16 pixels apart, scores falling along
+    it: each overlaps the next by IoU 0.78 and the one after by 0.6, so the
+    greedy pass keeps every other box, each decided by the box before."""
+    x = torch.arange(n, device="cuda", dtype=torch.float32) * 16
+    z = torch.zeros_like(x)
+    return (torch.stack([x, z, x + 128, z + 128], 1),
+            1.0 - torch.arange(n, device="cuda") / n)
+
+
+def _nms_cases(run):
+    """NMS on the card (no kernel: torch ops and a walk on the host) over
+    Faster R-CNN's proposals at 1000 and 6000 boxes, over 6000 with
+    ramped scores and over a 6000-box suppression chain, keep-equal to
+    nms_ref and its indices in score order; wall time (median of 5,
+    synchronised). Returns {input: result}."""
+    from leetcuda_tpu_torch.ops import nms as nm
+
+    inputs = {f"rpn {n}": rpn_proposals(run.gen, n) for n in NMS_BOXES}
+    inputs[f"rpn {NMS_BOXES[-1]}, ramped scores"] = rpn_proposals(
+        run.gen, NMS_BOXES[-1], ramp=True)
+    inputs[f"chain {NMS_BOXES[-1]}"] = suppression_chain(NMS_BOXES[-1])
+    out = {}
+    for what, (boxes, scores) in inputs.items():
+        keep = nm.nms(boxes, scores, NMS_THRESHOLD)
+        want = nm.nms_ref(boxes.cpu().numpy(), scores.cpu().numpy(),
+                          NMS_THRESHOLD)
+        if not np.array_equal(keep.cpu().numpy(), want):
+            raise AssertionError(f"nms: {what} differs from nms_ref in "
+                                 f"{int((keep.cpu().numpy() != want).sum())}")
+        idx = nm.nms_indices(boxes, scores, NMS_THRESHOLD).cpu().numpy()
+        order = np.argsort(-scores.cpu().numpy(), kind="stable")
+        kept = order[want[order]]
+        if not (np.array_equal(idx[:len(kept)], kept)
+                and (idx[len(kept):] == -1).all()):
+            raise AssertionError(f"nms_indices: {what}, wrong indices")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nm.nms(boxes, scores, NMS_THRESHOLD)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[what] = {"ms": float(np.median(times)), "boxes": len(want),
+                     "kept": int(want.sum()), "threshold": NMS_THRESHOLD}
+    return out
+
+
+def flat_shapes(run, res):
+    """Path (m), part 2, timed: the model's shapes, then every add and
+    activation rung at 4096^2 and every sum and dot rung and both histogram
+    rungs at (16384, 2048) in their dtypes; NMS (into ``res``)."""
+    from leetcuda_tpu_torch.core.registry import OPS
+
+    _flat_model_cases(run)
+    for name, spec in OPS.items():
+        if spec.family not in FLAT_FAMILIES:
+            continue
+        shape = ((FLAT_DIM, FLAT_DIM)
+                 if spec.family in ("elementwise", "activation")
+                 else (TRAIN_ROWS, MODEL_DIM))
+        _flat_case(run, spec, flat_args(run, spec, shape),
+                   f"{FLAT_KERNEL[spec.family]}/{name} {shape}",
+                   S=shape[0], K=shape[1])
+    res["nms"] = _nms_cases(run)
+
+
+def _hold_nan(check, got, want, tol):
+    """NaN exactly where ``want`` has NaN, and elsewhere within ``tol`` (bit
+    for bit where it is EXACT)."""
+    gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
+    if not torch.equal(gn, wn):
+        raise AssertionError(f"{check}: NaN at other places than the plain "
+                             f"version ({int((gn != wn).sum())})")
+    if tol is EXACT:
+        if not torch.equal(bits(got[~gn]), bits(want[~wn])):
+            raise AssertionError(f"{check}: differs from the plain version")
+        return 0.0
+    return hold(got[~gn], want[~wn], tol)
+
+
+def flat_checks(run):
+    """Path (m), part 3, untimed: every registered rung and the max at the
+    ragged shapes and one element off an aligned base; NaN, infinities and
+    signed zeros through the add and every activation; NaN in the f32 sum
+    and the max, e4m3's NaN bytes in its sum; an int8 sum that wraps; every
+    float sum, the max and every dot twice, bit for bit; histogram values
+    outside the bins, at 128, 32000 and 128256 bins (the last past the
+    opt-in shared memory: the kernel's device-memory branch). Every call's
+    inputs are checked unchanged."""
+    from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import activations as act
+    from leetcuda_tpu_torch.ops import histogram as hi
+    from leetcuda_tpu_torch.ops import reduce as rd
+
+    specs = [s for s in OPS.values() if s.family in FLAT_FAMILIES]
+    for shape, off in FLAT_RAGGED:
+        for spec in specs:
+            _flat_case(run, spec, flat_args(run, spec, shape, off),
+                       f"{FLAT_KERNEL[spec.family]}/{spec.name} {shape} + "
+                       f"{off}", timed=False)
+        x = flat_args(run, OPS["block_all_reduce_sum_f32_f32"], shape, off)
+        run.case(f"block_all_reduce_max/{shape} + {off}",
+                 "block_all_reduce_max",
+                 lambda: rd.block_all_reduce_max_f32(*x),
+                 lambda: rd.max_plain(*x, torch.float32), None, 0.0, x,
+                 tol=EXACT, timed=False)
+
+    sp = torch.tensor(SPECIALS, device="cuda")
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        x = sp[:, None].expand(len(sp), len(sp)).to(dt).contiguous()
+        y = sp[None, :].expand(len(sp), len(sp)).to(dt).contiguous()
+        for spec in specs:
+            if spec.family not in ("elementwise", "activation") or (
+                    flat_dtype(spec) != dt):
+                continue
+            args = (x, y) if spec.family == "elementwise" else (x,)
+            before = [t.clone() for t in args]
+            got, want = spec.fn(*args), flat_plain(spec)(*args)
+            unchanged(spec.name, args, before)
+            check = f"{FLAT_KERNEL[spec.family]}/{spec.name} specials"
+            run.checks[check] = _hold_nan(check, got, want,
+                                          flat_tol(spec, args))
+    if not torch.equal(act.hardshrink(x[:1]).float(),
+                       torch.zeros_like(x[:1], dtype=torch.float32)):
+        raise AssertionError("hardshrink: NaN must map to 0")
+
+    xf = run.rand(700, 4000)
+    xf[123, 456] = float("nan")
+    for check, fn in (("block_all_reduce_sum", rd.block_all_reduce_sum_f32),
+                      ("block_all_reduce_max", rd.block_all_reduce_max_f32)):
+        before = xf.clone()
+        got = fn(xf)
+        unchanged(check, (xf,), (before,))
+        if not torch.isnan(got):
+            raise AssertionError(f"{check}: a NaN in x must give NaN")
+        run.checks[f"{check}/NaN in f32"] = 0.0
+    e4 = OPS["block_all_reduce_sum_fp8_e4m3_f16"]
+    for byte in (0x7F, 0xFF):
+        (x8,) = flat_args(run, e4, (1300, 2500))
+        x8.view(torch.uint8)[700, 1234] = byte
+        before = x8.clone()
+        got = e4.fn(x8)
+        unchanged("e4m3 sum", (x8,), (before,))
+        if not (torch.isnan(got)
+                and torch.isnan(rd.sum_plain(x8, torch.float16))):
+            raise AssertionError(f"e4m3 byte {byte:#x} must sum to NaN")
+        run.checks[f"block_all_reduce_sum/e4m3 byte {byte:#x}"] = 0.0
+    i8 = OPS["block_all_reduce_sum_i8_i32"]
+    x127 = torch.full((TRAIN_ROWS, MODEL_DIM), 127, dtype=torch.int8,
+                      device="cuda")
+    run.case("block_all_reduce_sum/int8 all 127, wrapping",
+             "block_all_reduce_sum", lambda: i8.fn(x127), lambda: rd.sum_plain(x127, torch.int32),
+             None, 0.0, (x127,), tol=EXACT, timed=False)
+    if int(i8.fn(x127)) != (127 * x127.numel() + 2 ** 31) % 2 ** 32 - 2 ** 31:
+        raise AssertionError("the int8 sum must wrap mod 2^32")
+
+    shape = (TRAIN_ROWS, MODEL_DIM)
+    twice = [(s.name, s.fn, flat_args(run, s, shape)) for s in specs
+             if s.family in ("reduce", "dot-product")
+             and flat_dtype(s) != torch.int8]
+    twice.append(("block_all_reduce_max_f32", rd.block_all_reduce_max_f32,
+                  (run.rand(*shape),)))
+    for name, fn, args in twice:
+        a, b = fn(*args), fn(*args)
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{name}: two runs differ in their bits")
+        run.checks[f"{name} twice, bit for bit"] = 0.0
+
+    for bins, fns in ((hi.BINS, [s.fn for s in specs
+                                  if s.family == "histogram"]),
+                      *((b, [hi.make_histogram(b, vec=1),
+                             hi.make_histogram(b)])
+                        for b in (VOCAB_BINS, LARGE_VOCAB_BINS))):
+        v = torch.randint(0, bins, (700, 4000), generator=run.gen,
+                          device="cuda", dtype=torch.int32)
+        v.view(-1)[:8] = torch.tensor([-3, -1, bins, bins + 50] * 2,
+                                      device="cuda")
+        for fn in fns:
+            run.case(f"histogram/{bins} bins, vec {fn.vec}, out of range",
+                     "histogram", lambda: fn(v),
+                     lambda: hi.histogram_plain(v, bins), None, 0.0, (v,),
+                     tol=EXACT, timed=False)
+            if int(fn(v).sum()) != v.numel() - 8:
+                raise AssertionError("histogram: out-of-range values must "
+                                     "be dropped")
+
+
+def flat_path():
+    """Path (m): the op corpus's add, activations, reductions, dot product
+    and histogram on the card, in three parts, each driven with the launch
+    counts zeroed just before it and read just after. Returns (rows for the
+    kernels line, the path's report)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    run = RowRun(flush, src=FLAT_SRC)
+    res = {"launches": {}}
+    t0 = time.perf_counter()
+    for part, fn in (("m1", lambda: registry_sweep(FLAT_FAMILIES, 136)),
+                     ("m2", lambda: flat_shapes(run, res)),
+                     ("m3", lambda: flat_checks(run))):
+        out, counts, _ = drive(part, fn)
+        if part == "m1":
+            res["registry_max_abs_err"] = out
+        res[f"launches_{part}"] = counts
+        for k, v in counts.items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+    res.update(untimed_checks=run.checks, seconds=time.perf_counter() - t0)
+    return run.rec.rows, res
+
+
+def print_flat(rows, res):
+    print(f"path (m) add, activations, reductions, dot, histogram: "
+          f"{len(res['registry_max_abs_err'])} registered ops held at their "
+          f"registry tolerances; {len(res['untimed_checks'])} untimed checks;"
+          f" {len(rows)} timed cases in {res['seconds']:.1f} s", flush=True)
+    for r in rows.values():
+        lib = ("library none" if r["library_ms"] is None
+               else f"library {r['library_ms']:.4f} ms")
+        print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
+              f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
+              f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    for what, r in res["nms"].items():
+        print(f"  nms {what} ({r['boxes']} boxes, threshold "
+              f"{r['threshold']}): {r['kept']} kept, as nms_ref; "
+              f"{r['ms']:.4f} ms a call (wall, no kernel)")
+    worst = max(res["untimed_checks"].values())
+    print(f"  untimed checks: {len(res['untimed_checks'])}, worst max abs "
+          f"error {worst:.3g}")
+    print(f"  launches: {res['launches']}")
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -2559,7 +3106,8 @@ def drive(path, fn):
                  + (TRAIN_KERNELS if path != "i" else ())
                  + (GEMM_KERNELS if not path.startswith("j") else ())
                  + (ROW_KERNELS if not path.startswith("k") else ())
-                 + (CORPUS_KERNELS if not path.startswith("l") else ()))
+                 + (CORPUS_KERNELS if not path.startswith("l") else ())
+                 + (FLAT_KERNELS if not path.startswith("m") else ()))
     stray = [n for n in forbidden
              if counts.get(n, 0) and n not in PATH_KERNELS[path]]
     if stray:
@@ -2860,6 +3408,12 @@ def main() -> int:
     checks.update(lrows)
     phase_done("corpus")
 
+    # path (m): the add, activations, reductions, dot product, histogram
+    mrows, mres = flat_path()
+    print_flat(mrows, mres)
+    checks.update(mrows)
+    phase_done("flat")
+
     # 4. the main paths at full width
     # warm-up: cuBLAS, library loads
     generate(params, cfg, gprompts[:1, :16], 2)
@@ -2894,7 +3448,8 @@ def main() -> int:
           f"{main_path['weight_bytes'] / 2**30:.2f} GiB, caches and "
           f"activations at peak {peak / 2**30:.2f} GiB", flush=True)
     print(f"  launches: {counts}")
-    report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres}
+    report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres,
+                       "m": mres}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():

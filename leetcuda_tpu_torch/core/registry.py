@@ -87,9 +87,15 @@ def load_all():
     import leetcuda_tpu_torch.gemm.gemv  # noqa: F401
     import leetcuda_tpu_torch.gemm.matmul  # noqa: F401
     import leetcuda_tpu_torch.gemm.quant  # noqa: F401
+    import leetcuda_tpu_torch.ops.activations  # noqa: F401
+    import leetcuda_tpu_torch.ops.dot_product  # noqa: F401
+    import leetcuda_tpu_torch.ops.elementwise  # noqa: F401
     import leetcuda_tpu_torch.ops.embedding  # noqa: F401
+    import leetcuda_tpu_torch.ops.histogram  # noqa: F401
     import leetcuda_tpu_torch.ops.layer_norm  # noqa: F401
     import leetcuda_tpu_torch.ops.merge_attn_states  # noqa: F401
+    import leetcuda_tpu_torch.ops.nms  # noqa: F401
+    import leetcuda_tpu_torch.ops.reduce  # noqa: F401
     import leetcuda_tpu_torch.ops.rms_norm  # noqa: F401
     import leetcuda_tpu_torch.ops.rope  # noqa: F401
     import leetcuda_tpu_torch.ops.softmax  # noqa: F401

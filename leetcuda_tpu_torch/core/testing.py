@@ -2,13 +2,15 @@
 ``leetcuda_tpu/core/testing.py`` for the families the port registers
 (``gemm``, ``gemv``, ``gemm-quant``, ``gemm-resident``, ``softmax``,
 ``layer-norm``, ``rms-norm``, ``attention-utils``, ``rope``, ``embedding``,
-``transpose``).
+``transpose``, ``elementwise``, ``activation``, ``reduce``, ``dot-product``,
+``histogram``).
 
 ``make_args`` takes the same draws from the numpy ``rng``, in the same order,
 as the JAX package's ``make_args`` and rounds them as JAX does (float64 ->
 the op's dtype in one rounding; for float16 through numpy, since torch's
-float64 -> float16 cast rounds through float32), so one seed gives both
-packages the same numbers. The weight packs come from the port's quantizers,
+float64 -> float16 cast rounds through float32; e4m3 and e5m2 as torch
+casts them, which gives JAX's bytes), so one seed gives both packages the
+same numbers. The weight packs come from the port's quantizers,
 which produce the JAX packs byte for byte.
 """
 
@@ -30,6 +32,7 @@ def make_args(spec, rng: np.random.Generator, device="cpu"):
     for a family the port does not register."""
     from leetcuda_tpu_torch.gemm.quant import (quantize_groupwise_int4,
                                                quantize_rowwise_fp8)
+    from leetcuda_tpu_torch.ops.reduce import _MATRIX
 
     fam, tags = spec.family, set(spec.tags)
 
@@ -40,8 +43,27 @@ def make_args(spec, rng: np.random.Generator, device="cpu"):
         return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8))
 
     rdt = torch.float16 if "f16" in spec.name else torch.float32
+    # the corpus's storage dtype by tags, as JAX's make_args picks it
+    tdt = (torch.bfloat16 if any(t.startswith("bf16") for t in tags)
+           else torch.float16 if any(t.startswith("f16") for t in tags)
+           else torch.float32)
     S, K = 64, 256
-    if fam == "softmax":
+    if fam == "elementwise":
+        args = (randn((S, K), tdt), randn((S, K), tdt))
+    elif fam == "activation":
+        args = (randn((S, K), tdt),)
+    elif fam == "reduce":
+        edt = {sfx: e for sfx, e, _, _ in _MATRIX}[spec.tags[0]]
+        if edt == torch.int8:
+            args = (ints(-8, 8, (S, K)),)
+        else:
+            args = (_from_f64(rng.standard_normal((S, K)) * 0.1, edt),)
+    elif fam == "dot-product":
+        args = (randn((S, K), rdt, 0.1), randn((S, K), rdt, 0.1))
+    elif fam == "histogram":
+        args = (torch.from_numpy(
+            rng.integers(0, 128, (S, 128)).astype(np.int32)),)
+    elif fam == "softmax":
         args = (randn((S, K), rdt),)
     elif fam == "layer-norm":
         args = (randn((S, K), rdt), randn((K,), rdt, 0.5),

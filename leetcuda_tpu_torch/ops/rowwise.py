@@ -56,26 +56,28 @@ def check_rows(what: str, x, *vectors):
             raise ValueError(f"{what}: operands must lie on one device")
 
 
-def check_kernel_operands(what: str, x, *vectors):
-    """What csrc/row_ops.cu takes: x contiguous in f32, f16 or bf16; the
-    vectors contiguous in any of the three."""
-    if x.dtype not in DTYPES:
-        raise ValueError(f"{what} kernel: x must be f32, f16 or bf16, got "
-                         f"{x.dtype}")
+def check_kernel_operands(what: str, x, *others, dtypes=DTYPES):
+    """What the kernels take: x contiguous in one of ``dtypes`` (by default
+    f32, f16 or bf16, as csrc/row_ops.cu); the other operands (weight
+    vectors, a second input) contiguous in any of the three."""
+    if x.dtype not in dtypes:
+        raise ValueError(f"{what} kernel: takes x in "
+                         f"{[str(d) for d in dtypes]}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what} kernel: x must be contiguous")
-    for v in vectors:
+    for v in others:
         if v.dtype not in DTYPES or not v.is_contiguous():
-            raise ValueError(f"{what} kernel: weight vectors must be "
+            raise ValueError(f"{what} kernel: other operands must be "
                              "contiguous f32, f16 or bf16")
 
 
-def launch(counter, symbol: str, argtypes: tuple, device, *args):
-    """Call ``symbol`` of csrc/row_ops.cu with ``args`` and the current
+def launch(counter, symbol: str, argtypes: tuple, device, *args,
+           source: str = "row_ops"):
+    """Call ``symbol`` of csrc/<source>.cu with ``args`` and the current
     stream of ``device``, raise on a launch error and count the launch."""
     from leetcuda_tpu_torch.build import kernel
 
-    fn = kernel("row_ops", symbol, argtypes)
+    fn = kernel(source, symbol, argtypes)
     err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     check_launch(err, counter.name)
     counter.add()
