@@ -164,10 +164,25 @@ Phases; any failure raises and the script exits non-zero:
           registry sweep, a float sum or dot is held to one ulp of its
           accumulator plus f32 reordering (``flat_tol``). Every call's
           inputs are checked unchanged.
-   Paths bf16 and (a)-(e) must stay under their weight-bandwidth ceilings;
-   no serving path launches a training kernel, no serving or training
-   path launches a GEMM library kernel, none but (k) a row-op kernel,
-   none but (l) a kernel of path (l) and none but (m) one of path (m).
+   (n)    MoE serving, run first (right after the build, on an empty card):
+          Qwen3-30B-A3B (``qwen3_30b_a3b_config``: 48 layers, 32 / 4 heads
+          of 128, 128 experts of 768, top-8 renormalized, vocab 151936) at
+          its published width and depth, random bf16 weights built on the
+          card from a seed (60.5 GB), dropless experts through the grouped
+          matmul. Phase 3's gmm checks on its layer 0 (``check_gmm``: the
+          decode and prefill products, one expert, empty experts, ragged N,
+          f32 and f16, beside torch._grouped_mm); then the contiguous-cache
+          Engine serves 8 requests with prompts of 16-1000 tokens admitted
+          in one ragged batch and a lone 100-token request, then
+          ``generate`` at B=8, S=128, 32 new tokens each: exactly 3 gmm
+          launches per layer per forward, ragged forward and decode step;
+          its phase 5 (every served token against a solo B=1 replay) and
+          phase 6 (one B=8 decode step at context 1024, the gmm's share).
+   Paths bf16, (a)-(e) and (n) must stay under their weight-bandwidth
+   ceilings; no serving path launches a training kernel, no serving or
+   training path launches a GEMM library kernel, none but (k) a row-op
+   kernel, none but (l) a kernel of path (l), none but (m) one of path (m)
+   and none but (n) the grouped matmul.
 5. Checks: every served token, teacher-forced against a solo B=1 replay of
    the same model and cache type: each must score within LOGIT_TOL of the
    replay's max logit. A prompt the Engine admitted in a ragged batch
@@ -289,6 +304,9 @@ PATH_KERNELS.update({
     "m2": ("elementwise_add", "activation", "block_all_reduce_sum",
            "block_all_reduce_max", "dot_product", "histogram")})
 PATH_KERNELS["m3"] = PATH_KERNELS["m2"]
+# Path (n), MoE serving: Qwen3-30B-A3B's attention and dropless experts.
+PATH_KERNELS["n"] = ("flash_attention", "flash_attention_ragged",
+                     "decode_attention", "gmm")
 # The kernels of training (path (i)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
 # The GEMM library's kernels: no serving or training path launches them (the
@@ -306,6 +324,9 @@ CORPUS_KERNELS = PATH_KERNELS["l1"]
 # activations, residual adds and loss reductions to eager PyTorch, as the
 # JAX model leaves them to XLA).
 FLAT_KERNELS = PATH_KERNELS["m2"]
+# The grouped matmul: no path but (n) launches it (no other model has
+# experts).
+MOE_KERNELS = ("gmm",)
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
@@ -323,6 +344,13 @@ PATH_FORBIDDEN = {
           "chunk_attention_quantized", "paged_chunk_attention"),
     "h": ("paged_attention", "paged_attention_quantized",
           "paged_chunk_attention", "paged_chunk_attention_quantized"),
+    # bf16 weights over a contiguous bf16 cache; the q/k norms keep the
+    # fused entry block away (and an MoE layer has nothing to fuse)
+    "n": ("decode_attention_quantized", "paged_attention",
+          "paged_attention_quantized", "chunk_attention",
+          "chunk_attention_quantized", "paged_chunk_attention",
+          "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
+          "fused_norm_qkv_rope"),
 }
 # (Training, path (i), has no list: ``train`` asserts each step's launches
 # exactly, the training kernels and nothing else.)
@@ -3084,6 +3112,306 @@ def print_flat(rows, res):
           f"error {worst:.3g}")
     print(f"  launches: {res['launches']}")
 
+
+# --- path (n): MoE serving ----------------------------------------------------
+
+GMM_SRC = "leetcuda_tpu_torch/csrc/gmm.cu"
+GMM_REPLACES = "leetcuda_tpu/gemm/grouped.py:83"
+GMM_TOL = dict(atol=2e-2, rtol=2e-2)  # the registry's (gemm/grouped.py)
+# Path (n) serves Qwen3-30B-A3B (models/llama.py qwen3_30b_a3b_config) at
+# its published width and depth, random bf16 weights from MOE_SEED: eight
+# requests with prompts of 16..1000 tokens in one ragged admission (padded
+# to 1024), a lone 100-token request, then ``generate`` at B=8, S=128; 32
+# new tokens each.
+MOE_PLENS = np.linspace(16, 1000, 8).astype(int)
+MOE_LONE, MOE_NEW, MOE_GEN_S, MOE_SEED = 100, 32, 128, 4
+
+
+def gmm_library(lhs, rhs, tile_group, bm):
+    """``torch._grouped_mm`` over the same groups, the yardstick the port
+    never calls: (a callable, "") or (None, why there is none). Its groups
+    are the runs of ``tile_group``, which must be in expert order; the
+    offsets are the runs' ends."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    if lhs.dtype != torch.bfloat16:
+        return None, "torch._grouped_mm takes bf16"
+    tg_, G = tile_group.long(), rhs.shape[0]
+    if bool((tg_[1:] < tg_[:-1]).any()) or not 0 <= int(tg_.min()) <= int(
+            tg_.max()) < G:
+        return None, "row tiles not in expert order"
+    offs = (torch.cumsum(torch.bincount(tg_, minlength=G), 0) * bm).to(
+        torch.int32)
+    refused = []
+    # row-major panels first, then the same values column-major
+    for b in (rhs, rhs.transpose(1, 2).contiguous().transpose(1, 2)):
+        def fn(b=b):
+            return torch._grouped_mm(lhs, b, offs=offs)
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn, ""
+        except RuntimeError as e:
+            refused.append(str(e).splitlines()[0][:160])
+    return None, "torch._grouped_mm refused: " + " | ".join(refused)
+
+
+def check_gmm(rec, flush, moe, cfg):
+    """Phase 3 of path (n): the grouped matmul against its plain version at
+    the registry's 2e-2, timed beside it and torch._grouped_mm, on layer
+    0's experts (``moe``): the gate and down products of a decode step
+    (B=8 tokens routed by layer 0's router, unit-rms hidden states) and of
+    an 8 x 1024 prefill; every copy to one expert; 24 experts of 128
+    non-empty; ragged N (1000: a partial tile, 203: element loads); f32
+    and f16. Then, untimed: row tiles of 64 and 256 rows, and an expert
+    id past either end (NaN rows, as the plain version). Each row's bound
+    counts the operations of the live rows (the routed copies) and the
+    bytes of lhs, out and each distinct expert panel once; the bound of
+    all rows beside it. Returns the untimed checks' errors."""
+    import torch.nn.functional as F
+
+    from leetcuda_tpu_torch.gemm import grouped as gg
+    from leetcuda_tpu_torch.models.moe import dropless_dispatch
+
+    bm, D, Fm = 128, cfg.dim, cfg.moe.ffn_dim
+    gmm = gg.make_gmm(block=(bm, 2048, 2048))
+
+    def case(check, lhs, rhs, tile_group, live_rows, tiles_live=None):
+        T, K = lhs.shape
+        G, _, N = rhs.shape
+        got = gmm(lhs, rhs, tile_group)
+        want = gg.gmm_plain(lhs, rhs, tile_group, bm)
+        lib, why = gmm_library(lhs, rhs, tile_group, bm)
+        panels = int(torch.unique(tile_group).numel())
+        nbytes = (lhs.element_size() * (T * K + T * N + panels * K * N)
+                  + 4.0 * tile_group.numel())
+        rate = PEAK_RATE[lhs.dtype]
+        rec.record(f"gmm/{check}", "gmm", GMM_SRC, GMM_REPLACES, got, want,
+                   time_ms(lambda: gmm(lhs, rhs, tile_group), flush),
+                   time_ms(lambda: gg.gmm_plain(lhs, rhs, tile_group, bm),
+                           flush, iters=5),
+                   None if lib is None else time_ms(lib, flush),
+                   2.0 * live_rows * K * N, nbytes, tol=GMM_TOL, rate=rate)
+        every = bound(2.0 * T * K * N, nbytes, rate)
+        row = rec.rows[f"gmm/{check}"]
+        row.update(T=T, K=K, N=N, G=G, live_rows=live_rows, panels=panels,
+                   tiles=T // bm, tiles_live=tiles_live,
+                   dtype=str(lhs.dtype).split(".")[-1],
+                   bound_all_rows_ms=every[0] * 1e3,
+                   bound_all_rows_by=every[1],
+                   library="torch._grouped_mm" if lib else why)
+        if lib is not None:
+            row["library_max_abs_err"] = float(
+                (lib().float() - want.float()).abs().max())
+        return got
+
+    def by_sizes(sizes):
+        sizes = torch.tensor(sizes, device=rec.dev)
+        return gg.tile_groups_from_sizes(sizes, bm, int(sizes.sum()) // bm)
+
+    for label, T in (("decode B=8", 8), ("prefill 8x1024", 8 * 1024)):
+        buf, tiles, pos, _, _ = dropless_dispatch(rec.randn(T, D),
+                                                  moe, cfg.moe, bm)
+        live = T * cfg.moe.topk
+        n_live = int(torch.unique(pos // bm).numel())
+        gate = case(f"{label} gate K={D} N={Fm}", buf, moe["w_gate"], tiles,
+                    live, n_live)
+        up = gmm(buf, moe["w_up"], tiles)
+        h = (F.silu(gate.float()) * up.float()).to(torch.bfloat16)
+        case(f"{label} down K={Fm} N={D}", h, moe["w_down"], tiles, live,
+             n_live)
+    case(f"every copy to expert 7, 8192 rows, K={D} N={Fm}",
+         rec.randn(8192, D), moe["w_gate"],
+         torch.full((64,), 7, dtype=torch.int32, device=rec.dev), 8192)
+    sizes = np.zeros(cfg.moe.n_experts, np.int64)
+    picked = rec.rng.choice(cfg.moe.n_experts, 24, replace=False)
+    sizes[picked] = bm * rec.rng.integers(1, 4, 24)
+    case(f"24 of 128 experts, {int(sizes.sum())} rows, K={D} N={Fm}",
+         rec.randn(int(sizes.sum()), D), moe["w_gate"],
+         by_sizes(sizes.tolist()), int(sizes.sum()))
+    for K, N in ((D, 1000), (Fm, 203)):
+        case(f"ragged N, 8 experts, K={K} N={N}", rec.randn(2048, K),
+             rec.randn(8, K, N, scale=K ** -0.5),
+             by_sizes([256, 0, 512, 128, 384, 0, 640, 128]), 2048)
+    for dt in (torch.float32, torch.float16):
+        case(f"{str(dt).split('.')[-1]}, JAX's test shapes, K=256 N=384",
+             rec.randn(768, 256).to(dt), rec.randn(3, 256, 384).to(dt),
+             by_sizes([256, 128, 384]), 768)
+
+    untimed = {}
+    lhs, rhs = rec.randn(512, 256), rec.randn(4, 256, 256, scale=1 / 16)
+    for rows, tiles in ((64, [0, 3, 4, 1, -1, 2, 2, 3]), (256, [3, 1])):
+        tiles = torch.tensor(tiles, dtype=torch.int32, device=rec.dev)
+        got = gg.make_gmm(block=(rows, 128, 128))(lhs, rhs, tiles)
+        want = gg.gmm_plain(lhs, rhs, tiles, rows)
+        bad = ((tiles < 0) | (tiles >= 4)).repeat_interleave(rows)
+        if not (torch.isnan(got).all(dim=1) == bad).all() or bool(
+                torch.isnan(got[~bad]).any()):
+            raise AssertionError(f"gmm, row tiles of {rows}: NaN rows are "
+                                 "not those of the out-of-range experts")
+        untimed[f"row tiles of {rows}"] = hold(got[~bad], want[~bad],
+                                               GMM_TOL)
+    return untimed
+
+
+@contextlib.contextmanager
+def model_calls(calls):
+    """Count the engine's calls of forward, forward_ragged and decode_step
+    into ``calls`` (engine/engine.py looks them up at call time)."""
+    from leetcuda_tpu_torch.engine import engine as em
+
+    saved = {n: getattr(em, n)
+             for n in ("forward", "forward_ragged", "decode_step")}
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(em, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(em, name, fn)
+
+
+def moe_path(dev="cuda"):
+    """Path (n): Qwen3-30B-A3B (48 layers, 128 experts, top-8, bf16,
+    dropless), built on the card from a seed; phase 3's gmm checks on its
+    layer 0; the Engine's eight requests and the lone one, then
+    ``generate``, with the launch counts zeroed just before and read just
+    after, and exactly 3 gmm launches per layer per forward, ragged forward
+    and decode step; every served token teacher-forced against a solo B=1
+    replay (phase 5); one B=8 decode step at context 1024 profiled (phase
+    6). Run first, on an empty card: the weights take 60.5 GB. Returns
+    (rows for the kernels line, the path's report). ``dev``: "cpu" for a
+    rehearsal at a cut size."""
+    from leetcuda_tpu_torch.engine import generate
+    from leetcuda_tpu_torch.models.llama import (init_params,
+                                                 qwen3_30b_a3b_config)
+
+    cfg = qwen3_30b_a3b_config()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(MOE_SEED),
+                         cfg, device=dev)
+    sync(params["embed"].device)
+    moe = cfg.moe
+    expert_bytes = sum(params["layers"][0]["moe"][k].nbytes
+                       for k in ("w_gate", "w_up", "w_down"))
+    res = {"model": "Qwen3-30B-A3B", "init_s": time.perf_counter() - t0,
+           "weight_bytes": param_bytes(params),
+           "config": {k: (str(v) if isinstance(v, torch.dtype) else v)
+                      for k, v in dataclasses.asdict(cfg).items()}}
+    # a B=8 step reads at least the non-expert weights and, in every layer,
+    # the top-k experts of one token: the tok/s ceiling
+    step_bytes = (res["weight_bytes"] - cfg.n_layers * expert_bytes
+                  * (1 - moe.topk / moe.n_experts))
+    res["tok_s_ceiling"] = 8 / (step_bytes / HBM_BYTES_PER_S)
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rec = Recorder(dev)
+    res["gmm_untimed"] = check_gmm(rec, flush, params["layers"][0]["moe"],
+                                   cfg)
+    del flush
+    res["phase3_s"] = time.perf_counter() - t0 - res["init_s"]
+
+    rng = np.random.default_rng(MOE_SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in MOE_PLENS]
+    lone = rng.integers(0, cfg.vocab_size, MOE_LONE).tolist()
+    gprompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (8, MOE_GEN_S)).astype(np.int32)).to(dev)
+    generate(params, cfg, gprompts[:1, :16], 2, device=dev)  # warm-up
+    calls = {}
+
+    def serve():
+        with model_calls(calls):
+            eng, served = serve_engine(params, cfg, prompts, lone,
+                                       max_new=MOE_NEW, max_seq=2048,
+                                       bucket=128)
+            gen_, gtoks = serve_generate(params, cfg, gprompts, MOE_NEW)
+        return {**eng, **gen_}, served, gtoks
+
+    (out, served, gtoks), counts, peak = drive("n", serve)
+    res.update(out, launches=counts, model_calls=calls,
+               peak_extra_bytes=peak,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    want = 3 * cfg.n_layers * sum(calls.values())
+    if counts.get("gmm", 0) != want:
+        raise AssertionError(f"path n: {counts.get('gmm', 0)} gmm launches "
+                             f"for {calls}, not 3 per layer per call "
+                             f"({want})")
+    for what in ("engine_tok_s", "generate_tok_s"):
+        if res[what] > res["tok_s_ceiling"]:
+            raise AssertionError(f"path n: {what} {res[what]:.0f} exceeds "
+                                 f"its ceiling {res['tok_s_ceiling']:.0f}")
+
+    # phase 5: the ragged admission's requests and generate's streams
+    # replay through a B=1 forward, the lone one (which the Engine
+    # prefilled through forward) token by token through decode_step
+    t5 = time.perf_counter()
+    gaps = {f"engine/{i}": replay_gap(params, cfg, p, toks, None)
+            for i, (p, toks) in enumerate(zip(prompts, served))}
+    gaps["lone"] = teacher_forced_gap(params, cfg, lone, served[-1])
+    for b, toks in enumerate(gtoks.tolist()):
+        gaps[f"generate/{b}"] = replay_gap(params, cfg, gprompts[b].tolist(),
+                                           toks, None)
+    res["teacher_forced"] = {"tol": LOGIT_TOL, "worst": max(gaps.values()),
+                             "gaps": gaps,
+                             "seconds": time.perf_counter() - t5}
+    if res["teacher_forced"]["worst"] > LOGIT_TOL:
+        raise AssertionError(f"path n: served tokens off the solo replay: "
+                             f"{gaps}")
+
+    # phase 6: one B=8 decode step at context 1024
+    res["profile"] = profile_decode(params, cfg, batch=8, context=1024,
+                                    classes={"gmm": ("gmm_kernel",)})
+    return rec.rows, res
+
+
+def print_moe(rows, res):
+    c = res["config"]
+    for r in rows.values():
+        lib = (f"library {r['library_ms']:.4f} ms "
+               f"(max abs diff {r['library_max_abs_err']:.3g})"
+               if r["library_ms"] is not None else
+               f"library none ({r['library']})")
+        live = ("" if r["tiles_live"] is None else
+                f", {r['tiles_live']} of {r['tiles']} tiles live")
+        print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms {lib} "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['live_rows']} live rows; all {r['T']} rows "
+              f"{r['bound_all_rows_ms']:.4f} ms, {r['bound_all_rows_by']})"
+              f"{live}", flush=True)
+    print(f"  gmm untimed: {res['gmm_untimed']}")
+    print(f"path (n) {res['model']} ({c['n_layers']} layers, "
+          f"{c['n_experts']} experts, top-{c['expert_topk']}, dropless, "
+          f"bf16, random weights built in {res['init_s']:.1f} s): engine 8 "
+          f"requests (prompts {MOE_PLENS.tolist()}) x {MOE_NEW} tokens in "
+          f"{res['engine_batch_s']:.3f} s = {res['engine_tok_s']:.1f} tok/s "
+          f"(admission {res['engine_admit_s']:.3f} s); lone "
+          f"{MOE_LONE}-token request {res['lone_request_s']:.3f} s; generate "
+          f"B=8 S={MOE_GEN_S} x {MOE_NEW}: {res['generate_s']:.3f} s = "
+          f"{res['generate_tok_s']:.1f} tok/s; ceiling "
+          f"{res['tok_s_ceiling']:.0f} tok/s; params "
+          f"{res['weight_bytes'] / 2**30:.2f} GiB, peak device memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"  model calls {res['model_calls']}; launches: {res['launches']}")
+    tf = res["teacher_forced"]
+    print(f"  teacher-forced: worst gap {tf['worst']:.4f} (tol {tf['tol']}) "
+          f"over {len(tf['gaps'])} streams in {tf['seconds']:.1f} s")
+    prof = res["profile"]
+    print_profile("(n) Qwen3-30B-A3B, dropless experts", prof)
+    gmm_ms = prof["device_ms_by_class"].get("gmm", 0.0)
+    if prof["device_ms_per_step"]:
+        print(f"  gmm {gmm_ms:.3f} ms of {prof['device_ms_per_step']:.3f} "
+              f"device ms a step "
+              f"({gmm_ms / prof['device_ms_per_step']:.3f})", flush=True)
+
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -3107,7 +3435,8 @@ def drive(path, fn):
                  + (GEMM_KERNELS if not path.startswith("j") else ())
                  + (ROW_KERNELS if not path.startswith("k") else ())
                  + (CORPUS_KERNELS if not path.startswith("l") else ())
-                 + (FLAT_KERNELS if not path.startswith("m") else ()))
+                 + (FLAT_KERNELS if not path.startswith("m") else ())
+                 + (MOE_KERNELS if path != "n" else ()))
     stray = [n for n in forbidden
              if counts.get(n, 0) and n not in PATH_KERNELS[path]]
     if stray:
@@ -3157,7 +3486,7 @@ def agreement(params, qparams, cfg, prompt):
 
 
 def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
-                   paged=False):
+                   paged=False, classes=None):
     """Phase 6: where a B=``batch`` decode step's time goes. The step's wall
     time (host clock, synchronised) without the profiler, then
     torch.profiler's device time by kernel over the same steps: the device
@@ -3166,7 +3495,8 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
     once, before the steps: the upload from pageable memory waits for the
     stream, which costs the engine nothing (it reads the sampled tokens
     back at the end of every step) but would serialise this loop, whose
-    host otherwise runs ahead of the device."""
+    host otherwise runs ahead of the device. ``classes``: as
+    ``profile_run``'s."""
     from leetcuda_tpu_torch.attention.paged import PageManager
     from leetcuda_tpu_torch.models.llama import (decode_step, init_kv_caches,
                                                  init_paged_kv_caches)
@@ -3198,7 +3528,7 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
         sync(dev)
 
     return {"batch": batch, "context": context, "kv_quant": kv_quant,
-            "paged": paged, **profile_run(run, steps)}
+            "paged": paged, **profile_run(run, steps, classes)}
 
 
 # Device time of a training step by kind of kernel (substrings of the
@@ -3336,6 +3666,14 @@ def main() -> int:
         for line in lines:
             print(f"  {name}: {line}")
 
+    phase_done("build")
+
+    # path (n) first, on an empty card: Qwen3-30B-A3B's weights take 60.5 GB
+    nrows, nres = moe_path()
+    torch.cuda.empty_cache()
+    print_moe(nrows, nres)
+    phase_done("moe")
+
     # the full-width model, its quantized params and the paths' requests
     cfg = ModelConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3386,8 +3724,9 @@ def main() -> int:
               f"kernel {r['ms']:.4f} ms{tiles} plain {r['plain_ms']:.4f} ms "
               f"{lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
+    checks.update(nrows)
     report["kernel_checks"] = checks
-    phase_done("build_and_kernel_checks")
+    phase_done("kernel_checks")
     del flush
 
     # path (j): the GEMM library on layer 0 of the dense fused params
@@ -3449,7 +3788,7 @@ def main() -> int:
           f"activations at peak {peak / 2**30:.2f} GiB", flush=True)
     print(f"  launches: {counts}")
     report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres,
-                       "m": mres}
+                       "m": mres, "n": nres}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():

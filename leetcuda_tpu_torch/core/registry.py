@@ -85,6 +85,7 @@ def ops_in_family(family: str) -> list[OpSpec]:
 def load_all():
     """Import every module that registers ops, so that ``OPS`` is whole."""
     import leetcuda_tpu_torch.gemm.gemv  # noqa: F401
+    import leetcuda_tpu_torch.gemm.grouped  # noqa: F401
     import leetcuda_tpu_torch.gemm.matmul  # noqa: F401
     import leetcuda_tpu_torch.gemm.quant  # noqa: F401
     import leetcuda_tpu_torch.ops.activations  # noqa: F401

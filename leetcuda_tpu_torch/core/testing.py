@@ -1,9 +1,9 @@
 """Canonical test inputs per op family, the counterpart of
 ``leetcuda_tpu/core/testing.py`` for the families the port registers
-(``gemm``, ``gemv``, ``gemm-quant``, ``gemm-resident``, ``softmax``,
-``layer-norm``, ``rms-norm``, ``attention-utils``, ``rope``, ``embedding``,
-``transpose``, ``elementwise``, ``activation``, ``reduce``, ``dot-product``,
-``histogram``).
+(``gemm``, ``gemv``, ``gemm-quant``, ``gemm-grouped``, ``gemm-resident``,
+``softmax``, ``layer-norm``, ``rms-norm``, ``attention-utils``, ``rope``,
+``embedding``, ``transpose``, ``elementwise``, ``activation``, ``reduce``,
+``dot-product``, ``histogram``).
 
 ``make_args`` takes the same draws from the numpy ``rng``, in the same order,
 as the JAX package's ``make_args`` and rounds them as JAX does (float64 ->
@@ -101,6 +101,11 @@ def make_args(spec, rng: np.random.Generator, device="cpu"):
     elif fam == "gemv":
         d = torch.bfloat16 if spec.name.startswith("hgemv") else torch.float32
         args = (randn((256,), d, 0.3), randn((256, 128), d, 0.3))
+    elif fam == "gemm-grouped":
+        # 2 row tiles of bm = 128, 4 expert panels; the tiles take 0 and 2
+        args = (randn((256, 128), torch.bfloat16, 0.3),
+                randn((4, 128, 128), torch.bfloat16, 0.3),
+                torch.tensor([0, 2], dtype=torch.int32))
     elif fam == "gemm-resident":
         M = 128
         args = (randn((M, M), torch.bfloat16, 1 / np.sqrt(M)),

@@ -177,12 +177,129 @@ def test_forward_llama3_scaled_model(both):
 
 @pytest.mark.parametrize("switch", [
     {"sliding_window": 64}, {"attn_softcap": 50.0}, {"attn_sinks": True},
-    {"n_experts": 4}, {"glm_rope_dim": 32}, {"alt_window": True}])
+    {"glm_rope_dim": 32}, {"alt_window": True}])
 def test_unported_switches_raise(both, switch):
     _, _, _, tparams = both
     cfg = tl.tiny_config(**switch)
     with pytest.raises(NotImplementedError):
         tl.forward(tparams, torch.zeros((1, 8), dtype=torch.int32), cfg)
+
+
+def test_gptoss_expert_layer_raises(both):
+    """A GPT-OSS expert layer ("moe_oss") still raises: its attention needs
+    sinks and alternating windows, which the port does not have yet."""
+    _, _, tcfg, tparams = both
+    layers = [dict(tparams["layers"][0], moe_oss={})] + tparams["layers"][1:]
+    with pytest.raises(NotImplementedError, match="GPT-OSS"):
+        tl.forward(dict(tparams, layers=layers),
+                   torch.zeros((1, 8), dtype=torch.int32), tcfg)
+
+
+# The switches the port takes, each held against JAX's model (ROADMAP item
+# 11a): (ModelConfig fields, extra parameters). Every norm weight is drawn
+# away from one so that a norm applied in the wrong place shows.
+FAMILY_SWITCHES = {
+    "qk_norm": ({"qk_norm": True}, ()),
+    "sandwich_norms": ({"sandwich_norms": True}, ()),
+    "final_softcap": ({"final_softcap": 2.0}, ()),
+    "embed_scale": ({"embed_scale": True}, ()),
+    "query_scale": ({"query_scale": 0.05}, ()),
+    "rms_offset": ({"rms_offset": True}, ()),
+    "gelu_tanh": ({"hidden_act": "gelu_tanh"}, ()),
+    "nope_interval": ({"nope_interval": 2}, ()),
+    "head_dim_override": ({"head_dim_override": 32}, ()),
+    "biases": ({}, ("bq", "bk", "bv", "bo")),
+    "untied_lm_head": ({}, ("lm_head",)),
+}
+
+
+def _switched(name):
+    """JAX's tiny config with one family switch, its random weights as
+    numpy (norms drawn, extra parameters added), and the port's config."""
+    kw, extra = FAMILY_SWITCHES[name]
+    jcfg = jl.tiny_config(**kw)
+    wnp = jax.tree.map(np.asarray, jl.init_params(jax.random.key(0), jcfg))
+    rng = np.random.default_rng(10)
+
+    def draw(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    H, Hkv, Dh, D = (jcfg.n_heads, jcfg.n_kv_heads, jcfg.head_dim, jcfg.dim)
+    for layer in wnp["layers"]:
+        for key in [k for k in layer if k.endswith("norm")]:
+            layer[key] = ((0.0 if jcfg.rms_offset else 1.0)
+                          + draw(layer[key].shape, 0.2))
+        for key, n in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh),
+                       ("bo", D)):
+            if key in extra:
+                layer[key] = draw((n,), 0.1)
+    wnp["norm"] = (0.0 if jcfg.rms_offset else 1.0) + draw((D,), 0.2)
+    if "lm_head" in extra:
+        wnp["lm_head"] = draw((jcfg.vocab_size, D), D ** -0.5)
+    return jcfg, wnp, tl.tiny_config(**kw)
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_SWITCHES))
+def test_family_switch_matches_jax(name):
+    """forward, one decode step over a random prefix, and loss_fn with
+    one family switch on, against JAX's model on the same weights."""
+    jcfg, wnp, tcfg = _switched(name)
+    jparams = jax.tree.map(jnp.asarray, wnp)
+    tparams = params_from_numpy(wnp, "cpu")
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, 256, (2, 16)).astype(np.int32)
+    want = jl.forward(jparams, jnp.asarray(toks), jcfg)
+    got = tl.forward(tparams, torch.from_numpy(toks), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    shape = (2, jcfg.n_kv_heads, 32, jcfg.head_dim)
+    cache_np = [{"k": rng.standard_normal(shape, dtype=np.float32),
+                 "v": rng.standard_normal(shape, dtype=np.float32)}
+                for _ in range(jcfg.n_layers)]
+    dtoks, dlens = np.array([7, 201], np.int32), np.array([5, 17], np.int32)
+    want, _ = jl.decode_step_impl(jparams, jnp.asarray(dtoks),
+                                  jax.tree.map(jnp.asarray, cache_np),
+                                  jnp.asarray(dlens), jcfg)
+    got, _ = tl.decode_step(tparams, torch.from_numpy(dtoks),
+                            params_from_numpy(cache_np, "cpu"),
+                            torch.from_numpy(dlens), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    want = jl.loss_fn(jparams, jnp.asarray(toks), jcfg)
+    got = tl.loss_fn(tparams, torch.from_numpy(toks), tcfg)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+# Qwen/Qwen3-30B-A3B's config.json, the fields config_from_hf reads and the
+# ones around them.
+QWEN3_30B_A3B_HF = {
+    "architectures": ["Qwen3MoeForCausalLM"], "attention_bias": False,
+    "decoder_sparse_step": 1, "head_dim": 128, "hidden_act": "silu",
+    "hidden_size": 2048, "intermediate_size": 6144,
+    "max_position_embeddings": 40960, "max_window_layers": 48,
+    "mlp_only_layers": [], "model_type": "qwen3_moe",
+    "moe_intermediate_size": 768, "norm_topk_prob": True,
+    "num_attention_heads": 32, "num_experts": 128, "num_experts_per_tok": 8,
+    "num_hidden_layers": 48, "num_key_value_heads": 4, "rms_norm_eps": 1e-6,
+    "rope_scaling": None, "rope_theta": 1000000.0, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_sliding_window": False, "vocab_size": 151936,
+}
+
+
+def test_qwen3_30b_a3b_config_matches_jax_loader():
+    """The config chip_smoke.py serves as Qwen3-30B-A3B is, field for
+    field, what JAX's config_from_hf makes of the published config."""
+    from leetcuda_tpu.models.loader import config_from_hf
+
+    want = config_from_hf(QWEN3_30B_A3B_HF)
+    got = tl.qwen3_30b_a3b_config()
+    for f in dataclasses.fields(jl.ModelConfig):
+        if f.name != "dtype":
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert (got.moe_dropless and got.qk_norm and got.moe_renorm
+            and got.head_dim == 128 and got.moe.ffn_dim == 768)
 
 
 def test_quantized_packs_raise():
