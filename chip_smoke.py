@@ -22,9 +22,13 @@ Phases; any failure raises and the script exits non-zero:
    1024), NaN in every position at or past base + T. The flash forward's
    lse (causal and ragged), then the FA-2 backward's dQ and dK/dV kernels
    at training's shape (8, 16, 2048, 128), 4 KV heads: causal, non-causal,
-   head dim 64 and with an lse cotangent, by relative L2 error (BWD_REL_L2)
-   and elementwise; beside them SDPA's backward (``torch.autograd.grad``)
-   and the name of its longest kernel.
+   head dim 64, with an lse cotangent, and with Gemma 2's options (a window
+   of 512 with a softcap of 50, the cap alone, a window of 1000), by
+   relative L2 error (BWD_REL_L2) and elementwise; beside them SDPA's
+   backward (``torch.autograd.grad``; with a window over an explicit band
+   mask) and the name of its longest kernel. Path (o) runs its own phase 3
+   (``check_attn_options``): the window and softcap of every attention
+   kernel at Gemma-2-27B's layer-0 shapes.
 4. Main paths, each with the launch counts zeroed just before it and read
    just after, on the full-width default ModelConfig() (random bf16 weights
    from a seed, quantized on the card):
@@ -178,7 +182,31 @@ Phases; any failure raises and the script exits non-zero:
           launches per layer per forward, ragged forward and decode step;
           its phase 5 (every served token against a solo B=1 replay) and
           phase 6 (one B=8 decode step at context 1024, the gmm's share).
-   Paths bf16, (a)-(e) and (n) must stay under their weight-bandwidth
+   (o)    Gemma-2-27B, run second (after (n), on the card emptied again):
+          ``gemma2_27b_config`` (46 layers, hidden 4608, 32 / 16 heads of
+          128, a 4096-token sliding window on the even layers, attention
+          softcap 50, final softcap 30, vocab 256000) at its published
+          width and depth, 27.2B random bf16 parameters built on the card
+          from a seed. First its phase 3 on the empty card
+          (``check_attn_options``): the flash forward at (1, 32, 8192, 128)
+          for a local and a global layer, with and without its lse, and a
+          window of 1000; the ragged forward; the band skip at 16384 rows
+          (the windowed forward must take under BAND_SKIP_MAX of the causal
+          one's time); decode over bf16, int8 and e4m3 caches and paged
+          pools at lengths on both sides of the window, NaN past them; the
+          chunk kernel with the cap at T=512 across the window's edge. Then
+          the paged Engine (pages of 128, 4 slots of 6144, chunked prefill
+          of 512 tokens a tick) serves prompts of 5120, 4000, 1024 and 300
+          tokens, 128 new each (one admitted past the window, one crossing
+          it while decoding), and a lone 700-token request; a contiguous
+          Engine admits 1024 and 300 tokens in one ragged batch; then
+          ``generate`` at B=4, S=256, 64 new tokens: exactly one attention
+          launch per layer per forward, ragged forward, chunk and decode
+          step, half of the calls windowed; every served token replayed
+          solo through ``decode_chunk`` in chunks of 512 (phase 5); one B=4
+          decode step at context 5120 profiled, the attention device time
+          of the windowed and the global layers apart (phase 6).
+   Paths bf16, (a)-(e), (n) and (o) must stay under their weight-bandwidth
    ceilings; no serving path launches a training kernel, no serving or
    training path launches a GEMM library kernel, none but (k) a row-op
    kernel, none but (l) a kernel of path (l), none but (m) one of path (m)
@@ -248,6 +276,21 @@ KERNEL_TOL = dict(atol=1e-2, rtol=1e-2)  # the flash registry bar
 # products (ragged B=8 prefill vs B=1 decode) and nowhere near a wrong token
 # of a random model (the max stands ~1 above the typical logit).
 LOGIT_TOL = 0.25
+# The softcap's checks draw q at CAP_Q_SCALE x unit scale: the scaled scores
+# (D = 128 at 144^-0.5 or 128^-0.5) then spread ~9.4 wide and reach ~40,
+# where the cap of 50 moves a logit by tens. At unit scale they spread ~0.94
+# wide, the cap moves a logit by < 1e-2 and an uncapped kernel passes
+# KERNEL_TOL. Beside each capped check two controls must fail it: the
+# kernel with no cap, and at cap / log2(e), which is what a kernel computes
+# that caps the score after the log2(e) fold.
+CAP_Q_SCALE = 10.0
+LOG2E = math.log2(math.e)
+# The backward is held at cap BWD_CAP over unit-scale q instead: at 10x q,
+# dK sums terms 10x larger, and on an H100 the kernel's dK / dV differed
+# from the plain one's by up to 0.0625 elementwise, past KERNEL_TOL, while
+# within BWD_REL_L2. Cap 2 bends scores ~0.94 wide as cap 50 bends scores
+# 25x as wide (c / cap = tanh(s / cap)).
+BWD_CAP = 2.0
 # The quantized paths (weights, KV cache) of phase 4.
 QUANT_PATHS = {"a": ("fp8", True, "fp8"), "b": ("int8", True, "int8"),
                "c": ("int4", False, "int8")}
@@ -307,6 +350,11 @@ PATH_KERNELS["m3"] = PATH_KERNELS["m2"]
 # Path (n), MoE serving: Qwen3-30B-A3B's attention and dropless experts.
 PATH_KERNELS["n"] = ("flash_attention", "flash_attention_ragged",
                      "decode_attention", "gmm")
+# Path (o), Gemma-2-27B: the paged Engine with chunked prefill, a ragged
+# admission over a contiguous cache, and generate.
+PATH_KERNELS["o"] = ("flash_attention", "flash_attention_ragged",
+                     "decode_attention", "paged_attention",
+                     "paged_chunk_attention")
 # The kernels of training (path (i)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
 # The GEMM library's kernels: no serving or training path launches them (the
@@ -349,6 +397,12 @@ PATH_FORBIDDEN = {
     "n": ("decode_attention_quantized", "paged_attention",
           "paged_attention_quantized", "chunk_attention",
           "chunk_attention_quantized", "paged_chunk_attention",
+          "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
+          "fused_norm_qkv_rope"),
+    # bf16 weights (unfused) over bf16 caches and pools; chunked prefill
+    # over pools only
+    "o": ("decode_attention_quantized", "paged_attention_quantized",
+          "chunk_attention", "chunk_attention_quantized",
           "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
           "fused_norm_qkv_rope"),
 }
@@ -491,6 +545,20 @@ class Recorder:
             "bound_by": by, "library_ms": lib_ms,
             "flops": flops, "bytes": nbytes}
 
+    def cap_controls(self, check, run, want, cap):
+        """Beside the capped check ``check``: ``run(c)`` launches its kernel
+        at cap ``c``. Uncapped and at cap / log2(e) it must fail KERNEL_TOL
+        against ``want``, the capped plain result (NaN fails too). Records
+        the two largest differences."""
+        errs = {}
+        for label, c in (("uncapped", None), ("log2 domain", cap / LOG2E)):
+            got, ref = run(c).float(), want.float()
+            errs[label] = float((got - ref).abs().max())
+            if torch.allclose(got, ref, **KERNEL_TOL):
+                raise AssertionError(f"{check}: the kernel {label} passes "
+                                     f"the capped check")
+        self.rows[check]["cap_controls"] = errs
+
 
 def to_pool(cache, page, table, owned, fill):
     """Scatter a contiguous (B, Hkv, S[, D]) cache into a pool of
@@ -620,13 +688,6 @@ def check_chunk(rec, flush):
     shuffled, and page 0, every unowned page and the tail of each last page
     hold NaN too. Library yardstick: SDPA with an explicit mask over the
     cache gathered and dequantized beforehand."""
-    from leetcuda_tpu_torch.attention import chunk as ck
-    from leetcuda_tpu_torch.core.runtime import as_bytes
-    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
-
-    dev, bf = rec.dev, torch.bfloat16
-    H, Hkv, S, D = 16, 4, 2048, 128
-    qdts = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
     cases = (  # label, T, bases, format, paged, window
         ("verify", 4, CHUNK_BASES, None, False, None),
         ("verify", 4, CHUNK_BASES, "int8", False, None),
@@ -640,6 +701,21 @@ def check_chunk(rec, flush):
          None),
         ("admit T=1024 base 1024", 1024, np.array([1024], np.int32), None,
          False, None))
+    chunk_cases(rec, flush, cases, 16, 4, 2048)
+
+
+def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
+                softcap=None, prefix=""):
+    """The chunk kernel's cases (label, T, bases, format, paged, window) at
+    H / Hkv heads of D over a capacity of S, with ``softcap`` (then q at
+    CAP_Q_SCALE, and the cap's controls); each check's name starts with
+    ``prefix``. See ``check_chunk``."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    dev, bf = rec.dev, torch.bfloat16
+    qdts = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
     for label, T, bases_np, fmt, paged, window in cases:
         B = len(bases_np)
         base = torch.from_numpy(bases_np).to(dev)
@@ -647,7 +723,7 @@ def check_chunk(rec, flush):
         cols = torch.arange(S, device=dev)
         past = (cols[None, :] >= torch.from_numpy(end_np).to(dev)[:, None])
         past = past[:, None, :].expand(B, Hkv, S)
-        q = rec.randn(B, H, T, D)
+        q = rec.randn(B, H, T, D, scale=CAP_Q_SCALE if softcap else 1.0)
         kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
         if fmt is None:
             kc[past], vc[past] = float("nan"), float("nan")
@@ -672,6 +748,10 @@ def check_chunk(rec, flush):
             tbl_bytes = 4.0 * int(n_pages.sum())
         args = (q, *tensors, base)
         kw = {} if window is None else {"window": window}
+        if softcap:
+            kw.update(softcap=softcap)
+        if sm_scale is not None:
+            kw.update(sm_scale=sm_scale)
         wrapper, plain = {
             (False, False): (ck.chunk_attention, ck.chunk_attention_plain),
             (True, False): (ck.chunk_attention_quantized,
@@ -704,16 +784,22 @@ def check_chunk(rec, flush):
         mask = mask[:, None]                                      # (B,1,T,S)
         kd, vd = torch.nan_to_num(kd), torch.nan_to_num(vd)
         name = wrapper.__name__
-        check = (f"{name}/{label} {fmt or 'bf16'}"
+        check = (f"{prefix}{name}/{label} {fmt or 'bf16'}"
                  + (f" page{PAGE}" if paged else ""))
+        want = plain(*args, **kw)
         rec.record(check, name, CHUNK_SRC,
                    "leetcuda_tpu/attention/chunk.py:"
-                   + ("287" if paged else "207"), got, plain(*args, **kw),
+                   + ("287" if paged else "207"), got, want,
                    time_ms(lambda: wrapper(*args, **kw), flush),
                    time_ms(lambda: plain(*args, **kw), flush, iters=5),
-                   time_ms(lambda: sdpa(q, kd, vd, attn_mask=mask), flush),
+                   time_ms(lambda: sdpa(q, kd, vd, attn_mask=mask,
+                                        scale=kw.get("sm_scale")), flush),
                    4.0 * H * D * pairs, nbytes)
-        rec.rows[check].update(T=T, mean_base=float(bases_np.mean()))
+        rec.rows[check].update(T=T, mean_base=float(bases_np.mean()),
+                               window=window, softcap=softcap)
+        if softcap:
+            rec.cap_controls(check, lambda c: wrapper(
+                *args, **{**kw, "softcap": c}), want, softcap)
 
 
 def check_fused(rec, flush, layer, cfg):
@@ -788,15 +874,17 @@ def rel_l2(got, want):
     return float((g - w).norm() / w.norm())
 
 
-def sdpa_backward(q, k, v, do, causal, flush):
+def sdpa_backward(q, k, v, do, causal, flush, mask=None):
     """The library yardstick of the backward: ``torch.autograd.grad``
     through ``sdpa`` (dq, dk and dv in one call) after one forward, timed as
     the kernels are; and the name of its longest device kernel, which says
-    which backend PyTorch picked."""
+    which backend PyTorch picked. ``mask``: an explicit boolean mask (a
+    band) in place of ``causal``."""
     from torch.profiler import ProfilerActivity, profile
 
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    out = sdpa(qr, kr, vr, is_causal=causal)
+    out = (sdpa(qr, kr, vr, is_causal=causal) if mask is None
+           else sdpa(qr, kr, vr, attn_mask=mask))
 
     def run():
         return torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
@@ -815,17 +903,29 @@ FLASH_SRC = "leetcuda_tpu_torch/csrc/flash_fwd.cu"
 FLASH_BWD_SRC = "leetcuda_tpu_torch/csrc/flash_bwd.cu"
 
 
+def band_pairs(n, window):
+    """(row, key) pairs the causal band of n rows keeps."""
+    if not window or window >= n:
+        return n * (n + 1) // 2
+    return window * (window + 1) // 2 + (n - window) * window
+
+
 def check_flash_bwd(rec, flush):
     """The forward's lse (causal at training's shape (8, 16, 2048, 128)
     with 4 KV heads, and the ragged batch of the ragged check: rows past a
     length -1e30), then the dQ and dK/dV kernels against
     ``flash_attention_bwd_plain`` at training's shape: causal, non-causal,
-    head dim 64, and with a random lse cotangent; ``out`` and ``lse`` from
-    the kernel forward, held against the plain forward's first, and a
-    random ``do``. Each backward case holds dq, dk and dv by
-    relative L2 error (BWD_REL_L2) and elementwise (KERNEL_TOL). The plain
-    time is the whole plain backward and the library time SDPA's (both give
-    all three gradients)."""
+    head dim 64, with a random lse cotangent, and with Gemma 2's options:
+    a window of 512 (on a 64-key tile edge) with the cap of 50, the cap
+    alone, the same two at BWD_CAP, a window of 1000 (inside a tile);
+    ``out`` and ``lse`` from the kernel forward, held against the plain
+    forward's first, and a random ``do``. Each backward case holds dq, dk
+    and dv by relative L2 error (BWD_REL_L2) and elementwise (KERNEL_TOL);
+    at BWD_CAP the backward uncapped and at cap / log2(e) must fail
+    BWD_REL_L2 (see CAP_Q_SCALE). The plain time is
+    the whole plain backward and the library time SDPA's (both give all
+    three gradients; with a window SDPA takes the band as an explicit mask,
+    and it has no softcap)."""
     from leetcuda_tpu_torch.attention import flash as fl
     from leetcuda_tpu_torch.attention import flash_bwd as fb
 
@@ -885,48 +985,73 @@ def check_flash_bwd(rec, flush):
         (out.float() - w_out.float()).abs().max())
 
     B, N = TRAIN_B, TRAIN_S
-    for label, D, causal, with_dlse in (("causal", 128, True, False),
-                                        ("non-causal", 128, False, False),
-                                        ("causal D=64", 64, True, False),
-                                        ("causal, dlse", 128, True, True)):
+    for label, D, causal, with_dlse, window, cap in (
+            ("causal", 128, True, False, None, None),
+            ("non-causal", 128, False, False, None, None),
+            ("causal D=64", 64, True, False, None, None),
+            ("causal, dlse", 128, True, True, None, None),
+            ("window 512, cap 50", 128, True, False, 512, 50.0),
+            ("cap 50", 128, True, False, None, 50.0),
+            ("window 512, cap 2", 128, True, False, 512, BWD_CAP),
+            ("cap 2", 128, True, False, None, BWD_CAP),
+            ("window 1000", 128, True, False, 1000, None)):
         scale = 1.0 / np.sqrt(D)
+        opt = dict(window=window, softcap=cap)
         q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, N, D), rec.randn(
             B, Hkv, N, D)
-        out, lse = fl.flash_attention(q, k, v, causal=causal, with_lse=True)
+        out, lse = fl.flash_attention(q, k, v, causal=causal, with_lse=True,
+                                      **opt)
         w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=causal,
-                                                with_lse=True)
+                                                with_lse=True, **opt)
         torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
         torch.testing.assert_close(lse, w_lse, **KERNEL_TOL)
         del w_out, w_lse
         do = rec.randn(B, H, N, D)
         dlse = rec.randn(B, H, N).float() if with_dlse else None
         got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
-                                     causal=causal)
+                                     causal=causal, **opt)
         want = fb.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse,
-                                            causal=causal, sm_scale=scale)
+                                            causal=causal, sm_scale=scale,
+                                            **opt)
         errs = {f"d{n}": rel_l2(g, w) for n, g, w in zip("qkv", got, want)}
         if max(errs.values()) > BWD_REL_L2:
             raise AssertionError(f"flash backward ({label}): relative L2 "
                                  f"errors {errs} over {BWD_REL_L2}")
+        controls = {}  # a wrong cap must fail the check (NaN fails too)
+        for c_label, c in ((("uncapped", None), ("log2 domain", cap / LOG2E))
+                           if cap == BWD_CAP else ()):
+            c_got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
+                                           causal=causal, window=window,
+                                           softcap=c)
+            controls[c_label] = {f"d{n}": rel_l2(g, w) for n, g, w in
+                                 zip("qkv", c_got, want)}
+            if all(e <= BWD_REL_L2 for e in controls[c_label].values()):
+                raise AssertionError(f"flash backward ({label}): the kernel "
+                                     f"{c_label} passes the capped check")
+            del c_got
         delta = fb._delta(out, do, dlse).contiguous()
         plain_ms = time_ms(lambda: fb.flash_attention_bwd_plain(
-            q, k, v, out, lse, do, dlse, causal=causal, sm_scale=scale),
-            flush, iters=5)
-        lib_ms, lib_kernel = sdpa_backward(q, k, v, do, causal, flush)
+            q, k, v, out, lse, do, dlse, causal=causal, sm_scale=scale,
+            **opt), flush, iters=5)
+        lib_ms, lib_kernel = sdpa_backward(
+            q, k, v, do, causal, flush,
+            None if window is None else fl.band_mask(N, N, dev, True, window))
         whole_ms = time_ms(lambda: fb.flash_attention_bwd(
-            q, k, v, out, lse, do, dlse, causal=causal), flush)
-        pairs = N * (N + 1) // 2 if causal else N * N
+            q, k, v, out, lse, do, dlse, causal=causal, **opt), flush)
+        pairs = band_pairs(N, window) if causal else N * N
         product = 2.0 * B * H * D * pairs  # FLOPs of one N x N x D product
         q_bytes, kv_bytes = 2.0 * B * H * N * D, 2.0 * B * Hkv * N * D
         row_bytes = 8.0 * B * H * N  # lse and delta, f32
         extra = dict(rel_l2=errs, library_kernel=lib_kernel,
+                     cap_controls_rel_l2=controls or None,
                      backward_ms=whole_ms,
                      backward_bound_ms=5 * product / BF16_FLOP_PER_S * 1e3)
         check = f"flash_attention_bwd_dq/{label}"
         rec.record(check, "flash_attention_bwd_dq", FLASH_BWD_SRC,
                    "leetcuda_tpu/attention/flash_bwd.py:196", got[0], want[0],
                    time_ms(lambda: fb._launch_dq(q, k, v, do, lse, delta,
-                                                 causal, scale), flush),
+                                                 causal, scale, window or 0,
+                                                 cap or 0.0), flush),
                    plain_ms, lib_ms, 3 * product,
                    3 * q_bytes + 2 * kv_bytes + row_bytes)
         rec.rows[check].update(extra)
@@ -936,7 +1061,8 @@ def check_flash_bwd(rec, flush):
                    torch.cat([got[1].flatten(), got[2].flatten()]),
                    torch.cat([want[1].flatten(), want[2].flatten()]),
                    time_ms(lambda: fb._launch_dkv(q, k, v, do, lse, delta,
-                                                  causal, scale), flush),
+                                                  causal, scale, window or 0,
+                                                  cap or 0.0), flush),
                    plain_ms, lib_ms, 4 * product,
                    2 * q_bytes + 4 * kv_bytes + row_bytes)
         rec.rows[check].update(extra)
@@ -1417,16 +1543,21 @@ class PlainBwdFlash(torch.autograd.Function):
     ulps), a control of how far roundoff alone carries through the model's
     bf16 backward. With a list ``gaps``, it also runs the backward kernels
     on the same inputs and appends their worst relative L2 error against
-    the plain backward: the kernels held on the model's own activations."""
+    the plain backward: the kernels held on the model's own activations.
+    ``window`` and ``softcap`` are the layer's, as the model passes them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, kernel_fwd, nudge, gaps):
+    def forward(ctx, q, k, v, causal, scale, kernel_fwd, nudge, gaps, window,
+                softcap):
         from leetcuda_tpu_torch.attention import flash as fl
 
         fwd = fl.flash_attention if kernel_fwd else fl.flash_attention_plain
-        out, lse = fwd(q, k, v, causal=causal, sm_scale=scale, with_lse=True)
+        opt = dict(window=window, softcap=softcap)
+        out, lse = fwd(q, k, v, causal=causal, sm_scale=scale, with_lse=True,
+                       **opt)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.nudge, ctx.gaps = causal, scale, nudge, gaps
+        ctx.opt = opt
         return out
 
     @staticmethod
@@ -1437,23 +1568,25 @@ class PlainBwdFlash(torch.autograd.Function):
         do = do.contiguous()
         want = fb.flash_attention_bwd_plain(
             q, k, v, out, lse + ctx.nudge * lse, do, causal=ctx.causal,
-            sm_scale=ctx.scale)
+            sm_scale=ctx.scale, **ctx.opt)
         if ctx.gaps is not None:
             got = fb.flash_attention_bwd(q, k, v, out, lse, do,
-                                         causal=ctx.causal, sm_scale=ctx.scale)
+                                         causal=ctx.causal, sm_scale=ctx.scale,
+                                         **ctx.opt)
             ctx.gaps.append(max(rel_l2(g, w) for g, w in zip(got, want)))
-        return (*want, None, None, None, None, None)
+        return (*want, None, None, None, None, None, None, None)
 
 
 def plain_bwd_trainable(kernel_fwd, nudge=0.0, gaps=None):
     """A stand-in for ``make_flash_attention_trainable`` over
     PlainBwdFlash."""
-    def make(*, causal=False, sm_scale=None):
+    def make(*, causal=False, sm_scale=None, window=None, softcap=None):
         def fa(q, k, v):
             scale = (sm_scale if sm_scale is not None
                      else 1 / np.sqrt(q.shape[3]))
             return PlainBwdFlash.apply(q, k, v, causal, float(scale),
-                                       kernel_fwd, nudge, gaps)
+                                       kernel_fwd, nudge, gaps, window,
+                                       softcap)
         return fa
     return make
 
@@ -3256,12 +3389,15 @@ def check_gmm(rec, flush, moe, cfg):
 
 @contextlib.contextmanager
 def model_calls(calls):
-    """Count the engine's calls of forward, forward_ragged and decode_step
-    into ``calls`` (engine/engine.py looks them up at call time)."""
+    """Count the engine's calls of forward, forward_ragged, decode_step and
+    decode_chunk into ``calls`` (engine/engine.py looks them up at call
+    time, decode_chunk in engine/speculative.py)."""
     from leetcuda_tpu_torch.engine import engine as em
+    from leetcuda_tpu_torch.engine import speculative as sp
 
-    saved = {n: getattr(em, n)
-             for n in ("forward", "forward_ragged", "decode_step")}
+    saved = {(m, n): getattr(m, n) for m, n in (
+        (em, "forward"), (em, "forward_ragged"), (em, "decode_step"),
+        (sp, "decode_chunk"))}
 
     def counting(name, fn):
         def wrapped(*args, **kw):
@@ -3269,13 +3405,13 @@ def model_calls(calls):
             return fn(*args, **kw)
         return wrapped
 
-    for name, fn in saved.items():
-        setattr(em, name, counting(name, fn))
+    for (m, name), fn in saved.items():
+        setattr(m, name, counting(name, fn))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(em, name, fn)
+        for (m, name), fn in saved.items():
+            setattr(m, name, fn)
 
 
 def moe_path(dev="cuda"):
@@ -3412,6 +3548,705 @@ def print_moe(rows, res):
               f"({gmm_ms / prof['device_ms_per_step']:.3f})", flush=True)
 
 
+# Path (o) serves Gemma-2-27B (models/llama.py gemma2_27b_config) at its
+# published width and depth, random bf16 weights from GEMMA_SEED. The paged
+# Engine (pages of PAGE, 4 slots of 6144 positions, chunked prefill of 512
+# prompt tokens a tick, so that no admission holds more than 512 rows of
+# f32 logits over the 256000-token vocabulary) serves prompts of 5120
+# tokens (past the 4096-token window at admission), 4000 (crossing it while
+# decoding), 1024 and 300, 128 new tokens each, then a lone 700-token
+# request; a contiguous Engine admits 1024 and 300 tokens in one ragged
+# batch; ``generate`` runs at B=4 over 256-token prompts, 64 new tokens.
+GEMMA_SEED = 5
+GEMMA_PLENS, GEMMA_NEW = (5120, 4000, 1024, 300), 128
+GEMMA_SLOTS, GEMMA_MAX_SEQ, GEMMA_CHUNK, GEMMA_BUCKET = 4, 6144, 512, 128
+GEMMA_LONE, GEMMA_LONE_NEW = 700, 32
+GEMMA_RAGGED, GEMMA_RAGGED_NEW = (1024, 300), 16
+GEMMA_GEN_B, GEMMA_GEN_S, GEMMA_GEN_NEW = 4, 256, 64
+# served at w = 0 (see gemma_path); at the drawn w = 1 the same serving is
+# held on the first GEMMA_WITNESS_LAYERS layers (depth_witness)
+GEMMA_WITNESS_LAYERS = 4
+# phase 3 of path (o): the flash forward at N=8192 (both layer kinds) and
+# with a window of 1000 at 2048; the ragged forward at lengths 6144 / 4500;
+# decode lengths on both sides of the window (6000 sees 1904.., 4097 sees
+# 1.., 4096 all of its keys), NaN past every length; chunk bases whose
+# T=512 rows cross the window's edge (3700) or sit past it
+GEMMA_FLASH_N, GEMMA_SMALL_BAND = 8192, (2048, 1000)
+GEMMA_RAGGED_LENS = np.array([6144, 4500], np.int32)
+GEMMA_DECODE_LENS = np.array([6000, 4097, 4096, 1000], np.int32)
+GEMMA_CHUNK_BASES = np.array([3700, 5000], np.int32)
+# the windowed forward at (1, 32, 16384, 128) does 0.44 of the causal one's
+# key tiles; its time must stay under BAND_SKIP_MAX of the causal time
+BAND_SKIP_N, BAND_SKIP_MAX = 16384, 0.6
+# every attention kernel's launch counter: one launch per layer per call
+ATTN_COUNTERS = ("flash_attention", "flash_attention_ragged",
+                 "flash_attention_lse", "decode_attention",
+                 "decode_attention_quantized", "paged_attention",
+                 "paged_attention_quantized", "chunk_attention",
+                 "chunk_attention_quantized", "paged_chunk_attention",
+                 "paged_chunk_attention_quantized")
+
+
+def band_tiles(N, window, tile=64):
+    """64 x 64 tiles the flash forward visits over N causal rows: q tile i
+    walks key tiles from the band of its first row to the diagonal."""
+    q0 = np.arange(0, N, tile)
+    first = (np.maximum(q0 - window + 1, 0) // tile if window
+             else np.zeros_like(q0))
+    return int((q0 // tile - first + 1).sum())
+
+
+def check_attn_options(rec, flush, cfg):
+    """Phase 3 of path (o): the window and softcap of kernels 1-9 at
+    Gemma-2-27B's layer-0 shapes (32 / 16 heads of 128, scale 144^-0.5), a
+    local layer (window 4096, cap 50) and a global one (cap 50), each held
+    against its plain version at KERNEL_TOL and timed beside it and SDPA
+    with the band as an explicit boolean mask (SDPA has no softcap): the
+    flash forward at (1, 32, 8192, 128) with and without its lse, and with
+    a window of 1000 (inside a 64-key tile) at 2048; the ragged forward at
+    B=2, N=6144, lengths 6144 / 4500 with NaN past them; the band skip at
+    (1, 32, 16384, 128), windowed against causal; decode over bf16, int8
+    and e4m3 caches and paged pools of 128 at B=4, S=6144, lengths
+    GEMMA_DECODE_LENS, NaN past every length; the chunk kernel with the
+    cap at T=512 over bases GEMMA_CHUNK_BASES (contiguous bf16 and e4m3,
+    paged bf16 both layers, paged e4m3). q is drawn at CAP_Q_SCALE, so
+    that the cap bends the scores, and beside every check the kernel
+    uncapped and at cap / log2(e) must fail it (``Recorder.cap_controls``).
+    Each bound counts the band's work. Returns the band skip's times."""
+    from leetcuda_tpu_torch.attention import decode as dec
+    from leetcuda_tpu_torch.attention import flash as fl
+    from leetcuda_tpu_torch.attention import paged as pg
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    dev, bf = rec.dev, torch.bfloat16
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    W, cap, scale = cfg.sliding_window, cfg.attn_softcap, cfg.query_scale
+    layers = {"local": dict(window=W, softcap=cap),
+              "global": dict(softcap=cap)}
+    lib_note = "SDPA, explicit band mask, no softcap"
+
+    def note(check, **kw):
+        rec.rows[check].update(library=lib_note, **kw)
+
+    # the flash forward, (1, 32, 8192, 128), and a window of 1000 at 2048
+    n_small, w_small = GEMMA_SMALL_BAND
+    for N, cases in ((GEMMA_FLASH_N, layers),
+                     (n_small, {f"window {w_small}": dict(window=w_small,
+                                                          softcap=cap)})):
+        q = rec.randn(1, H, N, D, scale=CAP_Q_SCALE)
+        k, v = rec.randn(1, Hkv, N, D), rec.randn(1, Hkv, N, D)
+        for layer, opt in cases.items():
+            w = opt.get("window")
+            w_out, w_lse = fl.flash_attention_plain(
+                q, k, v, causal=True, sm_scale=scale, with_lse=True, **opt)
+            plain_ms = time_ms(lambda: fl.flash_attention_plain(
+                q, k, v, causal=True, sm_scale=scale, with_lse=True, **opt),
+                flush, iters=2, warmup=1)
+            mask = fl.band_mask(N, N, dev, True, w)
+            lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                          scale=scale), flush)
+            pairs = band_pairs(N, w)
+            for with_lse in (False, True):
+                def kern(c=cap, with_lse=with_lse):
+                    return fl.flash_attention(q, k, v, causal=True,
+                                              sm_scale=scale, window=w,
+                                              softcap=c, with_lse=with_lse)
+
+                def part(c, with_lse=with_lse):
+                    return kern(c)[1] if with_lse else kern(c)
+                got, want, name = kern(), w_out, "flash_attention"
+                if with_lse:
+                    hold(got[0], w_out)
+                    got, want, name = got[1], w_lse, "flash_attention_lse"
+                check = f"(o) {name}/{layer} N={N}"
+                rec.record(check, name, FLASH_SRC,
+                           "leetcuda_tpu/attention/flash.py:259", got, want,
+                           time_ms(kern, flush), plain_ms, lib_ms,
+                           4.0 * H * D * pairs,
+                           2.0 * (2 * H * N * D + 2 * Hkv * N * D)
+                           + (4.0 * H * N if with_lse else 0.0))
+                note(check, window=w, softcap=cap, N=N)
+                rec.cap_controls(check, part, want, cap)
+            del w_out, w_lse, mask
+
+    # the ragged forward, a local layer, NaN past the lengths
+    lens_np = GEMMA_RAGGED_LENS
+    B, N = len(lens_np), int(lens_np.max())
+    lengths = torch.from_numpy(lens_np).to(dev)
+    q = rec.randn(B, H, N, D, scale=CAP_Q_SCALE)
+    k, v = rec.randn(B, Hkv, N, D), rec.randn(B, Hkv, N, D)
+    for b, n in enumerate(lens_np):
+        k[b, :, n:], v[b, :, n:] = float("nan"), float("nan")
+    opt = layers["local"]
+    w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=True,
+                                            sm_scale=scale, lengths=lengths,
+                                            with_lse=True, **opt)
+    plain_ms = time_ms(lambda: fl.flash_attention_plain(
+        q, k, v, causal=True, sm_scale=scale, lengths=lengths, with_lse=True,
+        **opt), flush, iters=2, warmup=1)
+    cols = torch.arange(N, device=dev)
+    mask = (fl.band_mask(N, N, dev, True, W)[None]
+            & (cols[None, None, :] < lengths[:, None, None]))[:, None]
+    kd, vd = torch.nan_to_num(k), torch.nan_to_num(v)
+    lib_ms = time_ms(lambda: sdpa(q, kd, vd, attn_mask=mask, scale=scale),
+                     flush)
+    del kd, vd, mask
+    n_valid = int(lens_np.sum())
+    pairs = sum(band_pairs(int(n), W) for n in lens_np)
+    for with_lse in (False, True):
+        def kern(c=cap, with_lse=with_lse):
+            return fl.flash_attention_ragged(q, k, v, lengths, sm_scale=scale,
+                                             window=W, softcap=c,
+                                             with_lse=with_lse)
+
+        def part(c, with_lse=with_lse):
+            return kern(c)[1] if with_lse else kern(c)
+        got, want, name = kern(), w_out, "flash_attention_ragged"
+        if with_lse:
+            hold(got[0], w_out)
+            got, want, name = got[1], w_lse, "flash_attention_lse"
+        if not torch.isfinite(got).all():
+            raise AssertionError("ragged flash let NaN past a length through")
+        check = f"(o) {name}/ragged local B={B} N={N}"
+        rec.record(check, name, FLASH_SRC,
+                   "leetcuda_tpu/attention/flash.py:367", got, want,
+                   time_ms(kern, flush), plain_ms, lib_ms,
+                   4.0 * H * D * pairs,
+                   2.0 * (H * n_valid * D + 2 * Hkv * n_valid * D
+                          + B * H * N * D)
+                   + (4.0 * B * H * N if with_lse else 0.0))
+        note(check, window=W, softcap=cap, lengths=lens_np.tolist())
+        rec.cap_controls(check, part, want, cap)
+    del w_out, w_lse, q, k, v
+
+    # the band skip: the windowed forward against the causal one
+    N = BAND_SKIP_N
+    q, k, v = rec.randn(1, H, N, D), rec.randn(1, Hkv, N, D), rec.randn(
+        1, Hkv, N, D)
+    t = {layer: time_ms(lambda opt=opt: fl.flash_attention(
+        q, k, v, causal=True, sm_scale=scale, **opt), flush)
+        for layer, opt in layers.items()}
+    skip = {"N": N, "window": W, "local_ms": t["local"],
+            "global_ms": t["global"], "ratio": t["local"] / t["global"],
+            "tile_ratio": band_tiles(N, W) / band_tiles(N, None),
+            "max_ratio": BAND_SKIP_MAX}
+    if skip["ratio"] >= BAND_SKIP_MAX:
+        raise AssertionError(f"band skip: the windowed forward takes "
+                             f"{skip['ratio']:.3f} of the causal one's time "
+                             f"(tiles {skip['tile_ratio']:.3f})")
+    del q, k, v
+
+    # decode over a contiguous cache: bf16 both layers, int8 and e4m3 local
+    B, S = len(GEMMA_DECODE_LENS), GEMMA_MAX_SEQ
+    lens_np = GEMMA_DECODE_LENS
+    lengths = torch.from_numpy(lens_np).to(dev)
+    cols = torch.arange(S, device=dev)[None, :]
+    past = (cols >= lengths[:, None])[:, None, :].expand(B, Hkv, S)
+    q = rec.randn(B, H, D, scale=CAP_Q_SCALE)
+
+    def seen(w):
+        """(B, S) positions each row attends, and their count."""
+        m = cols < lengths[:, None]
+        if w:
+            m = m & (cols >= lengths[:, None] - w)
+        return m, int(np.minimum(lens_np, w or S).sum())
+
+    kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+    kc[past], vc[past] = float("nan"), float("nan")
+    kd, vd = torch.nan_to_num(kc), torch.nan_to_num(vc)
+    for layer, opt in layers.items():
+        m, n_att = seen(opt.get("window"))
+        args = (q, kc, vc, lengths)
+        got = dec.decode_attention(*args, sm_scale=scale, **opt)
+        if not torch.isfinite(got).all():
+            raise AssertionError("decode kernel let NaN padding through")
+        check = f"(o) decode_attention/{layer} B={B} S={S}"
+        want = dec.decode_attention_plain(*args, sm_scale=scale, **opt)
+        rec.record(check, "decode_attention",
+                   "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                   "leetcuda_tpu/attention/decode.py:223", got, want,
+                   time_ms(lambda: dec.decode_attention(
+                       *args, sm_scale=scale, **opt), flush),
+                   time_ms(lambda: dec.decode_attention_plain(
+                       *args, sm_scale=scale, **opt), flush, iters=5),
+                   time_ms(lambda: sdpa(q[:, :, None], kd, vd,
+                                        attn_mask=m[:, None, None, :],
+                                        scale=scale), flush),
+                   4.0 * H * D * n_att,
+                   2.0 * (2 * Hkv * n_att * D + 2 * B * H * D) + 4 * B)
+        note(check, lengths=lens_np.tolist(), **opt)
+        rec.cap_controls(check, lambda c, opt=opt: dec.decode_attention(
+            *args, sm_scale=scale, **{**opt, "softcap": c}), want, cap)
+    opt = layers["local"]
+    m, n_att = seen(W)
+    quant = {}
+    for fmt, qdt in (("fp8", torch.float8_e4m3fn), ("int8", torch.int8)):
+        kq, ks = _quantize_token_kv(rec.randn(B, Hkv, S, D), qdt)
+        vq, vs = _quantize_token_kv(rec.randn(B, Hkv, S, D), qdt)
+        kdq = (kq.float() * ks[..., None]).to(bf)
+        vdq = (vq.float() * vs[..., None]).to(bf)
+        ks[past], vs[past] = float("nan"), float("nan")
+        kbyte, vbyte = (0x7F, 0xFF) if fmt == "fp8" else (0, 0)
+        as_bytes(kq)[past], as_bytes(vq)[past] = kbyte, vbyte
+        quant[fmt] = (kq, vq, ks, vs, kbyte, vbyte)
+        args = (q, kq, vq, ks, vs, lengths)
+        got = dec.decode_attention_quantized(*args, sm_scale=scale, **opt)
+        if not torch.isfinite(got).all():
+            raise AssertionError("quantized decode let NaN padding through")
+        check = f"(o) decode_attention_quantized/{fmt} local B={B} S={S}"
+        want = dec.decode_attention_quantized_plain(*args, sm_scale=scale,
+                                                    **opt)
+        rec.record(check, "decode_attention_quantized",
+                   "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                   "leetcuda_tpu/attention/decode.py:308", got, want,
+                   time_ms(lambda: dec.decode_attention_quantized(
+                       *args, sm_scale=scale, **opt), flush),
+                   time_ms(lambda: dec.decode_attention_quantized_plain(
+                       *args, sm_scale=scale, **opt), flush, iters=5),
+                   time_ms(lambda: sdpa(q[:, :, None], kdq, vdq,
+                                        attn_mask=m[:, None, None, :],
+                                        scale=scale), flush),
+                   4.0 * H * D * n_att,
+                   2 * Hkv * n_att * D + 8.0 * Hkv * n_att
+                   + 4.0 * B * H * D + 4 * B)
+        note(check, lengths=lens_np.tolist(), **opt)
+        rec.cap_controls(check, lambda c: dec.decode_attention_quantized(
+            *args, sm_scale=scale, window=W, softcap=c), want, cap)
+        del kdq, vdq
+
+    # the same caches as shuffled pools of PAGE, NaN wherever no row owns a
+    # position; the kernel looks up only the pages of the band
+    P = S // PAGE
+    n_pages = -(-lens_np // PAGE)
+    table, owned = shuffled_table(rec.rng, n_pages, P, dev)
+    band_pages = int((n_pages - np.maximum(lens_np - W, 0) // PAGE).sum())
+    pools = {None: [to_pool(c, PAGE, table, owned, float("nan"))
+                    for c in (kc, vc)]}
+    for fmt, (kq, vq, ks, vs, kbyte, vbyte) in quant.items():
+        pools[fmt] = [to_pool(c, PAGE, table, owned, f) for c, f in (
+            (kq, kbyte), (vq, vbyte), (ks, float("nan")),
+            (vs, float("nan")))]
+    del kc, vc, quant
+    for fmt, pool in pools.items():
+        args = (q, *pool, table, lengths)
+        if fmt is None:
+            name, fn, plain = ("paged_attention", pg.paged_attention,
+                               pg.paged_attention_plain)
+            kg, vg = kd, vd
+            nbytes = 2.0 * (2 * Hkv * n_att * D + 2 * B * H * D)
+        else:
+            name, fn, plain = ("paged_attention_quantized",
+                               pg.paged_attention_quantized,
+                               pg.paged_attention_quantized_plain)
+            kg = (pg._gather(pool[0], table).float()
+                  * pg._gather(pool[2], table)[..., None]).nan_to_num().to(bf)
+            vg = (pg._gather(pool[1], table).float()
+                  * pg._gather(pool[3], table)[..., None]).nan_to_num().to(bf)
+            nbytes = (2 * Hkv * n_att * D + 8.0 * Hkv * n_att
+                      + 4.0 * B * H * D)
+        got = fn(*args, sm_scale=scale, **opt)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} read a position no row owns")
+        check = f"(o) {name}/{fmt or 'bf16'} local page{PAGE}"
+        want = plain(*args, sm_scale=scale, **opt)
+        rec.record(check, name, "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                   "leetcuda_tpu/attention/paged.py:232", got, want,
+                   time_ms(lambda: fn(*args, sm_scale=scale, **opt), flush),
+                   time_ms(lambda: plain(*args, sm_scale=scale, **opt),
+                           flush, iters=5),
+                   time_ms(lambda: sdpa(q[:, :, None], kg, vg,
+                                        attn_mask=m[:, None, None, :],
+                                        scale=scale), flush),
+                   4.0 * H * D * n_att, nbytes + 4 * B + 4.0 * band_pages)
+        note(check, lengths=lens_np.tolist(), band_pages=band_pages, **opt)
+        rec.cap_controls(check, lambda c: fn(*args, sm_scale=scale, window=W,
+                                             softcap=c), want, cap)
+    del pools, kd, vd, kg, vg
+
+    # the chunk kernel with the cap at T=512 across the window's edge
+    cases = (("T=512 local", GEMMA_CHUNK, GEMMA_CHUNK_BASES, None, False, W),
+             ("T=512 local", GEMMA_CHUNK, GEMMA_CHUNK_BASES, "fp8", False, W),
+             ("T=512 local", GEMMA_CHUNK, GEMMA_CHUNK_BASES, None, True, W),
+             ("T=512 global", GEMMA_CHUNK, GEMMA_CHUNK_BASES, None, True,
+              None),
+             ("T=512 local", GEMMA_CHUNK, GEMMA_CHUNK_BASES, "fp8", True, W))
+    chunk_cases(rec, flush, cases, H, Hkv, S, D, sm_scale=scale,
+                softcap=cap, prefix="(o) ")
+    return skip
+
+
+@contextlib.contextmanager
+def attention_windows(calls):
+    """Count the model's attention calls by layer kind into ``calls``:
+    "local" when the call carries a window, else "global". Wraps the
+    wrappers where models/llama.py and engine/speculative.py look them up
+    at call time (the trainable flash attention at its construction, one
+    per layer call)."""
+    from leetcuda_tpu_torch.engine import speculative as sp
+    from leetcuda_tpu_torch.models import llama as ml
+
+    names = {ml: ("decode_attention", "decode_attention_quantized",
+                  "paged_attention", "paged_attention_quantized",
+                  "flash_attention_ragged", "make_flash_attention_trainable"),
+             sp: ("chunk_attention", "chunk_attention_quantized",
+                  "paged_chunk_attention", "paged_chunk_attention_quantized")}
+    saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
+
+    def counting(fn):
+        def wrapped(*args, **kw):
+            kind = "local" if kw.get("window") else "global"
+            calls[kind] = calls.get(kind, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for (m, n), fn in saved.items():
+        setattr(m, n, counting(fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+
+
+def roundoff_control(params, cfg, toks, chunk=GEMMA_CHUNK):
+    """Two solo replays of ``toks`` (1, N) that differ only in roundoff:
+    ``decode_chunk`` in chunks of ``chunk`` and of ``chunk // 2``. Their
+    largest |logit difference|, top-1 agreement and worst gap (the second's
+    max logit over its logit of the first's argmax): the floor under the
+    teacher-forced gaps of a model."""
+    from leetcuda_tpu_torch.engine.speculative import decode_chunk
+    from leetcuda_tpu_torch.models.llama import init_kv_caches
+
+    dev, N = toks.device, toks.shape[1]
+    runs = []
+    for c in (chunk, chunk // 2):
+        caches = init_kv_caches(cfg, 1, N + (-N % chunk), device=dev)
+        runs.append(torch.cat([decode_chunk(
+            params, toks[:, base:base + c], caches,
+            torch.tensor([base], dtype=torch.int32, device=dev), cfg)[0]
+            for base in range(0, N, c)], 1)[0])
+    a, b = runs
+    top = a.argmax(-1)
+    return {"max_abs_dlogit": float((a - b).abs().max()),
+            "top1": float((top == b.argmax(-1)).float().mean()),
+            "worst_gap": float((b.max(-1).values
+                                - b.gather(1, top[:, None])[:, 0]).max())}
+
+
+def depth_witness(params, cfg, prompts, control):
+    """Path (o)'s serving at the drawn norms (w = 1), cut to the first
+    GEMMA_WITNESS_LAYERS layers at full width (the even ones windowed):
+    the paged Engine with chunked prefill over ``prompts``, each
+    served token teacher-forced against its solo replay at LOGIT_TOL, and
+    the roundoff control at that depth. Shares ``params``' tensors."""
+    from leetcuda_tpu_torch.engine import Engine, EngineConfig
+
+    n = GEMMA_WITNESS_LAYERS
+    wcfg = dataclasses.replace(cfg, n_layers=n)
+    wparams = {**params, "layers": params["layers"][:n]}
+    dev = params["embed"].device
+    t0 = time.perf_counter()
+    eng = Engine(wparams, wcfg, EngineConfig(
+        slots=GEMMA_SLOTS, max_seq=GEMMA_MAX_SEQ, prefill_bucket=GEMMA_BUCKET,
+        paged=True, page_size=PAGE, prefill_chunk=GEMMA_CHUNK), device=dev)
+    served = list(eng.run(prompts, GEMMA_NEW).values())
+    del eng
+    gaps = [chunk_replay_gap(wparams, wcfg, p, toks)
+            for p, toks in zip(prompts, served)]
+    res = {"layers": n, "norms": 1.0, "tol": LOGIT_TOL, "gaps": gaps,
+           "worst": max(gaps),
+           "roundoff_control": roundoff_control(wparams, wcfg, control),
+           "seconds": time.perf_counter() - t0}
+    if res["worst"] > LOGIT_TOL:
+        raise AssertionError(f"path o, {n} layers at w = 1: served tokens "
+                             f"off the solo replay: {gaps}")
+    return res
+
+
+def identity_norms(params):
+    """Set every norm weight to 0, IN PLACE: under the (1 + w) norms of an
+    ``rms_offset`` model, the identity scale."""
+    for w in [params["norm"]] + [v for layer in params["layers"]
+                                 for k, v in layer.items()
+                                 if k.endswith("norm")]:
+        w.zero_()
+
+
+def chunk_replay_gap(params, cfg, prompt, tokens, chunk=GEMMA_CHUNK):
+    """Teacher-forced gap of ``tokens`` served after ``prompt``: a solo B=1
+    replay of prompt + tokens through ``decode_chunk`` in chunks of at most
+    ``chunk`` over a contiguous cache; the largest (max logit - logit of the
+    served token) over the served positions."""
+    from leetcuda_tpu_torch.engine.speculative import decode_chunk
+    from leetcuda_tpu_torch.models.llama import init_kv_caches
+
+    dev = params["embed"].device
+    seq = list(prompt) + list(tokens)
+    n, L = len(seq) - 1, len(prompt)  # the last token is no input
+    caches = init_kv_caches(cfg, 1, n + (-n % chunk), device=dev)
+    toks = torch.tensor(seq, dtype=torch.int32, device=dev)
+    gaps = []
+    for base in range(0, n, chunk):
+        T = min(chunk, n - base)
+        logits, caches = decode_chunk(
+            params, toks[None, base:base + T], caches,
+            torch.tensor([base], dtype=torch.int32, device=dev), cfg)
+        lo = max(L - 1 - base, 0)  # rows whose next token was served
+        if lo < T:
+            rows = logits[0, lo:T]
+            tgt = toks[base + lo + 1:base + T + 1].long()
+            gaps.append((rows.max(-1).values
+                         - rows.gather(1, tgt[:, None])[:, 0]).max())
+        del logits
+    return float(torch.stack(gaps).max())
+
+
+def serve_gemma(params, cfg, prompts, lone, ragged, gprompts):
+    """Path (o)'s serving: the paged Engine with chunked prefill over
+    ``prompts``, then ``lone`` alone; a contiguous Engine admitting
+    ``ragged`` in one ragged batch; ``generate`` over ``gprompts``. Returns
+    timings and the served streams."""
+    from leetcuda_tpu_torch.engine import Engine, EngineConfig
+
+    dev = params["embed"].device
+    eng = Engine(params, cfg, EngineConfig(
+        slots=GEMMA_SLOTS, max_seq=GEMMA_MAX_SEQ, prefill_bucket=GEMMA_BUCKET,
+        paged=True, page_size=PAGE, prefill_chunk=GEMMA_CHUNK), device=dev)
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, GEMMA_NEW) for p in prompts]
+    first, ticks = {}, 0
+    while eng.waiting or eng.active or eng.filling:
+        eng.step()
+        ticks += 1
+        for u in uids:
+            if u not in first and (u in eng.finished or any(
+                    r.uid == u for r in eng.active.values())):
+                first[u] = time.perf_counter() - t0
+    sync(dev)
+    t_batch = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    uids.append(eng.submit(lone, GEMMA_LONE_NEW))
+    while eng.waiting or eng.active or eng.filling:
+        eng.step()
+    sync(dev)
+    t_lone = time.perf_counter() - t1
+    stats = eng.stats()
+    if eng.recoveries or eng.preemptions:
+        raise AssertionError(f"path o: {eng.recoveries} recoveries, "
+                             f"{eng.preemptions} preemptions")
+    served = [eng.finished[u].generated for u in uids]
+    kv_bytes = eng.kv_memory_report()["target_bytes"]
+    del eng
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()
+    cap = max(map(len, ragged)) + GEMMA_RAGGED_NEW
+    reng = Engine(params, cfg, EngineConfig(
+        slots=len(ragged), max_seq=cap + (-cap % 1024),
+        prefill_bucket=GEMMA_BUCKET), device=dev)
+    rserved = list(reng.run(ragged, GEMMA_RAGGED_NEW).values())
+    sync(dev)
+    t_ragged = time.perf_counter() - t2
+    del reng
+    torch.cuda.empty_cache()
+
+    gen_, gtoks = serve_generate(params, cfg, gprompts, GEMMA_GEN_NEW)
+    for toks, n in zip(served + rserved,
+                       [GEMMA_NEW] * len(prompts) + [GEMMA_LONE_NEW]
+                       + [GEMMA_RAGGED_NEW] * len(ragged)):
+        if len(toks) != n or not all(0 <= x < cfg.vocab_size for x in toks):
+            raise AssertionError(f"path o: a request answered {toks}")
+    return ({"engine_batch_s": t_batch, "engine_ticks": ticks,
+             "first_token_s": [first[u] for u in uids[:len(prompts)]],
+             "engine_tok_s": len(prompts) * GEMMA_NEW / t_batch,
+             "lone_request_s": t_lone, "ragged_engine_s": t_ragged,
+             "kv_bytes": kv_bytes, "engine_stats": {
+                 k: v for k, v in stats.items() if isinstance(v, (int, float))},
+             **gen_}, served, rserved, gtoks)
+
+
+def gemma_path(dev="cuda"):
+    """Path (o): Gemma-2-27B (46 layers, 32 / 16 heads of 128, a 4096-token
+    window on the even layers, attention softcap 50, final softcap 30,
+    vocab 256000, bf16). Phase 3's window and softcap checks at its layer-0
+    shapes first, on the empty card (the plain versions at N=8192 hold
+    ~35 GB of f32 scores); then the weights, built on the card from a seed;
+    the paged Engine with chunked prefill, a ragged admission and
+    ``generate`` (serve_gemma) with the launch counts zeroed just before
+    and read just after: exactly one attention launch per layer per
+    forward, ragged forward, chunk and decode step, half of them windowed;
+    served tok/s under the weight-read ceiling; every served token
+    teacher-forced against a solo replay in chunks of 512 (phase 5); one
+    B=4 decode step at context 5120 profiled, attention device time on the
+    local and the global layers apart (phase 6). Returns (rows for the
+    kernels line, the path's report).
+
+    The served model's norm weights are 0. ``init_params`` draws them at 1,
+    as JAX's does; under Gemma's (1 + w) norms that doubles every
+    normalised vector, q and k among them, so the random model's attention
+    scores spread ~3.8 wide and the model is chaotic: two replays that
+    differ only in roundoff (``roundoff_control``, 512- against 256-token
+    chunks of one 1024-token prompt) then disagree on the argmax at most
+    positions, and no teacher-forced check can tell a fault from roundoff.
+    The control runs on both weight sets each run and is reported; at w = 0
+    (the identity scale) it agrees to roundoff. At w = 1 the Engine's
+    serving is held at a depth of GEMMA_WITNESS_LAYERS (``depth_witness``),
+    where roundoff does not grow into another argmax."""
+    from leetcuda_tpu_torch.engine import generate
+    from leetcuda_tpu_torch.models.llama import (gemma2_27b_config,
+                                                 init_params, named_leaves)
+
+    cfg = gemma2_27b_config()
+    res = {"model": "Gemma-2-27B",
+           "config": {k: (str(v) if isinstance(v, torch.dtype) else v)
+                      for k, v in dataclasses.asdict(cfg).items()}}
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rec = Recorder(dev)
+    res["band_skip"] = check_attn_options(rec, flush, cfg)
+    del flush
+    torch.cuda.empty_cache()
+    res["phase3_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(GEMMA_SEED),
+                         cfg, device=dev)
+    sync(params["embed"].device)
+    res.update(init_s=time.perf_counter() - t1,
+               weight_bytes=param_bytes(params),
+               n_params=sum(p.numel() for _, p in named_leaves(params)))
+    # a B=4 step reads every weight once: the tok/s ceiling
+    res["tok_s_ceiling"] = GEMMA_SLOTS / (res["weight_bytes"]
+                                          / HBM_BYTES_PER_S)
+
+    rng = np.random.default_rng(GEMMA_SEED + 1)
+    control = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, 2 * GEMMA_CHUNK)).astype(np.int32)).to(dev)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in GEMMA_PLENS]
+    lone = rng.integers(0, cfg.vocab_size, GEMMA_LONE).tolist()
+    ragged = [rng.integers(0, cfg.vocab_size, n).tolist()
+              for n in GEMMA_RAGGED]
+    gprompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (GEMMA_GEN_B, GEMMA_GEN_S)).astype(
+            np.int32)).to(dev)
+    with torch.no_grad():
+        res["witness_w1"] = depth_witness(params, cfg, prompts, control)
+        res["roundoff_control"] = {
+            "norms at 1": roundoff_control(params, cfg, control)}
+        identity_norms(params)
+        res["roundoff_control"]["norms at 0"] = roundoff_control(
+            params, cfg, control)
+    generate(params, cfg, gprompts[:1, :16], 2, device=dev)  # warm-up
+    calls, kinds = {}, {}
+
+    def serve():
+        with model_calls(calls), attention_windows(kinds):
+            return serve_gemma(params, cfg, prompts, lone, ragged, gprompts)
+
+    (out, served, rserved, gtoks), counts, peak = drive("o", serve)
+    res.update(out, launches=counts, model_calls=calls,
+               attention_calls=kinds, peak_extra_bytes=peak,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    n_calls = sum(calls.values())
+    attn = sum(counts.get(n, 0) for n in ATTN_COUNTERS)
+    if attn != cfg.n_layers * n_calls or any(
+            counts.get(n, 0) % cfg.n_layers for n in ATTN_COUNTERS):
+        raise AssertionError(f"path o: {attn} attention launches for "
+                             f"{calls}, not one per layer per call "
+                             f"({cfg.n_layers * n_calls}): {counts}")
+    half = cfg.n_layers // 2 * n_calls
+    if kinds != {"local": half, "global": half}:
+        raise AssertionError(f"path o: attention calls by layer {kinds}, "
+                             f"not {half} windowed and {half} global")
+    for what in ("engine_tok_s", "generate_tok_s"):
+        if res[what] > res["tok_s_ceiling"]:
+            raise AssertionError(f"path o: {what} {res[what]:.1f} exceeds "
+                                 f"its ceiling {res['tok_s_ceiling']:.1f}")
+
+    # phase 5: every served stream against a solo replay in chunks
+    t5 = time.perf_counter()
+    gaps = {}
+    for i, (p, toks) in enumerate(zip(prompts + [lone], served)):
+        gaps[f"engine/{i}"] = chunk_replay_gap(params, cfg, p, toks)
+    for i, (p, toks) in enumerate(zip(ragged, rserved)):
+        gaps[f"ragged/{i}"] = chunk_replay_gap(params, cfg, p, toks)
+    for b, toks in enumerate(gtoks.tolist()):
+        gaps[f"generate/{b}"] = chunk_replay_gap(
+            params, cfg, gprompts[b].tolist(), toks)
+    res["teacher_forced"] = {"tol": LOGIT_TOL, "worst": max(gaps.values()),
+                             "gaps": gaps,
+                             "seconds": time.perf_counter() - t5}
+    if res["teacher_forced"]["worst"] > LOGIT_TOL:
+        raise AssertionError(f"path o: served tokens off the solo replay: "
+                             f"{gaps}")
+
+    # phase 6: one B=4 decode step at context 5120, attention by layer kind
+    res["profile"] = profile_decode(
+        params, cfg, batch=GEMMA_SLOTS, context=GEMMA_PLENS[0],
+        classes={"attention": ("decode_attn",)},
+        split=("decode_attn", cfg.n_layers))
+    return rec.rows, res
+
+
+def print_gemma(rows, res):
+    c = res["config"]
+    for r in rows.values():
+        lib = (f"library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "library none")
+        print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms {lib} "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    bs = res["band_skip"]
+    print(f"band skip (1, 32, {bs['N']}, 128): window {bs['window']} "
+          f"{bs['local_ms']:.4f} ms, causal {bs['global_ms']:.4f} ms, ratio "
+          f"{bs['ratio']:.3f} (tiles {bs['tile_ratio']:.3f}, bar "
+          f"{bs['max_ratio']})")
+    print(f"path (o) {res['model']} ({c['n_layers']} layers, "
+          f"{res['n_params'] / 1e9:.2f}B params, window "
+          f"{c['sliding_window']} on even layers, softcap "
+          f"{c['attn_softcap']} / {c['final_softcap']}, bf16, random weights "
+          f"built in {res['init_s']:.1f} s): paged Engine, prefill_chunk "
+          f"{GEMMA_CHUNK}, {len(GEMMA_PLENS)} requests (prompts "
+          f"{list(GEMMA_PLENS)}) x {GEMMA_NEW} tokens in "
+          f"{res['engine_batch_s']:.3f} s = {res['engine_tok_s']:.1f} tok/s "
+          f"({res['engine_ticks']} ticks; first tokens at "
+          f"{[round(x, 3) for x in res['first_token_s']]} s); lone "
+          f"{GEMMA_LONE}-token request {res['lone_request_s']:.3f} s; ragged "
+          f"admission {list(GEMMA_RAGGED)} x {GEMMA_RAGGED_NEW}: "
+          f"{res['ragged_engine_s']:.3f} s; generate B={GEMMA_GEN_B} "
+          f"S={GEMMA_GEN_S} x {GEMMA_GEN_NEW}: {res['generate_s']:.3f} s = "
+          f"{res['generate_tok_s']:.1f} tok/s; ceiling "
+          f"{res['tok_s_ceiling']:.1f} tok/s; params "
+          f"{res['weight_bytes'] / 2**30:.2f} GiB, pool "
+          f"{res['kv_bytes'] / 2**30:.2f} GiB, peak device memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"  model calls {res['model_calls']}; attention calls by layer "
+          f"{res['attention_calls']}; launches: {res['launches']}")
+    tf = res["teacher_forced"]
+    print(f"  teacher-forced: worst gap {tf['worst']:.4f} (tol {tf['tol']}) "
+          f"over {len(tf['gaps'])} streams in {tf['seconds']:.1f} s")
+    print(f"  roundoff control (one prompt, chunks of {GEMMA_CHUNK} against "
+          f"{GEMMA_CHUNK // 2}): {res['roundoff_control']}")
+    wit = res["witness_w1"]
+    print(f"  witness at w = 1, {wit['layers']} layers: teacher-forced gaps "
+          f"{[round(g, 4) for g in wit['gaps']]} (tol {wit['tol']}), roundoff "
+          f"control {wit['roundoff_control']}, {wit['seconds']:.1f} s")
+    for r in rows.values():
+        if "cap_controls" in r:
+            print(f"  cap control {r['check']}: {r['cap_controls']} (bar "
+                  f"{KERNEL_TOL})")
+    prof = res["profile"]
+    print_profile("(o) Gemma-2-27B, contiguous bf16 cache", prof)
+    split = prof.get("split_ms")
+    print(f"  attention device ms a step: "
+          + ("not measured" if not split else
+             f"windowed layers {split['even']:.4f}, global layers "
+             f"{split['odd']:.4f} ({split['launches']} launches)"),
+          flush=True)
+
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -3486,7 +4321,7 @@ def agreement(params, qparams, cfg, prompt):
 
 
 def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
-                   paged=False, classes=None):
+                   paged=False, classes=None, split=None):
     """Phase 6: where a B=``batch`` decode step's time goes. The step's wall
     time (host clock, synchronised) without the profiler, then
     torch.profiler's device time by kernel over the same steps: the device
@@ -3495,7 +4330,7 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
     once, before the steps: the upload from pageable memory waits for the
     stream, which costs the engine nothing (it reads the sampled tokens
     back at the end of every step) but would serialise this loop, whose
-    host otherwise runs ahead of the device. ``classes``: as
+    host otherwise runs ahead of the device. ``classes`` and ``split``: as
     ``profile_run``'s."""
     from leetcuda_tpu_torch.attention.paged import PageManager
     from leetcuda_tpu_torch.models.llama import (decode_step, init_kv_caches,
@@ -3528,7 +4363,7 @@ def profile_decode(params, cfg, batch, context, steps=8, kv_quant=None,
         sync(dev)
 
     return {"batch": batch, "context": context, "kv_quant": kv_quant,
-            "paged": paged, **profile_run(run, steps, classes)}
+            "paged": paged, **profile_run(run, steps, classes, split)}
 
 
 # Device time of a training step by kind of kernel (substrings of the
@@ -3537,12 +4372,31 @@ TRAIN_CLASSES = {"attention": ("flash_fwd", "flash_bwd"),
                  "matmul": ("gemm", "sm90", "nvjet", "cutlass", "cublas")}
 
 
-def profile_run(run, steps, classes=None):
+def split_by_layer(prof, substr, n_layers, steps):
+    """Device ms per step of the kernels whose name holds ``substr`` (one
+    per layer, launched in layer order), summed over the even and the odd
+    layers apart: {"even", "odd", "launches"}, or None when the trace holds
+    no such kernel with a time range."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and substr in e.name
+                   and getattr(e, "time_range", None) is not None)
+    if not spans or len(spans) % n_layers:
+        return None
+    out = {"even": 0.0, "odd": 0.0, "launches": len(spans)}
+    for i, (_, us) in enumerate(spans):
+        out["odd" if i % n_layers % 2 else "even"] += us / 1e3 / steps
+    return out
+
+
+def profile_run(run, steps, classes=None, split=None):
     """``run()`` performs ``steps`` steps and synchronises: its wall time per
     step without the profiler (after one warm-up run), then torch.profiler's
     device time by kernel over one more run; with ``classes`` ({label:
     name substrings}) also the device ms per step of each class and of the
-    rest."""
+    rest; with ``split`` (name substring, layers) also ``split_by_layer``."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -3565,8 +4419,10 @@ def profile_run(run, steps, classes=None):
         label = next((c for c, subs in (classes or {}).items()
                       if any(x in name.lower() for x in subs)), "other")
         by_class[label] = by_class.get(label, 0.0) + ms
+    split_ms = (split_by_layer(prof, *split, steps) if split is not None
+                else None)
     return {"step_ms": step_ms, "device_ms_per_step": device_ms,
-            "device_ms_by_class": by_class,
+            "device_ms_by_class": by_class, "split_ms": split_ms,
             "launches_per_step": sum(n for _, n in by_kernel.values()),
             "device_busy_share": device_ms / step_ms if device_ms else None,
             "top_kernels": [{"kernel": k[:90], "ms_per_step": ms,
@@ -3653,9 +4509,17 @@ def main() -> int:
     phase_s = report["phase_s"] = {}
     marks = [t0]
 
-    def phase_done(name):  # seconds since the previous phase ended
+    def phase_done(name, **results):
+        """Seconds since the previous phase ended; with ``--json`` the report
+        so far (and ``results``) is written after every phase, so that a
+        run cut short keeps what it measured."""
         marks.append(time.perf_counter())
         phase_s[name] = marks[-1] - marks[-2]
+        report.setdefault("partial", {}).update(results)
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(report, indent=1,
+                                                  default=str))
 
     print(f"build: {sorted(reports)} in {report['build_s']:.1f} s")
     report["build_resources"] = {
@@ -3672,7 +4536,14 @@ def main() -> int:
     nrows, nres = moe_path()
     torch.cuda.empty_cache()
     print_moe(nrows, nres)
-    phase_done("moe")
+    phase_done("moe", n=nres)
+
+    # path (o) next, on the card emptied again: Gemma-2-27B's weights take
+    # 54.4 GB, and its phase-3 plain versions at N=8192 ~35 GB before them
+    orows, ores = gemma_path()
+    torch.cuda.empty_cache()
+    print_gemma(orows, ores)
+    phase_done("gemma", o=ores, o_checks=orows)
 
     # the full-width model, its quantized params and the paths' requests
     cfg = ModelConfig()
@@ -3720,11 +4591,15 @@ def main() -> int:
             lib += (f" ({r['library_kernel']}); relative L2 {errs}; whole "
                     f"backward {r['backward_ms']:.4f} ms, bound of its 5 "
                     f"products {r['backward_bound_ms']:.4f} ms;")
+            if r.get("cap_controls_rel_l2"):
+                lib += (f" the cap's controls (relative L2, must fail "
+                        f"{BWD_REL_L2}): {r['cap_controls_rel_l2']};")
         print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
               f"kernel {r['ms']:.4f} ms{tiles} plain {r['plain_ms']:.4f} ms "
               f"{lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
     checks.update(nrows)
+    checks.update(orows)
     report["kernel_checks"] = checks
     phase_done("kernel_checks")
     del flush
@@ -3788,7 +4663,7 @@ def main() -> int:
           f"activations at peak {peak / 2**30:.2f} GiB", flush=True)
     print(f"  launches: {counts}")
     report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres,
-                       "m": mres, "n": nres}
+                       "m": mres, "n": nres, "o": ores}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():
@@ -4062,7 +4937,9 @@ def main() -> int:
     line = {"kernels": [{k: r[k] for k in keys} for r in kernels.values()]}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.json).write_text(json.dumps({**report, **line}, indent=1))
+        report.pop("partial", None)  # the paths hold it now
+        Path(args.json).write_text(json.dumps({**report, **line}, indent=1,
+                                              default=str))
     print(json.dumps({k: jres["headline"][k] for k in (
         "hgemm_bf16_8192cubed_tflops", "cublas_tflops", "ratio", "card")}))
     print(json.dumps(line))

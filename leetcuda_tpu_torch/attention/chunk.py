@@ -20,7 +20,9 @@ p * v_scale after the denominator has summed p), and page pools
 the wrappers launch the kernel (bf16 q, head dim 64 or 128, any GQA group)
 and raise on what it does not take; on CPU tensors they run the plain
 PyTorch versions below. The TPU factories' ``block_k`` is DMA tiling and has
-no counterpart. ``softcap`` and ``with_lse`` are not ported yet and raise.
+no counterpart. ``softcap`` caps each score (after a quantized cache's scale
+fold) with ``cap * tanh(s / cap)`` before the mask; None or 0 means none.
+``with_lse`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import math
 
 import torch
 
+from leetcuda_tpu_torch.attention.flash import attn_options, cap_scores
 from leetcuda_tpu_torch.attention.paged import _gather
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
 
@@ -39,32 +42,35 @@ CHUNK = LaunchCounter("chunk_attention")
 CHUNK_Q = LaunchCounter("chunk_attention_quantized")
 PAGED_CHUNK = LaunchCounter("paged_chunk_attention")
 PAGED_CHUNK_Q = LaunchCounter("paged_chunk_attention_quantized")
-# lc_chunk_attn_bf16(q, k, v, base, out, B, H, Hkv, T, S, D, window, scale,
-#                    stream)
+# lc_chunk_attn_bf16(q, k, v, base, out, B, H, Hkv, T, S, D, window, softcap,
+#                    scale, stream)
 _CHUNK_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
-               + (ctypes.c_float, ctypes.c_void_p))
+               + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
 # lc_chunk_attn_q(q, k, v, k_scale, v_scale, base, out, B, H, Hkv, T, S, D,
-#                 fp8, window, scale, stream)
+#                 fp8, window, softcap, scale, stream)
 _CHUNK_Q_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
-                 + (ctypes.c_float, ctypes.c_void_p))
+                 + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
 # lc_paged_chunk_attn_bf16(q, k_pages, v_pages, page_table, base, out, B, H,
-#                          Hkv, T, P_max, page, D, window, scale, stream)
+#                          Hkv, T, P_max, page, D, window, softcap, scale,
+#                          stream)
 _PAGED_CHUNK_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8
-                     + (ctypes.c_float, ctypes.c_void_p))
+                     + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
 # lc_paged_chunk_attn_q(q, k_pages, v_pages, k_scales, v_scales, page_table,
 #                       base, out, B, H, Hkv, T, P_max, page, D, fp8, window,
-#                       scale, stream)
+#                       softcap, scale, stream)
 _PAGED_CHUNK_Q_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9
-                       + (ctypes.c_float, ctypes.c_void_p))
+                       + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
 
 
 def chunk_attention_plain(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
-                          window=None, k_scale=None, v_scale=None):
+                          window=None, k_scale=None, v_scale=None,
+                          softcap=None):
     """Plain PyTorch version of the kernel: f32 scores and P.V, -1e30 mask,
     divide by max(l, 1e-30). K, V and both scales are zeroed wherever no row
     of the chunk looks, and P outside each row's limits, so NaN at or past
     ``base + T`` cannot reach the result. With scales (a quantized cache):
-    scores times k_scale, and l sums p before P.V takes p * v_scale."""
+    scores times k_scale, and l sums p before P.V takes p * v_scale.
+    ``softcap`` caps the scores after the scale fold, before the mask."""
     B, H, T, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     group = H // Hkv
@@ -74,7 +80,7 @@ def chunk_attention_plain(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
              + torch.arange(T, device=dev)[None, :] + 1)          # (B, T)
     cols = torch.arange(S, device=dev)[None, None, :]
     valid = cols < limit[:, :, None]                              # (B, T, S)
-    if window is not None:
+    if window:
         valid &= cols >= limit[:, :, None] - window
     used = valid.any(dim=1)[:, None, :, None]                     # (B,1,S,1)
     # row r = g * T + t of a KV head carries chunk row t's limits
@@ -86,6 +92,7 @@ def chunk_attention_plain(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
     s = torch.matmul(qg, kf.transpose(-1, -2)) * scale        # (B,Hkv,G*T,S)
     if k_scale is not None:
         s = s * k_scale.float()[:, :, None, :]
+    s = cap_scores(s, softcap)
     s = torch.where(keep, s, torch.full((), _NEG_INF, device=dev))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(keep, torch.exp(s - m), zero)
@@ -98,32 +105,35 @@ def chunk_attention_plain(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
 
 def chunk_attention_quantized_plain(q, k_q, v_q, k_scale, v_scale,
                                     base_lengths, *, sm_scale=None,
-                                    window=None):
+                                    window=None, softcap=None):
     """Plain PyTorch version over a quantized cache (fp8 upcast with
     ``.float()``: CPU torch has no fp8 matmul)."""
     return chunk_attention_plain(q, k_q, v_q, base_lengths, sm_scale=sm_scale,
                                  window=window, k_scale=k_scale,
-                                 v_scale=v_scale)
+                                 v_scale=v_scale, softcap=softcap)
 
 
 def paged_chunk_attention_plain(q, k_pages, v_pages, page_table,
-                                base_lengths, *, sm_scale=None, window=None):
+                                base_lengths, *, sm_scale=None, window=None,
+                                softcap=None):
     """Plain PyTorch version over page pools: gather each row's pages through
     the table into a contiguous view, then ``chunk_attention_plain``."""
     return chunk_attention_plain(q, _gather(k_pages, page_table),
                                  _gather(v_pages, page_table), base_lengths,
-                                 sm_scale=sm_scale, window=window)
+                                 sm_scale=sm_scale, window=window,
+                                 softcap=softcap)
 
 
 def paged_chunk_attention_quantized_plain(q, k_pages, v_pages, k_scales,
                                           v_scales, page_table, base_lengths,
-                                          *, sm_scale=None, window=None):
+                                          *, sm_scale=None, window=None,
+                                          softcap=None):
     """Plain PyTorch version over quantized pools and their scale pools."""
     return chunk_attention_plain(
         q, _gather(k_pages, page_table), _gather(v_pages, page_table),
         base_lengths, sm_scale=sm_scale, window=window,
         k_scale=_gather(k_scales, page_table),
-        v_scale=_gather(v_scales, page_table))
+        v_scale=_gather(v_scales, page_table), softcap=softcap)
 
 
 def _check(q, k, v, base_lengths, window, softcap, with_lse, page_table=None,
@@ -131,13 +141,15 @@ def _check(q, k, v, base_lengths, window, softcap, with_lse, page_table=None,
     """The options, shapes and devices every chunk wrapper checks. ``k`` and
     ``v`` are caches (B, Hkv, S, D) or, with ``page_table``, pools
     (N, Hkv, page, D); ``scales`` the pair of scale tensors of a quantized
-    cache."""
-    if softcap is not None or with_lse:
+    cache. Returns ``window`` and ``softcap`` as the kernels take them
+    (``attn_options``)."""
+    if with_lse:
         raise NotImplementedError(
-            "chunk attention: softcap / with_lse are not ported yet "
-            "(ROADMAP: kernel options of decode attention)")
+            "chunk attention: with_lse is not ported yet (ROADMAP: kernel "
+            "options of decode attention, item 11b2)")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    options = attn_options(window, softcap)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q (B,H,T,D), caches or pools of 4 dims: got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -169,6 +181,7 @@ def _check(q, k, v, base_lengths, window, softcap, with_lse, page_table=None,
     if any(t.device != q.device for t in on):
         raise ValueError("q, caches, scales, page_table and base_lengths "
                          "must lie on one device")
+    return options
 
 
 def _check_kernel_args(q, k, v, base_lengths, page_table=None, scales=None):
@@ -214,11 +227,13 @@ def chunk_attention(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
                     window=None, softcap=None, with_lse=False):
     """chunk_attention(q (B, H, T, D), k_cache, v_cache (B, Hkv, S, D),
     base_lengths (B,) int32) -> (B, H, T, D)."""
-    _check(q, k_cache, v_cache, base_lengths, window, softcap, with_lse)
+    window, softcap = _check(
+        q, k_cache, v_cache, base_lengths, window, softcap, with_lse)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return chunk_attention_plain(q, k_cache, v_cache, base_lengths,
-                                     sm_scale=scale, window=window)
+                                     sm_scale=scale, window=window,
+                                     softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -229,7 +244,7 @@ def chunk_attention(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
     fn = kernel("chunk_attn", "lc_chunk_attn_bf16", _CHUNK_ARGS)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              base_lengths.data_ptr(), out.data_ptr(), B, H, Hkv, T, S, D,
-             int(window or 0), float(scale), _stream(q))
+             window, softcap, float(scale), _stream(q))
     check_launch(err, CHUNK.name)
     CHUNK.add()
     return out
@@ -240,13 +255,14 @@ def chunk_attention_quantized(q, k_q, v_q, k_scale, v_scale, base_lengths, *,
                               with_lse=False):
     """Chunk attention over an int8 or float8_e4m3fn cache with f32 scales
     (B, Hkv, S) -> (B, H, T, D) in q's dtype."""
-    _check(q, k_q, v_q, base_lengths, window, softcap, with_lse,
-           scales=(k_scale, v_scale))
+    window, softcap = _check(
+        q, k_q, v_q, base_lengths, window, softcap, with_lse,
+        scales=(k_scale, v_scale))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return chunk_attention_quantized_plain(
             q, k_q, v_q, k_scale, v_scale, base_lengths, sm_scale=scale,
-            window=window)
+            window=window, softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -258,7 +274,7 @@ def chunk_attention_quantized(q, k_q, v_q, k_scale, v_scale, base_lengths, *,
     err = fn(q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
              k_scale.data_ptr(), v_scale.data_ptr(), base_lengths.data_ptr(),
              out.data_ptr(), B, H, Hkv, T, S, D,
-             int(k_q.dtype == torch.float8_e4m3fn), int(window or 0),
+             int(k_q.dtype == torch.float8_e4m3fn), window, softcap,
              float(scale), _stream(q))
     check_launch(err, CHUNK_Q.name)
     CHUNK_Q.add()
@@ -272,13 +288,14 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, base_lengths, *,
     (N, Hkv, page, D), page_table (B, P_max) int32, base_lengths (B,) int32)
     -> (B, H, T, D). Only pages that hold a position below ``base + T`` are
     looked up: table filler and the null page 0 may hold anything."""
-    _check(q, k_pages, v_pages, base_lengths, window, softcap, with_lse,
-           page_table=page_table)
+    window, softcap = _check(
+        q, k_pages, v_pages, base_lengths, window, softcap, with_lse,
+        page_table=page_table)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(
             q, k_pages, v_pages, page_table, base_lengths, sm_scale=scale,
-            window=window)
+            window=window, softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -290,7 +307,7 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, base_lengths, *,
     fn = kernel("chunk_attn", "lc_paged_chunk_attn_bf16", _PAGED_CHUNK_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), base_lengths.data_ptr(), out.data_ptr(),
-             B, H, Hkv, T, page_table.shape[1], page, D, int(window or 0),
+             B, H, Hkv, T, page_table.shape[1], page, D, window, softcap,
              float(scale), _stream(q))
     check_launch(err, PAGED_CHUNK.name)
     PAGED_CHUNK.add()
@@ -303,13 +320,14 @@ def paged_chunk_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
                                     with_lse=False):
     """Paged chunk attention over int8 or float8_e4m3fn pools with f32 scale
     pools (N, Hkv, page) -> (B, H, T, D) in q's dtype."""
-    _check(q, k_pages, v_pages, base_lengths, window, softcap, with_lse,
-           page_table=page_table, scales=(k_scales, v_scales))
+    window, softcap = _check(
+        q, k_pages, v_pages, base_lengths, window, softcap, with_lse,
+        page_table=page_table, scales=(k_scales, v_scales))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return paged_chunk_attention_quantized_plain(
             q, k_pages, v_pages, k_scales, v_scales, page_table,
-            base_lengths, sm_scale=scale, window=window)
+            base_lengths, sm_scale=scale, window=window, softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -323,7 +341,7 @@ def paged_chunk_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
              k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
              base_lengths.data_ptr(), out.data_ptr(), B, H, Hkv, T,
              page_table.shape[1], page, D,
-             int(k_pages.dtype == torch.float8_e4m3fn), int(window or 0),
+             int(k_pages.dtype == torch.float8_e4m3fn), window, softcap,
              float(scale), _stream(q))
     check_launch(err, PAGED_CHUNK_Q.name)
     PAGED_CHUNK_Q.add()

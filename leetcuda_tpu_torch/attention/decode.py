@@ -13,8 +13,11 @@ On CUDA tensors the wrappers launch ``csrc/decode_attn.cu`` (bf16 q, head
 dim 64 or 128, GQA group 1/2/4/8) and raise on what it does not take. On
 CPU tensors they run the plain PyTorch versions below.
 
-``window``, ``softcap``, ``with_lse`` and ``shared_kv`` are not ported yet
-and raise.
+``window`` attends only the last ``window`` positions, ``len - window ..
+len - 1`` (the kernel reads nothing before them), and ``softcap`` caps each
+score (after the quantized cache's scale fold) with ``cap * tanh(s / cap)``
+before the mask; None or 0 means neither. ``with_lse`` and ``shared_kv``
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -24,34 +27,45 @@ import math
 
 import torch
 
+from leetcuda_tpu_torch.attention.flash import attn_options, cap_scores
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
 
 _NEG_INF = -1e30
 
 DECODE = LaunchCounter("decode_attention")
 DECODE_Q = LaunchCounter("decode_attention_quantized")
-# lc_decode_attn_bf16(q, k, v, lengths, out, B, H, Hkv, S, D, scale, stream)
+# lc_decode_attn_bf16(q, k, v, lengths, out, B, H, Hkv, S, D, scale, window,
+#                     softcap, stream)
 _DECODE_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
-                + (ctypes.c_float, ctypes.c_void_p))
+                + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p))
 # lc_decode_attn_q(q, k, v, k_scale, v_scale, lengths, out, B, H, Hkv, S, D,
-#                  fp8, scale, stream)
+#                  fp8, scale, window, softcap, stream)
 _DECODE_Q_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
-                  + (ctypes.c_float, ctypes.c_void_p))
+                  + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                     ctypes.c_void_p))
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, sm_scale=None,
-                           k_scale=None, v_scale=None):
+                           k_scale=None, v_scale=None, window=None,
+                           softcap=None):
     """Plain PyTorch version of the kernels: f32 scores and P.V, -1e30 mask,
-    divide by max(l, 1e-30). Both P and V are zeroed past the length, as the
-    TPU kernel does, so NaN padding cannot reach the result. With scales
-    (a quantized cache): scores times k_scale, and l sums p before P.V takes
-    p * v_scale."""
+    divide by max(l, 1e-30). The positions attended are ``len - window ..
+    len - 1`` with a window, else ``0 .. len - 1``; both P and V are zeroed
+    outside them, as the TPU kernel zeroes them past the length, so NaN
+    there cannot reach the result. With scales (a quantized cache): scores
+    times k_scale, and l sums p before P.V takes p * v_scale. ``softcap``
+    caps the scores after the scale fold, before the mask."""
+    window, softcap = attn_options(window, softcap)
     B, H, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     group = H // Hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    valid = (torch.arange(S, device=q.device)[None, :]
-             < lengths.to(q.device).long()[:, None])          # (B, S)
+    cols = torch.arange(S, device=q.device)[None, :]
+    lens = lengths.to(q.device).long()[:, None]
+    valid = cols < lens                                       # (B, S)
+    if window:
+        valid &= cols >= lens - window
     vmask = valid[:, None, :, None]
     zero = torch.zeros((), device=q.device)
     kf = torch.where(vmask, k_cache.float(), zero)
@@ -60,6 +74,7 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, sm_scale=None,
     s = torch.matmul(qg, kf.transpose(-1, -2)) * scale        # (B, Hkv, G, S)
     if k_scale is not None:
         s = s * k_scale.float()[:, :, None, :]
+    s = cap_scores(s, softcap)
     keep = valid[:, None, None, :]
     s = torch.where(keep, s, torch.full((), _NEG_INF, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
@@ -72,19 +87,21 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, sm_scale=None,
 
 
 def decode_attention_quantized_plain(q, k_q, v_q, k_scale, v_scale, lengths,
-                                     *, sm_scale=None):
+                                     *, sm_scale=None, window=None,
+                                     softcap=None):
     """Plain PyTorch version of the quantized kernel (fp8 upcast with
     ``.float()``: CPU torch has no fp8 matmul)."""
     return decode_attention_plain(q, k_q, v_q, lengths, sm_scale=sm_scale,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  window=window, softcap=softcap)
 
 
-def _check(q, k_cache, v_cache, lengths, window, softcap, with_lse):
+def _check(q, k_cache, v_cache, lengths, with_lse):
     """The options, shapes and devices every decode wrapper checks."""
-    if window is not None or softcap is not None or with_lse:
+    if with_lse:
         raise NotImplementedError(
-            "decode attention: window / softcap / with_lse are not ported "
-            "yet (ROADMAP: kernel options of decode attention)")
+            "decode attention: with_lse is not ported yet (ROADMAP: kernel "
+            "options of decode attention, item 11b2)")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"q (B,H,D), caches (B,Hkv,S,D): got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -119,11 +136,13 @@ def _check_kernel_args(q, lengths, tensors):
 def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None,
                      window=None, softcap=None, with_lse=False):
     """decode_attention(q, k_cache, v_cache, lengths) -> (B, H, D)."""
-    _check(q, k_cache, v_cache, lengths, window, softcap, with_lse)
+    _check(q, k_cache, v_cache, lengths, with_lse)
+    window, softcap = attn_options(window, softcap)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
-                                      sm_scale=scale)
+                                      sm_scale=scale, window=window,
+                                      softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -137,7 +156,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None,
     fn = kernel("decode_attn", "lc_decode_attn_bf16", _DECODE_ARGS)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), B, H, Hkv, S, D,
-             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+             float(scale), window, softcap,
+             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, DECODE.name)
     DECODE.add()
     return out
@@ -152,7 +172,8 @@ def decode_attention_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
         raise NotImplementedError(
             "quantized decode attention: shared_kv (MLA's latent cache) is "
             "not ported yet (ROADMAP: model families)")
-    _check(q, k_q, v_q, lengths, window, softcap, with_lse)
+    _check(q, k_q, v_q, lengths, with_lse)
+    window, softcap = attn_options(window, softcap)
     B, Hkv, S, _ = k_q.shape
     if k_scale.shape != (B, Hkv, S) or v_scale.shape != (B, Hkv, S):
         raise ValueError(f"scales must be (B, Hkv, S) = {(B, Hkv, S)}, got "
@@ -166,7 +187,8 @@ def decode_attention_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return decode_attention_quantized_plain(
-            q, k_q, v_q, k_scale, v_scale, lengths, sm_scale=scale)
+            q, k_q, v_q, k_scale, v_scale, lengths, sm_scale=scale,
+            window=window, softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -180,8 +202,8 @@ def decode_attention_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
     err = fn(q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
              k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
              out.data_ptr(), B, H, Hkv, S, D,
-             int(k_q.dtype == torch.float8_e4m3fn), float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             int(k_q.dtype == torch.float8_e4m3fn), float(scale), window,
+             softcap, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, DECODE_Q.name)
     DECODE_Q.add()
     return out

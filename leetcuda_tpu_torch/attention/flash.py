@@ -12,8 +12,12 @@ CUDA kernel against.
 
 ``with_lse=True`` also returns each query row's log-sum-exp (B, H, N) f32,
 the residual of the backward (attention/flash_bwd.py); its launches count
-on their own counter. ``window`` and ``softcap`` are not ported yet and
-raise.
+on their own counter. ``window`` (Mistral's sliding window, Gemma 2's local
+layers) keeps the causal band ``rows - cols < window`` and implies causal;
+the kernel skips the key tiles left of the band, so its cost is
+O(N * window). ``softcap`` (Gemma 2) passes each scaled score through
+``cap * tanh(s / cap)`` before the mask. None or 0 means neither, as in the
+JAX kernels.
 """
 
 from __future__ import annotations
@@ -32,16 +36,26 @@ FLASH_RAGGED = LaunchCounter("flash_attention_ragged")
 # either entry point with ``with_lse=True``: the forward of training
 FLASH_LSE = LaunchCounter("flash_attention_lse")
 # lc_flash_fwd_bf16(q, k, v, lengths, out, lse, B, H, Hkv, N, Nk, D, scale,
-#                   causal, stream)
+#                   causal, window, softcap, stream)
 _FLASH_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
-               + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+               + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_void_p))
 
 
-def _refuse_options(window, softcap):
-    if window is not None or softcap is not None:
-        raise NotImplementedError(
-            "flash attention: window / softcap are not ported yet "
-            "(ROADMAP: kernel options of the flash forward)")
+def attn_options(window, softcap):
+    """``window`` and ``softcap`` as the kernels take them: an int and a
+    float, 0 for none (None and 0 both mean none, as JAX's ``if window:``
+    and ``if softcap:``)."""
+    window, softcap = int(window or 0), float(softcap or 0.0)
+    if window < 0 or softcap < 0:
+        raise ValueError(f"window {window} and softcap {softcap} must not be "
+                         "negative")
+    return window, softcap
+
+
+def cap_scores(s, softcap):
+    """``cap * tanh(s / cap)`` on scaled f32 scores (Gemma 2), or ``s``."""
+    return softcap * torch.tanh(s / softcap) if softcap else s
 
 
 def _check_qkv(q, k, v):
@@ -55,26 +69,38 @@ def _check_qkv(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
+def band_mask(N, Nk, device, causal, window):
+    """(N, Nk) keep mask: all, the causal ``rows >= cols``, or with a window
+    also ``rows - cols < window``."""
+    rows = torch.arange(N, device=device)[:, None]
+    cols = torch.arange(Nk, device=device)[None, :]
+    if not (causal or window):
+        return torch.ones(N, Nk, dtype=torch.bool, device=device)
+    keep = rows >= cols
+    return keep & (rows - cols < window) if window else keep
+
+
 def flash_attention_plain(q, k, v, *, causal=False, sm_scale=None,
-                          lengths=None, with_lse=False):
-    """Plain PyTorch version of the kernel: f32 scores, -1e30 mask, P cast
-    to v's dtype before P.V, divide by max(l, 1e-30); with ``lengths``, keys
-    at or past the length are masked (their V rows zeroed, so NaN padding
-    cannot leak) and query rows at or past it are zeros. ``with_lse``: also
-    (B, H, N) f32 m + log(max(l, 1e-30)), -1e30 on rows past a length."""
+                          lengths=None, with_lse=False, window=None,
+                          softcap=None):
+    """Plain PyTorch version of the kernel: f32 scores, capped with
+    ``softcap``, -1e30 mask (the causal band with ``window``, which implies
+    causal), P cast to v's dtype before P.V, divide by max(l, 1e-30); with
+    ``lengths``, keys at or past the length are masked (their V rows
+    zeroed, so NaN padding cannot leak) and query rows at or past it are
+    zeros. ``with_lse``: also (B, H, N) f32 m + log(max(l, 1e-30)) of the
+    capped scores, -1e30 on rows past a length."""
+    window, softcap = attn_options(window, softcap)
     B, H, N, D = q.shape
     Hkv, Nk = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     qg = q.reshape(B, Hkv, group * N, D).float()
     s = torch.matmul(qg, k.float().transpose(-1, -2)) * scale
-    s = s.reshape(B, Hkv, group, N, Nk)
+    s = cap_scores(s.reshape(B, Hkv, group, N, Nk), softcap)
     rows = torch.arange(N, device=q.device)[:, None]
     cols = torch.arange(Nk, device=q.device)[None, :]
-    keep = torch.ones(N, Nk, dtype=torch.bool, device=q.device)
-    if causal:
-        keep = rows >= cols
-    keep = keep.expand(B, 1, 1, N, Nk)
+    keep = band_mask(N, Nk, q.device, causal, window).expand(B, 1, 1, N, Nk)
     if lengths is not None:
         lens = lengths.to(q.device).long().view(B, 1, 1, 1, 1)
         keep = keep & (cols < lens)
@@ -101,7 +127,8 @@ def flash_attention_plain(q, k, v, *, causal=False, sm_scale=None,
     return out
 
 
-def _launch(q, k, v, lengths, causal, scale, counter, with_lse):
+def _launch(q, k, v, lengths, causal, scale, counter, with_lse, window,
+            softcap):
     """Launch csrc/flash_fwd.cu on the current stream; ``with_lse``: also
     write the (B, H, N) f32 lse and count on FLASH_LSE."""
     from leetcuda_tpu_torch.build import kernel
@@ -131,8 +158,8 @@ def _launch(q, k, v, lengths, causal, scale, counter, with_lse):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if lengths is None else lengths.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(),
-             B, H, Hkv, N, Nk, D, float(scale), int(causal),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             B, H, Hkv, N, Nk, D, float(scale), int(causal), int(window),
+             float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, counter.name)
     counter.add()
     return (out, lse) if with_lse else out
@@ -141,14 +168,17 @@ def _launch(q, k, v, lengths, causal, scale, counter, with_lse):
 def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None,
                     softcap=None, with_lse=False):
     """(B, H, N, D) attention with GQA (k/v may have fewer heads);
-    ``with_lse``: (out, lse (B, H, N) f32)."""
-    _refuse_options(window, softcap)
+    ``with_lse``: (out, lse (B, H, N) f32). ``window`` implies causal."""
+    window, softcap = attn_options(window, softcap)
     _check_qkv(q, k, v)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
+    causal = causal or bool(window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale,
-                                     with_lse=with_lse)
-    return _launch(q, k, v, None, causal, scale, FLASH, with_lse)
+                                     with_lse=with_lse, window=window,
+                                     softcap=softcap)
+    return _launch(q, k, v, None, causal, scale, FLASH, with_lse, window,
+                   softcap)
 
 
 def flash_attention_ragged(q, k, v, lengths, *, sm_scale=None, window=None,
@@ -157,10 +187,12 @@ def flash_attention_ragged(q, k, v, lengths, *, sm_scale=None, window=None,
     past lengths[b] are neither attended nor read, and query rows at or past
     it are written as zeros (their lse, with ``with_lse``, as -1e30). The
     batched-prefill primitive."""
-    _refuse_options(window, softcap)
+    window, softcap = attn_options(window, softcap)
     _check_qkv(q, k, v)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=True, sm_scale=scale,
-                                     lengths=lengths, with_lse=with_lse)
-    return _launch(q, k, v, lengths, True, scale, FLASH_RAGGED, with_lse)
+                                     lengths=lengths, with_lse=with_lse,
+                                     window=window, softcap=softcap)
+    return _launch(q, k, v, lengths, True, scale, FLASH_RAGGED, with_lse,
+                   window, softcap)

@@ -15,7 +15,9 @@ launch the paged entry points of ``csrc/decode_attn.cu`` (bf16 q, head dim
 take. On CPU tensors they run the plain versions below: gather each row's
 pages through the table into a contiguous view, then the plain decode
 attention. The TPU kernel's ``pages_per_step`` is DMA tiling and has no
-counterpart. ``window``, ``softcap``, ``with_lse`` and ``shared_kv`` are not
+counterpart. ``window`` and ``softcap`` are decode attention's
+(attention/decode.py): the kernel looks up no page wholly before the window
+and reads no position before it. ``with_lse`` and ``shared_kv`` are not
 ported yet and raise.
 
 ``paged_append`` and ``paged_append_quantized`` write IN PLACE and return
@@ -34,19 +36,23 @@ import torch
 from leetcuda_tpu_torch.attention.decode import (
     _check_kernel_args, decode_attention_plain,
     decode_attention_quantized_plain)
+from leetcuda_tpu_torch.attention.flash import attn_options
 from leetcuda_tpu_torch.core.runtime import (LaunchCounter, as_bytes,
                                              check_launch)
 
 PAGED = LaunchCounter("paged_attention")
 PAGED_Q = LaunchCounter("paged_attention_quantized")
 # lc_paged_attn_bf16(q, k_pages, v_pages, page_table, lengths, out, B, H, Hkv,
-#                    P_max, page, D, scale, stream)
+#                    P_max, page, D, scale, window, softcap, stream)
 _PAGED_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
-               + (ctypes.c_float, ctypes.c_void_p))
+               + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_void_p))
 # lc_paged_attn_q(q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-#                 out, B, H, Hkv, P_max, page, D, fp8, scale, stream)
+#                 out, B, H, Hkv, P_max, page, D, fp8, scale, window, softcap,
+#                 stream)
 _PAGED_Q_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
-                 + (ctypes.c_float, ctypes.c_void_p))
+                 + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p))
 
 
 def _gather(pool, page_table):
@@ -59,30 +65,31 @@ def _gather(pool, page_table):
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
-                          sm_scale=None):
+                          sm_scale=None, window=None, softcap=None):
     """Plain PyTorch version: gather, then ``decode_attention_plain`` (which
-    masks everything at or past a length, NaN included)."""
+    masks everything outside the attended positions, NaN included)."""
     return decode_attention_plain(q, _gather(k_pages, page_table),
                                   _gather(v_pages, page_table), lengths,
-                                  sm_scale=sm_scale)
+                                  sm_scale=sm_scale, window=window,
+                                  softcap=softcap)
 
 
 def paged_attention_quantized_plain(q, k_pages, v_pages, k_scales, v_scales,
-                                    page_table, lengths, *, sm_scale=None):
+                                    page_table, lengths, *, sm_scale=None,
+                                    window=None, softcap=None):
     """Plain PyTorch version over quantized pools and their scale pools."""
     return decode_attention_quantized_plain(
         q, _gather(k_pages, page_table), _gather(v_pages, page_table),
         _gather(k_scales, page_table), _gather(v_scales, page_table),
-        lengths, sm_scale=sm_scale)
+        lengths, sm_scale=sm_scale, window=window, softcap=softcap)
 
 
-def _check(q, k_pages, v_pages, page_table, lengths, window, softcap,
-           with_lse):
+def _check(q, k_pages, v_pages, page_table, lengths, with_lse):
     """The options, shapes and devices both paged wrappers check."""
-    if window is not None or softcap is not None or with_lse:
+    if with_lse:
         raise NotImplementedError(
-            "paged attention: window / softcap / with_lse are not ported "
-            "yet (ROADMAP: kernel options of decode attention)")
+            "paged attention: with_lse is not ported yet (ROADMAP: kernel "
+            "options of decode attention, item 11b2)")
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"q (B,H,D), pools (N,Hkv,page,D): got "
                          f"{tuple(q.shape)}, {tuple(k_pages.shape)}, "
@@ -121,12 +128,13 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
                     with_lse=False):
     """paged_attention(q (B, H, D), k_pages, v_pages (N, Hkv, page, D),
     page_table (B, P_max) int32, lengths (B,) int32) -> (B, H, D)."""
-    _check(q, k_pages, v_pages, page_table, lengths, window, softcap,
-           with_lse)
+    _check(q, k_pages, v_pages, page_table, lengths, with_lse)
+    window, softcap = attn_options(window, softcap)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     lengths, sm_scale=scale)
+                                     lengths, sm_scale=scale, window=window,
+                                     softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -141,8 +149,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
     fn = kernel("decode_attn", "lc_paged_attn_bf16", _PAGED_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
-             Hkv, page_table.shape[1], page, D, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             Hkv, page_table.shape[1], page, D, float(scale), window,
+             softcap, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, PAGED.name)
     PAGED.add()
     return out
@@ -158,8 +166,8 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
         raise NotImplementedError(
             "paged attention: shared_kv (MLA's paged latent cache) is not "
             "ported yet (ROADMAP: model families)")
-    _check(q, k_pages, v_pages, page_table, lengths, window, softcap,
-           with_lse)
+    _check(q, k_pages, v_pages, page_table, lengths, with_lse)
+    window, softcap = attn_options(window, softcap)
     if k_scales.shape != k_pages.shape[:3] \
             or v_scales.shape != k_pages.shape[:3]:
         raise ValueError(f"scale pools must be (N, Hkv, page) = "
@@ -175,7 +183,7 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
     if q.device.type == "cpu":
         return paged_attention_quantized_plain(
             q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-            sm_scale=scale)
+            sm_scale=scale, window=window, softcap=softcap)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -192,8 +200,8 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
              k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), B, H, Hkv,
              page_table.shape[1], page, D,
-             int(k_pages.dtype == torch.float8_e4m3fn), float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             int(k_pages.dtype == torch.float8_e4m3fn), float(scale), window,
+             softcap, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, PAGED_Q.name)
     PAGED_Q.add()
     return out

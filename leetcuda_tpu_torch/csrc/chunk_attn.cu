@@ -13,7 +13,10 @@
 // scale pools (N, Hkv, page) behind page_table (B, P_max) int32. Quantized,
 // the scales fold past both dots as on the TPU (chunk.py:93-95, 105-108):
 // scores are (q . k_raw) * scale * ks[j], the denominator sums p, and P . V
-// takes p * vs[j].
+// takes p * vs[j]. ``softcap`` > 0 caps each score after that fold and
+// before the mask, cap * tanh(s / cap) (chunk.py:96-97), with tanhf on the
+// natural-unit score, then moves it into the kernel's log2 domain; the cap
+// is a compile-time flag (kCap), so the uncapped kernel carries no tanh.
 //
 // Bound on an H100 SXM: two regimes. Verify (T = 2..8): the rows of one KV
 // head are G * T = 8..32 and the kernel must read the valid K and V once, as
@@ -82,7 +85,7 @@ __device__ __forceinline__ void stage(uint16_t* dst, uint4 w) {
 
 // S is the capacity in positions of one sequence: S_max of a contiguous
 // cache, P_max * page of a paged one (then ``table`` and ``page`` are set).
-template <class C, int D, bool kPaged>
+template <class C, int D, bool kPaged, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 chunk_attn_kernel(const uint16_t* __restrict__ q,
                   const typename C::T* __restrict__ kc,
@@ -92,7 +95,8 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
                   const int* __restrict__ table,
                   const int* __restrict__ base_lengths,
                   uint16_t* __restrict__ o, int H, int Hkv, int T, int S,
-                  int page, int window, float scale_log2) {
+                  int page, int window, float scale_log2,
+                  float scale_over_cap, float cap_log2) {
   constexpr int LDS = D + 8;       // padded smem row: conflict-free fragments
   constexpr int KSTEPS = D / 16;   // k-steps of Q.K^T
   constexpr int DT = D / 8;        // n-tiles of the output
@@ -236,7 +240,8 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
       }
     }
 
-    // scale (log2 domain; quantized: times the key's scale) and mask
+    // scale (log2 domain; quantized: times the key's scale; with a cap,
+    // capped in natural units first) and mask
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -246,8 +251,15 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
         const int kk = nt * 8 + t4 * 2 + (e & 1);
         const int col = k0 + kk;
         const bool keep = col < limit[i] && col >= lo[i];
-        float x = s[nt][e] * scale_log2;
-        if constexpr (C::kScaled) x *= sks[kk];
+        float x;
+        if constexpr (kCap) {
+          x = s[nt][e] * scale_over_cap;
+          if constexpr (C::kScaled) x *= sks[kk];
+          x = cap_log2 * tanhf(x);
+        } else {
+          x = s[nt][e] * scale_log2;
+          if constexpr (C::kScaled) x *= sks[kk];
+        }
         s[nt][e] = keep ? x : lc::kNegInf;
         mx[i] = fmaxf(mx[i], s[nt][e]);
       }
@@ -332,38 +344,44 @@ template <class C, int D, bool kPaged>
 int launch_d(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* table, const void* base, void* o,
              int B, int H, int Hkv, int T, int S, int page, int window,
-             float scale, cudaStream_t stream) {
+             float scale, float softcap, cudaStream_t stream) {
+  constexpr float kLog2e = 1.4426950408889634f;
   const dim3 grid((H / Hkv * T + kBQ - 1) / kBQ, Hkv, B);
-  chunk_attn_kernel<C, D, kPaged><<<grid, kThreads, 0, stream>>>(
+  const bool cap = softcap > 0.f;
+  auto kern = cap ? chunk_attn_kernel<C, D, kPaged, true>
+                  : chunk_attn_kernel<C, D, kPaged, false>;
+  kern<<<grid, kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const typename C::T*>(k),
       static_cast<const typename C::T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(base), static_cast<uint16_t*>(o), H, Hkv, T, S,
-      page, window, scale * 1.4426950408889634f);
+      page, window, scale * kLog2e, cap ? scale / softcap : 0.f,
+      cap ? softcap * kLog2e : 0.f);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ``page`` > 0 selects the paged addressing: k, v (and the scales) are pools,
-// ``table`` is (B, S / page) and S = P_max * page. ``window`` <= 0: none.
+// ``table`` is (B, S / page) and S = P_max * page. ``window`` <= 0 and
+// ``softcap`` <= 0: none.
 template <class C>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* table, const void* base, void* o, int B,
            int H, int Hkv, int T, int S, int page, int D, int window,
-           float scale, void* stream) {
+           float scale, float softcap, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || H % Hkv != 0 ||
       T <= 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (page > 0) {
     switch (D) {
-      case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, base, o, B, H, Hkv, T, S, page, window, scale, s);
-      case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, base, o, B, H, Hkv, T, S, page, window, scale, s);
+      case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, base, o, B, H, Hkv, T, S, page, window, scale, softcap, s);
+      case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, base, o, B, H, Hkv, T, S, page, window, scale, softcap, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (D) {
-    case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, base, o, B, H, Hkv, T, S, 1, window, scale, s);
-    case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, base, o, B, H, Hkv, T, S, 1, window, scale, s);
+    case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, base, o, B, H, Hkv, T, S, 1, window, scale, softcap, s);
+    case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, base, o, B, H, Hkv, T, S, 1, window, scale, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -372,15 +390,16 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 // Every entry point returns cudaGetLastError() after the launch (0 =
 // launched). Head dims 64 and 128 are instantiated; any GQA group and any
-// T >= 1. ``window`` <= 0 means no window. They launch on ``stream``, do not
+// T >= 1. ``window`` <= 0 means no window, ``softcap`` <= 0 no cap. They launch on ``stream``, do not
 // synchronise and allocate nothing.
 extern "C" int lc_chunk_attn_bf16(const void* q, const void* k, const void* v,
                                   const void* base_lengths, void* o, int B,
                                   int H, int Hkv, int T, int S, int D,
-                                  int window, float scale, void* stream) {
+                                  int window, float softcap, float scale,
+                                  void* stream) {
   return launch<lc::CacheBf16>(q, k, v, nullptr, nullptr, nullptr,
                                base_lengths, o, B, H, Hkv, T, S, 0, D, window,
-                               scale, stream);
+                               scale, softcap, stream);
 }
 
 // A quantized cache: ``fp8`` selects e4m3 values (else int8); k_scale and
@@ -389,14 +408,15 @@ extern "C" int lc_chunk_attn_q(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
                                const void* base_lengths, void* o, int B, int H,
                                int Hkv, int T, int S, int D, int fp8,
-                               int window, float scale, void* stream) {
+                               int window, float softcap, float scale,
+                               void* stream) {
   if (fp8)
     return launch<lc::CacheE4m3>(q, k, v, k_scale, v_scale, nullptr,
                                  base_lengths, o, B, H, Hkv, T, S, 0, D,
-                                 window, scale, stream);
+                                 window, scale, softcap, stream);
   return launch<lc::CacheInt8>(q, k, v, k_scale, v_scale, nullptr,
                                base_lengths, o, B, H, Hkv, T, S, 0, D, window,
-                               scale, stream);
+                               scale, softcap, stream);
 }
 
 // Paged pools: k_pages, v_pages (num_pages, Hkv, page, D) bf16; page_table
@@ -408,11 +428,13 @@ extern "C" int lc_paged_chunk_attn_bf16(const void* q, const void* k_pages,
                                         const void* base_lengths, void* o,
                                         int B, int H, int Hkv, int T,
                                         int P_max, int page, int D, int window,
-                                        float scale, void* stream) {
+                                        float softcap, float scale,
+                                        void* stream) {
   if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<lc::CacheBf16>(q, k_pages, v_pages, nullptr, nullptr,
                                page_table, base_lengths, o, B, H, Hkv, T,
-                               P_max * page, page, D, window, scale, stream);
+                               P_max * page, page, D, window, scale, softcap,
+                               stream);
 }
 
 // Quantized paged pools: int8 or (``fp8``) e4m3 values with f32 scale pools
@@ -424,13 +446,16 @@ extern "C" int lc_paged_chunk_attn_q(const void* q, const void* k_pages,
                                      const void* base_lengths, void* o, int B,
                                      int H, int Hkv, int T, int P_max,
                                      int page, int D, int fp8, int window,
-                                     float scale, void* stream) {
+                                     float softcap, float scale,
+                                     void* stream) {
   if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (fp8)
     return launch<lc::CacheE4m3>(q, k_pages, v_pages, k_scales, v_scales,
                                  page_table, base_lengths, o, B, H, Hkv, T,
-                                 P_max * page, page, D, window, scale, stream);
+                                 P_max * page, page, D, window, scale, softcap,
+                                 stream);
   return launch<lc::CacheInt8>(q, k_pages, v_pages, k_scales, v_scales,
                                page_table, base_lengths, o, B, H, Hkv, T,
-                               P_max * page, page, D, window, scale, stream);
+                               P_max * page, page, D, window, scale, softcap,
+                               stream);
 }

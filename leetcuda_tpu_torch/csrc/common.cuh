@@ -44,6 +44,25 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Raise ``kern``'s dynamic shared-memory limit to ``bytes`` on the current
+// device, once per device: CUDA keeps the attribute per device context, so
+// a flag per process would leave a second device's first launch refused.
+// ``done`` is the caller's per-instantiation mask (bit d: set on device d;
+// devices past 63 set it on every launch). Returns the CUDA error.
+template <class Kern>
+inline cudaError_t smem_limit_per_device(Kern kern, int bytes,
+                                         unsigned long long& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done |= bit;
+  return e;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

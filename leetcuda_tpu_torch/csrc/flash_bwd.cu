@@ -8,6 +8,15 @@
 //   dP = dO V^T,  dS = P * (dP - delta),
 //   dQ = scale * dS K,  dV = P^T dO,  dK = scale * dS^T Q.
 //
+// With ``softcap`` > 0 the forward capped each scaled score, c = cap *
+// tanh(s * scale / cap), so P = exp(c - lse) is recomputed from c and the
+// chain rule through the cap multiplies dS by 1 - (c / cap)^2 = 1 - tanh^2
+// (flash_bwd.py:56-57, 72-73): the capped, pre-mask value; masked entries
+// have P = 0. ``window`` > 0 keeps the forward's band rows - cols < window
+// (flash_bwd.py:63-64); both kernels skip the tiles off the band: dQ starts
+// its key walk at the band of the q tile's first row (flash_bwd.py:81-82),
+// dK/dV stops its q walk at the band's end (flash_bwd.py:140-141).
+//
 // Layouts are the forward's: q, o, do, dq (B, H, Nq, D); k, v, dk, dv
 // (B, Hkv, Nk, D), all contiguous bf16; lse, delta (B, H, Nq) f32. GQA:
 // q head h reads kv head h / (H / Hkv).
@@ -35,6 +44,8 @@
 //   in two halves of 32 rows, for the same register reason.
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) throughout; P and dS are
 // rounded to bf16 before the second products, as the TPU kernel casts them.
+// The cap is a compile-time flag (kCap, tanhf): the uncapped kernels carry
+// no tanh.
 // wgmma, TMA and a pipelined tile are later work.
 #include "common.cuh"
 
@@ -76,7 +87,7 @@ __device__ __forceinline__ void stage(uint16_t* dst, const uint16_t* src,
   }
 }
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
                     const uint16_t* __restrict__ k,
@@ -85,7 +96,7 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     uint16_t* __restrict__ dq, int H, int Hkv, int Nq, int Nk,
-                    float scale, int causal) {
+                    float scale, int causal, int window, float softcap) {
   constexpr int LDS = D + 8;
   constexpr int KSTEPS = D / 16;  // k-steps over the head dim
   constexpr int DT = D / 8;       // n-tiles of dQ
@@ -100,6 +111,8 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const float scale_log2 = scale * kLog2e;
+  const float scale_over_cap = kCap ? scale / softcap : 0.f;
+  const float cap_log2 = softcap * kLog2e;
 
   const uint16_t* qb = q + (size_t)bh * Nq * D;
   const uint16_t* dob = dout + (size_t)bh * Nq * D;
@@ -134,13 +147,14 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
   for (int dt = 0; dt < DT; ++dt)
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
-  // causal key tiles past the q tile's last row are skipped
-  // (flash_bwd.py:79-87)
+  // causal key tiles past the q tile's last row are skipped, and with a
+  // window those left of its first row's band (flash_bwd.py:79-87)
   int kv_end = Nk;
   if (causal) kv_end = min(kv_end, q0 + kBQ);
   const int n_tiles = (kv_end + kBK - 1) / kBK;
+  const int kt0 = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers are done
     stage<D, kBK>(sk, kb, k0, Nk);
@@ -170,7 +184,8 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
       }
 
       // P = exp(S * scale - lse) (masked: 0), dS = P (dP - delta) in bf16
-      // A fragments (the C layout of S is the A layout of dS, key by key)
+      // A fragments (the C layout of S is the A layout of dS, key by key);
+      // kCap: P from the capped score, dS times 1 - tanh^2
       uint32_t dsa[kSub / 16][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -179,10 +194,17 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int row = r0 + (e >= 2 ? 8 : 0);
           const int col = k0 + kh + nt * 8 + t * 2 + (e & 1);
-          const bool keep = col < Nk && (!causal || col <= row);
-          const float p =
-              keep ? exp2f(s[nt][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-          ds[e] = p * (dp[nt][e] - dl[e >> 1]);
+          const bool keep = col < Nk && (!causal || col <= row) &&
+                            (window <= 0 || row - col < window);
+          if constexpr (kCap) {
+            const float th = tanhf(s[nt][e] * scale_over_cap);
+            const float p = keep ? exp2f(th * cap_log2 - lse2[e >> 1]) : 0.f;
+            ds[e] = p * (dp[nt][e] - dl[e >> 1]) * (1.f - th * th);
+          } else {
+            const float p =
+                keep ? exp2f(s[nt][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+            ds[e] = p * (dp[nt][e] - dl[e >> 1]);
+          }
         }
         dsa[nt / 2][(nt % 2) * 2 + 0] = lc::pack_bf16x2(ds[0], ds[1]);
         dsa[nt / 2][(nt % 2) * 2 + 1] = lc::pack_bf16x2(ds[2], ds[3]);
@@ -222,7 +244,7 @@ constexpr int dkv_smem_bytes() {
   return (2 * kBK + 2 * kBQ) * (D + 8) * 2 + 2 * kBQ * 4;
 }
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
                      const uint16_t* __restrict__ k,
@@ -231,7 +253,8 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-                     int H, int Hkv, int Nq, int Nk, float scale, int causal) {
+                     int H, int Hkv, int Nq, int Nk, float scale, int causal,
+                     int window, float softcap) {
   constexpr int LDS = D + 8;
   constexpr int KSTEPS = D / 16;
   constexpr int DT = D / 8;
@@ -251,6 +274,8 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const float scale_log2 = scale * kLog2e;
+  const float scale_over_cap = kCap ? scale / softcap : 0.f;
+  const float cap_log2 = softcap * kLog2e;
 
   stage<D, kBK>(sk, k + (size_t)bkv * Nk * D, k0, Nk);
   stage<D, kBK>(sv, v + (size_t)bkv * Nk * D, k0, Nk);
@@ -263,10 +288,12 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
     dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
   }
 
-  // causal q tiles that end before this key tile see none of it
-  // (flash_bwd.py:137-145)
+  // causal q tiles that end before this key tile see none of it, and with
+  // a window neither do those that start past the band of its last key,
+  // row k0 + kBK - 2 + window (flash_bwd.py:137-145)
   const int qt0 = causal ? k0 / kBQ : 0;
-  const int n_qt = (Nq + kBQ - 1) / kBQ;
+  int n_qt = (Nq + kBQ - 1) / kBQ;
+  if (window > 0) n_qt = min(n_qt, (k0 + kBK - 2 + window) / kBQ + 1);
 
   for (int hh = 0; hh < group; ++hh) {
     const int bh = b * H + kvh * group + hh;
@@ -325,9 +352,17 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
             const int key = k0 + kl + (e >= 2 ? 8 : 0);
             const int ql = qh + nt * 8 + t * 2 + (e & 1);  // row in the tile
             const int row = q0 + ql;
-            const bool keep = row < Nq && key < Nk && (!causal || row >= key);
-            p[e] = keep ? exp2f(st[nt][e] * scale_log2 - slse[ql]) : 0.f;
-            ds[e] = p[e] * (dpt[nt][e] - sdl[ql]);
+            const bool keep = row < Nq && key < Nk &&
+                              (!causal || row >= key) &&
+                              (window <= 0 || row - key < window);
+            if constexpr (kCap) {
+              const float th = tanhf(st[nt][e] * scale_over_cap);
+              p[e] = keep ? exp2f(th * cap_log2 - slse[ql]) : 0.f;
+              ds[e] = p[e] * (dpt[nt][e] - sdl[ql]) * (1.f - th * th);
+            } else {
+              p[e] = keep ? exp2f(st[nt][e] * scale_log2 - slse[ql]) : 0.f;
+              ds[e] = p[e] * (dpt[nt][e] - sdl[ql]);
+            }
           }
           pa[nt / 2][(nt % 2) * 2 + 0] = lc::pack_bf16x2(p[0], p[1]);
           pa[nt / 2][(nt % 2) * 2 + 1] = lc::pack_bf16x2(p[2], p[3]);
@@ -376,14 +411,17 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int H,
-              int Hkv, int Nq, int Nk, float scale, int causal,
-              cudaStream_t stream) {
+              int Hkv, int Nq, int Nk, float scale, int causal, int window,
+              float softcap, cudaStream_t stream) {
   dim3 grid((Nq + kBQ - 1) / kBQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, stream>>>(
+  auto kern = softcap > 0.f ? flash_bwd_dq_kernel<D, true>
+                            : flash_bwd_dq_kernel<D, false>;
+  kern<<<grid, kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dq), H, Hkv, Nq, Nk, scale, causal);
+      static_cast<uint16_t*>(dq), H, Hkv, Nq, Nk, scale,
+      causal || window > 0, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,19 +429,20 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int H, int Hkv, int Nq, int Nk, float scale, int causal,
-               cudaStream_t stream) {
+               int window, float softcap, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<D>();
+  auto kern = softcap > 0.f ? flash_bwd_dkv_kernel<D, true>
+                            : flash_bwd_dkv_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Nk + kBK - 1) / kBK, B * Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, Hkv, Nq, Nk,
-      scale, causal);
+      scale, causal || window > 0, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,6 +455,8 @@ bool bad_shape(int B, int H, int Hkv) {
 // Both entry points return cudaGetLastError() after the launch (0 =
 // launched), launch on ``stream``, do not synchronise and allocate nothing.
 // ``delta`` is rowsum(dO * O) - dlse, (B, H, Nq) f32, computed by the caller.
+// ``window`` > 0 implies causal; ``window`` <= 0 and ``softcap`` <= 0 mean
+// none (the forward's options, which produced ``lse``).
 
 // dq (B, H, Nq, D) bf16.
 extern "C" int lc_flash_bwd_dq_bf16(const void* q, const void* k,
@@ -423,16 +464,16 @@ extern "C" int lc_flash_bwd_dq_bf16(const void* q, const void* k,
                                     const void* lse, const void* delta,
                                     void* dq, int B, int H, int Hkv, int Nq,
                                     int Nk, int D, float scale, int causal,
-                                    void* stream) {
+                                    int window, float softcap, void* stream) {
   if (bad_shape(B, H, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
       return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Nq, Nk,
-                           scale, causal, s);
+                           scale, causal, window, softcap, s);
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Nq, Nk,
-                            scale, causal, s);
+                            scale, causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -444,16 +485,17 @@ extern "C" int lc_flash_bwd_dkv_bf16(const void* q, const void* k,
                                      const void* lse, const void* delta,
                                      void* dk, void* dv, int B, int H,
                                      int Hkv, int Nq, int Nk, int D,
-                                     float scale, int causal, void* stream) {
+                                     float scale, int causal, int window,
+                                     float softcap, void* stream) {
   if (bad_shape(B, H, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
       return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Nq,
-                            Nk, scale, causal, s);
+                            Nk, scale, causal, window, softcap, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
-                             Nq, Nk, scale, causal, s);
+                             Nq, Nk, scale, causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

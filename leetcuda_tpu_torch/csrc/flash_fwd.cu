@@ -10,6 +10,10 @@
 // (B, H, Nq) f32 array that receives each row's natural-log log-sum-exp of
 // the scaled scores, m + log(max(l, 1e-30)), and -1e30 on ragged rows past
 // the length (_fa_body with with_lse=True): the residual of the backward.
+// ``window`` > 0 keeps the causal band rows - cols < window (flash.py:96-104)
+// and ``softcap`` > 0 replaces each scaled score s by cap * tanh(s / cap)
+// before the mask (flash.py:93-94); the lse is then that of the capped
+// scores. 0 means neither.
 //
 // Bound on an H100 SXM: operations. Causal prefill at (1, 16, 2048, 128)
 // does 17.2 GFLOP of Q.K^T and P.V and moves 34 MB: 17 us at the 989
@@ -21,8 +25,13 @@
 // tiles staged in padded shared memory; Q.K^T and P.V run on the tensor
 // cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), and P is handed
 // from the first product to the second in registers. Tiles above the
-// diagonal and past lengths[b] are never loaded. The heaviest causal q
-// tiles are scheduled first. wgmma, TMA and a multi-stage pipeline are
+// diagonal, past lengths[b] and (with a window) wholly left of the band
+// are never loaded, so a windowed forward costs O(N * window), as the TPU
+// kernel's block skip makes it (flash.py:124-133). The heaviest causal q
+// tiles are scheduled first. The cap is taken on the natural-unit scaled
+// score, then moved into the log2 domain the softmax runs in:
+// cap * log2(e) * tanh(qk * scale / cap), with tanhf (a compile-time flag:
+// the uncapped kernel carries no tanh). wgmma, TMA and a multi-stage pipeline are
 // later work: this kernel cannot reach the tensor-core peak.
 #include "common.cuh"
 
@@ -39,13 +48,14 @@ __device__ __forceinline__ uint32_t ld_pair(const uint16_t* base, int row,
 }
 
 // kLse: write the lse (a separate instantiation, so the inference kernel
-// carries no trace of it)
-template <int D, bool kLse>
+// carries no trace of it). kCap: the softcap, likewise.
+template <int D, bool kLse, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  const uint16_t* __restrict__ v, const int* __restrict__ lengths,
                  uint16_t* __restrict__ o, float* __restrict__ lse, int H,
-                 int Hkv, int Nq, int Nk, float scale_log2, int causal) {
+                 int Hkv, int Nq, int Nk, float scale_log2, int causal,
+                 int window, float scale_over_cap, float cap_log2) {
   constexpr int LDS = D + 8;      // padded smem row: conflict-free fragments
   constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
   constexpr int DT = D / 8;       // n-tiles of the output
@@ -101,12 +111,14 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   float l[2] = {0.f, 0.f};
 
   // keys >= kv_len are never attended; causal keys past the tile's last row
-  // neither (the TPU kernel's block skip, flash.py:129-135)
+  // neither, nor keys left of the first row's band (the TPU kernel's block
+  // skip, flash.py:124-135)
   int kv_end = kv_len;
   if (causal) kv_end = min(kv_end, q0 + kBQ);
   const int n_tiles = (kv_end + kBK - 1) / kBK;
+  const int kt0 = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers are done
     for (int i = threadIdx.x; i < kBK * (D / 8); i += kThreads) {
@@ -136,7 +148,7 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       }
     }
 
-    // scale (log2 domain) and mask
+    // scale (log2 domain; kCap: capped first) and mask
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -144,8 +156,11 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int row = r0 + (e >= 2 ? 8 : 0);
         const int col = k0 + nt * 8 + t * 2 + (e & 1);
-        const bool keep = col < kv_len && (!causal || col <= row);
-        s[nt][e] = keep ? s[nt][e] * scale_log2 : lc::kNegInf;
+        const bool keep = col < kv_len && (!causal || col <= row) &&
+                          (window <= 0 || row - col < window);
+        const float x = kCap ? cap_log2 * tanhf(s[nt][e] * scale_over_cap)
+                             : s[nt][e] * scale_log2;
+        s[nt][e] = keep ? x : lc::kNegInf;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
     }
@@ -226,13 +241,20 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* o, void* lse, int B, int H, int Hkv, int Nq, int Nk,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int window, float softcap,
+           cudaStream_t stream) {
+  constexpr float kLog2e = 1.4426950408889634f;
   dim3 grid((Nq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<D, kLse><<<grid, kThreads, 0, stream>>>(
+  const bool cap = softcap > 0.f;
+  const float scale_over_cap = cap ? scale / softcap : 0.f;
+  auto kern = cap ? flash_fwd_kernel<D, kLse, true>
+                  : flash_fwd_kernel<D, kLse, false>;
+  kern<<<grid, kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const int*>(lengths),
       static_cast<uint16_t*>(o), static_cast<float*>(lse), H, Hkv, Nq, Nk,
-      scale * 1.4426950408889634f, causal);
+      scale * kLog2e, causal || window > 0, window, scale_over_cap,
+      softcap * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -240,11 +262,13 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 
 // Returns cudaGetLastError() after the launch (0 = launched). ``lengths``
 // may be null (plain flash attention), and so may ``lse`` (no LSE output).
-// Launches on ``stream``; does not synchronise and allocates nothing.
+// ``window`` > 0 implies causal; ``window`` <= 0 and ``softcap`` <= 0 mean
+// none. Launches on ``stream``; does not synchronise and allocates nothing.
 extern "C" int lc_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                  const void* lengths, void* o, void* lse,
                                  int B, int H, int Hkv, int Nq, int Nk, int D,
-                                 float scale, int causal, void* stream) {
+                                 float scale, int causal, int window,
+                                 float softcap, void* stream) {
   if (B * H > 65535 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool with_lse = lse != nullptr;
@@ -252,15 +276,15 @@ extern "C" int lc_flash_fwd_bf16(const void* q, const void* k, const void* v,
     case 64:
       return with_lse
           ? launch<64, true>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
-                             scale, causal, s)
+                             scale, causal, window, softcap, s)
           : launch<64, false>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
-                              scale, causal, s);
+                              scale, causal, window, softcap, s);
     case 128:
       return with_lse
           ? launch<128, true>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
-                              scale, causal, s)
+                              scale, causal, window, softcap, s)
           : launch<128, false>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
-                               scale, causal, s);
+                               scale, causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -95,12 +95,11 @@ int launch(const void* lhs, const void* rhs, const int* tile_group, void* out,
            int T, int K, int N, int G, int bm, int odt, cudaStream_t st) {
   using E = typename Step::E;
   auto kern = gmm_kernel<Step>;
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set && Step::SMEM_BYTES > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Step::SMEM_BYTES);
+  static unsigned long long attr_devices = 0;  // per instantiation
+  if (Step::SMEM_BYTES > 0) {
+    const cudaError_t e =
+        lc::smem_limit_per_device(kern, Step::SMEM_BYTES, attr_devices);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
   }
   const long long grid =
       (long long)(T / bm) * cdiv(bm, Step::BM) * cdiv(N, Step::BN);

@@ -214,13 +214,10 @@ template <class T, bool kF16In, bool kTN>
 int launch_tc_one(const void* x, const void* y, void* o, int M, int N, int K,
                   int odt, int group, int vec, cudaStream_t st) {
   auto kern = mm_tc<T, kF16In, kTN>;
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
+  static unsigned long long attr_devices = 0;  // per instantiation
+  const cudaError_t e =
+      lc::smem_limit_per_device(kern, T::SMEM_BYTES, attr_devices);
+  if (e != cudaSuccess) return static_cast<int>(e);
   kern<<<cdiv(M, T::BM) * cdiv(N, T::BN), T::THREADS, T::SMEM_BYTES, st>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(y), o, M,
       N, K, odt, group, vec);
@@ -269,13 +266,10 @@ int launch_resident(const void* a, const void* b, void* o, void* scratch,
                     int M, int N, int reps, int odt, cudaStream_t st) {
   using E = typename Step::E;
   auto kern = mm_resident<Step>;
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Step::SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
+  static unsigned long long attr_devices = 0;  // per instantiation
+  const cudaError_t e =
+      lc::smem_limit_per_device(kern, Step::SMEM_BYTES, attr_devices);
+  if (e != cudaSuccess) return static_cast<int>(e);
   kern<<<cdiv(M, Step::BM), Step::THREADS, Step::SMEM_BYTES, st>>>(
       static_cast<const E*>(a), static_cast<const E*>(b), static_cast<E*>(o),
       static_cast<E*>(scratch), M, N, reps, odt, N % 8 == 0);

@@ -141,7 +141,8 @@ def decode_chunk(params, tokens, caches, lengths, cfg: ModelConfig,
         _chunk_append(cache, k, v, pos, page_table=page_table,
                       page_aligned=page_aligned, index=index)
         o = _chunk_cache_attend(q, cache, lengths, cfg,
-                                page_table=page_table)   # (B, T, H, Dh) f32
+                                page_table=page_table,
+                                window=cfg.layer_window(li))  # (B,T,H,Dh) f32
         x = _attn_out_and_mlp(layer, x, o.reshape(B, T, -1).to(x.dtype), cfg)
     return _logits(params, x, cfg), caches
 

@@ -123,6 +123,22 @@ CASES = {
                             paged=True),
     "paged T=5 window 32": dict(T=5, group=4, bases=[0, 126, 251],
                                 paged=True, window=32),
+    # the softcap, alone and with a window, on every cache layout
+    "T=5 cap 0.5": dict(T=5, group=4, bases=[0, 126, 251], softcap=0.5),
+    "T=128 cap 30 window 40": dict(T=128, group=1, bases=[0, 100],
+                                   window=40, softcap=30.0),
+    "T=5 int8 cap 0.5 window 32": dict(T=5, group=4, bases=[0, 126, 251],
+                                       fmt="int8", window=32, softcap=0.5),
+    "T=5 fp8 cap 30": dict(T=5, group=4, bases=[3, 60, 200], fmt="fp8",
+                           softcap=30.0),
+    "paged T=5 cap 0.5 window 32": dict(T=5, group=4, bases=[0, 126, 251],
+                                        paged=True, window=32, softcap=0.5),
+    "paged T=128 fp8 cap 0.5": dict(T=128, group=4, bases=[16, 100],
+                                    fmt="fp8", paged=True, softcap=0.5),
+    "paged T=2 int8 cap 30 window 16": dict(T=2, group=1,
+                                            bases=[15, 16, 250], fmt="int8",
+                                            paged=True, window=16,
+                                            softcap=30.0),
 }
 
 
@@ -138,14 +154,16 @@ def _wrapper(fmt, paged):
 def test_chunk_attention_matches_pallas(name):
     """f32, NaN wherever no row of the chunk looks: atol 1e-5."""
     case = dict(CASES[name])
-    window = case.pop("window", None)
+    window, softcap = case.pop("window", None), case.pop("softcap", None)
     fmt, paged = case.get("fmt"), case.get("paged", False)
     jargs, targs = _case(len(name), **case)
     make = (make_paged_chunk_attention if paged else
             lambda **kw: make_chunk_attention(block_k=128, **kw))
-    want = _jax(make(window=window, quantized=fmt is not None), jargs)
+    want = _jax(make(window=window, quantized=fmt is not None,
+                     softcap=softcap), jargs)
     before = launch_counts()
-    got = _wrapper(fmt, paged)(*targs, window=window).numpy()
+    got = _wrapper(fmt, paged)(*targs, window=window,
+                               softcap=softcap).numpy()
     assert launch_counts() == before  # the plain version runs on CPU tensors
     assert np.all(np.isfinite(want)) and np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
@@ -201,7 +219,7 @@ def test_chunk_rows_past_the_capacity_are_clamped():
                                    rtol=0)
 
 
-@pytest.mark.parametrize("opt", [{"softcap": 30.0}, {"with_lse": True}])
+@pytest.mark.parametrize("opt", [{"with_lse": True}])
 def test_chunk_unported_options_raise(opt):
     for fmt, paged in ((None, False), ("int8", False), (None, True),
                        ("fp8", True)):

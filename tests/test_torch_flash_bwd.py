@@ -160,10 +160,72 @@ def test_trainable_with_lse_sink_grads_match_jax():
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("opt", [{"window": 64}, {"softcap": 30.0}])
-def test_trainable_options_raise(opt):
-    with pytest.raises(NotImplementedError):
-        fb.make_flash_attention_trainable(causal=True, **opt)
+# (window, softcap) of the backward cases: windows on a 64-block edge (64)
+# and inside one (100), caps that bend every score (0.5) or few (30)
+BWD_BANDS = [(64, None), (100, None), (None, 0.5), (None, 30.0), (100, 0.5),
+             (64, 30.0)]
+
+
+@pytest.mark.parametrize("window,softcap", BWD_BANDS)
+def test_bwd_plain_window_softcap_matches_jax_bwd(window, softcap):
+    """The plain backward with a band and a cap against JAX's _bwd kernels
+    with blocks of 64 (blocks off the band skipped in both of its passes),
+    GQA 4 over 2, a random lse cotangent; out and lse from the port's
+    forward with the same options."""
+    Hq, Hkv = 4, 2
+    q, k, v = _qkv(9, Hkv, h=Hq)
+    rng = np.random.default_rng(10)
+    do = rng.standard_normal(q.shape, dtype=np.float32)
+    dlse = rng.standard_normal(q.shape[:3], dtype=np.float32)
+    out, lse = flash_attention(*_t(q, k, v), causal=True, window=window,
+                               softcap=softcap, with_lse=True)
+    scale = 1.0 / math.sqrt(D)
+    g = Hq // Hkv
+
+    def flat(x):
+        return jnp.asarray(x).reshape(B * Hq, *x.shape[2:])
+
+    jdq, jdk, jdv = _bwd(
+        True, window, scale, softcap, 64, 64, flat(q),
+        flat(np.repeat(k, g, axis=1)), flat(np.repeat(v, g, axis=1)),
+        flat(out.numpy()), flat(lse.numpy()), flat(do), dlse=flat(dlse))
+    jdk = np.asarray(jdk).reshape(B, Hkv, g, N, D).sum(2)
+    jdv = np.asarray(jdv).reshape(B, Hkv, g, N, D).sum(2)
+    dq, dk, dv = fb.flash_attention_bwd_plain(
+        *_t(q, k, v), out, lse, torch.from_numpy(do), torch.from_numpy(dlse),
+        causal=True, sm_scale=scale, window=window, softcap=softcap)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq).reshape(q.shape),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(dk.numpy(), jdk, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(dv.numpy(), jdv, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("window,softcap", BWD_BANDS)
+def test_trainable_window_softcap_grads_match_jax(window, softcap, with_lse):
+    """Gradients through the band and the cap (the chain rule through
+    cap * tanh(s / cap)) against jax.grad of JAX's trainable attention with
+    blocks of 64, GQA 2 over 1; with ``with_lse`` the lse reaches the loss
+    too, so its cotangent folds into delta."""
+    q, k, v = _qkv(11, 1)
+    jfa = jax_trainable(causal=True, window=window, softcap=softcap,
+                        with_lse=with_lse, block_q=64, block_k=64)
+    fa = fb.make_flash_attention_trainable(causal=True, window=window,
+                                           softcap=softcap, with_lse=with_lse)
+
+    def loss(out, sin, cos):
+        if with_lse:
+            out, lse = out
+            return sin(out).sum() + cos(lse).sum()
+        return sin(out).sum()
+
+    want = jax.grad(lambda *a: loss(jfa(*a), jnp.sin, jnp.cos),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _t(q, k, v, grad=True)
+    loss(fa(tq, tk, tv), torch.sin, torch.cos).backward()
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL,
+                                   err_msg=f"d{name}")
 
 
 def test_inference_forward_without_lse_when_no_grad(monkeypatch):

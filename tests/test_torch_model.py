@@ -175,9 +175,8 @@ def test_forward_llama3_scaled_model(both):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("switch", [
-    {"sliding_window": 64}, {"attn_softcap": 50.0}, {"attn_sinks": True},
-    {"glm_rope_dim": 32}, {"alt_window": True}])
+@pytest.mark.parametrize("switch", [{"attn_sinks": True},
+                                    {"glm_rope_dim": 32}])
 def test_unported_switches_raise(both, switch):
     _, _, _, tparams = both
     cfg = tl.tiny_config(**switch)
@@ -187,7 +186,7 @@ def test_unported_switches_raise(both, switch):
 
 def test_gptoss_expert_layer_raises(both):
     """A GPT-OSS expert layer ("moe_oss") still raises: its attention needs
-    sinks and alternating windows, which the port does not have yet."""
+    sinks, which the port does not have yet (alternating windows it has)."""
     _, _, tcfg, tparams = both
     layers = [dict(tparams["layers"][0], moe_oss={})] + tparams["layers"][1:]
     with pytest.raises(NotImplementedError, match="GPT-OSS"):
@@ -195,9 +194,11 @@ def test_gptoss_expert_layer_raises(both):
                    torch.zeros((1, 8), dtype=torch.int32), tcfg)
 
 
-# The switches the port takes, each held against JAX's model (ROADMAP item
-# 11a): (ModelConfig fields, extra parameters). Every norm weight is drawn
-# away from one so that a norm applied in the wrong place shows.
+# The switches the port takes, each held against JAX's model (ROADMAP items
+# 11a and 11b1): (ModelConfig fields, extra parameters). Every norm weight is
+# drawn away from one so that a norm applied in the wrong place shows. The
+# windows (8) are below the test's 16 tokens and its decode length 17, and
+# the attention cap (1.0) bends the tiny model's scores, so both bite.
 FAMILY_SWITCHES = {
     "qk_norm": ({"qk_norm": True}, ()),
     "sandwich_norms": ({"sandwich_norms": True}, ()),
@@ -210,12 +211,20 @@ FAMILY_SWITCHES = {
     "head_dim_override": ({"head_dim_override": 32}, ()),
     "biases": ({}, ("bq", "bk", "bv", "bo")),
     "untied_lm_head": ({}, ("lm_head",)),
+    "sliding_window": ({"sliding_window": 8}, ()),
+    "alt_window": ({"sliding_window": 8, "alt_window": True}, ()),
+    "attn_softcap": ({"attn_softcap": 1.0}, ()),
+    "gemma2": ({"sliding_window": 8, "alt_window": True, "attn_softcap": 1.0,
+                "final_softcap": 2.0, "query_scale": 0.1, "rms_offset": True,
+                "embed_scale": True, "sandwich_norms": True,
+                "hidden_act": "gelu_tanh"}, ()),
 }
 
 
-def _switched(name):
+def _switched(name, norm_base=None):
     """JAX's tiny config with one family switch, its random weights as
-    numpy (norms drawn, extra parameters added), and the port's config."""
+    numpy (norms drawn about ``norm_base``, by default the identity scale,
+    extra parameters added), and the port's config."""
     kw, extra = FAMILY_SWITCHES[name]
     jcfg = jl.tiny_config(**kw)
     wnp = jax.tree.map(np.asarray, jl.init_params(jax.random.key(0), jcfg))
@@ -225,15 +234,16 @@ def _switched(name):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
     H, Hkv, Dh, D = (jcfg.n_heads, jcfg.n_kv_heads, jcfg.head_dim, jcfg.dim)
+    if norm_base is None:
+        norm_base = 0.0 if jcfg.rms_offset else 1.0
     for layer in wnp["layers"]:
         for key in [k for k in layer if k.endswith("norm")]:
-            layer[key] = ((0.0 if jcfg.rms_offset else 1.0)
-                          + draw(layer[key].shape, 0.2))
+            layer[key] = norm_base + draw(layer[key].shape, 0.2)
         for key, n in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh),
                        ("bo", D)):
             if key in extra:
                 layer[key] = draw((n,), 0.1)
-    wnp["norm"] = (0.0 if jcfg.rms_offset else 1.0) + draw((D,), 0.2)
+    wnp["norm"] = norm_base + draw((D,), 0.2)
     if "lm_head" in extra:
         wnp["lm_head"] = draw((jcfg.vocab_size, D), D ** -0.5)
     return jcfg, wnp, tl.tiny_config(**kw)
@@ -243,7 +253,18 @@ def _switched(name):
 def test_family_switch_matches_jax(name):
     """forward, one decode step over a random prefix, and loss_fn with
     one family switch on, against JAX's model on the same weights."""
-    jcfg, wnp, tcfg = _switched(name)
+    _hold_against_jax(*_switched(name))
+
+
+def test_gemma2_norms_at_one_match_jax():
+    """Gemma 2's switches with the (1 + w) norms' w drawn about 1, as
+    ``init_params`` draws them (every normalised vector doubled, the scores
+    4x as wide), against JAX's model: chip_smoke.py path (o) serves
+    Gemma-2-27B at w = 0 and holds w = 1 only at a cut depth."""
+    _hold_against_jax(*_switched("gemma2", norm_base=1.0))
+
+
+def _hold_against_jax(jcfg, wnp, tcfg):
     jparams = jax.tree.map(jnp.asarray, wnp)
     tparams = params_from_numpy(wnp, "cpu")
     rng = np.random.default_rng(11)
@@ -300,6 +321,39 @@ def test_qwen3_30b_a3b_config_matches_jax_loader():
     assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
     assert (got.moe_dropless and got.qk_norm and got.moe_renorm
             and got.head_dim == 128 and got.moe.ffn_dim == 768)
+
+
+# google/gemma-2-27b's config.json, the fields config_from_hf reads and the
+# ones around them.
+GEMMA2_27B_HF = {
+    "architectures": ["Gemma2ForCausalLM"], "attention_bias": False,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "head_dim": 128, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "hidden_size": 4608,
+    "intermediate_size": 36864, "max_position_embeddings": 8192,
+    "model_type": "gemma2", "num_attention_heads": 32,
+    "num_hidden_layers": 46, "num_key_value_heads": 16,
+    "query_pre_attn_scalar": 144, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000.0, "sliding_window": 4096, "vocab_size": 256000,
+}
+
+
+def test_gemma2_27b_config_matches_jax_loader():
+    """The config chip_smoke.py serves as Gemma-2-27B is, field for field,
+    what JAX's config_from_hf makes of the published config: head dim 128
+    (not 4608 / 32), a window of 4096 on the even layers, both caps."""
+    from leetcuda_tpu.models.loader import config_from_hf
+
+    want = config_from_hf(GEMMA2_27B_HF)
+    got = tl.gemma2_27b_config()
+    for f in dataclasses.fields(jl.ModelConfig):
+        if f.name != "dtype":
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert got.head_dim == 128 and got.dim // got.n_heads == 144
+    assert [got.layer_window(i) for i in range(4)] == [
+        want.layer_window(i) for i in range(4)] == [4096, None, 4096, None]
+    assert got.layer_window(None) == 4096
 
 
 def test_quantized_packs_raise():

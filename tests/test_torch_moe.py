@@ -414,3 +414,68 @@ def test_engine_serves_dropless_moe_like_jax_decode_step(model):
                  device="cpu")
     got = eng.run(prompts, max_new)
     assert list(got.values()) == want
+
+
+# The MoE Engine's other set-ups: three prompts behind one shared 16-token
+# prefix (one page of 16), 4 new tokens each.
+MOE_PREFIX = list(map(int, np.random.default_rng(10).integers(0, 256, 16)))
+MOE_PROMPTS = [MOE_PREFIX + list(map(int, np.random.default_rng(11 + i)
+                                     .integers(0, 256, n)))
+               for i, n in enumerate((2, 7, 12))]
+MOE_SETUPS = {
+    "paged": dict(paged=True, page_size=16),
+    "prefix cache, prefill_chunk": dict(paged=True, page_size=16,
+                                        prefix_cache=True, prefill_chunk=16),
+    "speculative": dict(spec_k=2),
+    "int8 KV": dict(kv_quant="int8"),
+}
+
+
+@pytest.fixture(scope="module")
+def moe_reference(model):
+    """Each MOE_PROMPTS prompt alone through JAX's decode_step, token by
+    token, greedy, on the dropless model."""
+    _, jparams, _, _ = model
+    jcfg, _ = _configs(model, True)
+    want = []
+    for prompt in MOE_PROMPTS:
+        caches = jl.init_kv_caches(jcfg, 1, 64)
+        seq = list(prompt)
+        for t in range(len(prompt) + 3):
+            logits, caches = jl.decode_step(
+                jparams, jnp.asarray([seq[t]], jnp.int32), caches,
+                jnp.asarray([t], jnp.int32), jcfg)
+            if t >= len(prompt) - 1:
+                seq.append(int(jnp.argmax(logits[0])))
+        want.append(seq[len(prompt):])
+    return want
+
+
+@pytest.mark.parametrize("setup", list(MOE_SETUPS))
+def test_engine_setups_serve_dropless_moe_like_jax_decode_step(
+        model, moe_reference, setup):
+    """The dropless model through the Engine's paged, prefix-cached with
+    chunked prefill (the first prompt, then the other two adopting its
+    prefix page), speculative (draft: the dense tiny model of the same
+    seed, which agrees on half the proposals, so the ticks accept and
+    reject) and int8 KV set-ups: every token equals JAX's decode_step."""
+    _, _, _, tparams = model
+    _, tcfg = _configs(model, True)
+    draft = None
+    if setup == "speculative":
+        dcfg = jl.tiny_config()
+        draft = (params_from_numpy(jax.tree.map(
+            np.asarray, jl.init_params(jax.random.key(0), dcfg)), "cpu"),
+            tl.tiny_config())
+    eng = Engine(tparams, tcfg, EngineConfig(
+        slots=3, max_seq=64, prefill_bucket=16, **MOE_SETUPS[setup]),
+        draft=draft, device="cpu")
+    if setup.startswith("prefix"):
+        got = list(eng.run(MOE_PROMPTS[:1], 4).values())
+        got += list(eng.run(MOE_PROMPTS[1:], 4).values())
+        assert eng.stats()["prefix_pages_hit"] == 2
+    else:
+        got = list(eng.run(MOE_PROMPTS, 4).values())
+    assert got == moe_reference
+    if setup == "speculative":
+        assert 0 < eng._accepted < eng._proposed

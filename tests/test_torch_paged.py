@@ -154,6 +154,22 @@ def test_paged_attention_matches_pallas(page, fmt):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"])
+@pytest.mark.parametrize("window,softcap", [(40, None), (48, 30.0),
+                                            (None, 0.5), (100, 0.5)])
+def test_paged_attention_window_softcap_matches_pallas(fmt, window, softcap):
+    """Pages of 16, lengths 30 / 128 / 77: windows that start inside a page
+    (40, 100) and on a page edge (48 from 128), caps that bend every score
+    (0.5) or few (30); NaN wherever no row owns a position."""
+    jargs, targs = _paged_case(np.random.default_rng(3), 16, fmt)
+    want = np.asarray(make_paged_attention(
+        quantized=fmt is not None, window=window, softcap=softcap)(*jargs))
+    fn = paged_attention if fmt is None else paged_attention_quantized
+    got = fn(*targs, window=window, softcap=softcap).numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("quant", [None, "int8", "fp8"])
 def test_cache_append_attend_paged_across_page_boundaries(quant):
     """The model's paged ``_cache_append`` + ``_cache_attend`` against
@@ -233,8 +249,7 @@ def test_paged_append_writes_in_place_and_null_page_takes_dead_rows():
     assert kp[2].abs().sum() == 0 and kp[3].abs().sum() == 0
 
 
-@pytest.mark.parametrize("opt", [{"window": 8}, {"softcap": 30.0},
-                                 {"with_lse": True}, {"shared_kv": True}])
+@pytest.mark.parametrize("opt", [{"with_lse": True}, {"shared_kv": True}])
 def test_paged_unported_options_raise(opt):
     _, targs = _paged_case(np.random.default_rng(0), 16, "int8")
     with pytest.raises(NotImplementedError):

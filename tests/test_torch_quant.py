@@ -210,8 +210,7 @@ def test_cpu_tensors_take_plain_path_uncounted():
             DECODE_Q.launches) == before
 
 
-@pytest.mark.parametrize("opt", [{"window": 8}, {"softcap": 30.0},
-                                 {"with_lse": True}, {"shared_kv": True}])
+@pytest.mark.parametrize("opt", [{"with_lse": True}, {"shared_kv": True}])
 def test_decode_quantized_unported_options_raise(opt):
     rng = np.random.default_rng(7)
     kq, vq, ks, vs = _quantized_cache(rng, "int8", 1, 1, 16, 64, [5])

@@ -163,8 +163,11 @@ def test_train_step_mesh_and_fsdp_raise(kw):
 
 
 def test_train_step_refuses_unported_config():
+    """Attention sinks (ROADMAP item 11b2) are still refused; sliding
+    windows and the softcap train (tests/test_torch_window.py)."""
     with pytest.raises(NotImplementedError):
-        tl.make_train_step(tl.tiny_config(sliding_window=16))
+        tl.make_train_step(tl.tiny_config(attn_sinks=True))
+    tl.make_train_step(tl.tiny_config(sliding_window=16, attn_softcap=30.0))
 
 
 def test_params_to_numpy_round_trip_bit_exact():
