@@ -28,7 +28,9 @@ Phases; any failure raises and the script exits non-zero:
    backward (``torch.autograd.grad``; with a window over an explicit band
    mask) and the name of its longest kernel. Path (o) runs its own phase 3
    (``check_attn_options``): the window and softcap of every attention
-   kernel at Gemma-2-27B's layer-0 shapes.
+   kernel at Gemma-2-27B's layer-0 shapes; path (p) its own
+   (``check_lse``): the lse of the decode, paged and chunk kernels at
+   GPT-OSS-20B's.
 4. Main paths, each with the launch counts zeroed just before it and read
    just after, on the full-width default ModelConfig() (random bf16 weights
    from a seed, quantized on the card):
@@ -206,8 +208,35 @@ Phases; any failure raises and the script exits non-zero:
           solo through ``decode_chunk`` in chunks of 512 (phase 5); one B=4
           decode step at context 5120 profiled, the attention device time
           of the windowed and the global layers apart (phase 6).
-   Paths bf16, (a)-(e), (n) and (o) must stay under their weight-bandwidth
-   ceilings; no serving path launches a training kernel, no serving or
+   (p)    GPT-OSS-20B, run third (after (o), on the card emptied again):
+          ``gpt_oss_20b_config`` (24 layers, hidden 2880, 64 / 8 heads of
+          64, attention sinks, a 128-token window on the even layers, q/k/v/o
+          biases, 32 experts of 2880 with 4 active in JAX's dense combine,
+          vocab 201088, untied head) at its published width and depth,
+          20.9B random bf16 parameters (41.8 GB) built on the card from a
+          seed in the JAX loader's layout, the router given margins (see
+          ``gptoss_path``). First its phase 3 (``check_lse``): the with_lse
+          option of decode (bf16, int8, e4m3), paged (bf16, int8, e4m3 pools
+          of 128) and chunk (T=4 and T=512 over the four layouts) at its
+          layer-0 shapes (B=8, capacity 2048), a windowed and a global
+          layer, lengths 0 / below / at / past the window, NaN past them:
+          out and lse against the plain versions, each kernel timed with
+          and without the lse, and two lse controls that must fail (the lse
+          in log2 units; on a windowed layer, the unwindowed rows'). Then
+          the paged Engine with ``prefill_chunk`` 256 over bf16 pools (4
+          prompts of 200-640 tokens x 32) and int8 pools (2 x 16), a ragged
+          admission over a contiguous cache, ``generate`` at B=8 and over an
+          int8 cache at B=4: exactly one attention launch per layer per
+          call, every one with the lse, half of them windowed; then
+          ``speculative_generate`` and the speculative Engine over int8 KV
+          with a 2-layer draft (every attention launch with the lse); every
+          served token replayed solo (phase 5) beside a roundoff control
+          (``forward`` against ``decode_chunk``) at the drawn and the served
+          router; the logits of one prompt with and without the sinks (must
+          move by more than LOGIT_TOL); one B=8 decode step at context 1024
+          profiled and the dense combine timed alone (phase 6).
+   Paths bf16, (a)-(e), (n), (o) and (p) must stay under their
+   weight-bandwidth ceilings; no serving path launches a training kernel, no serving or
    training path launches a GEMM library kernel, none but (k) a row-op
    kernel, none but (l) a kernel of path (l), none but (m) one of path (m)
    and none but (n) the grouped matmul.
@@ -355,6 +384,18 @@ PATH_KERNELS["n"] = ("flash_attention", "flash_attention_ragged",
 PATH_KERNELS["o"] = ("flash_attention", "flash_attention_ragged",
                      "decode_attention", "paged_attention",
                      "paged_chunk_attention")
+# Path (p), GPT-OSS-20B: every attention call carries the lse (sinks): the
+# paged Engine with chunked prefill, a ragged admission over a contiguous
+# cache, generate over bf16 and int8 caches.
+PATH_KERNELS["p"] = ("flash_attention_lse", "decode_attention_lse",
+                     "decode_attention_quantized_lse", "paged_attention_lse",
+                     "paged_attention_quantized_lse",
+                     "paged_chunk_attention_lse",
+                     "paged_chunk_attention_quantized_lse")
+# ... and its speculative part: speculative_generate over a bf16 cache and
+# the speculative Engine over an int8 one, a 2-layer draft of the same model
+PATH_KERNELS["p2"] = ("flash_attention_lse", "decode_attention_lse",
+                      "chunk_attention_lse", "chunk_attention_quantized_lse")
 # The kernels of training (path (i)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
 # The GEMM library's kernels: no serving or training path launches them (the
@@ -405,6 +446,24 @@ PATH_FORBIDDEN = {
           "chunk_attention", "chunk_attention_quantized",
           "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
           "fused_norm_qkv_rope"),
+    # attention sinks: no attention launch without the lse; bf16 weights;
+    # chunked prefill over pools only
+    "p": ("flash_attention", "flash_attention_ragged", "decode_attention",
+          "decode_attention_quantized", "paged_attention",
+          "paged_attention_quantized", "chunk_attention",
+          "chunk_attention_quantized", "paged_chunk_attention",
+          "paged_chunk_attention_quantized", "chunk_attention_lse",
+          "chunk_attention_quantized_lse", "matmul_w8a16", "matmul_w4a16",
+          "fused_norm_qkv_rope"),
+    # contiguous caches only
+    "p2": ("flash_attention", "flash_attention_ragged", "decode_attention",
+           "decode_attention_quantized", "paged_attention",
+           "paged_attention_quantized", "chunk_attention",
+           "chunk_attention_quantized", "paged_chunk_attention",
+           "paged_chunk_attention_quantized", "paged_attention_lse",
+           "paged_attention_quantized_lse", "paged_chunk_attention_lse",
+           "paged_chunk_attention_quantized_lse", "matmul_w8a16",
+           "matmul_w4a16", "fused_norm_qkv_rope"),
 }
 # (Training, path (i), has no list: ``train`` asserts each step's launches
 # exactly, the training kernels and nothing else.)
@@ -1579,8 +1638,13 @@ class PlainBwdFlash(torch.autograd.Function):
 
 def plain_bwd_trainable(kernel_fwd, nudge=0.0, gaps=None):
     """A stand-in for ``make_flash_attention_trainable`` over
-    PlainBwdFlash."""
-    def make(*, causal=False, sm_scale=None, window=None, softcap=None):
+    PlainBwdFlash, for a model without attention sinks (no lse out)."""
+    def make(*, causal=False, sm_scale=None, window=None, softcap=None,
+             with_lse=False):
+        if with_lse:
+            raise ValueError("plain_bwd_trainable returns no lse: replay a "
+                             "model without attention sinks")
+
         def fa(q, k, v):
             scale = (sm_scale if sm_scale is not None
                      else 1 / np.sqrt(q.shape[3]))
@@ -3579,12 +3643,17 @@ GEMMA_CHUNK_BASES = np.array([3700, 5000], np.int32)
 # key tiles; its time must stay under BAND_SKIP_MAX of the causal time
 BAND_SKIP_N, BAND_SKIP_MAX = 16384, 0.6
 # every attention kernel's launch counter: one launch per layer per call
+LSE_COUNTERS = ("flash_attention_lse", "decode_attention_lse",
+                "decode_attention_quantized_lse", "paged_attention_lse",
+                "paged_attention_quantized_lse", "chunk_attention_lse",
+                "chunk_attention_quantized_lse", "paged_chunk_attention_lse",
+                "paged_chunk_attention_quantized_lse")
 ATTN_COUNTERS = ("flash_attention", "flash_attention_ragged",
-                 "flash_attention_lse", "decode_attention",
-                 "decode_attention_quantized", "paged_attention",
-                 "paged_attention_quantized", "chunk_attention",
-                 "chunk_attention_quantized", "paged_chunk_attention",
-                 "paged_chunk_attention_quantized")
+                 "decode_attention", "decode_attention_quantized",
+                 "paged_attention", "paged_attention_quantized",
+                 "chunk_attention", "chunk_attention_quantized",
+                 "paged_chunk_attention",
+                 "paged_chunk_attention_quantized") + LSE_COUNTERS
 
 
 def band_tiles(N, window, tile=64):
@@ -3976,8 +4045,8 @@ def identity_norms(params):
 def chunk_replay_gap(params, cfg, prompt, tokens, chunk=GEMMA_CHUNK):
     """Teacher-forced gap of ``tokens`` served after ``prompt``: a solo B=1
     replay of prompt + tokens through ``decode_chunk`` in chunks of at most
-    ``chunk`` over a contiguous cache; the largest (max logit - logit of the
-    served token) over the served positions."""
+    ``chunk`` over a contiguous bf16 cache; the largest (max logit - logit
+    of the served token) over the served positions."""
     from leetcuda_tpu_torch.engine.speculative import decode_chunk
     from leetcuda_tpu_torch.models.llama import init_kv_caches
 
@@ -4245,6 +4314,670 @@ def print_gemma(rows, res):
              f"windowed layers {split['even']:.4f}, global layers "
              f"{split['odd']:.4f} ({split['launches']} launches)"),
           flush=True)
+
+
+# Path (p) serves GPT-OSS-20B (models/llama.py gpt_oss_20b_config) at its
+# published width and depth, random bf16 weights from GPTOSS_SEED: attention
+# sinks on every layer, a 128-token window on the even layers, q/k/v/o
+# biases and 32 experts of 2880 (top-4) in JAX's dense combine, ~20.9B
+# parameters (41.8 GB). The paged Engine (pages of PAGE, 4 slots of 1024
+# positions, chunked prefill of 256 prompt tokens a tick) serves prompts of
+# 640, 400, 300 and 200 tokens (all past the window) x 32 new, and over
+# int8 pools 300 and 200 tokens x 16 new; a contiguous Engine admits 300
+# and 150 tokens in one ragged batch, 16 new each; ``generate`` runs at B=8
+# over 128-token prompts and at B=4 over an int8 KV cache, 32 new tokens
+# each. Its speculative part (spec_k 3, the model's first GPTOSS_DRAFT
+# layers as the draft): ``speculative_generate`` at B=2 over 128-token
+# prompts, 16 new, and the speculative Engine over an int8 contiguous cache
+# serving the ragged admission's prompts, 16 new.
+GPTOSS_SEED = 7
+GPTOSS_PLENS, GPTOSS_NEW = (640, 400, 300, 200), 32
+GPTOSS_SLOTS, GPTOSS_MAX_SEQ, GPTOSS_CHUNK = 4, 1024, 256
+GPTOSS_RAGGED, GPTOSS_RAGGED_NEW = (300, 150), 16
+GPTOSS_GEN_B, GPTOSS_GEN_S, GPTOSS_GEN_NEW = 8, 128, 32
+GPTOSS_Q_B = 4  # generate over an int8 KV cache
+GPTOSS_QPAGED = (300, 200)  # the paged Engine over int8 pools
+GPTOSS_DRAFT, GPTOSS_SPEC_B, GPTOSS_SPEC_NEW = 2, 2, 16
+GPTOSS_EXPERTS = 32  # num_local_experts (the experts are structure-driven)
+# the random biases' scale (attention and experts)
+GPTOSS_BIAS = 0.1
+# the served router (see gptoss_path): per-expert biases GPTOSS_ROUTER_GAP
+# apart, the drawn router matrix scaled by GPTOSS_ROUTER_SCALE, so that the
+# 4th and 5th logits of a token stand ~7 noise deviations apart
+GPTOSS_ROUTER_GAP, GPTOSS_ROUTER_SCALE = 0.5, 0.05
+# phase 3 of path (p), at its layer-0 shapes (B=8, 64 / 8 heads of 64, a
+# capacity of 2048): decode lengths 0, below, at and past the window of 128;
+# chunk bases whose T=4 rows sit below, across and past it, and T=512 rows
+# from 0 (crossing it) and from 1024
+LSE_DECODE_LENS = np.array([0, 100, 128, 129, 517, 1024, 1500, 2000],
+                           np.int32)
+LSE_CHUNK_BASES = {4: np.array([0, 100, 124, 125, 517, 1024, 1500, 2044],
+                               np.int32),
+                   512: np.array([0, 1024], np.int32)}
+LSE_S = 2048
+LN2 = math.log(2.0)
+
+
+def lse_controls(rec, check, want_lse, run, window):
+    """Beside the lse check ``check``: the kernel's lse in log2 units
+    (lse / ln 2) and, on a windowed layer, the lse of the unwindowed rows
+    (``run(None)``, the kernel without the window) must fail KERNEL_TOL
+    against ``want_lse``, the plain lse. Records the largest differences."""
+    got = run(window)
+    cands = {"log2 units": got / LN2}
+    if window:
+        cands["unwindowed"] = run(None)
+    errs = {}
+    for label, x in cands.items():
+        errs[label] = float((x.float() - want_lse.float()).abs().max())
+        if torch.allclose(x.float(), want_lse.float(), **KERNEL_TOL):
+            raise AssertionError(f"{check}: the lse control '{label}' "
+                                 f"passes the check")
+    rec.rows[check]["lse_controls"] = errs
+
+
+def lse_case(rec, flush, check, name, src, replaces, fn, plain, args, kw,
+             flops, nbytes, lse_bytes, lib):
+    """One ``with_lse`` check: the kernel's (out, lse) against its plain
+    version's (the out at KERNEL_TOL too; NaN padding must not reach it),
+    timed with and without the lse beside the plain version (with the lse)
+    and ``lib``, one library call of the same attention without the lse;
+    the lse's controls (``lse_controls``)."""
+    got, got_lse = fn(*args, with_lse=True, **kw)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{check}: NaN padding reached the output")
+    want, want_lse = plain(*args, with_lse=True, **kw)
+    out_err = hold(got, want)
+    ms = time_ms(lambda: fn(*args, with_lse=True, **kw), flush)
+    ms_without = time_ms(lambda: fn(*args, **kw), flush)
+    plain_ms = time_ms(lambda: plain(*args, with_lse=True, **kw), flush,
+                       iters=5)
+    rec.record(check, name, src, replaces, got_lse, want_lse, ms, plain_ms,
+               time_ms(lib, flush), flops, nbytes + lse_bytes)
+    b_s, _ = bound(flops, nbytes)
+    rec.rows[check].update(out_max_abs_err=out_err, ms_without_lse=ms_without,
+                           bound_without_lse_ms=b_s * 1e3,
+                           library="SDPA, output only", **kw)
+    lse_controls(rec, check, want_lse, lambda w: fn(
+        *args, with_lse=True, **{**kw, "window": w})[1], kw.get("window"))
+
+
+def check_lse(rec, flush, cfg):
+    """Phase 3 of path (p): the ``with_lse`` option of decode (bf16, int8,
+    e4m3), paged (bf16 pools, int8 and e4m3 pools) and chunk (T=4 and T=512
+    over contiguous bf16 / int8 caches and paged bf16 / e4m3 pools) at
+    GPT-OSS-20B's layer-0 shapes (B=8, 64 / 8 heads of 64, capacity 2048),
+    a windowed layer (128) and a global one, NaN past every length (e4m3:
+    the NaN bytes, int8: zeros with NaN scales), paged over shuffled pages
+    of 128 with NaN in every position no row owns. Each (out, lse) against
+    its plain version at KERNEL_TOL, with its two controls
+    (``lse_controls``); each kernel timed with and without the lse, each
+    bound counting the attended positions only (and the lse's 4 bytes a
+    row), beside SDPA over the gathered, dequantized cache with the band
+    as a mask."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+    from leetcuda_tpu_torch.attention import decode as dec
+    from leetcuda_tpu_torch.attention import paged as pg
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    dev, bf = rec.dev, torch.bfloat16
+    H, Hkv, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LSE_S
+    W = cfg.sliding_window
+    windows = {"local": W, "global": None}
+    qdts = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
+    DEC = "leetcuda_tpu_torch/csrc/decode_attn.cu"
+
+    # decode and paged: B=8 rows of LSE_DECODE_LENS
+    lens_np = LSE_DECODE_LENS
+    B = len(lens_np)
+    lengths = torch.from_numpy(lens_np).to(dev)
+    cols = torch.arange(S, device=dev)[None, :]
+    past = (cols >= lengths[:, None])[:, None, :].expand(B, Hkv, S)
+    q = rec.randn(B, H, D)
+    kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+    caches = {None: ([kc, vc], [float("nan")] * 2, kc, vc)}
+    for fmt, qdt in qdts.items():
+        kq, ks = _quantize_token_kv(kc, qdt)
+        vq, vs = _quantize_token_kv(vc, qdt)
+        kd, vd = ((x.float() * s[..., None]).to(bf) for x, s in ((kq, ks),
+                                                                 (vq, vs)))
+        kbyte, vbyte = (0x7F, 0xFF) if fmt == "fp8" else (0, 0)
+        ks[past], vs[past] = float("nan"), float("nan")
+        as_bytes(kq)[past], as_bytes(vq)[past] = kbyte, vbyte
+        caches[fmt] = ([kq, vq, ks, vs], [kbyte, vbyte, float("nan"),
+                                          float("nan")], kd, vd)
+    kc[past], vc[past] = float("nan"), float("nan")
+    P = S // PAGE
+    n_pages = -(-lens_np // PAGE)
+    table, owned = shuffled_table(rec.rng, n_pages, P, dev)
+    for layer, w in windows.items():
+        m = cols < lengths[:, None]
+        if w:
+            m = m & (cols >= lengths[:, None] - w)
+        n_att = int(m.sum())
+        mask = m[:, None, None, :]
+        for fmt, (tensors, fills, kd, vd) in caches.items():
+            kd, vd = torch.nan_to_num(kd), torch.nan_to_num(vd)
+            elt_bytes = (2.0 * 2 * Hkv * n_att * D if fmt is None else
+                         2.0 * Hkv * n_att * D + 8.0 * Hkv * n_att)
+            nbytes = elt_bytes + 2.0 * 2 * B * H * D + 4 * B
+            kw = {"window": w} if w else {}
+            for paged in (False, True):
+                if paged:
+                    args = (q, *[to_pool(t, PAGE, table, owned, f)
+                                 for t, f in zip(tensors, fills)], table,
+                            lengths)
+                    fn, plain = ((pg.paged_attention,
+                                  pg.paged_attention_plain) if fmt is None
+                                 else (pg.paged_attention_quantized,
+                                       pg.paged_attention_quantized_plain))
+                    band = int((-(-lens_np // PAGE) - (np.maximum(
+                        lens_np - w, 0) // PAGE if w else 0)).sum())
+                    extra = 4.0 * band
+                    replaces = "leetcuda_tpu/attention/paged.py:232"
+                else:
+                    args = (q, *tensors, lengths)
+                    fn, plain = ((dec.decode_attention,
+                                  dec.decode_attention_plain) if fmt is None
+                                 else (dec.decode_attention_quantized,
+                                       dec.decode_attention_quantized_plain))
+                    extra = 0.0
+                    replaces = ("leetcuda_tpu/attention/decode.py:"
+                                + ("223" if fmt is None else "308"))
+                name = fn.__name__ + "_lse"
+                check = (f"(p) {name}/{fmt or 'bf16'} {layer} B={B} S={S}"
+                         + (f" page{PAGE}" if paged else ""))
+                lse_case(rec, flush, check, name, DEC, replaces, fn, plain,
+                         args, kw, 4.0 * H * D * n_att, nbytes + extra,
+                         4.0 * B * H,
+                         lambda kd=kd, vd=vd, mask=mask: sdpa(
+                             q[:, :, None], kd, vd, attn_mask=mask))
+                rec.rows[check]["lengths"] = lens_np.tolist()
+    del caches, kc, vc, q
+
+    # chunk: T=4 (verify) and T=512 (chunked prefill), the four entry points
+    for T, bases_np in LSE_CHUNK_BASES.items():
+        B = len(bases_np)
+        base = torch.from_numpy(bases_np).to(dev)
+        end_np = np.minimum(bases_np + T, S)
+        ccols = torch.arange(S, device=dev)
+        past = (ccols[None, :] >= torch.from_numpy(end_np).to(dev)[:, None])
+        past = past[:, None, :].expand(B, Hkv, S)
+        q = rec.randn(B, H, T, D)
+        kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+        lay = {}
+        for fmt, paged in ((None, False), ("int8", False), (None, True),
+                           ("fp8", True)):
+            if fmt is None:
+                k_, v_ = kc.clone(), vc.clone()
+                k_[past], v_[past] = float("nan"), float("nan")
+                tensors, fills, kd, vd = [k_, v_], [float("nan")] * 2, kc, vc
+            else:
+                kq, ks = _quantize_token_kv(kc, qdts[fmt])
+                vq, vs = _quantize_token_kv(vc, qdts[fmt])
+                kd, vd = ((x.float() * s_[..., None]).to(bf)
+                          for x, s_ in ((kq, ks), (vq, vs)))
+                kbyte, vbyte = (0x7F, 0xFF) if fmt == "fp8" else (0, 0)
+                ks[past], vs[past] = float("nan"), float("nan")
+                as_bytes(kq)[past], as_bytes(vq)[past] = kbyte, vbyte
+                tensors = [kq, vq, ks, vs]
+                fills = [kbyte, vbyte, float("nan"), float("nan")]
+            tbl_bytes = 0.0
+            if paged:
+                n_pages = -(-end_np // PAGE)
+                table, owned = shuffled_table(rec.rng, n_pages, S // PAGE,
+                                              dev)
+                tensors = [to_pool(t, PAGE, table, owned, f)
+                           for t, f in zip(tensors, fills)] + [table]
+                tbl_bytes = 4.0 * int(n_pages.sum())
+            lay[(fmt, paged)] = ((q, *tensors, base), kd, vd, tbl_bytes)
+        for layer, w in windows.items():
+            limit = np.minimum(bases_np[:, None] + np.arange(T)[None, :] + 1,
+                               S)
+            low = (np.zeros_like(limit) if w is None else np.maximum(
+                bases_np[:, None] + np.arange(T)[None, :] + 1 - w, 0))
+            pairs = int(np.maximum(limit - low, 0).sum())
+            n_pos = int((end_np - low[:, 0]).sum())
+            lim_t = base[:, None] + torch.arange(T, device=dev)[None, :] + 1
+            mask = ccols[None, None, :] < lim_t[:, :, None]
+            if w:
+                mask &= ccols[None, None, :] >= lim_t[:, :, None] - w
+            mask = mask[:, None]
+            kw = {"window": w} if w else {}
+            for (fmt, paged), (args, kd, vd, tbl_bytes) in lay.items():
+                fn, plain = {
+                    (False, False): (ck.chunk_attention,
+                                     ck.chunk_attention_plain),
+                    (True, False): (ck.chunk_attention_quantized,
+                                    ck.chunk_attention_quantized_plain),
+                    (False, True): (ck.paged_chunk_attention,
+                                    ck.paged_chunk_attention_plain),
+                    (True, True): (ck.paged_chunk_attention_quantized,
+                                   ck.paged_chunk_attention_quantized_plain),
+                }[(fmt is not None, paged)]
+                elt = 2 if fmt is None else 1
+                nbytes = (2.0 * Hkv * n_pos * D * elt
+                          + (8.0 * Hkv * n_pos if fmt else 0.0)
+                          + 2 * 2.0 * B * H * T * D + 4 * B + tbl_bytes)
+                name = fn.__name__ + "_lse"
+                check = (f"(p) {name}/T={T} {fmt or 'bf16'} {layer}"
+                         + (f" page{PAGE}" if paged else ""))
+                kd0, vd0 = torch.nan_to_num(kd), torch.nan_to_num(vd)
+                lse_case(rec, flush, check, name, CHUNK_SRC,
+                         "leetcuda_tpu/attention/chunk.py:"
+                         + ("287" if paged else "207"), fn, plain, args, kw,
+                         4.0 * H * D * pairs, nbytes, 4.0 * B * H * T,
+                         lambda kd0=kd0, vd0=vd0, mask=mask: sdpa(
+                             q, kd0, vd0, attn_mask=mask))
+                rec.rows[check].update(T=T, bases=bases_np.tolist())
+        del lay, kc, vc, q
+
+
+def gptoss_params(cfg, seed, dev):
+    """GPT-OSS's weights from a seed on ``dev``: ``init_params`` (attention,
+    norms, the sinks, the embedding; its dense MLP dropped), then what the
+    JAX loader lays out beside them (loader.py:282-313): q/k/v/o biases,
+    ``moe_oss`` (router (D, E) and its bias in f32; w_gate_up (E, D, 2F)
+    with gate and up interleaved, w_down (E, F, D) and their biases) and
+    the untied head, each drawn one layer at a time."""
+    from leetcuda_tpu_torch.models.llama import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(gen, cfg, device=dev)
+    D, H, Hkv, Dh = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    E, F_ = GPTOSS_EXPERTS, cfg.ffn_dim
+
+    def draw(shape, scale, dtype=cfg.dtype):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=gen.device) * scale).to(dev, dtype)
+
+    for layer in params["layers"]:
+        for key in ("w_gate", "w_up", "w_down"):
+            del layer[key]
+        layer.update(bq=draw((H * Dh,), GPTOSS_BIAS),
+                     bk=draw((Hkv * Dh,), GPTOSS_BIAS),
+                     bv=draw((Hkv * Dh,), GPTOSS_BIAS),
+                     bo=draw((D,), GPTOSS_BIAS))
+        layer["moe_oss"] = {
+            "router_w": draw((D, E), D ** -0.5, torch.float32),
+            "router_b": draw((E,), GPTOSS_BIAS, torch.float32),
+            "w_gate_up": draw((E, D, 2 * F_), D ** -0.5),
+            "b_gate_up": draw((E, 2 * F_), GPTOSS_BIAS),
+            "w_down": draw((E, F_, D), F_ ** -0.5),
+            "b_down": draw((E, D), GPTOSS_BIAS)}
+    params["lm_head"] = draw((cfg.vocab_size, D), D ** -0.5)
+    return params
+
+
+def margin_router(params, seed):
+    """Give every layer's router margins, IN PLACE: distinct biases
+    GPTOSS_ROUTER_GAP apart in a per-layer random order, and the router
+    matrix scaled by GPTOSS_ROUTER_SCALE. The top-4 set then no longer
+    flips on roundoff; the four weights still softmax the selected logits."""
+    gen = torch.Generator().manual_seed(seed)
+    for layer in params["layers"]:
+        moe = layer["moe_oss"]
+        E = moe["router_b"].shape[0]
+        rank = torch.randperm(E, generator=gen).float()
+        moe["router_b"].copy_(rank * GPTOSS_ROUTER_GAP)
+        moe["router_w"].mul_(GPTOSS_ROUTER_SCALE)
+
+
+def prefill_roundoff_control(params, cfg, toks, chunk=512):
+    """Two solo replays of ``toks`` (1, N) that differ only in roundoff:
+    ``forward`` (the flash kernel, one call) and ``decode_chunk`` in chunks
+    of ``chunk`` (the chunk kernel, other GEMM shapes). Their largest
+    |logit difference|, top-1 agreement and worst gap (the chunk replay's
+    max logit over its logit of the forward's argmax): the floor under the
+    teacher-forced gaps of a model whose served and replayed tokens took
+    those two paths."""
+    from leetcuda_tpu_torch.engine.speculative import decode_chunk
+    from leetcuda_tpu_torch.models.llama import forward, init_kv_caches
+
+    dev, N = toks.device, toks.shape[1]
+    a = forward(params, toks, cfg)[0]
+    caches = init_kv_caches(cfg, 1, N + (-N % chunk), device=dev)
+    b = torch.cat([decode_chunk(
+        params, toks[:, base:base + chunk], caches,
+        torch.tensor([base], dtype=torch.int32, device=dev), cfg)[0]
+        for base in range(0, N, chunk)], 1)[0]
+    top = a.argmax(-1)
+    return {"max_abs_dlogit": float((a - b).abs().max()),
+            "top1": float((top == b.argmax(-1)).float().mean()),
+            "worst_gap": float((b.max(-1).values
+                                - b.gather(1, top[:, None])[:, 0]).max())}
+
+
+def serve_gptoss(params, cfg, prompts, qpaged, ragged, gprompts, qprompts):
+    """Path (p)'s serving: the paged Engine with chunked prefill over
+    ``prompts`` (bf16 pools) and ``qpaged`` (int8 pools); a contiguous
+    Engine admitting ``ragged`` in one ragged batch; ``generate`` over
+    ``gprompts`` (bf16 cache) and ``qprompts`` (int8 KV). Returns timings
+    and the served streams."""
+    from leetcuda_tpu_torch.engine import Engine, EngineConfig
+
+    dev = params["embed"].device
+    runs = {}
+    for kvq, reqs, new in ((None, prompts, GPTOSS_NEW),
+                           ("int8", qpaged, GPTOSS_RAGGED_NEW)):
+        eng = Engine(params, cfg, EngineConfig(
+            slots=GPTOSS_SLOTS, max_seq=GPTOSS_MAX_SEQ, prefill_bucket=128,
+            paged=True, page_size=PAGE, prefill_chunk=GPTOSS_CHUNK,
+            kv_quant=kvq), device=dev)
+        t0 = time.perf_counter()
+        uids = [eng.submit(p, new) for p in reqs]
+        ticks = 0
+        while eng.waiting or eng.active or eng.filling:
+            eng.step()
+            ticks += 1
+        sync(dev)
+        if eng.recoveries or eng.preemptions:
+            raise AssertionError(f"path p: {eng.recoveries} recoveries, "
+                                 f"{eng.preemptions} preemptions")
+        runs[kvq] = (time.perf_counter() - t0, ticks,
+                     [eng.finished[u].generated for u in uids],
+                     eng.kv_memory_report()["target_bytes"])
+        del eng
+        torch.cuda.empty_cache()
+    t_batch, ticks, served, kv_bytes = runs[None]
+    qserved = runs["int8"][2]
+
+    t1 = time.perf_counter()
+    reng = Engine(params, cfg, EngineConfig(
+        slots=len(ragged), max_seq=GPTOSS_MAX_SEQ, prefill_bucket=128),
+        device=dev)
+    rserved = list(reng.run(ragged, GPTOSS_RAGGED_NEW).values())
+    sync(dev)
+    t_ragged = time.perf_counter() - t1
+    del reng
+    torch.cuda.empty_cache()
+
+    gen_, gtoks = serve_generate(params, cfg, gprompts, GPTOSS_GEN_NEW)
+    qgen, qtoks = serve_generate(params, cfg, qprompts, GPTOSS_GEN_NEW,
+                                 kv_quant="int8")
+    for toks, n in zip(served + qserved + rserved,
+                       [GPTOSS_NEW] * len(prompts)
+                       + [GPTOSS_RAGGED_NEW] * (len(qpaged) + len(ragged))):
+        if len(toks) != n or not all(0 <= x < cfg.vocab_size for x in toks):
+            raise AssertionError(f"path p: a request answered {toks}")
+    return ({"engine_batch_s": t_batch, "engine_ticks": ticks,
+             "engine_tok_s": len(prompts) * GPTOSS_NEW / t_batch,
+             "int8_pools_engine_s": runs["int8"][0],
+             "ragged_engine_s": t_ragged, "kv_bytes": kv_bytes, **gen_,
+             "int8_generate_s": qgen["generate_s"],
+             "int8_generate_tok_s": qgen["generate_tok_s"]},
+            served, qserved, rserved, gtoks, qtoks)
+
+
+def serve_gptoss_speculative(params, cfg, gprompts, prompts):
+    """Path (p)'s speculative part, spec_k 3, with the model's first
+    GPTOSS_DRAFT layers (the same tensors) as the draft:
+    ``speculative_generate`` over ``gprompts`` (bf16 caches: the verify
+    runs the contiguous chunk kernel) and the speculative Engine over an
+    int8 contiguous cache serving ``prompts`` (the quantized one). Returns
+    timings and the served streams."""
+    from leetcuda_tpu_torch.engine import Engine, EngineConfig
+    from leetcuda_tpu_torch.engine.speculative import speculative_generate
+
+    dev = params["embed"].device
+    dcfg = dataclasses.replace(cfg, n_layers=GPTOSS_DRAFT)
+    draft = {**params, "layers": params["layers"][:GPTOSS_DRAFT]}
+    t0 = time.perf_counter()
+    gtoks, rate = speculative_generate(params, cfg, draft, dcfg, gprompts,
+                                       GPTOSS_SPEC_NEW, k=SPEC_K, device=dev)
+    sync(dev)
+    t_gen = time.perf_counter() - t0
+    eng = Engine(params, cfg, EngineConfig(
+        slots=len(prompts), max_seq=GPTOSS_MAX_SEQ, prefill_bucket=128,
+        kv_quant="int8", spec_k=SPEC_K), draft=(draft, dcfg), device=dev)
+    t1 = time.perf_counter()
+    served = list(eng.run(prompts, GPTOSS_SPEC_NEW).values())
+    sync(dev)
+    res = {"generate_s": t_gen, "generate_acceptance_rate": rate,
+           "engine_s": time.perf_counter() - t1,
+           "engine_acceptance_rate": eng.acceptance_rate}
+    for toks in served + gtoks.tolist():
+        if len(toks) != GPTOSS_SPEC_NEW or not all(
+                0 <= x < cfg.vocab_size for x in toks):
+            raise AssertionError(f"path p: a speculative stream {toks}")
+    return res, gtoks, served
+
+
+def combine_ms(params, cfg, flush, batch):
+    """Device ms of the dense expert combine (``_gptoss_moe``) of one
+    B=``batch`` decode step: each layer's call on a (batch, 1, D) input,
+    timed alone with CUDA events, summed over the layers."""
+    from leetcuda_tpu_torch.models.llama import _gptoss_moe
+
+    h = torch.randn((batch, 1, cfg.dim), generator=torch.Generator(
+        device=params["embed"].device).manual_seed(0),
+        device=params["embed"].device).to(cfg.dtype)
+    return sum(time_ms(lambda moe=layer["moe_oss"]: _gptoss_moe(h, moe, cfg),
+                       flush, iters=5, warmup=1)
+               for layer in params["layers"])
+
+
+def gptoss_path(dev="cuda"):
+    """Path (p): GPT-OSS-20B (24 layers, 64 / 8 heads of 64, sinks, a
+    128-token window on the even layers, 32 experts of 2880 with 4 active,
+    vocab 201088, bf16). Phase 3's ``with_lse`` checks at its layer-0
+    shapes first (``check_lse``); then the weights, built on the card from
+    a seed (``gptoss_params``); the paged Engine with chunked prefill, a
+    ragged admission and ``generate`` over bf16 and int8 caches
+    (``serve_gptoss``) with the launch counts zeroed just before and read
+    just after: exactly one attention launch per layer per forward, ragged
+    forward, chunk and decode step, every one with the lse, half of them
+    windowed; served tok/s under the weight-read ceiling (the dense combine
+    reads every expert); every served token teacher-forced against a solo
+    replay (phase 5) beside the roundoff control; the logits of one prompt
+    with and without the sinks; one B=8 decode step at context 1024
+    profiled, with the dense combine's device ms (phase 6). Returns (rows
+    for the kernels line, the path's report).
+
+    The served router has margins (``margin_router``). As drawn, the
+    router's 4th and 5th logits of a token often lie within bf16 roundoff
+    of each other; the served and the replayed paths then pick different
+    experts, and since the 4th expert's weight is a softmax over four
+    logits, not a small tail, the output jumps: two replays that differ
+    only in roundoff (``prefill_roundoff_control``) disagree on the argmax
+    and no teacher-forced check can tell a fault from roundoff (on an
+    H100 80GB HBM3 at 700 W, with 2 layers, served tokens landed up to
+    1.23 below the replay's max). The control runs at both routers and is reported."""
+    from leetcuda_tpu_torch.engine import generate
+    from leetcuda_tpu_torch.models.llama import (forward, gpt_oss_20b_config,
+                                                 named_leaves)
+
+    cfg = gpt_oss_20b_config()
+    res = {"model": "GPT-OSS-20B",
+           "config": {k: (str(v) if isinstance(v, torch.dtype) else v)
+                      for k, v in dataclasses.asdict(cfg).items()}}
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rec = Recorder(dev)
+    check_lse(rec, flush, cfg)
+    torch.cuda.empty_cache()
+    res["phase3_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    params = gptoss_params(cfg, GPTOSS_SEED, dev)
+    sync(params["embed"].device)
+    res.update(init_s=time.perf_counter() - t1,
+               weight_bytes=param_bytes(params),
+               n_params=sum(p.numel() for _, p in named_leaves(params)),
+               expert_params=sum(v.numel() for layer in params["layers"]
+                                 for k, v in layer["moe_oss"].items()
+                                 if k.startswith(("w_", "b_"))))
+    # a step reads every weight once (the dense combine reads every expert)
+    res["tok_s_ceiling"] = GPTOSS_SLOTS / (res["weight_bytes"]
+                                           / HBM_BYTES_PER_S)
+    res["generate_tok_s_ceiling"] = GPTOSS_GEN_B / (res["weight_bytes"]
+                                                    / HBM_BYTES_PER_S)
+
+    rng = np.random.default_rng(GPTOSS_SEED + 1)
+    V = cfg.vocab_size
+    control = torch.from_numpy(rng.integers(0, V, (1, 1024)).astype(
+        np.int32)).to(dev)
+    prompts = [rng.integers(0, V, n).tolist() for n in GPTOSS_PLENS]
+    qpaged = [rng.integers(0, V, n).tolist() for n in GPTOSS_QPAGED]
+    ragged = [rng.integers(0, V, n).tolist() for n in GPTOSS_RAGGED]
+    gprompts = torch.from_numpy(rng.integers(
+        0, V, (GPTOSS_GEN_B, GPTOSS_GEN_S)).astype(np.int32)).to(dev)
+    qprompts = gprompts[:GPTOSS_Q_B]
+    with torch.no_grad():
+        res["roundoff_control"] = {"router as drawn": prefill_roundoff_control(
+            params, cfg, control)}
+        margin_router(params, GPTOSS_SEED + 2)
+        res["roundoff_control"]["router with margins"] = (
+            prefill_roundoff_control(params, cfg, control))
+    generate(params, cfg, gprompts[:1, :16], 2, device=dev)  # warm-up
+    calls, kinds = {}, {}
+
+    def serve():
+        with model_calls(calls), attention_windows(kinds):
+            return serve_gptoss(params, cfg, prompts, qpaged, ragged,
+                                gprompts, qprompts)
+
+    (out, served, qserved, rserved, gtoks, qtoks), counts, peak = drive(
+        "p", serve)
+    res.update(out, launches=counts, model_calls=calls,
+               attention_calls=kinds, peak_extra_bytes=peak,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    n_calls = sum(calls.values())
+    attn = sum(counts.get(n, 0) for n in ATTN_COUNTERS)
+    with_lse = sum(counts.get(n, 0) for n in LSE_COUNTERS)
+    if attn != cfg.n_layers * n_calls or with_lse != attn or any(
+            counts.get(n, 0) % cfg.n_layers for n in ATTN_COUNTERS):
+        raise AssertionError(f"path p: {attn} attention launches ({with_lse} "
+                             f"with the lse) for {calls}, not one with the "
+                             f"lse per layer per call "
+                             f"({cfg.n_layers * n_calls}): {counts}")
+    half = cfg.n_layers // 2 * n_calls
+    if kinds != {"local": half, "global": half}:
+        raise AssertionError(f"path p: attention calls by layer {kinds}, "
+                             f"not {half} windowed and {half} global")
+    for what, ceiling in (("engine_tok_s", "tok_s_ceiling"),
+                          ("generate_tok_s", "generate_tok_s_ceiling")):
+        if res[what] > res[ceiling]:
+            raise AssertionError(f"path p: {what} {res[what]:.1f} exceeds "
+                                 f"its ceiling {res[ceiling]:.1f}")
+    # the speculative part: the draft's calls have 2 layers, so its counts
+    # are held apart, every attention launch with the lse
+    (spec, stoks, sserved), scounts, _ = drive(
+        "p2", lambda: serve_gptoss_speculative(params, cfg,
+                                               gprompts[:GPTOSS_SPEC_B],
+                                               ragged))
+    if sum(scounts.get(n, 0) for n in ATTN_COUNTERS) != sum(
+            scounts.get(n, 0) for n in LSE_COUNTERS):
+        raise AssertionError(f"path p: a speculative attention launch "
+                             f"without the lse: {scounts}")
+    res["speculative"] = {**spec, "launches": scounts}
+
+    # phase 5: every served stream against a solo replay; the int8 streams
+    # over an int8 cache (a B=1 forward, then decode steps)
+    t5 = time.perf_counter()
+    gaps = {}
+    with torch.no_grad():
+        for i, (p, toks) in enumerate(zip(prompts, served)):
+            gaps[f"engine/{i}"] = chunk_replay_gap(params, cfg, p, toks)
+        for i, (p, toks) in enumerate(zip(ragged, rserved)):
+            gaps[f"ragged/{i}"] = chunk_replay_gap(params, cfg, p, toks)
+        for b, toks in enumerate(gtoks.tolist()):
+            gaps[f"generate/{b}"] = chunk_replay_gap(
+                params, cfg, gprompts[b].tolist(), toks)
+        for b, toks in enumerate(qtoks.tolist()):
+            gaps[f"int8/{b}"] = replay_gap(params, cfg, qprompts[b].tolist(),
+                                           toks, "int8")
+        for i, (p, toks) in enumerate(zip(qpaged, qserved)):
+            gaps[f"int8 pools/{i}"] = replay_gap(params, cfg, p, toks, "int8")
+        for b, toks in enumerate(stoks.tolist()):
+            gaps[f"speculative/{b}"] = chunk_replay_gap(
+                params, cfg, gprompts[b].tolist(), toks)
+        for i, (p, toks) in enumerate(zip(ragged, sserved)):
+            gaps[f"speculative int8/{i}"] = replay_gap(params, cfg, p, toks,
+                                                       "int8")
+        res["teacher_forced"] = {"tol": LOGIT_TOL,
+                                 "worst": max(gaps.values()), "gaps": gaps,
+                                 "seconds": time.perf_counter() - t5}
+        # the sinks must bite: the same prompt without them
+        lg = forward(params, control[:, :256], cfg)
+        nosink = {**params, "layers": [
+            {k: v for k, v in layer.items() if k != "sinks"}
+            for layer in params["layers"]]}
+        res["sinks_dlogit"] = float(
+            (forward(nosink, control[:, :256], cfg) - lg).abs().max())
+        del lg, nosink
+    if res["teacher_forced"]["worst"] > LOGIT_TOL:
+        raise AssertionError(f"path p: served tokens off the solo replay: "
+                             f"{gaps}")
+    if res["sinks_dlogit"] <= LOGIT_TOL:
+        raise AssertionError(f"path p: removing the sinks moves the logits "
+                             f"by only {res['sinks_dlogit']}")
+    res["phase5_s"] = time.perf_counter() - t5
+
+    # phase 6: one B=8 decode step at context 1024, and the dense combine
+    res["profile"] = profile_decode(
+        params, cfg, batch=8, context=1024,
+        classes={"attention": ("decode_attn",),
+                 "matmul": ("gemm", "sm90", "nvjet", "cutlass", "cublas")})
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    res["combine_ms_per_step"] = combine_ms(params, cfg, flush, 8)
+    return rec.rows, res
+
+
+def print_gptoss(rows, res):
+    c = res["config"]
+    for r in rows.values():
+        print(f"kernel {r['check']}: lse max_abs_err {r['max_abs_err']:.3g} "
+              f"out {r['out_max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
+              f"(without the lse {r['ms_without_lse']:.4f}) plain "
+              f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); controls "
+              f"{r['lse_controls']}", flush=True)
+    print(f"path (p) {res['model']} ({c['n_layers']} layers, "
+          f"{res['n_params'] / 1e9:.2f}B params, "
+          f"{res['expert_params'] / 1e9:.2f}B in experts, sinks, window "
+          f"{c['sliding_window']} on even layers, bf16, random weights built "
+          f"in {res['init_s']:.1f} s): paged Engine, prefill_chunk "
+          f"{GPTOSS_CHUNK}, {len(GPTOSS_PLENS)} requests (prompts "
+          f"{list(GPTOSS_PLENS)}) x {GPTOSS_NEW} tokens in "
+          f"{res['engine_batch_s']:.3f} s = {res['engine_tok_s']:.2f} tok/s "
+          f"({res['engine_ticks']} ticks; ceiling "
+          f"{res['tok_s_ceiling']:.2f}); ragged admission "
+          f"{list(GPTOSS_RAGGED)} x {GPTOSS_RAGGED_NEW}: "
+          f"{res['ragged_engine_s']:.3f} s; generate B={GPTOSS_GEN_B} "
+          f"S={GPTOSS_GEN_S} x {GPTOSS_GEN_NEW}: {res['generate_s']:.3f} s = "
+          f"{res['generate_tok_s']:.2f} tok/s (ceiling "
+          f"{res['generate_tok_s_ceiling']:.2f}); int8 KV B={GPTOSS_Q_B}: "
+          f"{res['int8_generate_s']:.3f} s = "
+          f"{res['int8_generate_tok_s']:.2f} tok/s; paged Engine over int8 "
+          f"pools {list(GPTOSS_QPAGED)} x {GPTOSS_RAGGED_NEW}: "
+          f"{res['int8_pools_engine_s']:.3f} s; params "
+          f"{res['weight_bytes'] / 2**30:.2f} GiB, pool "
+          f"{res['kv_bytes'] / 2**30:.2f} GiB, peak device memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"  model calls {res['model_calls']}; attention calls by layer "
+          f"{res['attention_calls']}; launches: {res['launches']}")
+    sp = res["speculative"]
+    print(f"  speculative, spec_k {SPEC_K}, a {GPTOSS_DRAFT}-layer draft: "
+          f"speculative_generate B={GPTOSS_SPEC_B} x {GPTOSS_SPEC_NEW} in "
+          f"{sp['generate_s']:.3f} s (acceptance "
+          f"{sp['generate_acceptance_rate']:.3f}); Engine over int8 "
+          f"{list(GPTOSS_RAGGED)} x {GPTOSS_SPEC_NEW} in {sp['engine_s']:.3f} "
+          f"s (acceptance {sp['engine_acceptance_rate']:.3f}); launches "
+          f"{ {k: v for k, v in sp['launches'].items() if v} }")
+    tf = res["teacher_forced"]
+    print(f"  teacher-forced: worst gap {tf['worst']:.4f} (tol {tf['tol']}) "
+          f"over {len(tf['gaps'])} streams in {tf['seconds']:.1f} s; "
+          f"roundoff control (forward against decode_chunk, 1024 tokens): "
+          f"{res['roundoff_control']}; without the sinks the logits move by "
+          f"{res['sinks_dlogit']:.4f}")
+    prof = res["profile"]
+    print_profile("(p) GPT-OSS-20B, contiguous bf16 cache", prof)
+    dev_ms = prof["device_ms_per_step"]
+    print(f"  dense combine {res['combine_ms_per_step']:.3f} ms a step "
+          f"(timed alone) of {dev_ms:.3f} device ms; device ms by class "
+          f"{prof['device_ms_by_class']}", flush=True)
 
 
 def drive(path, fn):
@@ -4545,6 +5278,13 @@ def main() -> int:
     print_gemma(orows, ores)
     phase_done("gemma", o=ores, o_checks=orows)
 
+    # path (p) next, on the card emptied again: GPT-OSS-20B's weights take
+    # 41.8 GB, and each layer's dense combine 3.2 GB of f32 experts
+    prows, pres = gptoss_path()
+    torch.cuda.empty_cache()
+    print_gptoss(prows, pres)
+    phase_done("gptoss", p=pres, p_checks=prows)
+
     # the full-width model, its quantized params and the paths' requests
     cfg = ModelConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4600,6 +5340,7 @@ def main() -> int:
               flush=True)
     checks.update(nrows)
     checks.update(orows)
+    checks.update(prows)
     report["kernel_checks"] = checks
     phase_done("kernel_checks")
     del flush
@@ -4663,7 +5404,8 @@ def main() -> int:
           f"activations at peak {peak / 2**30:.2f} GiB", flush=True)
     print(f"  launches: {counts}")
     report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres,
-                       "m": mres, "n": nres, "o": ores}
+                       "m": mres, "n": nres, "o": ores, "p": pres,
+                       "p2": pres["speculative"]}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():

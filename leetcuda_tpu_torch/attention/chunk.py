@@ -22,7 +22,10 @@ and raise on what it does not take; on CPU tensors they run the plain
 PyTorch versions below. The TPU factories' ``block_k`` is DMA tiling and has
 no counterpart. ``softcap`` caps each score (after a quantized cache's scale
 fold) with ``cap * tanh(s / cap)`` before the mask; None or 0 means none.
-``with_lse`` is not ported yet and raises.
+``with_lse`` also returns each query row's log-sum-exp (B, H, T) f32 in
+natural units over the columns it attends (-1e30 for a row that attends
+none, whose output is zeros); a launch with it counts on the entry point's
+``..._lse`` counter.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import math
 
 import torch
 
+from leetcuda_tpu_torch.attention.decode import _outputs
 from leetcuda_tpu_torch.attention.flash import attn_options, cap_scores
 from leetcuda_tpu_torch.attention.paged import _gather
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
@@ -42,35 +46,41 @@ CHUNK = LaunchCounter("chunk_attention")
 CHUNK_Q = LaunchCounter("chunk_attention_quantized")
 PAGED_CHUNK = LaunchCounter("paged_chunk_attention")
 PAGED_CHUNK_Q = LaunchCounter("paged_chunk_attention_quantized")
-# lc_chunk_attn_bf16(q, k, v, base, out, B, H, Hkv, T, S, D, window, softcap,
-#                    scale, stream)
-_CHUNK_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
+CHUNK_LSE = LaunchCounter("chunk_attention_lse")
+CHUNK_Q_LSE = LaunchCounter("chunk_attention_quantized_lse")
+PAGED_CHUNK_LSE = LaunchCounter("paged_chunk_attention_lse")
+PAGED_CHUNK_Q_LSE = LaunchCounter("paged_chunk_attention_quantized_lse")
+# lc_chunk_attn_bf16(q, k, v, base, out, lse, B, H, Hkv, T, S, D, window,
+#                    softcap, scale, stream)
+_CHUNK_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
                + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
-# lc_chunk_attn_q(q, k, v, k_scale, v_scale, base, out, B, H, Hkv, T, S, D,
-#                 fp8, window, softcap, scale, stream)
-_CHUNK_Q_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
+# lc_chunk_attn_q(q, k, v, k_scale, v_scale, base, out, lse, B, H, Hkv, T, S,
+#                 D, fp8, window, softcap, scale, stream)
+_CHUNK_Q_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8
                  + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
-# lc_paged_chunk_attn_bf16(q, k_pages, v_pages, page_table, base, out, B, H,
-#                          Hkv, T, P_max, page, D, window, softcap, scale,
+# lc_paged_chunk_attn_bf16(q, k_pages, v_pages, page_table, base, out, lse, B,
+#                          H, Hkv, T, P_max, page, D, window, softcap, scale,
 #                          stream)
-_PAGED_CHUNK_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8
+_PAGED_CHUNK_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
                      + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
 # lc_paged_chunk_attn_q(q, k_pages, v_pages, k_scales, v_scales, page_table,
-#                       base, out, B, H, Hkv, T, P_max, page, D, fp8, window,
-#                       softcap, scale, stream)
-_PAGED_CHUNK_Q_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9
+#                       base, out, lse, B, H, Hkv, T, P_max, page, D, fp8,
+#                       window, softcap, scale, stream)
+_PAGED_CHUNK_Q_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 9
                        + (ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
 
 
 def chunk_attention_plain(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
                           window=None, k_scale=None, v_scale=None,
-                          softcap=None):
+                          softcap=None, with_lse=False):
     """Plain PyTorch version of the kernel: f32 scores and P.V, -1e30 mask,
     divide by max(l, 1e-30). K, V and both scales are zeroed wherever no row
     of the chunk looks, and P outside each row's limits, so NaN at or past
     ``base + T`` cannot reach the result. With scales (a quantized cache):
     scores times k_scale, and l sums p before P.V takes p * v_scale.
-    ``softcap`` caps the scores after the scale fold, before the mask."""
+    ``softcap`` caps the scores after the scale fold, before the mask.
+    ``with_lse``: also (B, H, T) f32 m + log(max(l, 1e-30)), m the masked
+    maximum (-1e30 for a row that attends nothing)."""
     B, H, T, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     group = H // Hkv
@@ -100,53 +110,56 @@ def chunk_attention_plain(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
     if v_scale is not None:
         p = torch.where(keep, p * v_scale.float()[:, :, None, :], zero)
     out = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)
-    return out.reshape(B, H, T, D).to(q.dtype)
+    out = out.reshape(B, H, T, D).to(q.dtype)
+    if with_lse:  # rows (kv head, g, t): flattened (H, T)
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        return out, lse.reshape(B, H, T)
+    return out
 
 
 def chunk_attention_quantized_plain(q, k_q, v_q, k_scale, v_scale,
                                     base_lengths, *, sm_scale=None,
-                                    window=None, softcap=None):
+                                    window=None, softcap=None,
+                                    with_lse=False):
     """Plain PyTorch version over a quantized cache (fp8 upcast with
     ``.float()``: CPU torch has no fp8 matmul)."""
     return chunk_attention_plain(q, k_q, v_q, base_lengths, sm_scale=sm_scale,
                                  window=window, k_scale=k_scale,
-                                 v_scale=v_scale, softcap=softcap)
+                                 v_scale=v_scale, softcap=softcap,
+                                 with_lse=with_lse)
 
 
 def paged_chunk_attention_plain(q, k_pages, v_pages, page_table,
                                 base_lengths, *, sm_scale=None, window=None,
-                                softcap=None):
+                                softcap=None, with_lse=False):
     """Plain PyTorch version over page pools: gather each row's pages through
     the table into a contiguous view, then ``chunk_attention_plain``."""
     return chunk_attention_plain(q, _gather(k_pages, page_table),
                                  _gather(v_pages, page_table), base_lengths,
                                  sm_scale=sm_scale, window=window,
-                                 softcap=softcap)
+                                 softcap=softcap, with_lse=with_lse)
 
 
 def paged_chunk_attention_quantized_plain(q, k_pages, v_pages, k_scales,
                                           v_scales, page_table, base_lengths,
                                           *, sm_scale=None, window=None,
-                                          softcap=None):
+                                          softcap=None, with_lse=False):
     """Plain PyTorch version over quantized pools and their scale pools."""
     return chunk_attention_plain(
         q, _gather(k_pages, page_table), _gather(v_pages, page_table),
         base_lengths, sm_scale=sm_scale, window=window,
         k_scale=_gather(k_scales, page_table),
-        v_scale=_gather(v_scales, page_table), softcap=softcap)
+        v_scale=_gather(v_scales, page_table), softcap=softcap,
+        with_lse=with_lse)
 
 
-def _check(q, k, v, base_lengths, window, softcap, with_lse, page_table=None,
+def _check(q, k, v, base_lengths, window, softcap, page_table=None,
            scales=None):
     """The options, shapes and devices every chunk wrapper checks. ``k`` and
     ``v`` are caches (B, Hkv, S, D) or, with ``page_table``, pools
     (N, Hkv, page, D); ``scales`` the pair of scale tensors of a quantized
     cache. Returns ``window`` and ``softcap`` as the kernels take them
     (``attn_options``)."""
-    if with_lse:
-        raise NotImplementedError(
-            "chunk attention: with_lse is not ported yet (ROADMAP: kernel "
-            "options of decode attention, item 11b2)")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     options = attn_options(window, softcap)
@@ -223,62 +236,70 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _launch(fn, counter, lse_counter, out, lse, ptrs, rest):
+    """Call the C entry point ``fn`` as fn(*ptrs, out, lse or null, *rest)
+    and count the launch on ``lse_counter`` when there is an lse, else on
+    ``counter``."""
+    counter = lse_counter if lse is not None else counter
+    err = fn(*ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(),
+             *rest)
+    check_launch(err, counter.name)
+    counter.add()
+    return out if lse is None else (out, lse)
+
+
 def chunk_attention(q, k_cache, v_cache, base_lengths, *, sm_scale=None,
                     window=None, softcap=None, with_lse=False):
     """chunk_attention(q (B, H, T, D), k_cache, v_cache (B, Hkv, S, D),
-    base_lengths (B,) int32) -> (B, H, T, D)."""
-    window, softcap = _check(
-        q, k_cache, v_cache, base_lengths, window, softcap, with_lse)
+    base_lengths (B,) int32) -> (B, H, T, D), or with ``with_lse``
+    (out, lse (B, H, T) f32)."""
+    window, softcap = _check(q, k_cache, v_cache, base_lengths, window,
+                             softcap)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return chunk_attention_plain(q, k_cache, v_cache, base_lengths,
                                      sm_scale=scale, window=window,
-                                     softcap=softcap)
+                                     softcap=softcap, with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
     _check_kernel_args(q, k_cache, v_cache, base_lengths)
     B, H, T, D = q.shape
     _, Hkv, S, _ = k_cache.shape
-    out = torch.empty_like(q)
     fn = kernel("chunk_attn", "lc_chunk_attn_bf16", _CHUNK_ARGS)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             base_lengths.data_ptr(), out.data_ptr(), B, H, Hkv, T, S, D,
-             window, softcap, float(scale), _stream(q))
-    check_launch(err, CHUNK.name)
-    CHUNK.add()
-    return out
+    return _launch(fn, CHUNK, CHUNK_LSE, *_outputs(q, with_lse),
+                   (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                    base_lengths.data_ptr()),
+                   (B, H, Hkv, T, S, D, window, softcap, float(scale),
+                    _stream(q)))
 
 
 def chunk_attention_quantized(q, k_q, v_q, k_scale, v_scale, base_lengths, *,
                               sm_scale=None, window=None, softcap=None,
                               with_lse=False):
     """Chunk attention over an int8 or float8_e4m3fn cache with f32 scales
-    (B, Hkv, S) -> (B, H, T, D) in q's dtype."""
-    window, softcap = _check(
-        q, k_q, v_q, base_lengths, window, softcap, with_lse,
-        scales=(k_scale, v_scale))
+    (B, Hkv, S) -> (B, H, T, D) in q's dtype, or with ``with_lse`` (out,
+    lse (B, H, T) f32)."""
+    window, softcap = _check(q, k_q, v_q, base_lengths, window, softcap,
+                             scales=(k_scale, v_scale))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return chunk_attention_quantized_plain(
             q, k_q, v_q, k_scale, v_scale, base_lengths, sm_scale=scale,
-            window=window, softcap=softcap)
+            window=window, softcap=softcap, with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
     _check_kernel_args(q, k_q, v_q, base_lengths, scales=(k_scale, v_scale))
     B, H, T, D = q.shape
     _, Hkv, S, _ = k_q.shape
-    out = torch.empty_like(q)
     fn = kernel("chunk_attn", "lc_chunk_attn_q", _CHUNK_Q_ARGS)
-    err = fn(q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
-             k_scale.data_ptr(), v_scale.data_ptr(), base_lengths.data_ptr(),
-             out.data_ptr(), B, H, Hkv, T, S, D,
-             int(k_q.dtype == torch.float8_e4m3fn), window, softcap,
-             float(scale), _stream(q))
-    check_launch(err, CHUNK_Q.name)
-    CHUNK_Q.add()
-    return out
+    return _launch(fn, CHUNK_Q, CHUNK_Q_LSE, *_outputs(q, with_lse),
+                   (q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
+                    k_scale.data_ptr(), v_scale.data_ptr(),
+                    base_lengths.data_ptr()),
+                   (B, H, Hkv, T, S, D, int(k_q.dtype == torch.float8_e4m3fn),
+                    window, softcap, float(scale), _stream(q)))
 
 
 def paged_chunk_attention(q, k_pages, v_pages, page_table, base_lengths, *,
@@ -286,16 +307,16 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, base_lengths, *,
                           with_lse=False):
     """paged_chunk_attention(q (B, H, T, D), k_pages, v_pages
     (N, Hkv, page, D), page_table (B, P_max) int32, base_lengths (B,) int32)
-    -> (B, H, T, D). Only pages that hold a position below ``base + T`` are
-    looked up: table filler and the null page 0 may hold anything."""
-    window, softcap = _check(
-        q, k_pages, v_pages, base_lengths, window, softcap, with_lse,
-        page_table=page_table)
+    -> (B, H, T, D), or with ``with_lse`` (out, lse (B, H, T) f32). Only
+    pages that hold a position below ``base + T`` are looked up: table
+    filler and the null page 0 may hold anything."""
+    window, softcap = _check(q, k_pages, v_pages, base_lengths, window,
+                             softcap, page_table=page_table)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(
             q, k_pages, v_pages, page_table, base_lengths, sm_scale=scale,
-            window=window, softcap=softcap)
+            window=window, softcap=softcap, with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -303,15 +324,12 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, base_lengths, *,
                        page_table=page_table)
     B, H, T, D = q.shape
     _, Hkv, page, _ = k_pages.shape
-    out = torch.empty_like(q)
     fn = kernel("chunk_attn", "lc_paged_chunk_attn_bf16", _PAGED_CHUNK_ARGS)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), base_lengths.data_ptr(), out.data_ptr(),
-             B, H, Hkv, T, page_table.shape[1], page, D, window, softcap,
-             float(scale), _stream(q))
-    check_launch(err, PAGED_CHUNK.name)
-    PAGED_CHUNK.add()
-    return out
+    return _launch(fn, PAGED_CHUNK, PAGED_CHUNK_LSE, *_outputs(q, with_lse),
+                   (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    page_table.data_ptr(), base_lengths.data_ptr()),
+                   (B, H, Hkv, T, page_table.shape[1], page, D, window,
+                    softcap, float(scale), _stream(q)))
 
 
 def paged_chunk_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
@@ -319,15 +337,17 @@ def paged_chunk_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
                                     sm_scale=None, window=None, softcap=None,
                                     with_lse=False):
     """Paged chunk attention over int8 or float8_e4m3fn pools with f32 scale
-    pools (N, Hkv, page) -> (B, H, T, D) in q's dtype."""
-    window, softcap = _check(
-        q, k_pages, v_pages, base_lengths, window, softcap, with_lse,
-        page_table=page_table, scales=(k_scales, v_scales))
+    pools (N, Hkv, page) -> (B, H, T, D) in q's dtype, or with ``with_lse``
+    (out, lse (B, H, T) f32)."""
+    window, softcap = _check(q, k_pages, v_pages, base_lengths, window,
+                             softcap, page_table=page_table,
+                             scales=(k_scales, v_scales))
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return paged_chunk_attention_quantized_plain(
             q, k_pages, v_pages, k_scales, v_scales, page_table,
-            base_lengths, sm_scale=scale, window=window, softcap=softcap)
+            base_lengths, sm_scale=scale, window=window, softcap=softcap,
+            with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -335,14 +355,12 @@ def paged_chunk_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
                        page_table=page_table, scales=(k_scales, v_scales))
     B, H, T, D = q.shape
     _, Hkv, page, _ = k_pages.shape
-    out = torch.empty_like(q)
     fn = kernel("chunk_attn", "lc_paged_chunk_attn_q", _PAGED_CHUNK_Q_ARGS)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
-             base_lengths.data_ptr(), out.data_ptr(), B, H, Hkv, T,
-             page_table.shape[1], page, D,
-             int(k_pages.dtype == torch.float8_e4m3fn), window, softcap,
-             float(scale), _stream(q))
-    check_launch(err, PAGED_CHUNK_Q.name)
-    PAGED_CHUNK_Q.add()
-    return out
+    return _launch(fn, PAGED_CHUNK_Q, PAGED_CHUNK_Q_LSE,
+                   *_outputs(q, with_lse),
+                   (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    k_scales.data_ptr(), v_scales.data_ptr(),
+                    page_table.data_ptr(), base_lengths.data_ptr()),
+                   (B, H, Hkv, T, page_table.shape[1], page, D,
+                    int(k_pages.dtype == torch.float8_e4m3fn), window,
+                    softcap, float(scale), _stream(q)))

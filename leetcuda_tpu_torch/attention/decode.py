@@ -16,8 +16,14 @@ CPU tensors they run the plain PyTorch versions below.
 ``window`` attends only the last ``window`` positions, ``len - window ..
 len - 1`` (the kernel reads nothing before them), and ``softcap`` caps each
 score (after the quantized cache's scale fold) with ``cap * tanh(s / cap)``
-before the mask; None or 0 means neither. ``with_lse`` and ``shared_kv``
-are not ported yet and raise.
+before the mask; None or 0 means neither. ``with_lse`` also returns each
+query row's log-sum-exp (B, H) f32 in natural units, m + log(max(l,
+1e-30)), over the positions the row attends (after the cap): -1e30 for a
+row of length 0, whose output is zeros. It is what an attention sink needs
+(``out * sigmoid(lse - sink)``, models/llama.py). A launch with the lse
+counts on its own counter (``decode_attention_lse``,
+``decode_attention_quantized_lse``). ``shared_kv`` is not ported yet and
+raises (ROADMAP item 11e).
 """
 
 from __future__ import annotations
@@ -34,28 +40,32 @@ _NEG_INF = -1e30
 
 DECODE = LaunchCounter("decode_attention")
 DECODE_Q = LaunchCounter("decode_attention_quantized")
-# lc_decode_attn_bf16(q, k, v, lengths, out, B, H, Hkv, S, D, scale, window,
-#                     softcap, stream)
-_DECODE_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
+DECODE_LSE = LaunchCounter("decode_attention_lse")
+DECODE_Q_LSE = LaunchCounter("decode_attention_quantized_lse")
+# lc_decode_attn_bf16(q, k, v, lengths, out, lse, B, H, Hkv, S, D, scale,
+#                     window, softcap, stream)
+_DECODE_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
                 + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p))
-# lc_decode_attn_q(q, k, v, k_scale, v_scale, lengths, out, B, H, Hkv, S, D,
-#                  fp8, scale, window, softcap, stream)
-_DECODE_Q_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
+# lc_decode_attn_q(q, k, v, k_scale, v_scale, lengths, out, lse, B, H, Hkv,
+#                  S, D, fp8, scale, window, softcap, stream)
+_DECODE_Q_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
                   + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
                      ctypes.c_void_p))
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, sm_scale=None,
                            k_scale=None, v_scale=None, window=None,
-                           softcap=None):
+                           softcap=None, with_lse=False):
     """Plain PyTorch version of the kernels: f32 scores and P.V, -1e30 mask,
     divide by max(l, 1e-30). The positions attended are ``len - window ..
     len - 1`` with a window, else ``0 .. len - 1``; both P and V are zeroed
     outside them, as the TPU kernel zeroes them past the length, so NaN
     there cannot reach the result. With scales (a quantized cache): scores
     times k_scale, and l sums p before P.V takes p * v_scale. ``softcap``
-    caps the scores after the scale fold, before the mask."""
+    caps the scores after the scale fold, before the mask. ``with_lse``:
+    also (B, H) f32 m + log(max(l, 1e-30)), m the masked maximum (-1e30
+    where nothing is attended)."""
     window, softcap = attn_options(window, softcap)
     B, H, D = q.shape
     _, Hkv, S, _ = k_cache.shape
@@ -83,25 +93,26 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, sm_scale=None,
     if v_scale is not None:
         p = torch.where(keep, p * v_scale.float()[:, :, None, :], zero)
     out = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if with_lse:
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        return out, lse.reshape(B, H)
+    return out
 
 
 def decode_attention_quantized_plain(q, k_q, v_q, k_scale, v_scale, lengths,
                                      *, sm_scale=None, window=None,
-                                     softcap=None):
+                                     softcap=None, with_lse=False):
     """Plain PyTorch version of the quantized kernel (fp8 upcast with
     ``.float()``: CPU torch has no fp8 matmul)."""
     return decode_attention_plain(q, k_q, v_q, lengths, sm_scale=sm_scale,
                                   k_scale=k_scale, v_scale=v_scale,
-                                  window=window, softcap=softcap)
+                                  window=window, softcap=softcap,
+                                  with_lse=with_lse)
 
 
-def _check(q, k_cache, v_cache, lengths, with_lse):
-    """The options, shapes and devices every decode wrapper checks."""
-    if with_lse:
-        raise NotImplementedError(
-            "decode attention: with_lse is not ported yet (ROADMAP: kernel "
-            "options of decode attention, item 11b2)")
+def _check(q, k_cache, v_cache, lengths):
+    """The shapes and devices every decode wrapper checks."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"q (B,H,D), caches (B,Hkv,S,D): got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -133,16 +144,25 @@ def _check_kernel_args(q, lengths, tensors):
                          f"{H // Hkv} (1/2/4/8), batch {B} (<= 65535)")
 
 
+def _outputs(q, with_lse):
+    """A kernel's outputs: out like q and, with the lse, one f32 a query
+    row (q's shape without its head dim)."""
+    lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    return torch.empty_like(q), lse
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None,
                      window=None, softcap=None, with_lse=False):
-    """decode_attention(q, k_cache, v_cache, lengths) -> (B, H, D)."""
-    _check(q, k_cache, v_cache, lengths, with_lse)
+    """decode_attention(q, k_cache, v_cache, lengths) -> (B, H, D), or
+    with ``with_lse`` (out, lse (B, H) f32)."""
+    _check(q, k_cache, v_cache, lengths)
     window, softcap = attn_options(window, softcap)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       sm_scale=scale, window=window,
-                                      softcap=softcap)
+                                      softcap=softcap, with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -152,27 +172,30 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale=None,
                          f"{k_cache.dtype}, {v_cache.dtype}")
     B, H, D = q.shape
     _, Hkv, S, _ = k_cache.shape
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, with_lse)
+    counter = DECODE_LSE if with_lse else DECODE
     fn = kernel("decode_attn", "lc_decode_attn_bf16", _DECODE_ARGS)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), B, H, Hkv, S, D,
+             lengths.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None, B, H, Hkv, S, D,
              float(scale), window, softcap,
              torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, DECODE.name)
-    DECODE.add()
-    return out
+    check_launch(err, counter.name)
+    counter.add()
+    return (out, lse) if with_lse else out
 
 
 def decode_attention_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
                                sm_scale=None, window=None, softcap=None,
                                with_lse=False, shared_kv=False):
     """Decode attention over an int8 or float8_e4m3fn cache with f32
-    scales (B, Hkv, S_max) -> (B, H, D) in q's dtype."""
+    scales (B, Hkv, S_max) -> (B, H, D) in q's dtype, or with ``with_lse``
+    (out, lse (B, H) f32)."""
     if shared_kv:
         raise NotImplementedError(
             "quantized decode attention: shared_kv (MLA's latent cache) is "
-            "not ported yet (ROADMAP: model families)")
-    _check(q, k_q, v_q, lengths, with_lse)
+            "not ported yet (ROADMAP item 11e)")
+    _check(q, k_q, v_q, lengths)
     window, softcap = attn_options(window, softcap)
     B, Hkv, S, _ = k_q.shape
     if k_scale.shape != (B, Hkv, S) or v_scale.shape != (B, Hkv, S):
@@ -188,7 +211,7 @@ def decode_attention_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
     if q.device.type == "cpu":
         return decode_attention_quantized_plain(
             q, k_q, v_q, k_scale, v_scale, lengths, sm_scale=scale,
-            window=window, softcap=softcap)
+            window=window, softcap=softcap, with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -197,13 +220,15 @@ def decode_attention_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise ValueError("quantized decode kernel takes f32 scales")
     H, D = q.shape[1], q.shape[2]
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, with_lse)
+    counter = DECODE_Q_LSE if with_lse else DECODE_Q
     fn = kernel("decode_attn", "lc_decode_attn_q", _DECODE_Q_ARGS)
     err = fn(q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
              k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), B, H, Hkv, S, D,
-             int(k_q.dtype == torch.float8_e4m3fn), float(scale), window,
-             softcap, torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, DECODE_Q.name)
-    DECODE_Q.add()
-    return out
+             out.data_ptr(), lse.data_ptr() if with_lse else None, B, H, Hkv,
+             S, D, int(k_q.dtype == torch.float8_e4m3fn), float(scale),
+             window, softcap,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(err, counter.name)
+    counter.add()
+    return (out, lse) if with_lse else out

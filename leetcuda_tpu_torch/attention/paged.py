@@ -17,8 +17,10 @@ pages through the table into a contiguous view, then the plain decode
 attention. The TPU kernel's ``pages_per_step`` is DMA tiling and has no
 counterpart. ``window`` and ``softcap`` are decode attention's
 (attention/decode.py): the kernel looks up no page wholly before the window
-and reads no position before it. ``with_lse`` and ``shared_kv`` are not
-ported yet and raise.
+and reads no position before it, and ``with_lse`` its (B, H) f32
+log-sum-exp beside the output (its own counters, ``paged_attention_lse`` and
+``paged_attention_quantized_lse``). ``shared_kv`` is not ported yet and
+raises (ROADMAP item 11e).
 
 ``paged_append`` and ``paged_append_quantized`` write IN PLACE and return
 the pools they were given. ``PageManager`` is the JAX package's allocator,
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from leetcuda_tpu_torch.attention.decode import (
-    _check_kernel_args, decode_attention_plain,
+    _check_kernel_args, _outputs, decode_attention_plain,
     decode_attention_quantized_plain)
 from leetcuda_tpu_torch.attention.flash import attn_options
 from leetcuda_tpu_torch.core.runtime import (LaunchCounter, as_bytes,
@@ -42,15 +44,17 @@ from leetcuda_tpu_torch.core.runtime import (LaunchCounter, as_bytes,
 
 PAGED = LaunchCounter("paged_attention")
 PAGED_Q = LaunchCounter("paged_attention_quantized")
-# lc_paged_attn_bf16(q, k_pages, v_pages, page_table, lengths, out, B, H, Hkv,
-#                    P_max, page, D, scale, window, softcap, stream)
-_PAGED_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
+PAGED_LSE = LaunchCounter("paged_attention_lse")
+PAGED_Q_LSE = LaunchCounter("paged_attention_quantized_lse")
+# lc_paged_attn_bf16(q, k_pages, v_pages, page_table, lengths, out, lse, B, H,
+#                    Hkv, P_max, page, D, scale, window, softcap, stream)
+_PAGED_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
                + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
                   ctypes.c_void_p))
 # lc_paged_attn_q(q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-#                 out, B, H, Hkv, P_max, page, D, fp8, scale, window, softcap,
-#                 stream)
-_PAGED_Q_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
+#                 out, lse, B, H, Hkv, P_max, page, D, fp8, scale, window,
+#                 softcap, stream)
+_PAGED_Q_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
                  + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
                     ctypes.c_void_p))
 
@@ -65,31 +69,30 @@ def _gather(pool, page_table):
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
-                          sm_scale=None, window=None, softcap=None):
+                          sm_scale=None, window=None, softcap=None,
+                          with_lse=False):
     """Plain PyTorch version: gather, then ``decode_attention_plain`` (which
     masks everything outside the attended positions, NaN included)."""
     return decode_attention_plain(q, _gather(k_pages, page_table),
                                   _gather(v_pages, page_table), lengths,
                                   sm_scale=sm_scale, window=window,
-                                  softcap=softcap)
+                                  softcap=softcap, with_lse=with_lse)
 
 
 def paged_attention_quantized_plain(q, k_pages, v_pages, k_scales, v_scales,
                                     page_table, lengths, *, sm_scale=None,
-                                    window=None, softcap=None):
+                                    window=None, softcap=None,
+                                    with_lse=False):
     """Plain PyTorch version over quantized pools and their scale pools."""
     return decode_attention_quantized_plain(
         q, _gather(k_pages, page_table), _gather(v_pages, page_table),
         _gather(k_scales, page_table), _gather(v_scales, page_table),
-        lengths, sm_scale=sm_scale, window=window, softcap=softcap)
+        lengths, sm_scale=sm_scale, window=window, softcap=softcap,
+        with_lse=with_lse)
 
 
-def _check(q, k_pages, v_pages, page_table, lengths, with_lse):
-    """The options, shapes and devices both paged wrappers check."""
-    if with_lse:
-        raise NotImplementedError(
-            "paged attention: with_lse is not ported yet (ROADMAP: kernel "
-            "options of decode attention, item 11b2)")
+def _check(q, k_pages, v_pages, page_table, lengths):
+    """The shapes and devices both paged wrappers check."""
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"q (B,H,D), pools (N,Hkv,page,D): got "
                          f"{tuple(q.shape)}, {tuple(k_pages.shape)}, "
@@ -127,14 +130,15 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
                     sm_scale=None, window=None, softcap=None,
                     with_lse=False):
     """paged_attention(q (B, H, D), k_pages, v_pages (N, Hkv, page, D),
-    page_table (B, P_max) int32, lengths (B,) int32) -> (B, H, D)."""
-    _check(q, k_pages, v_pages, page_table, lengths, with_lse)
+    page_table (B, P_max) int32, lengths (B,) int32) -> (B, H, D), or with
+    ``with_lse`` (out, lse (B, H) f32)."""
+    _check(q, k_pages, v_pages, page_table, lengths)
     window, softcap = attn_options(window, softcap)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      lengths, sm_scale=scale, window=window,
-                                     softcap=softcap)
+                                     softcap=softcap, with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -145,15 +149,17 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
                          f"{k_pages.dtype}, {v_pages.dtype}")
     B, H, D = q.shape
     _, Hkv, page, _ = k_pages.shape
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, with_lse)
+    counter = PAGED_LSE if with_lse else PAGED
     fn = kernel("decode_attn", "lc_paged_attn_bf16", _PAGED_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
-             Hkv, page_table.shape[1], page, D, float(scale), window,
-             softcap, torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, PAGED.name)
-    PAGED.add()
-    return out
+             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None, B, H, Hkv,
+             page_table.shape[1], page, D, float(scale), window, softcap,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(err, counter.name)
+    counter.add()
+    return (out, lse) if with_lse else out
 
 
 def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
@@ -161,12 +167,13 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
                               window=None, softcap=None, with_lse=False,
                               shared_kv=False):
     """Paged attention over int8 or float8_e4m3fn pools with f32 scale
-    pools (N, Hkv, page) -> (B, H, D) in q's dtype."""
+    pools (N, Hkv, page) -> (B, H, D) in q's dtype, or with ``with_lse``
+    (out, lse (B, H) f32)."""
     if shared_kv:
         raise NotImplementedError(
             "paged attention: shared_kv (MLA's paged latent cache) is not "
-            "ported yet (ROADMAP: model families)")
-    _check(q, k_pages, v_pages, page_table, lengths, with_lse)
+            "ported yet (ROADMAP item 11e)")
+    _check(q, k_pages, v_pages, page_table, lengths)
     window, softcap = attn_options(window, softcap)
     if k_scales.shape != k_pages.shape[:3] \
             or v_scales.shape != k_pages.shape[:3]:
@@ -183,7 +190,8 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
     if q.device.type == "cpu":
         return paged_attention_quantized_plain(
             q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-            sm_scale=scale, window=window, softcap=softcap)
+            sm_scale=scale, window=window, softcap=softcap,
+            with_lse=with_lse)
 
     from leetcuda_tpu_torch.build import kernel
 
@@ -194,17 +202,19 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
         raise ValueError("quantized paged kernel takes f32 scale pools")
     B, H, D = q.shape
     _, Hkv, page, _ = k_pages.shape
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, with_lse)
+    counter = PAGED_Q_LSE if with_lse else PAGED_Q
     fn = kernel("decode_attn", "lc_paged_attn_q", _PAGED_Q_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), B, H, Hkv,
+             lengths.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None, B, H, Hkv,
              page_table.shape[1], page, D,
              int(k_pages.dtype == torch.float8_e4m3fn), float(scale), window,
              softcap, torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, PAGED_Q.name)
-    PAGED_Q.add()
-    return out
+    check_launch(err, counter.name)
+    counter.add()
+    return (out, lse) if with_lse else out
 
 
 def _write_token(pools_and_values, page_table, lengths):

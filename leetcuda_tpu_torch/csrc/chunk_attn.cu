@@ -17,6 +17,13 @@
 // before the mask, cap * tanh(s / cap) (chunk.py:96-97), with tanhf on the
 // natural-unit score, then moves it into the kernel's log2 domain; the cap
 // is a compile-time flag (kCap), so the uncapped kernel carries no tanh.
+// ``lse`` (null, or (B, H, T) f32, chunk.py:128-129 and :217-218) also takes
+// each query row's log-sum-exp over the keys it attends, in natural units:
+// the online softmax runs in the log2 domain, so it is ln2 * (m + log2(max(
+// l, 1e-30))), as csrc/flash_fwd.cu writes its lse; a row that attends no
+// key (past the capacity, behind its window) keeps m = -1e30 and gets an
+// lse of -1e30 and a zero output, as on the TPU. A compile-time flag too
+// (kLse): the kernels without it are the ones they were.
 //
 // Bound on an H100 SXM: two regimes. Verify (T = 2..8): the rows of one KV
 // head are G * T = 8..32 and the kernel must read the valid K and V once, as
@@ -85,7 +92,7 @@ __device__ __forceinline__ void stage(uint16_t* dst, uint4 w) {
 
 // S is the capacity in positions of one sequence: S_max of a contiguous
 // cache, P_max * page of a paged one (then ``table`` and ``page`` are set).
-template <class C, int D, bool kPaged, bool kCap>
+template <class C, int D, bool kPaged, bool kCap, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 chunk_attn_kernel(const uint16_t* __restrict__ q,
                   const typename C::T* __restrict__ kc,
@@ -94,7 +101,8 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
                   const float* __restrict__ v_scale,
                   const int* __restrict__ table,
                   const int* __restrict__ base_lengths,
-                  uint16_t* __restrict__ o, int H, int Hkv, int T, int S,
+                  uint16_t* __restrict__ o, float* __restrict__ lse, int H,
+                  int Hkv, int T, int S,
                   int page, int window, float scale_log2,
                   float scale_over_cap, float cap_log2) {
   constexpr int LDS = D + 8;       // padded smem row: conflict-free fragments
@@ -332,6 +340,13 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
     const int row = r0 + i * 8;
     if (row >= n_rows) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if constexpr (kLse) {  // rows (g, t) of one KV head: flattened (H, T)
+      if (t4 == 0)
+        lse[head0 / D + row] =
+            m[i] == lc::kNegInf
+                ? lc::kNegInf
+                : 0.6931471805599453f * (m[i] + log2f(den));
+    }
     uint16_t* orow = ob + (size_t)row * D + t4 * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
@@ -343,20 +358,22 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
 template <class C, int D, bool kPaged>
 int launch_d(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* table, const void* base, void* o,
-             int B, int H, int Hkv, int T, int S, int page, int window,
-             float scale, float softcap, cudaStream_t stream) {
+             void* lse, int B, int H, int Hkv, int T, int S, int page,
+             int window, float scale, float softcap, cudaStream_t stream) {
   constexpr float kLog2e = 1.4426950408889634f;
   const dim3 grid((H / Hkv * T + kBQ - 1) / kBQ, Hkv, B);
   const bool cap = softcap > 0.f;
-  auto kern = cap ? chunk_attn_kernel<C, D, kPaged, true>
-                  : chunk_attn_kernel<C, D, kPaged, false>;
+  auto kern = lse ? (cap ? chunk_attn_kernel<C, D, kPaged, true, true>
+                         : chunk_attn_kernel<C, D, kPaged, false, true>)
+                  : (cap ? chunk_attn_kernel<C, D, kPaged, true, false>
+                         : chunk_attn_kernel<C, D, kPaged, false, false>);
   kern<<<grid, kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const typename C::T*>(k),
       static_cast<const typename C::T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(base), static_cast<uint16_t*>(o), H, Hkv, T, S,
-      page, window, scale * kLog2e, cap ? scale / softcap : 0.f,
-      cap ? softcap * kLog2e : 0.f);
+      static_cast<const int*>(base), static_cast<uint16_t*>(o),
+      static_cast<float*>(lse), H, Hkv, T, S, page, window, scale * kLog2e,
+      cap ? scale / softcap : 0.f, cap ? softcap * kLog2e : 0.f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,23 +382,23 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
 // ``softcap`` <= 0: none.
 template <class C>
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* table, const void* base, void* o, int B,
-           int H, int Hkv, int T, int S, int page, int D, int window,
-           float scale, float softcap, void* stream) {
+           const void* vs, const void* table, const void* base, void* o,
+           void* lse, int B, int H, int Hkv, int T, int S, int page, int D,
+           int window, float scale, float softcap, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || H % Hkv != 0 ||
       T <= 0 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (page > 0) {
     switch (D) {
-      case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, base, o, B, H, Hkv, T, S, page, window, scale, softcap, s);
-      case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, base, o, B, H, Hkv, T, S, page, window, scale, softcap, s);
+      case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, base, o, lse, B, H, Hkv, T, S, page, window, scale, softcap, s);
+      case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, base, o, lse, B, H, Hkv, T, S, page, window, scale, softcap, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (D) {
-    case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, base, o, B, H, Hkv, T, S, 1, window, scale, softcap, s);
-    case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, base, o, B, H, Hkv, T, S, 1, window, scale, softcap, s);
+    case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, base, o, lse, B, H, Hkv, T, S, 1, window, scale, softcap, s);
+    case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, base, o, lse, B, H, Hkv, T, S, 1, window, scale, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -390,33 +407,34 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 // Every entry point returns cudaGetLastError() after the launch (0 =
 // launched). Head dims 64 and 128 are instantiated; any GQA group and any
-// T >= 1. ``window`` <= 0 means no window, ``softcap`` <= 0 no cap. They launch on ``stream``, do not
+// T >= 1. ``window`` <= 0 means no window, ``softcap`` <= 0 no cap; ``lse``
+// is null (no lse) or (B, H, T) f32. They launch on ``stream``, do not
 // synchronise and allocate nothing.
 extern "C" int lc_chunk_attn_bf16(const void* q, const void* k, const void* v,
-                                  const void* base_lengths, void* o, int B,
-                                  int H, int Hkv, int T, int S, int D,
-                                  int window, float softcap, float scale,
-                                  void* stream) {
+                                  const void* base_lengths, void* o,
+                                  void* lse, int B, int H, int Hkv, int T,
+                                  int S, int D, int window, float softcap,
+                                  float scale, void* stream) {
   return launch<lc::CacheBf16>(q, k, v, nullptr, nullptr, nullptr,
-                               base_lengths, o, B, H, Hkv, T, S, 0, D, window,
-                               scale, softcap, stream);
+                               base_lengths, o, lse, B, H, Hkv, T, S, 0, D,
+                               window, scale, softcap, stream);
 }
 
 // A quantized cache: ``fp8`` selects e4m3 values (else int8); k_scale and
 // v_scale are (B, Hkv, S) f32.
 extern "C" int lc_chunk_attn_q(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
-                               const void* base_lengths, void* o, int B, int H,
-                               int Hkv, int T, int S, int D, int fp8,
-                               int window, float softcap, float scale,
-                               void* stream) {
+                               const void* base_lengths, void* o, void* lse,
+                               int B, int H, int Hkv, int T, int S, int D,
+                               int fp8, int window, float softcap,
+                               float scale, void* stream) {
   if (fp8)
     return launch<lc::CacheE4m3>(q, k, v, k_scale, v_scale, nullptr,
-                                 base_lengths, o, B, H, Hkv, T, S, 0, D,
+                                 base_lengths, o, lse, B, H, Hkv, T, S, 0, D,
                                  window, scale, softcap, stream);
   return launch<lc::CacheInt8>(q, k, v, k_scale, v_scale, nullptr,
-                               base_lengths, o, B, H, Hkv, T, S, 0, D, window,
-                               scale, softcap, stream);
+                               base_lengths, o, lse, B, H, Hkv, T, S, 0, D,
+                               window, scale, softcap, stream);
 }
 
 // Paged pools: k_pages, v_pages (num_pages, Hkv, page, D) bf16; page_table
@@ -426,13 +444,13 @@ extern "C" int lc_paged_chunk_attn_bf16(const void* q, const void* k_pages,
                                         const void* v_pages,
                                         const void* page_table,
                                         const void* base_lengths, void* o,
-                                        int B, int H, int Hkv, int T,
-                                        int P_max, int page, int D, int window,
-                                        float softcap, float scale,
-                                        void* stream) {
+                                        void* lse, int B, int H, int Hkv,
+                                        int T, int P_max, int page, int D,
+                                        int window, float softcap,
+                                        float scale, void* stream) {
   if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<lc::CacheBf16>(q, k_pages, v_pages, nullptr, nullptr,
-                               page_table, base_lengths, o, B, H, Hkv, T,
+                               page_table, base_lengths, o, lse, B, H, Hkv, T,
                                P_max * page, page, D, window, scale, softcap,
                                stream);
 }
@@ -443,19 +461,19 @@ extern "C" int lc_paged_chunk_attn_q(const void* q, const void* k_pages,
                                      const void* v_pages, const void* k_scales,
                                      const void* v_scales,
                                      const void* page_table,
-                                     const void* base_lengths, void* o, int B,
-                                     int H, int Hkv, int T, int P_max,
-                                     int page, int D, int fp8, int window,
-                                     float softcap, float scale,
+                                     const void* base_lengths, void* o,
+                                     void* lse, int B, int H, int Hkv, int T,
+                                     int P_max, int page, int D, int fp8,
+                                     int window, float softcap, float scale,
                                      void* stream) {
   if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (fp8)
     return launch<lc::CacheE4m3>(q, k_pages, v_pages, k_scales, v_scales,
-                                 page_table, base_lengths, o, B, H, Hkv, T,
-                                 P_max * page, page, D, window, scale, softcap,
-                                 stream);
+                                 page_table, base_lengths, o, lse, B, H, Hkv,
+                                 T, P_max * page, page, D, window, scale,
+                                 softcap, stream);
   return launch<lc::CacheInt8>(q, k_pages, v_pages, k_scales, v_scales,
-                               page_table, base_lengths, o, B, H, Hkv, T,
+                               page_table, base_lengths, o, lse, B, H, Hkv, T,
                                P_max * page, page, D, window, scale, softcap,
                                stream);
 }

@@ -21,6 +21,12 @@
 // compile-time flag (kCap): as a run-time branch, its inlined tanhf in the
 // unrolled group loop took the uncapped contiguous kernel from 0.19 to 0.31
 // ms on an H100 at B=8, 4 KV heads, lengths up to 2000.
+// ``lse`` (null, or (B, H) f32) also takes each query row's log-sum-exp in
+// natural units, m + log(max(l, 1e-30)) (decode.py:123-124, paged.py:
+// 115-116), over the keys the row attends (only the window's, after the
+// cap); a row of length 0 gets -1e30 and a zero output, as on the TPU. It
+// is a compile-time flag too (kLse), so the kernels without it are the
+// ones they were.
 //
 // Bound on an H100 SXM: bytes. At B=8, Hkv=4, D=128 and a mean length of
 // 1024 the kernel must read 16.8 MB of K and V: 5 us at 3.35 TB/s (an
@@ -69,7 +75,7 @@ using lc::CacheInt8;
 
 // S is the capacity in positions of one sequence: S_max of a contiguous
 // cache, P_max * page of a paged one (then ``table`` and ``page`` are set).
-template <class C, int D, int G, bool kPaged, bool kCap>
+template <class C, int D, int G, bool kPaged, bool kCap, bool kLse>
 __global__ void __launch_bounds__(kTK)
 decode_attn_kernel(const uint16_t* __restrict__ q,
                    const typename C::T* __restrict__ kc,
@@ -78,8 +84,8 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ table,
                    const int* __restrict__ lengths, uint16_t* __restrict__ o,
-                   int Hkv, int S, int page, float scale, int window,
-                   float softcap) {
+                   float* __restrict__ lse, int Hkv, int S, int page,
+                   float scale, int window, float softcap) {
   static_assert(D % C::kVec == 0 && D <= kTK, "head dim");
   __shared__ float sq[G][D];
   __shared__ float sp[G][kTK];
@@ -197,13 +203,21 @@ decode_attn_kernel(const uint16_t* __restrict__ q,
     for (int gi = 0; gi < G; ++gi)
       ob[(size_t)gi * D] = lc::f32_to_bf16(acc[gi] / fmaxf(l[gi], 1e-30f));
   }
+  if constexpr (kLse) {  // m and l are the same in every thread
+    if (tid == 0) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+        lse[(size_t)b * H + kvh * G + gi] =
+            m[gi] + logf(fmaxf(l[gi], 1e-30f));
+    }
+  }
 }
 
 template <class C, int D, bool kPaged>
 int launch_d(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* table, const void* lengths, void* o,
-             int B, int H, int Hkv, int S, int page, float scale, int window,
-             float softcap, cudaStream_t stream) {
+             void* lse, int B, int H, int Hkv, int S, int page, float scale,
+             int window, float softcap, cudaStream_t stream) {
   const dim3 grid(Hkv, B);
   const auto* qp = static_cast<const uint16_t*>(q);
   const auto* kp = static_cast<const typename C::T*>(k);
@@ -213,12 +227,17 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
   const auto* tp = static_cast<const int*>(table);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<uint16_t*>(o);
-#define LC_DECODE_LAUNCH(G)                                                  \
-  {                                                                          \
-    auto kern = softcap > 0.f ? decode_attn_kernel<C, D, G, kPaged, true>    \
-                              : decode_attn_kernel<C, D, G, kPaged, false>;  \
-    kern<<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, tp, lp, op, Hkv, S, \
-                                   page, scale, window, softcap);            \
+  auto* sp = static_cast<float*>(lse);
+  const bool cap = softcap > 0.f;
+#define LC_DECODE_LAUNCH(G)                                                 \
+  {                                                                         \
+    auto kern =                                                             \
+        sp ? (cap ? decode_attn_kernel<C, D, G, kPaged, true, true>         \
+                  : decode_attn_kernel<C, D, G, kPaged, false, true>)       \
+           : (cap ? decode_attn_kernel<C, D, G, kPaged, true, false>        \
+                  : decode_attn_kernel<C, D, G, kPaged, false, false>);     \
+    kern<<<grid, kTK, 0, stream>>>(qp, kp, vp, ksp, vsp, tp, lp, op, sp,    \
+                                   Hkv, S, page, scale, window, softcap);   \
   }
   switch (H / Hkv) {
     case 1: LC_DECODE_LAUNCH(1); break;
@@ -236,20 +255,20 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
 template <class C>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* table, const void* lengths, void* o,
-           int B, int H, int Hkv, int S, int page, int D, float scale,
-           int window, float softcap, void* stream) {
+           void* lse, int B, int H, int Hkv, int S, int page, int D,
+           float scale, int window, float softcap, void* stream) {
   if (B > 65535 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (page > 0) {
     switch (D) {
-      case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, lengths, o, B, H, Hkv, S, page, scale, window, softcap, s);
-      case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, lengths, o, B, H, Hkv, S, page, scale, window, softcap, s);
+      case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, lengths, o, lse, B, H, Hkv, S, page, scale, window, softcap, s);
+      case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, lengths, o, lse, B, H, Hkv, S, page, scale, window, softcap, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (D) {
-    case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, lengths, o, B, H, Hkv, S, 1, scale, window, softcap, s);
-    case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, lengths, o, B, H, Hkv, S, 1, scale, window, softcap, s);
+    case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, lengths, o, lse, B, H, Hkv, S, 1, scale, window, softcap, s);
+    case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, lengths, o, lse, B, H, Hkv, S, 1, scale, window, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -258,29 +277,34 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 // Every entry point returns cudaGetLastError() after the launch (0 =
 // launched). GQA group sizes 1, 2, 4, 8 and head dims 64, 128 are
-// instantiated. ``window`` <= 0 and ``softcap`` <= 0 mean none. They launch
-// on ``stream``, do not synchronise and allocate nothing.
+// instantiated. ``window`` <= 0 and ``softcap`` <= 0 mean none; ``lse``
+// is null (no lse) or (B, H) f32. They launch on ``stream``, do not
+// synchronise and allocate nothing.
 extern "C" int lc_decode_attn_bf16(const void* q, const void* k, const void* v,
-                                   const void* lengths, void* o, int B, int H,
-                                   int Hkv, int S, int D, float scale,
-                                   int window, float softcap, void* stream) {
-  return launch<CacheBf16>(q, k, v, nullptr, nullptr, nullptr, lengths, o, B,
-                           H, Hkv, S, 0, D, scale, window, softcap, stream);
+                                   const void* lengths, void* o, void* lse,
+                                   int B, int H, int Hkv, int S, int D,
+                                   float scale, int window, float softcap,
+                                   void* stream) {
+  return launch<CacheBf16>(q, k, v, nullptr, nullptr, nullptr, lengths, o,
+                           lse, B, H, Hkv, S, 0, D, scale, window, softcap,
+                           stream);
 }
 
 // A quantized cache: ``fp8`` selects e4m3 values (else int8); k_scale and
 // v_scale are (B, Hkv, S) f32.
 extern "C" int lc_decode_attn_q(const void* q, const void* k, const void* v,
                                 const void* k_scale, const void* v_scale,
-                                const void* lengths, void* o, int B, int H,
-                                int Hkv, int S, int D, int fp8, float scale,
-                                int window, float softcap, void* stream) {
+                                const void* lengths, void* o, void* lse,
+                                int B, int H, int Hkv, int S, int D, int fp8,
+                                float scale, int window, float softcap,
+                                void* stream) {
   if (fp8)
     return launch<CacheE4m3>(q, k, v, k_scale, v_scale, nullptr, lengths, o,
-                             B, H, Hkv, S, 0, D, scale, window, softcap,
+                             lse, B, H, Hkv, S, 0, D, scale, window, softcap,
                              stream);
-  return launch<CacheInt8>(q, k, v, k_scale, v_scale, nullptr, lengths, o, B,
-                           H, Hkv, S, 0, D, scale, window, softcap, stream);
+  return launch<CacheInt8>(q, k, v, k_scale, v_scale, nullptr, lengths, o,
+                           lse, B, H, Hkv, S, 0, D, scale, window, softcap,
+                           stream);
 }
 
 // Paged pools: k_pages, v_pages (num_pages, Hkv, page, D) bf16; page_table
@@ -288,14 +312,14 @@ extern "C" int lc_decode_attn_q(const void* q, const void* k, const void* v,
 // hold fewer than 2^32 rows (num_pages * Hkv * page).
 extern "C" int lc_paged_attn_bf16(const void* q, const void* k_pages,
                                   const void* v_pages, const void* page_table,
-                                  const void* lengths, void* o, int B, int H,
-                                  int Hkv, int P_max, int page, int D,
-                                  float scale, int window, float softcap,
-                                  void* stream) {
+                                  const void* lengths, void* o, void* lse,
+                                  int B, int H, int Hkv, int P_max, int page,
+                                  int D, float scale, int window,
+                                  float softcap, void* stream) {
   if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<CacheBf16>(q, k_pages, v_pages, nullptr, nullptr, page_table,
-                           lengths, o, B, H, Hkv, P_max * page, page, D, scale,
-                           window, softcap, stream);
+                           lengths, o, lse, B, H, Hkv, P_max * page, page, D,
+                           scale, window, softcap, stream);
 }
 
 // Quantized paged pools: int8 or (``fp8``) e4m3 values with f32 scale pools
@@ -303,16 +327,18 @@ extern "C" int lc_paged_attn_bf16(const void* q, const void* k_pages,
 extern "C" int lc_paged_attn_q(const void* q, const void* k_pages,
                                const void* v_pages, const void* k_scales,
                                const void* v_scales, const void* page_table,
-                               const void* lengths, void* o, int B, int H,
-                               int Hkv, int P_max, int page, int D, int fp8,
-                               float scale, int window, float softcap,
-                               void* stream) {
+                               const void* lengths, void* o, void* lse,
+                               int B, int H, int Hkv, int P_max, int page,
+                               int D, int fp8, float scale, int window,
+                               float softcap, void* stream) {
   if (page <= 0 || P_max <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (fp8)
     return launch<CacheE4m3>(q, k_pages, v_pages, k_scales, v_scales,
-                             page_table, lengths, o, B, H, Hkv, P_max * page,
-                             page, D, scale, window, softcap, stream);
+                             page_table, lengths, o, lse, B, H, Hkv,
+                             P_max * page, page, D, scale, window, softcap,
+                             stream);
   return launch<CacheInt8>(q, k_pages, v_pages, k_scales, v_scales,
-                           page_table, lengths, o, B, H, Hkv, P_max * page,
-                           page, D, scale, window, softcap, stream);
+                           page_table, lengths, o, lse, B, H, Hkv,
+                           P_max * page, page, D, scale, window, softcap,
+                           stream);
 }

@@ -12,8 +12,10 @@ appends overwrite them.
 
 Positions at or past the cache capacity are dropped by ``_chunk_append`` and
 never read by the kernel (the JAX package's dynamic-update-slice shifts such
-a write back over earlier positions instead). Meshes, attention sinks and
-multi-LoRA adapter routing are not ported yet and raise.
+a write back over earlier positions instead). A layer with attention
+sinks runs the chunk kernels with their lse and rescales the rows by
+sigmoid(lse - sink) (models/llama.py ``_sink``). Meshes and multi-LoRA
+adapter routing are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from leetcuda_tpu_torch.core.runtime import as_bytes, round_up
 from leetcuda_tpu_torch.engine.engine import _insert_kvs, _serving_device
 from leetcuda_tpu_torch.engine.sampling import greedy, make_warper
 from leetcuda_tpu_torch.models.llama import (
-    ModelConfig, _attn_in, _attn_out_and_mlp, _check_config, _embed, _logits,
-    _quantize_token_kv, decode_step, forward, init_kv_caches)
+    ModelConfig, _attn_in, _attn_out_and_mlp, _embed, _logits,
+    _quantize_token_kv, _sink, decode_step, forward, init_kv_caches)
 
 
 def _append_index(cache, pos, page_table=None):
@@ -90,13 +92,15 @@ def _chunk_append(cache, k, v, pos, page_table=None, page_aligned=False,
 def _chunk_cache_attend(q, cache, base_lengths, cfg: ModelConfig, mesh=None,
                         page_table=None, window=None, sinks=None):
     """Chunk attention of q (B, T, H, Dh) over any cache layout through the
-    attention/chunk.py wrappers -> (B, T, H, Dh) f32."""
-    if mesh is not None or sinks is not None:
+    attention/chunk.py wrappers -> (B, T, H, Dh) f32. With ``sinks`` (H,)
+    the kernel also returns its lse (B, H, T) and the rows are rescaled
+    (``_sink``), as JAX's ``_chunk_cache_attend`` does."""
+    if mesh is not None:
         raise NotImplementedError(
-            "chunk attention under a mesh / with attention sinks is not "
-            "ported yet (ROADMAP: parallel layer, kernel options)")
+            "chunk attention under a mesh is not ported yet (ROADMAP item "
+            "12, the parallel layer)")
     kw = dict(sm_scale=cfg.query_scale, window=window,
-              softcap=cfg.attn_softcap)
+              softcap=cfg.attn_softcap, with_lse=sinks is not None)
     qk = q.transpose(1, 2).to(cfg.dtype).contiguous()  # (B, H, T, Dh)
     if "k_pages" in cache:
         if "k_scales" in cache:
@@ -112,6 +116,8 @@ def _chunk_cache_attend(q, cache, base_lengths, cfg: ModelConfig, mesh=None,
                                       base_lengths, **kw)
     else:
         o = chunk_attention(qk, cache["k"], cache["v"], base_lengths, **kw)
+    if sinks is not None:
+        o = _sink(*o, sinks)
     return o.transpose(1, 2).float()
 
 
@@ -131,7 +137,6 @@ def decode_chunk(params, tokens, caches, lengths, cfg: ModelConfig,
         raise NotImplementedError(
             "decode_chunk under a mesh / with multi-LoRA adapter routing is "
             "not ported yet (ROADMAP: parallel layer, model families)")
-    _check_config(cfg)
     B, T = tokens.shape
     x = _embed(params, tokens, cfg)                                # (B, T, D)
     pos = lengths[:, None] + torch.arange(T, device=lengths.device)[None, :]
@@ -142,7 +147,8 @@ def decode_chunk(params, tokens, caches, lengths, cfg: ModelConfig,
                       page_aligned=page_aligned, index=index)
         o = _chunk_cache_attend(q, cache, lengths, cfg,
                                 page_table=page_table,
-                                window=cfg.layer_window(li))  # (B,T,H,Dh) f32
+                                window=cfg.layer_window(li),
+                                sinks=layer.get("sinks"))  # (B,T,H,Dh) f32
         x = _attn_out_and_mlp(layer, x, o.reshape(B, T, -1).to(x.dtype), cfg)
     return _logits(params, x, cfg), caches
 

@@ -4,7 +4,8 @@ rotations.
 Counterpart of ``leetcuda_tpu/ops/rope.py``: ``make_rope``,
 ``make_rope_lane``, ``rope_ref`` and the 3 registrations, and the jnp
 functions (``_rope_angles``, ``apply_rope_half``, ``apply_rope_interleaved``,
-``llama3_scaled_inv_freq``, ``yarn_scaled_inv_freq``) in plain PyTorch.
+``apply_rope_glm``, ``llama3_scaled_inv_freq``, ``yarn_scaled_inv_freq``) in
+plain PyTorch.
 
 ``make_rope`` and ``make_rope_lane`` compute one function, interleaved
 pairs on (S, D) with position = row, in f32 and cast to x's dtype. On CUDA
@@ -128,6 +129,22 @@ def apply_rope_interleaved(x, positions, theta: float = DEFAULT_THETA):
     x1, x2 = xf[..., 0], xf[..., 1]
     out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def apply_rope_glm(x, positions, theta: float, rotary_dim: int):
+    """GLM-4 partial rotary: interleaved pairs (2i, 2i+1) rotate by
+    pos * theta^(-2i/rotary_dim) on the first ``rotary_dim`` lanes only, in
+    f32 cast back to x's dtype; the other lanes pass through. x (..., S, H,
+    D), positions (..., S)."""
+    half = rotary_dim // 2
+    ang = (positions.float()[..., None]
+           * _plain_inv_freq(half, theta, positions.device))
+    c, s = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    xr = x[..., :rotary_dim].float().reshape(*x.shape[:-1], half, 2)
+    x1, x2 = xr[..., 0], xr[..., 1]
+    out = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    out = out.reshape(*x.shape[:-1], rotary_dim).to(x.dtype)
+    return torch.cat([out, x[..., rotary_dim:]], dim=-1)
 
 
 # --- the op corpus's kernel --------------------------------------------------

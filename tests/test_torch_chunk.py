@@ -219,13 +219,33 @@ def test_chunk_rows_past_the_capacity_are_clamped():
                                    rtol=0)
 
 
-@pytest.mark.parametrize("opt", [{"with_lse": True}])
-def test_chunk_unported_options_raise(opt):
-    for fmt, paged in ((None, False), ("int8", False), (None, True),
-                       ("fp8", True)):
-        _, targs = _case(0, T=2, group=2, bases=[4, 9], fmt=fmt, paged=paged)
-        with pytest.raises(NotImplementedError):
-            _wrapper(fmt, paged)(*targs, **opt)
+@pytest.mark.parametrize("name", list(CASES))
+def test_chunk_attention_with_lse_matches_pallas(name):
+    """Every case again with with_lse (attention sinks): (out, lse
+    (B, H, T)) against the Pallas chunk kernel's, f32 at atol 1e-5; the
+    output is the one without the lse."""
+    case = dict(CASES[name])
+    window, softcap = case.pop("window", None), case.pop("softcap", None)
+    fmt, paged = case.get("fmt"), case.get("paged", False)
+    jargs, targs = _case(len(name), **case)
+    make = (make_paged_chunk_attention if paged else
+            lambda **kw: make_chunk_attention(block_k=128, **kw))
+    want = make(window=window, quantized=fmt is not None, softcap=softcap,
+                with_lse=True)(*(jnp.asarray(a) for a in jargs))
+    got = _wrapper(fmt, paged)(*targs, window=window, softcap=softcap,
+                               with_lse=True)
+    assert got[1].shape == targs[0].shape[:3]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w, np.float32),
+                                   atol=1e-5, rtol=0)
+    torch.testing.assert_close(
+        _wrapper(fmt, paged)(*targs, window=window, softcap=softcap), got[0],
+        atol=0, rtol=0)
+
+
+def test_chunk_unported_options_raise():
+    """The TPU factories' DMA tiling has no counterpart."""
+    _, targs = _case(0, T=2, group=2, bases=[4, 9])
     with pytest.raises(TypeError):  # TPU DMA tiling: no counterpart
         ck.chunk_attention(*targs[:3], targs[-1], block_k=128)
 

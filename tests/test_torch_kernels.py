@@ -121,18 +121,25 @@ def test_cpu_tensors_take_plain_path_uncounted():
 
 
 @pytest.mark.parametrize("opt", [{"with_lse": True}])
-def test_unported_options_raise(opt):
+def test_with_lse_taken_by_flash_and_decode(opt):
     """with_lse is taken by the flash wrappers (the forward of training)
-    and raises in decode (ROADMAP item 11b2)."""
-    q, k, v = (torch.from_numpy(x) for x in
-               _qkv(np.random.default_rng(5), 1, 2, 1, 16, 64))
+    and by decode (attention sinks): (out, lse), decode's lse (B, H)
+    against the Pallas kernel's."""
+    qn, kn, vn = _qkv(np.random.default_rng(5), 1, 2, 1, 16, 64)
+    q, k, v = (torch.from_numpy(x) for x in (qn, kn, vn))
     lengths = torch.tensor([9], dtype=torch.int32)
     for call in (lambda: flash_attention(q, k, v, causal=True, **opt),
                  lambda: flash_attention_ragged(q, k, v, lengths, **opt)):
         out, lse = call()
         assert out.shape == q.shape and lse.shape == q.shape[:3]
-    with pytest.raises(NotImplementedError):
-        decode_attention(q[:, :, 0], k, v, lengths, **opt)
+    out, lse = decode_attention(q[:, :, 0], k, v, lengths, **opt)
+    want = make_decode_attention(block_k=8, **opt)(
+        jnp.array(qn[:, :, 0]), jnp.array(kn), jnp.array(vn),
+        jnp.array(lengths.numpy()))
+    assert out.shape == q[:, :, 0].shape and lse.shape == q.shape[:2]
+    for g, w in zip((out, lse), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=0)
 
 
 def test_shape_mismatch_raises():
@@ -177,10 +184,12 @@ def test_flash_ragged_window_softcap_matches_pallas(window, softcap,
     result; rows past a length are zeros (lse -1e30)."""
     q, k, v = _qkv(np.random.default_rng(8), 3, 4, 2, 64, 32)
     lengths = np.array([64, 23, 5], np.int32)
+    # JAX gets copies (jnp.array): jnp.asarray may alias these numpy
+    # buffers, and the NaN written below would race the asynchronous call
     want = make_flash_attention_ragged(
         window=window, softcap=softcap, with_lse=with_lse, block_q=16,
-        block_k=16)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                    jnp.asarray(lengths))
+        block_k=16)(jnp.array(q), jnp.array(k), jnp.array(v),
+                    jnp.array(lengths))
     for b, n in enumerate(lengths):
         k[b, :, n:] = np.nan
         v[b, :, n:] = np.nan

@@ -249,15 +249,30 @@ def test_paged_append_writes_in_place_and_null_page_takes_dead_rows():
     assert kp[2].abs().sum() == 0 and kp[3].abs().sum() == 0
 
 
-@pytest.mark.parametrize("opt", [{"with_lse": True}, {"shared_kv": True}])
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"])
+def test_paged_with_lse_matches_pallas(fmt):
+    """with_lse (attention sinks): (out, lse (B, H)) against the Pallas
+    paged kernel's, NaN wherever no row owns a position; the output is the
+    one without the lse."""
+    jargs, targs = _paged_case(np.random.default_rng(0), 16, fmt)
+    want = make_paged_attention(quantized=fmt is not None,
+                                with_lse=True)(*jargs)
+    fn = paged_attention if fmt is None else paged_attention_quantized
+    got = fn(*targs, with_lse=True)
+    assert got[1].shape == targs[0].shape[:2]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=0)
+    torch.testing.assert_close(fn(*targs), got[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("opt", [{"shared_kv": True}])
 def test_paged_unported_options_raise(opt):
+    """shared_kv (MLA's paged latent cache) is ROADMAP item 11e."""
     _, targs = _paged_case(np.random.default_rng(0), 16, "int8")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="11e"):
         paged_attention_quantized(*targs, **opt)
-    if "shared_kv" not in opt:
-        _, targs = _paged_case(np.random.default_rng(0), 16, None)
-        with pytest.raises(NotImplementedError):
-            paged_attention(*targs, **opt)
+    _, targs = _paged_case(np.random.default_rng(0), 16, None)
     with pytest.raises(TypeError):  # TPU DMA tiling: no counterpart
         paged_attention(*targs[:5], pages_per_step=2)
 

@@ -210,13 +210,32 @@ def test_cpu_tensors_take_plain_path_uncounted():
             DECODE_Q.launches) == before
 
 
-@pytest.mark.parametrize("opt", [{"with_lse": True}, {"shared_kv": True}])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_decode_quantized_with_lse_matches_pallas(fmt):
+    """with_lse (attention sinks) over a quantized cache with NaN scales
+    (e4m3: NaN bytes) past every length: (out, lse (B, H)) against the
+    Pallas kernel's."""
+    rng = np.random.default_rng(8)
+    B, H, Hkv, S, D = 3, 4, 2, 80, 32
+    lengths = np.array([80, 37, 1], np.int32)
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    kq, vq, ks, vs = _quantized_cache(rng, fmt, B, Hkv, S, D, lengths)
+    want = make_decode_attention_quantized(block_k=32, with_lse=True)(
+        *(jnp.array(a) for a in (q, kq, vq, ks, vs, lengths)))
+    got = decode_attention_quantized(
+        *_to_torch(q, kq, vq, ks, vs, lengths), with_lse=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
+
+
+@pytest.mark.parametrize("opt", [{"shared_kv": True}])
 def test_decode_quantized_unported_options_raise(opt):
+    """shared_kv (MLA's latent cache) is ROADMAP item 11e."""
     rng = np.random.default_rng(7)
     kq, vq, ks, vs = _quantized_cache(rng, "int8", 1, 1, 16, 64, [5])
     args = _to_torch(rng.standard_normal((1, 2, 64), dtype=np.float32), kq,
                      vq, ks, vs, np.array([5], np.int32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="11e"):
         decode_attention_quantized(*args, **opt)
 
 
