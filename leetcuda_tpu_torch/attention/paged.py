@@ -9,18 +9,27 @@ page; ``lengths`` (B,) int32 counts its valid positions. Table entries past
 a sequence's last page are filler (0, the reserved null page) and, like
 positions at or past the length inside the last page, are never read.
 
+``shared_kv`` takes JAX's calling forms: ``paged_attention(q, pages,
+page_table, lengths)`` and ``paged_attention_quantized(q, pages, scales,
+page_table, lengths)``, one pool (and one scale pool) read as both K and V:
+MLA's paged latent cache (models/mla.py ``init_paged_latent_cache``, (N, 1,
+page, d_c + d_r)). A shared launch counts on its own counter
+(``paged_attention_shared``, ``paged_attention_quantized_shared``, with
+``_lse`` where the lse is asked for).
+
 On CUDA tensors ``paged_attention`` and ``paged_attention_quantized``
-launch the paged entry points of ``csrc/decode_attn.cu`` (bf16 q, head dim
-64 or 128, GQA group 1/2/4/8, any page size) and raise on what they do not
-take. On CPU tensors they run the plain versions below: gather each row's
-pages through the table into a contiguous view, then the plain decode
-attention. The TPU kernel's ``pages_per_step`` is DMA tiling and has no
-counterpart. ``window`` and ``softcap`` are decode attention's
-(attention/decode.py): the kernel looks up no page wholly before the window
-and reads no position before it, and ``with_lse`` its (B, H) f32
-log-sum-exp beside the output (its own counters, ``paged_attention_lse`` and
-``paged_attention_quantized_lse``). ``shared_kv`` is not ported yet and
-raises (ROADMAP item 11e).
+launch the paged entry points of ``csrc/decode_attn.cu`` where they take
+the call (bf16 q, head dim 64 or 128, GQA group 1/2/4/8) and
+``csrc/decode_attn_wide.cu`` otherwise (a bf16 or f32 q, head dim 64, 128
+or 576, any group), any page size, and raise on what neither takes. On CPU
+tensors they run the plain versions below: gather each row's pages through
+the table into a contiguous view, then the plain decode attention. The TPU
+kernel's ``pages_per_step`` is DMA tiling and has no counterpart.
+``window`` and ``softcap`` are decode attention's (attention/decode.py):
+the kernel looks up no page wholly before the window and reads no position
+before it, and ``with_lse`` its (B, H) f32 log-sum-exp beside the output
+(its own counters, ``paged_attention_lse`` and
+``paged_attention_quantized_lse``).
 
 ``paged_append`` and ``paged_append_quantized`` write IN PLACE and return
 the pools they were given. ``PageManager`` is the JAX package's allocator,
@@ -29,15 +38,15 @@ prefix trie included, as it is host code.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
 import torch
 
-from leetcuda_tpu_torch.attention.decode import (
-    _check_kernel_args, _outputs, decode_attention_plain,
-    decode_attention_quantized_plain)
+from leetcuda_tpu_torch.attention.decode import (_check_kernel_args,
+                                                 _operands, _outputs,
+                                                 attend_plain, counter,
+                                                 launch)
 from leetcuda_tpu_torch.attention.flash import attn_options
 from leetcuda_tpu_torch.core.runtime import (LaunchCounter, as_bytes,
                                              check_launch)
@@ -46,17 +55,14 @@ PAGED = LaunchCounter("paged_attention")
 PAGED_Q = LaunchCounter("paged_attention_quantized")
 PAGED_LSE = LaunchCounter("paged_attention_lse")
 PAGED_Q_LSE = LaunchCounter("paged_attention_quantized_lse")
-# lc_paged_attn_bf16(q, k_pages, v_pages, page_table, lengths, out, lse, B, H,
-#                    Hkv, P_max, page, D, scale, window, softcap, stream)
-_PAGED_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
-               + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_void_p))
-# lc_paged_attn_q(q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-#                 out, lse, B, H, Hkv, P_max, page, D, fp8, scale, window,
-#                 softcap, stream)
-_PAGED_Q_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
-                 + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p))
+PAGED_SHARED = LaunchCounter("paged_attention_shared")
+PAGED_Q_SHARED = LaunchCounter("paged_attention_quantized_shared")
+PAGED_SHARED_LSE = LaunchCounter("paged_attention_shared_lse")
+PAGED_Q_SHARED_LSE = LaunchCounter("paged_attention_quantized_shared_lse")
+
+_PAGED_NAMES = ("k_pages", "v_pages", "page_table", "lengths")
+_PAGED_Q_NAMES = ("k_pages", "v_pages", "k_scales", "v_scales", "page_table",
+                  "lengths")
 
 
 def _gather(pool, page_table):
@@ -68,27 +74,42 @@ def _gather(pool, page_table):
     return g.view(pool.dtype)
 
 
-def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
-                          sm_scale=None, window=None, softcap=None,
-                          with_lse=False):
-    """Plain PyTorch version: gather, then ``decode_attention_plain`` (which
-    masks everything outside the attended positions, NaN included)."""
-    return decode_attention_plain(q, _gather(k_pages, page_table),
-                                  _gather(v_pages, page_table), lengths,
-                                  sm_scale=sm_scale, window=window,
-                                  softcap=softcap, with_lse=with_lse)
+def _attend_pools(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                  lengths, **kw):
+    """Gather, then ``attend_plain`` (which masks everything outside the
+    attended positions, NaN included); a shared pool is gathered once."""
+    k = _gather(k_pages, page_table)
+    v = k if v_pages is k_pages else _gather(v_pages, page_table)
+    ks = vs = None
+    if k_scales is not None:
+        ks = _gather(k_scales, page_table)
+        vs = ks if v_scales is k_scales else _gather(v_scales, page_table)
+    return attend_plain(q, k, v, lengths, k_scale=ks, v_scale=vs, **kw)
 
 
-def paged_attention_quantized_plain(q, k_pages, v_pages, k_scales, v_scales,
-                                    page_table, lengths, *, sm_scale=None,
-                                    window=None, softcap=None,
-                                    with_lse=False):
-    """Plain PyTorch version over quantized pools and their scale pools."""
-    return decode_attention_quantized_plain(
-        q, _gather(k_pages, page_table), _gather(v_pages, page_table),
-        _gather(k_scales, page_table), _gather(v_scales, page_table),
-        lengths, sm_scale=sm_scale, window=window, softcap=softcap,
-        with_lse=with_lse)
+def paged_attention_plain(q, *args, sm_scale=None, window=None, softcap=None,
+                          with_lse=False, shared_kv=False):
+    """Plain PyTorch version of ``paged_attention``: (q, k_pages, v_pages,
+    page_table, lengths), or with ``shared_kv`` (q, pages, page_table,
+    lengths)."""
+    kp, vp, table, lengths = _operands("paged_attention_plain", args,
+                                       _PAGED_NAMES, shared_kv)
+    return _attend_pools(q, kp, vp, None, None, table, lengths,
+                         sm_scale=sm_scale, window=window, softcap=softcap,
+                         with_lse=with_lse)
+
+
+def paged_attention_quantized_plain(q, *args, sm_scale=None, window=None,
+                                    softcap=None, with_lse=False,
+                                    shared_kv=False):
+    """Plain PyTorch version over quantized pools and their scale pools:
+    (q, k_pages, v_pages, k_scales, v_scales, page_table, lengths), or with
+    ``shared_kv`` (q, pages, scales, page_table, lengths)."""
+    kp, vp, ks, vs, table, lengths = _operands(
+        "paged_attention_quantized_plain", args, _PAGED_Q_NAMES, shared_kv)
+    return _attend_pools(q, kp, vp, ks, vs, table, lengths,
+                         sm_scale=sm_scale, window=window, softcap=softcap,
+                         with_lse=with_lse)
 
 
 def _check(q, k_pages, v_pages, page_table, lengths):
@@ -126,53 +147,46 @@ def _check_paged_kernel_args(q, page_table, lengths, tensors):
                          "sequence is too large")
 
 
-def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
-                    sm_scale=None, window=None, softcap=None,
-                    with_lse=False):
+def paged_attention(q, *args, sm_scale=None, window=None, softcap=None,
+                    with_lse=False, shared_kv=False):
     """paged_attention(q (B, H, D), k_pages, v_pages (N, Hkv, page, D),
-    page_table (B, P_max) int32, lengths (B,) int32) -> (B, H, D), or with
+    page_table (B, P_max) int32, lengths (B,) int32), or with ``shared_kv``
+    paged_attention(q, pages, page_table, lengths) -> (B, H, D), or with
     ``with_lse`` (out, lse (B, H) f32)."""
+    k_pages, v_pages, page_table, lengths = _operands(
+        "paged_attention", args, _PAGED_NAMES, shared_kv)
     _check(q, k_pages, v_pages, page_table, lengths)
     window, softcap = attn_options(window, softcap)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
+    kw = dict(sm_scale=scale, window=window, softcap=softcap,
+              with_lse=with_lse)
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     lengths, sm_scale=scale, window=window,
-                                     softcap=softcap, with_lse=with_lse)
-
-    from leetcuda_tpu_torch.build import kernel
+        return _attend_pools(q, k_pages, v_pages, None, None, page_table,
+                             lengths, **kw)
 
     _check_paged_kernel_args(q, page_table, lengths,
                              dict(k_cache=k_pages, v_cache=v_pages))
     if k_pages.dtype != torch.bfloat16 or v_pages.dtype != torch.bfloat16:
         raise ValueError(f"paged kernel takes bf16 pools, got "
                          f"{k_pages.dtype}, {v_pages.dtype}")
-    B, H, D = q.shape
-    _, Hkv, page, _ = k_pages.shape
     out, lse = _outputs(q, with_lse)
-    counter = PAGED_LSE if with_lse else PAGED
-    fn = kernel("decode_attn", "lc_paged_attn_bf16", _PAGED_ARGS)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if with_lse else None, B, H, Hkv,
-             page_table.shape[1], page, D, float(scale), window, softcap,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, counter.name)
-    counter.add()
+    count = counter("paged_attention", shared_kv, with_lse)
+    check_launch(launch(q, k_pages, v_pages, None, None, page_table, lengths,
+                        out, lse, scale=scale, window=window,
+                        softcap=softcap), count.name)
+    count.add()
     return (out, lse) if with_lse else out
 
 
-def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
-                              page_table, lengths, *, sm_scale=None,
-                              window=None, softcap=None, with_lse=False,
-                              shared_kv=False):
-    """Paged attention over int8 or float8_e4m3fn pools with f32 scale
-    pools (N, Hkv, page) -> (B, H, D) in q's dtype, or with ``with_lse``
-    (out, lse (B, H) f32)."""
-    if shared_kv:
-        raise NotImplementedError(
-            "paged attention: shared_kv (MLA's paged latent cache) is not "
-            "ported yet (ROADMAP item 11e)")
+def paged_attention_quantized(q, *args, sm_scale=None, window=None,
+                              softcap=None, with_lse=False, shared_kv=False):
+    """paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
+    page_table, lengths), or with ``shared_kv`` (q, pages, scales,
+    page_table, lengths): int8 or float8_e4m3fn pools with f32 scale pools
+    (N, Hkv, page) -> (B, H, D) in q's dtype (bf16, or f32 as MLA's
+    absorbed query), or with ``with_lse`` (out, lse (B, H) f32)."""
+    k_pages, v_pages, k_scales, v_scales, page_table, lengths = _operands(
+        "paged_attention_quantized", args, _PAGED_Q_NAMES, shared_kv)
     _check(q, k_pages, v_pages, page_table, lengths)
     window, softcap = attn_options(window, softcap)
     if k_scales.shape != k_pages.shape[:3] \
@@ -187,33 +201,23 @@ def paged_attention_quantized(q, k_pages, v_pages, k_scales, v_scales,
     if not (k_scales.device == v_scales.device == q.device):
         raise ValueError("scale pools must lie on q's device")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[2])
+    kw = dict(sm_scale=scale, window=window, softcap=softcap,
+              with_lse=with_lse)
     if q.device.type == "cpu":
-        return paged_attention_quantized_plain(
-            q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-            sm_scale=scale, window=window, softcap=softcap,
-            with_lse=with_lse)
-
-    from leetcuda_tpu_torch.build import kernel
+        return _attend_pools(q, k_pages, v_pages, k_scales, v_scales,
+                             page_table, lengths, **kw)
 
     _check_paged_kernel_args(q, page_table, lengths,
                              dict(k_cache=k_pages, v_cache=v_pages,
                                   k_scale=k_scales, v_scale=v_scales))
     if k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
         raise ValueError("quantized paged kernel takes f32 scale pools")
-    B, H, D = q.shape
-    _, Hkv, page, _ = k_pages.shape
     out, lse = _outputs(q, with_lse)
-    counter = PAGED_Q_LSE if with_lse else PAGED_Q
-    fn = kernel("decode_attn", "lc_paged_attn_q", _PAGED_Q_ARGS)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if with_lse else None, B, H, Hkv,
-             page_table.shape[1], page, D,
-             int(k_pages.dtype == torch.float8_e4m3fn), float(scale), window,
-             softcap, torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, counter.name)
-    counter.add()
+    count = counter("paged_attention_quantized", shared_kv, with_lse)
+    check_launch(launch(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                        lengths, out, lse, scale=scale, window=window,
+                        softcap=softcap), count.name)
+    count.add()
     return (out, lse) if with_lse else out
 
 

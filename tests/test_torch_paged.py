@@ -268,9 +268,11 @@ def test_paged_with_lse_matches_pallas(fmt):
 
 @pytest.mark.parametrize("opt", [{"shared_kv": True}])
 def test_paged_unported_options_raise(opt):
-    """shared_kv (MLA's paged latent cache) is ROADMAP item 11e."""
+    """shared_kv (MLA's paged latent cache) takes JAX's calling form, (q,
+    pages, scales, page_table, lengths): the unshared operands with
+    shared_kv raise, naming the form."""
     _, targs = _paged_case(np.random.default_rng(0), 16, "int8")
-    with pytest.raises(NotImplementedError, match="11e"):
+    with pytest.raises(TypeError, match="shared_kv"):
         paged_attention_quantized(*targs, **opt)
     _, targs = _paged_case(np.random.default_rng(0), 16, None)
     with pytest.raises(TypeError):  # TPU DMA tiling: no counterpart

@@ -230,12 +230,14 @@ def test_decode_quantized_with_lse_matches_pallas(fmt):
 
 @pytest.mark.parametrize("opt", [{"shared_kv": True}])
 def test_decode_quantized_unported_options_raise(opt):
-    """shared_kv (MLA's latent cache) is ROADMAP item 11e."""
+    """shared_kv (MLA's latent cache) takes JAX's calling form, (q,
+    cache_q, scale, lengths): the unshared operands with shared_kv raise,
+    naming the form."""
     rng = np.random.default_rng(7)
     kq, vq, ks, vs = _quantized_cache(rng, "int8", 1, 1, 16, 64, [5])
     args = _to_torch(rng.standard_normal((1, 2, 64), dtype=np.float32), kq,
                      vq, ks, vs, np.array([5], np.int32))
-    with pytest.raises(NotImplementedError, match="11e"):
+    with pytest.raises(TypeError, match="shared_kv"):
         decode_attention_quantized(*args, **opt)
 
 

@@ -270,12 +270,13 @@ def test_with_lse_counts_on_its_own_counters():
 
 
 def test_shared_kv_still_raises():
-    """shared_kv (MLA's latent cache) is item 11e: it still raises."""
+    """shared_kv (MLA's latent cache) takes JAX's calling forms; the
+    unshared operands with shared_kv still raise, naming the form."""
     _, targs = _decode_case(24, "int8")
-    with pytest.raises(NotImplementedError, match="11e"):
+    with pytest.raises(TypeError, match="shared_kv"):
         dec.decode_attention_quantized(*targs, shared_kv=True)
     _, targs = _paged_case(24, "int8")
-    with pytest.raises(NotImplementedError, match="11e"):
+    with pytest.raises(TypeError, match="shared_kv"):
         pg.paged_attention_quantized(*targs, shared_kv=True)
 
 
