@@ -31,7 +31,11 @@ Phases; any failure raises and the script exits non-zero:
    kernel at Gemma-2-27B's layer-0 shapes; path (p) its own
    (``check_lse``): the lse of the decode, paged and chunk kernels at
    GPT-OSS-20B's; path (q) its own (``check_shared``): the shared-KV decode
-   and paged kernels at DeepSeek-V2-Lite's.
+   and paged kernels at DeepSeek-V2-Lite's; path (r) ``check_attn_options``
+   again at head dim 256 (Gemma-2-9B's layer-0 shapes), each capped check
+   beside a third control that must fail (the kernel at 128^-0.5), and the
+   fused entry block on its fused layer 0; path (s) the backward at head
+   dim 256 (``bwd_case`` at Gemma-2-2B's (1, 8, 8192, 256), 4 KV heads).
 4. Main paths, each with the launch counts zeroed just before it and read
    just after, on the full-width default ModelConfig() (random bf16 weights
    from a seed, quantized on the card):
@@ -261,7 +265,32 @@ Phases; any failure raises and the script exits non-zero:
           the quantized streams also over their own cache type); one B=8
           decode step at context 1024 profiled and the dense combine timed
           alone (phase 6).
-   Paths bf16, (a)-(e), (n), (o), (p) and (q) must stay under their
+   (r)    Gemma-2-9B, run fifth (after (q), on the card emptied again):
+          ``gemma2_9b_config`` (42 layers, hidden 3584, 16 / 8 heads of
+          256, path (o)'s switches) at its published width and depth, 9.24B
+          random bf16 parameters (18.5 GB), path (o)'s phases over it
+          (``gemma_path(tag="r")``) with three differences: the decode and
+          paged kernels are the wide ones (head dim 256, group 2); the
+          Engines serve dense fused params (``fuse_params``), so every
+          decode step of theirs runs the fused norm->QKV->RoPE kernel at
+          Dh = 256, exactly once per layer (counted by
+          ``fused_decode_steps``), while ``generate`` and the replays run
+          the unfused params; phase 6 profiles a step over the fused ones.
+   (s)    Gemma-2-2B trained, run sixth (after (r), on the card emptied
+          again): ``gemma2_2b_config`` (26 layers, hidden 2304, 8 / 4 heads
+          of 256, window 4096 on the even layers, caps 50 / 30) at its
+          published width, depth and context, 2.61B random bf16
+          parameters, norms at w = 0 (``gemma_train_path``). First its
+          phase 3 (the backward kernels at (1, 8, 8192, 256), causal and
+          with the window and cap, controls at BWD_CAP and a wrong
+          scale); then one B=1, S=2048 step replayed against the plain
+          attention (path (i)'s bounds); then ``make_train_step`` (remat,
+          AdamW lr 3e-4) at B=1, S=8192, 2 warm-up and 4 timed steps:
+          finite losses that fall, each step launching the forward with its
+          lse twice per layer and dQ and dK/dV once, nothing else; s a
+          step, tok/s, model-FLOP share (attention over each layer's band)
+          and peak device memory.
+   Paths bf16, (a)-(e), (n), (o), (p), (q) and (r) must stay under their
    weight-bandwidth ceilings; no serving path launches a training kernel, no serving or
    training path launches a GEMM library kernel, none but (k) a row-op
    kernel, none but (l) a kernel of path (l), none but (m) one of path (m)
@@ -428,7 +457,12 @@ PATH_KERNELS["q"] = ("decode_attention_shared",
                      "decode_attention_quantized_shared",
                      "paged_attention_shared",
                      "paged_attention_quantized_shared")
-# The kernels of training (path (i)): no serving path launches them.
+# Path (r), Gemma-2-9B at head dim 256: path (o)'s kernels, and the fused
+# entry block of the Engine's decode steps over dense fused params.
+PATH_KERNELS["r"] = PATH_KERNELS["o"] + ("fused_norm_qkv_rope",)
+# Path (s), Gemma-2-2B trained at head dim 256: training's kernels.
+PATH_KERNELS["s"] = PATH_KERNELS["i"]
+# The kernels of training (paths (i) and (s)): no serving path launches them.
 TRAIN_KERNELS = PATH_KERNELS["i"]
 # The GEMM library's kernels: no serving or training path launches them (the
 # model's projections are torch.matmul, as the JAX model left them to XLA).
@@ -478,6 +512,10 @@ PATH_FORBIDDEN = {
           "chunk_attention", "chunk_attention_quantized",
           "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
           "fused_norm_qkv_rope"),
+    # the same with the Engine over dense fused bf16 params
+    "r": ("decode_attention_quantized", "paged_attention_quantized",
+          "chunk_attention", "chunk_attention_quantized",
+          "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16"),
     # attention sinks: no attention launch without the lse; bf16 weights;
     # chunked prefill over pools only
     "p": ("flash_attention", "flash_attention_ragged", "decode_attention",
@@ -653,14 +691,20 @@ class Recorder:
             "bound_by": by, "library_ms": lib_ms,
             "flops": flops, "bytes": nbytes}
 
-    def cap_controls(self, check, run, want, cap):
+    def cap_controls(self, check, run, want, cap, wrong_scale=None):
         """Beside the capped check ``check``: ``run(c)`` launches its kernel
         at cap ``c``. Uncapped and at cap / log2(e) it must fail KERNEL_TOL
-        against ``want``, the capped plain result (NaN fails too). Records
-        the two largest differences."""
+        against ``want``, the capped plain result (NaN fails too); with
+        ``wrong_scale``, so must ``run(cap, wrong_scale)``, the kernel at
+        another attention scale. Records the largest differences."""
         errs = {}
-        for label, c in (("uncapped", None), ("log2 domain", cap / LOG2E)):
-            got, ref = run(c).float(), want.float()
+        runs = [("uncapped", lambda: run(None)),
+                ("log2 domain", lambda: run(cap / LOG2E))]
+        if wrong_scale is not None:
+            runs.append((f"scale {wrong_scale:.4g}",
+                         lambda: run(cap, wrong_scale)))
+        for label, launch in runs:
+            got, ref = launch().float(), want.float()
             errs[label] = float((got - ref).abs().max())
             if torch.allclose(got, ref, **KERNEL_TOL):
                 raise AssertionError(f"{check}: the kernel {label} passes "
@@ -813,11 +857,12 @@ def check_chunk(rec, flush):
 
 
 def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
-                softcap=None, prefix=""):
+                softcap=None, prefix="", wrong_scale=None):
     """The chunk kernel's cases (label, T, bases, format, paged, window) at
     H / Hkv heads of D over a capacity of S, with ``softcap`` (then q at
-    CAP_Q_SCALE, and the cap's controls); each check's name starts with
-    ``prefix``. See ``check_chunk``."""
+    CAP_Q_SCALE, and the cap's controls, with ``wrong_scale`` also the
+    scale's); each check's name starts with ``prefix``. See
+    ``check_chunk``."""
     from leetcuda_tpu_torch.attention import chunk as ck
     from leetcuda_tpu_torch.core.runtime import as_bytes
     from leetcuda_tpu_torch.models.llama import _quantize_token_kv
@@ -906,8 +951,9 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
         rec.rows[check].update(T=T, mean_base=float(bases_np.mean()),
                                window=window, softcap=softcap)
         if softcap:
-            rec.cap_controls(check, lambda c: wrapper(
-                *args, **{**kw, "softcap": c}), want, softcap)
+            rec.cap_controls(check, lambda c, s=kw.get("sm_scale"): wrapper(
+                *args, **{**kw, "softcap": c, "sm_scale": s}), want, softcap,
+                wrong_scale)
 
 
 def check_fused(rec, flush, layer, cfg):
@@ -1092,7 +1138,6 @@ def check_flash_bwd(rec, flush):
     rec.rows[check]["out_max_abs_err"] = float(
         (out.float() - w_out.float()).abs().max())
 
-    B, N = TRAIN_B, TRAIN_S
     for label, D, causal, with_dlse, window, cap in (
             ("causal", 128, True, False, None, None),
             ("non-causal", 128, False, False, None, None),
@@ -1103,77 +1148,100 @@ def check_flash_bwd(rec, flush):
             ("window 512, cap 2", 128, True, False, 512, BWD_CAP),
             ("cap 2", 128, True, False, None, BWD_CAP),
             ("window 1000", 128, True, False, 1000, None)):
-        scale = 1.0 / np.sqrt(D)
-        opt = dict(window=window, softcap=cap)
-        q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, N, D), rec.randn(
-            B, Hkv, N, D)
-        out, lse = fl.flash_attention(q, k, v, causal=causal, with_lse=True,
-                                      **opt)
-        w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=causal,
-                                                with_lse=True, **opt)
-        torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
-        torch.testing.assert_close(lse, w_lse, **KERNEL_TOL)
-        del w_out, w_lse
-        do = rec.randn(B, H, N, D)
-        dlse = rec.randn(B, H, N).float() if with_dlse else None
-        got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
-                                     causal=causal, **opt)
-        want = fb.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse,
-                                            causal=causal, sm_scale=scale,
-                                            **opt)
-        errs = {f"d{n}": rel_l2(g, w) for n, g, w in zip("qkv", got, want)}
-        if max(errs.values()) > BWD_REL_L2:
-            raise AssertionError(f"flash backward ({label}): relative L2 "
-                                 f"errors {errs} over {BWD_REL_L2}")
-        controls = {}  # a wrong cap must fail the check (NaN fails too)
-        for c_label, c in ((("uncapped", None), ("log2 domain", cap / LOG2E))
-                           if cap == BWD_CAP else ()):
-            c_got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
-                                           causal=causal, window=window,
-                                           softcap=c)
-            controls[c_label] = {f"d{n}": rel_l2(g, w) for n, g, w in
-                                 zip("qkv", c_got, want)}
-            if all(e <= BWD_REL_L2 for e in controls[c_label].values()):
-                raise AssertionError(f"flash backward ({label}): the kernel "
-                                     f"{c_label} passes the capped check")
-            del c_got
-        delta = fb._delta(out, do, dlse).contiguous()
-        plain_ms = time_ms(lambda: fb.flash_attention_bwd_plain(
-            q, k, v, out, lse, do, dlse, causal=causal, sm_scale=scale,
-            **opt), flush, iters=5)
-        lib_ms, lib_kernel = sdpa_backward(
-            q, k, v, do, causal, flush,
-            None if window is None else fl.band_mask(N, N, dev, True, window))
-        whole_ms = time_ms(lambda: fb.flash_attention_bwd(
-            q, k, v, out, lse, do, dlse, causal=causal, **opt), flush)
-        pairs = band_pairs(N, window) if causal else N * N
-        product = 2.0 * B * H * D * pairs  # FLOPs of one N x N x D product
-        q_bytes, kv_bytes = 2.0 * B * H * N * D, 2.0 * B * Hkv * N * D
-        row_bytes = 8.0 * B * H * N  # lse and delta, f32
-        extra = dict(rel_l2=errs, library_kernel=lib_kernel,
-                     cap_controls_rel_l2=controls or None,
-                     backward_ms=whole_ms,
-                     backward_bound_ms=5 * product / BF16_FLOP_PER_S * 1e3)
-        check = f"flash_attention_bwd_dq/{label}"
-        rec.record(check, "flash_attention_bwd_dq", FLASH_BWD_SRC,
-                   "leetcuda_tpu/attention/flash_bwd.py:196", got[0], want[0],
-                   time_ms(lambda: fb._launch_dq(q, k, v, do, lse, delta,
-                                                 causal, scale, window or 0,
-                                                 cap or 0.0), flush),
-                   plain_ms, lib_ms, 3 * product,
-                   3 * q_bytes + 2 * kv_bytes + row_bytes)
-        rec.rows[check].update(extra)
-        check = f"flash_attention_bwd_dkv/{label}"
-        rec.record(check, "flash_attention_bwd_dkv", FLASH_BWD_SRC,
-                   "leetcuda_tpu/attention/flash_bwd.py:215",
-                   torch.cat([got[1].flatten(), got[2].flatten()]),
-                   torch.cat([want[1].flatten(), want[2].flatten()]),
-                   time_ms(lambda: fb._launch_dkv(q, k, v, do, lse, delta,
-                                                  causal, scale, window or 0,
-                                                  cap or 0.0), flush),
-                   plain_ms, lib_ms, 4 * product,
-                   2 * q_bytes + 4 * kv_bytes + row_bytes)
-        rec.rows[check].update(extra)
+        bwd_case(rec, flush, label, (TRAIN_B, H, Hkv, TRAIN_S, D), causal,
+                 with_dlse, window, cap)
+
+
+def bwd_case(rec, flush, label, shape, causal, with_dlse=False, window=None,
+             cap=None, prefix="", wrong_scale=None):
+    """One backward check at ``shape`` (B, H, Hkv, N, D), the default scale
+    1 / sqrt(D): ``out`` and ``lse`` from the kernel forward, held against
+    the plain forward's first, a random ``do`` (and ``dlse``); dq, dk and dv
+    by relative L2 error (BWD_REL_L2) and elementwise (KERNEL_TOL). At
+    BWD_CAP the backward uncapped and at cap / log2(e) must fail
+    BWD_REL_L2, and with ``wrong_scale`` so must the backward at that
+    scale. The plain time is the whole plain backward, the library time
+    SDPA's (all three gradients; a window as an explicit band mask; no
+    softcap). Each check's name starts with ``prefix``."""
+    from leetcuda_tpu_torch.attention import flash as fl
+    from leetcuda_tpu_torch.attention import flash_bwd as fb
+
+    dev = rec.dev
+    B, H, Hkv, N, D = shape
+    scale = 1.0 / np.sqrt(D)
+    opt = dict(window=window, softcap=cap)
+    q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, N, D), rec.randn(
+        B, Hkv, N, D)
+    out, lse = fl.flash_attention(q, k, v, causal=causal, with_lse=True,
+                                  **opt)
+    w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=causal,
+                                            with_lse=True, **opt)
+    torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
+    torch.testing.assert_close(lse, w_lse, **KERNEL_TOL)
+    del w_out, w_lse
+    do = rec.randn(B, H, N, D)
+    dlse = rec.randn(B, H, N).float() if with_dlse else None
+    got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
+                                 causal=causal, **opt)
+    want = fb.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse,
+                                        causal=causal, sm_scale=scale,
+                                        **opt)
+    errs = {f"d{n}": rel_l2(g, w) for n, g, w in zip("qkv", got, want)}
+    if max(errs.values()) > BWD_REL_L2:
+        raise AssertionError(f"flash backward ({label}): relative L2 "
+                             f"errors {errs} over {BWD_REL_L2}")
+    controls = {}  # a wrong cap or scale must fail the check (NaN too)
+    runs = ((("uncapped", None, scale), ("log2 domain", cap / LOG2E, scale))
+            if cap == BWD_CAP else ())
+    if wrong_scale is not None:
+        runs += ((f"scale {wrong_scale:.4g}", cap, wrong_scale),)
+    for c_label, c, c_scale in runs:
+        c_got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
+                                       causal=causal, window=window,
+                                       softcap=c, sm_scale=c_scale)
+        controls[c_label] = {f"d{n}": rel_l2(g, w) for n, g, w in
+                             zip("qkv", c_got, want)}
+        if all(e <= BWD_REL_L2 for e in controls[c_label].values()):
+            raise AssertionError(f"flash backward ({label}): the kernel "
+                                 f"{c_label} passes the check")
+        del c_got
+    delta = fb._delta(out, do, dlse).contiguous()
+    plain_ms = time_ms(lambda: fb.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, dlse, causal=causal, sm_scale=scale,
+        **opt), flush, iters=5)
+    lib_ms, lib_kernel = sdpa_backward(
+        q, k, v, do, causal, flush,
+        None if window is None else fl.band_mask(N, N, dev, True, window))
+    whole_ms = time_ms(lambda: fb.flash_attention_bwd(
+        q, k, v, out, lse, do, dlse, causal=causal, **opt), flush)
+    pairs = band_pairs(N, window) if causal else N * N
+    product = 2.0 * B * H * D * pairs  # FLOPs of one N x N x D product
+    q_bytes, kv_bytes = 2.0 * B * H * N * D, 2.0 * B * Hkv * N * D
+    row_bytes = 8.0 * B * H * N  # lse and delta, f32
+    extra = dict(rel_l2=errs, library_kernel=lib_kernel,
+                 cap_controls_rel_l2=controls or None,
+                 backward_ms=whole_ms, shape=list(shape),
+                 backward_bound_ms=5 * product / BF16_FLOP_PER_S * 1e3)
+    check = f"{prefix}flash_attention_bwd_dq/{label}"
+    rec.record(check, "flash_attention_bwd_dq", FLASH_BWD_SRC,
+               "leetcuda_tpu/attention/flash_bwd.py:196", got[0], want[0],
+               time_ms(lambda: fb._launch_dq(q, k, v, do, lse, delta,
+                                             causal, scale, window or 0,
+                                             cap or 0.0), flush),
+               plain_ms, lib_ms, 3 * product,
+               3 * q_bytes + 2 * kv_bytes + row_bytes)
+    rec.rows[check].update(extra)
+    check = f"{prefix}flash_attention_bwd_dkv/{label}"
+    rec.record(check, "flash_attention_bwd_dkv", FLASH_BWD_SRC,
+               "leetcuda_tpu/attention/flash_bwd.py:215",
+               torch.cat([got[1].flatten(), got[2].flatten()]),
+               torch.cat([want[1].flatten(), want[2].flatten()]),
+               time_ms(lambda: fb._launch_dkv(q, k, v, do, lse, delta,
+                                              causal, scale, window or 0,
+                                              cap or 0.0), flush),
+               plain_ms, lib_ms, 4 * product,
+               2 * q_bytes + 4 * kv_bytes + row_bytes)
+    rec.rows[check].update(extra)
 
 
 def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
@@ -1771,27 +1839,29 @@ def replay_train_step(cfg, params, tokens):
     return res
 
 
-def train(cfg, params, corpus, rng):
-    """Path (i): TRAIN_STEPS steps of ``make_train_step`` (remat, AdamW at
-    TRAIN_LR) at TRAIN_B x TRAIN_S over crops of ``corpus`` uploaded
-    beforehand; the first TRAIN_WARMUP steps are not timed, and nothing is
+def train(cfg, params, corpus, rng, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS,
+          warmup=TRAIN_WARMUP):
+    """Paths (i) and (s): ``steps`` steps of ``make_train_step`` (remat,
+    AdamW at TRAIN_LR) at B x S over crops of ``corpus`` uploaded
+    beforehand; the first ``warmup`` steps are not timed, and nothing is
     read back until the last step. Asserts finite losses, a fall (mean of
     the last three below the first) and each step's launches: the forward
     with its lse twice per layer (remat), dQ and dK/dV once, nothing else.
-    Returns the numbers and (step, opt) for the profile."""
+    The model FLOPs count each layer's attention over the pairs its band
+    keeps. Returns the numbers and (step, opt) for the profile."""
     from leetcuda_tpu_torch.core.runtime import launch_counts
     from leetcuda_tpu_torch.models.llama import make_train_step, named_leaves
 
     dev = params["embed"].device
-    B, S, L = TRAIN_B, TRAIN_S, cfg.n_layers
+    L = cfg.n_layers
     init_opt, step = make_train_step(cfg, learning_rate=TRAIN_LR, remat=True)
     opt = init_opt(params)
-    batches = [crops(corpus, rng, B, S, dev) for _ in range(TRAIN_STEPS)]
+    batches = [crops(corpus, rng, B, S, dev) for _ in range(steps)]
     want = {"flash_attention_lse": 2 * L, "flash_attention_bwd_dq": L,
             "flash_attention_bwd_dkv": L}
     losses, t0 = [], None
     for i, tokens in enumerate(batches):
-        if i == TRAIN_WARMUP:
+        if i == warmup:
             sync(dev)
             t0 = time.perf_counter()
         before = launch_counts()
@@ -1808,12 +1878,16 @@ def train(cfg, params, corpus, rng):
         raise AssertionError(f"training losses {losses}")
     if not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
-    n_timed = TRAIN_STEPS - TRAIN_WARMUP
+    n_timed = steps - warmup
     n_params = sum(p.numel() for _, p in named_leaves(params))
-    flops_per_tok = (6 * n_params  # train_bench.py:61
-                     + 3 * 2 * 2 * L * cfg.n_heads * cfg.head_dim * S / 2)
+    # train_bench.py:61: 6 N, and 3 x 2 products x 2 FLOPs x H x Dh per
+    # (row, key) pair a layer's band keeps (S^2 / 2 causal), per token
+    pairs = sum(band_pairs(S, cfg.layer_window(i)) if cfg.layer_window(i)
+                else S * S / 2 for i in range(L))
+    flops_per_tok = (6 * n_params
+                     + 3 * 2 * 2 * cfg.n_heads * cfg.head_dim * pairs / S)
     tok_s = n_timed * B * S / seconds
-    return {"batch": B, "seq": S, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+    return {"batch": B, "seq": S, "steps": steps, "lr": TRAIN_LR,
             "remat": True, "losses": losses, "step_s": seconds / n_timed,
             "tok_s": tok_s, "n_params": n_params,
             "model_flop_share": tok_s * flops_per_tok / BF16_FLOP_PER_S,
@@ -3714,23 +3788,28 @@ def band_tiles(N, window, tile=64):
     return int((q0 // tile - first + 1).sum())
 
 
-def check_attn_options(rec, flush, cfg):
-    """Phase 3 of path (o): the window and softcap of kernels 1-9 at
-    Gemma-2-27B's layer-0 shapes (32 / 16 heads of 128, scale 144^-0.5), a
+def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
+    """Phase 3 of path (o) and, at head dim 256, of path (r) (``tag``): the
+    window and softcap of kernels 1-9 at the layer-0 shapes of ``cfg``
+    (Gemma-2-27B: 32 / 16 heads of 128, scale 144^-0.5; Gemma-2-9B: 16 / 8
+    heads of 256, scale 256^-0.5), a
     local layer (window 4096, cap 50) and a global one (cap 50), each held
     against its plain version at KERNEL_TOL and timed beside it and SDPA
     with the band as an explicit boolean mask (SDPA has no softcap): the
-    flash forward at (1, 32, 8192, 128) with and without its lse, and with
-    a window of 1000 (inside a 64-key tile) at 2048; the ragged forward at
+    flash forward at (1, H, 8192, D) with and without its lse, and with
+    a window of 1000 (inside a key tile) at 2048; the ragged forward at
     B=2, N=6144, lengths 6144 / 4500 with NaN past them; the band skip at
-    (1, 32, 16384, 128), windowed against causal; decode over bf16, int8
+    (1, H, 16384, D), windowed against causal; decode over bf16, int8
     and e4m3 caches and paged pools of 128 at B=4, S=6144, lengths
     GEMMA_DECODE_LENS, NaN past every length; the chunk kernel with the
     cap at T=512 over bases GEMMA_CHUNK_BASES (contiguous bf16 and e4m3,
     paged bf16 both layers, paged e4m3). q is drawn at CAP_Q_SCALE, so
     that the cap bends the scores, and beside every check the kernel
-    uncapped and at cap / log2(e) must fail it (``Recorder.cap_controls``).
-    Each bound counts the band's work. Returns the band skip's times."""
+    uncapped and at cap / log2(e) must fail it (``Recorder.cap_controls``),
+    and with ``wrong_scale`` also the kernel at that scale. Decode and paged
+    go to the narrow kernel (csrc/decode_attn.cu) at head dim 128 and to
+    the wide one (csrc/decode_attn_wide.cu) at 256. Each bound counts the
+    band's work. Returns the band skip's times."""
     from leetcuda_tpu_torch.attention import decode as dec
     from leetcuda_tpu_torch.attention import flash as fl
     from leetcuda_tpu_torch.attention import paged as pg
@@ -3739,6 +3818,9 @@ def check_attn_options(rec, flush, cfg):
 
     dev, bf = rec.dev, torch.bfloat16
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dec_src = ("leetcuda_tpu_torch/csrc/decode_attn.cu"
+               if D in dec.NARROW_HEAD_DIMS and H // Hkv in dec.NARROW_GROUPS
+               else MLA_SRC)
     W, cap, scale = cfg.sliding_window, cfg.attn_softcap, cfg.query_scale
     layers = {"local": dict(window=W, softcap=cap),
               "global": dict(softcap=cap)}
@@ -3766,18 +3848,18 @@ def check_attn_options(rec, flush, cfg):
                                           scale=scale), flush)
             pairs = band_pairs(N, w)
             for with_lse in (False, True):
-                def kern(c=cap, with_lse=with_lse):
+                def kern(c=cap, s=scale, with_lse=with_lse):
                     return fl.flash_attention(q, k, v, causal=True,
-                                              sm_scale=scale, window=w,
+                                              sm_scale=s, window=w,
                                               softcap=c, with_lse=with_lse)
 
-                def part(c, with_lse=with_lse):
-                    return kern(c)[1] if with_lse else kern(c)
+                def part(c, s=scale, with_lse=with_lse):
+                    return kern(c, s)[1] if with_lse else kern(c, s)
                 got, want, name = kern(), w_out, "flash_attention"
                 if with_lse:
                     hold(got[0], w_out)
                     got, want, name = got[1], w_lse, "flash_attention_lse"
-                check = f"(o) {name}/{layer} N={N}"
+                check = f"({tag}) {name}/{layer} N={N}"
                 rec.record(check, name, FLASH_SRC,
                            "leetcuda_tpu/attention/flash.py:259", got, want,
                            time_ms(kern, flush), plain_ms, lib_ms,
@@ -3785,7 +3867,7 @@ def check_attn_options(rec, flush, cfg):
                            2.0 * (2 * H * N * D + 2 * Hkv * N * D)
                            + (4.0 * H * N if with_lse else 0.0))
                 note(check, window=w, softcap=cap, N=N)
-                rec.cap_controls(check, part, want, cap)
+                rec.cap_controls(check, part, want, cap, wrong_scale)
             del w_out, w_lse, mask
 
     # the ragged forward, a local layer, NaN past the lengths
@@ -3813,20 +3895,20 @@ def check_attn_options(rec, flush, cfg):
     n_valid = int(lens_np.sum())
     pairs = sum(band_pairs(int(n), W) for n in lens_np)
     for with_lse in (False, True):
-        def kern(c=cap, with_lse=with_lse):
-            return fl.flash_attention_ragged(q, k, v, lengths, sm_scale=scale,
+        def kern(c=cap, s=scale, with_lse=with_lse):
+            return fl.flash_attention_ragged(q, k, v, lengths, sm_scale=s,
                                              window=W, softcap=c,
                                              with_lse=with_lse)
 
-        def part(c, with_lse=with_lse):
-            return kern(c)[1] if with_lse else kern(c)
+        def part(c, s=scale, with_lse=with_lse):
+            return kern(c, s)[1] if with_lse else kern(c, s)
         got, want, name = kern(), w_out, "flash_attention_ragged"
         if with_lse:
             hold(got[0], w_out)
             got, want, name = got[1], w_lse, "flash_attention_lse"
         if not torch.isfinite(got).all():
             raise AssertionError("ragged flash let NaN past a length through")
-        check = f"(o) {name}/ragged local B={B} N={N}"
+        check = f"({tag}) {name}/ragged local B={B} N={N}"
         rec.record(check, name, FLASH_SRC,
                    "leetcuda_tpu/attention/flash.py:367", got, want,
                    time_ms(kern, flush), plain_ms, lib_ms,
@@ -3835,7 +3917,7 @@ def check_attn_options(rec, flush, cfg):
                           + B * H * N * D)
                    + (4.0 * B * H * N if with_lse else 0.0))
         note(check, window=W, softcap=cap, lengths=lens_np.tolist())
-        rec.cap_controls(check, part, want, cap)
+        rec.cap_controls(check, part, want, cap, wrong_scale)
     del w_out, w_lse, q, k, v
 
     # the band skip: the windowed forward against the causal one
@@ -3845,7 +3927,7 @@ def check_attn_options(rec, flush, cfg):
     t = {layer: time_ms(lambda opt=opt: fl.flash_attention(
         q, k, v, causal=True, sm_scale=scale, **opt), flush)
         for layer, opt in layers.items()}
-    skip = {"N": N, "window": W, "local_ms": t["local"],
+    skip = {"N": N, "H": H, "D": D, "window": W, "local_ms": t["local"],
             "global_ms": t["global"], "ratio": t["local"] / t["global"],
             "tile_ratio": band_tiles(N, W) / band_tiles(N, None),
             "max_ratio": BAND_SKIP_MAX}
@@ -3879,10 +3961,9 @@ def check_attn_options(rec, flush, cfg):
         got = dec.decode_attention(*args, sm_scale=scale, **opt)
         if not torch.isfinite(got).all():
             raise AssertionError("decode kernel let NaN padding through")
-        check = f"(o) decode_attention/{layer} B={B} S={S}"
+        check = f"({tag}) decode_attention/{layer} B={B} S={S}"
         want = dec.decode_attention_plain(*args, sm_scale=scale, **opt)
-        rec.record(check, "decode_attention",
-                   "leetcuda_tpu_torch/csrc/decode_attn.cu",
+        rec.record(check, "decode_attention", dec_src,
                    "leetcuda_tpu/attention/decode.py:223", got, want,
                    time_ms(lambda: dec.decode_attention(
                        *args, sm_scale=scale, **opt), flush),
@@ -3894,8 +3975,10 @@ def check_attn_options(rec, flush, cfg):
                    4.0 * H * D * n_att,
                    2.0 * (2 * Hkv * n_att * D + 2 * B * H * D) + 4 * B)
         note(check, lengths=lens_np.tolist(), **opt)
-        rec.cap_controls(check, lambda c, opt=opt: dec.decode_attention(
-            *args, sm_scale=scale, **{**opt, "softcap": c}), want, cap)
+        rec.cap_controls(check, lambda c, s=scale, opt=opt:
+                         dec.decode_attention(*args, sm_scale=s,
+                                              **{**opt, "softcap": c}),
+                         want, cap, wrong_scale)
     opt = layers["local"]
     m, n_att = seen(W)
     quant = {}
@@ -3912,11 +3995,10 @@ def check_attn_options(rec, flush, cfg):
         got = dec.decode_attention_quantized(*args, sm_scale=scale, **opt)
         if not torch.isfinite(got).all():
             raise AssertionError("quantized decode let NaN padding through")
-        check = f"(o) decode_attention_quantized/{fmt} local B={B} S={S}"
+        check = f"({tag}) decode_attention_quantized/{fmt} local B={B} S={S}"
         want = dec.decode_attention_quantized_plain(*args, sm_scale=scale,
                                                     **opt)
-        rec.record(check, "decode_attention_quantized",
-                   "leetcuda_tpu_torch/csrc/decode_attn.cu",
+        rec.record(check, "decode_attention_quantized", dec_src,
                    "leetcuda_tpu/attention/decode.py:308", got, want,
                    time_ms(lambda: dec.decode_attention_quantized(
                        *args, sm_scale=scale, **opt), flush),
@@ -3929,8 +4011,10 @@ def check_attn_options(rec, flush, cfg):
                    2 * Hkv * n_att * D + 8.0 * Hkv * n_att
                    + 4.0 * B * H * D + 4 * B)
         note(check, lengths=lens_np.tolist(), **opt)
-        rec.cap_controls(check, lambda c: dec.decode_attention_quantized(
-            *args, sm_scale=scale, window=W, softcap=c), want, cap)
+        rec.cap_controls(check, lambda c, s=scale:
+                         dec.decode_attention_quantized(
+                             *args, sm_scale=s, window=W, softcap=c),
+                         want, cap, wrong_scale)
         del kdq, vdq
 
     # the same caches as shuffled pools of PAGE, NaN wherever no row owns a
@@ -3966,9 +4050,9 @@ def check_attn_options(rec, flush, cfg):
         got = fn(*args, sm_scale=scale, **opt)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name} read a position no row owns")
-        check = f"(o) {name}/{fmt or 'bf16'} local page{PAGE}"
+        check = f"({tag}) {name}/{fmt or 'bf16'} local page{PAGE}"
         want = plain(*args, sm_scale=scale, **opt)
-        rec.record(check, name, "leetcuda_tpu_torch/csrc/decode_attn.cu",
+        rec.record(check, name, dec_src,
                    "leetcuda_tpu/attention/paged.py:232", got, want,
                    time_ms(lambda: fn(*args, sm_scale=scale, **opt), flush),
                    time_ms(lambda: plain(*args, sm_scale=scale, **opt),
@@ -3978,8 +4062,8 @@ def check_attn_options(rec, flush, cfg):
                                         scale=scale), flush),
                    4.0 * H * D * n_att, nbytes + 4 * B + 4.0 * band_pages)
         note(check, lengths=lens_np.tolist(), band_pages=band_pages, **opt)
-        rec.cap_controls(check, lambda c: fn(*args, sm_scale=scale, window=W,
-                                             softcap=c), want, cap)
+        rec.cap_controls(check, lambda c, s=scale: fn(
+            *args, sm_scale=s, window=W, softcap=c), want, cap, wrong_scale)
     del pools, kd, vd, kg, vg
 
     # the chunk kernel with the cap at T=512 across the window's edge
@@ -3990,7 +4074,7 @@ def check_attn_options(rec, flush, cfg):
               None),
              ("T=512 local", GEMMA_CHUNK, GEMMA_CHUNK_BASES, "fp8", True, W))
     chunk_cases(rec, flush, cases, H, Hkv, S, D, sm_scale=scale,
-                softcap=cap, prefix="(o) ")
+                softcap=cap, prefix=f"({tag}) ", wrong_scale=wrong_scale)
     return skip
 
 
@@ -4052,20 +4136,23 @@ def roundoff_control(params, cfg, toks, chunk=GEMMA_CHUNK):
                                 - b.gather(1, top[:, None])[:, 0]).max())}
 
 
-def depth_witness(params, cfg, prompts, control):
-    """Path (o)'s serving at the drawn norms (w = 1), cut to the first
-    GEMMA_WITNESS_LAYERS layers at full width (the even ones windowed):
-    the paged Engine with chunked prefill over ``prompts``, each
-    served token teacher-forced against its solo replay at LOGIT_TOL, and
-    the roundoff control at that depth. Shares ``params``' tensors."""
+def depth_witness(params, cfg, prompts, control, serve_params=None):
+    """Path (o)'s and (r)'s serving at the drawn norms (w = 1), cut to the
+    first GEMMA_WITNESS_LAYERS layers at full width (the even ones
+    windowed): the paged Engine with chunked prefill over ``prompts`` (over
+    ``serve_params``, by default ``params``), each served token
+    teacher-forced against its solo replay over ``params`` at LOGIT_TOL,
+    and the roundoff control at that depth. Shares the params' tensors."""
     from leetcuda_tpu_torch.engine import Engine, EngineConfig
 
     n = GEMMA_WITNESS_LAYERS
     wcfg = dataclasses.replace(cfg, n_layers=n)
     wparams = {**params, "layers": params["layers"][:n]}
+    sparams = serve_params or params
+    sparams = {**sparams, "layers": sparams["layers"][:n]}
     dev = params["embed"].device
     t0 = time.perf_counter()
-    eng = Engine(wparams, wcfg, EngineConfig(
+    eng = Engine(sparams, wcfg, EngineConfig(
         slots=GEMMA_SLOTS, max_seq=GEMMA_MAX_SEQ, prefill_bucket=GEMMA_BUCKET,
         paged=True, page_size=PAGE, prefill_chunk=GEMMA_CHUNK), device=dev)
     served = list(eng.run(prompts, GEMMA_NEW).values())
@@ -4077,8 +4164,8 @@ def depth_witness(params, cfg, prompts, control):
            "roundoff_control": roundoff_control(wparams, wcfg, control),
            "seconds": time.perf_counter() - t0}
     if res["worst"] > LOGIT_TOL:
-        raise AssertionError(f"path o, {n} layers at w = 1: served tokens "
-                             f"off the solo replay: {gaps}")
+        raise AssertionError(f"{n} layers at w = 1: served tokens off the "
+                             f"solo replay: {gaps}")
     return res
 
 
@@ -4120,11 +4207,13 @@ def chunk_replay_gap(params, cfg, prompt, tokens, chunk=GEMMA_CHUNK):
     return float(torch.stack(gaps).max())
 
 
-def serve_gemma(params, cfg, prompts, lone, ragged, gprompts):
-    """Path (o)'s serving: the paged Engine with chunked prefill over
-    ``prompts``, then ``lone`` alone; a contiguous Engine admitting
-    ``ragged`` in one ragged batch; ``generate`` over ``gprompts``. Returns
-    timings and the served streams."""
+def serve_gemma(params, cfg, prompts, lone, ragged, gprompts,
+                gen_params=None):
+    """Path (o)'s and (r)'s serving: the paged Engine with chunked prefill
+    over ``prompts``, then ``lone`` alone; a contiguous Engine admitting
+    ``ragged`` in one ragged batch; ``generate`` over ``gprompts`` (over
+    ``gen_params``, by default ``params``). Returns timings and the served
+    streams."""
     from leetcuda_tpu_torch.engine import Engine, EngineConfig
 
     dev = params["embed"].device
@@ -4151,7 +4240,7 @@ def serve_gemma(params, cfg, prompts, lone, ragged, gprompts):
     t_lone = time.perf_counter() - t1
     stats = eng.stats()
     if eng.recoveries or eng.preemptions:
-        raise AssertionError(f"path o: {eng.recoveries} recoveries, "
+        raise AssertionError(f"{eng.recoveries} recoveries, "
                              f"{eng.preemptions} preemptions")
     served = [eng.finished[u].generated for u in uids]
     kv_bytes = eng.kv_memory_report()["target_bytes"]
@@ -4169,12 +4258,13 @@ def serve_gemma(params, cfg, prompts, lone, ragged, gprompts):
     del reng
     torch.cuda.empty_cache()
 
-    gen_, gtoks = serve_generate(params, cfg, gprompts, GEMMA_GEN_NEW)
+    gen_, gtoks = serve_generate(gen_params or params, cfg, gprompts,
+                                 GEMMA_GEN_NEW)
     for toks, n in zip(served + rserved,
                        [GEMMA_NEW] * len(prompts) + [GEMMA_LONE_NEW]
                        + [GEMMA_RAGGED_NEW] * len(ragged)):
         if len(toks) != n or not all(0 <= x < cfg.vocab_size for x in toks):
-            raise AssertionError(f"path o: a request answered {toks}")
+            raise AssertionError(f"a request answered {toks}")
     return ({"engine_batch_s": t_batch, "engine_ticks": ticks,
              "first_token_s": [first[u] for u in uids[:len(prompts)]],
              "engine_tok_s": len(prompts) * GEMMA_NEW / t_batch,
@@ -4184,20 +4274,55 @@ def serve_gemma(params, cfg, prompts, lone, ragged, gprompts):
              **gen_}, served, rserved, gtoks)
 
 
-def gemma_path(dev="cuda"):
+# The Gemma 2 serving paths: (o) Gemma-2-27B (head dim 128) over unfused
+# params; (r) Gemma-2-9B (head dim 256) with the Engine over dense fused
+# params, so that the fused entry block runs at Dh = 256, ``generate`` over
+# the unfused ones, and beside every capped phase-3 check one more control
+# that must fail: the kernel at the scale of half the head dim, 128^-0.5
+# (Gemma-2-9B's own scale is the default, 256^-0.5).
+GEMMA_PATHS = {"o": ("Gemma-2-27B", "gemma2_27b_config", False, None),
+               "r": ("Gemma-2-9B", "gemma2_9b_config", True, 128 ** -0.5)}
+
+
+@contextlib.contextmanager
+def fused_decode_steps(calls):
+    """Count the engine's decode steps over dense fused params (a tensor
+    ``wqkv`` in layer 0) into calls["decode_step"]; engine/engine.py looks
+    ``decode_step`` up at call time, for the Engine and ``generate``."""
+    from leetcuda_tpu_torch.engine import engine as em
+
+    saved = em.decode_step
+
+    def counting(params, *args, **kw):
+        if isinstance(params["layers"][0].get("wqkv"), torch.Tensor):
+            calls["decode_step"] = calls.get("decode_step", 0) + 1
+        return saved(params, *args, **kw)
+
+    em.decode_step = counting
+    try:
+        yield calls
+    finally:
+        em.decode_step = saved
+
+
+def gemma_path(dev="cuda", tag="o"):
     """Path (o): Gemma-2-27B (46 layers, 32 / 16 heads of 128, a 4096-token
     window on the even layers, attention softcap 50, final softcap 30,
-    vocab 256000, bf16). Phase 3's window and softcap checks at its layer-0
-    shapes first, on the empty card (the plain versions at N=8192 hold
-    ~35 GB of f32 scores); then the weights, built on the card from a seed;
-    the paged Engine with chunked prefill, a ragged admission and
-    ``generate`` (serve_gemma) with the launch counts zeroed just before
-    and read just after: exactly one attention launch per layer per
-    forward, ragged forward, chunk and decode step, half of them windowed;
-    served tok/s under the weight-read ceiling; every served token
-    teacher-forced against a solo replay in chunks of 512 (phase 5); one
-    B=4 decode step at context 5120 profiled, attention device time on the
-    local and the global layers apart (phase 6). Returns (rows for the
+    vocab 256000, bf16); path (r) (``tag``): Gemma-2-9B (42 layers, 16 / 8
+    heads of 256, the same switches). Phase 3's window and softcap checks
+    at its layer-0 shapes first, on the empty card (the plain versions at
+    N=8192 hold ~35 GB of f32 scores); then the weights, built on the card
+    from a seed (path (r) also fuses them and checks the fused entry block
+    on its layer 0); the paged Engine with chunked prefill, a ragged
+    admission and ``generate`` (serve_gemma) with the launch counts zeroed
+    just before and read just after: exactly one attention launch per layer
+    per forward, ragged forward, chunk and decode step, half of them
+    windowed (path (r): the fused entry block once per layer per decode
+    step over the fused params); served tok/s under the weight-read
+    ceiling; every served token teacher-forced against a solo replay over
+    the unfused params in chunks of 512 (phase 5); one B=4 decode step at
+    context 5120 over the served params profiled, attention device time on
+    the local and the global layers apart (phase 6). Returns (rows for the
     kernels line, the path's report).
 
     The served model's norm weights are 0. ``init_params`` draws them at 1,
@@ -4212,28 +4337,34 @@ def gemma_path(dev="cuda"):
     serving is held at a depth of GEMMA_WITNESS_LAYERS (``depth_witness``),
     where roundoff does not grow into another argmax."""
     from leetcuda_tpu_torch.engine import generate
-    from leetcuda_tpu_torch.models.llama import (gemma2_27b_config,
-                                                 init_params, named_leaves)
+    from leetcuda_tpu_torch.models import llama as ml
 
-    cfg = gemma2_27b_config()
-    res = {"model": "Gemma-2-27B",
+    model, cfg_name, fused, wrong_scale = GEMMA_PATHS[tag]
+    cfg = getattr(ml, cfg_name)()
+    res = {"model": model, "tag": tag, "fused": fused,
            "config": {k: (str(v) if isinstance(v, torch.dtype) else v)
                       for k, v in dataclasses.asdict(cfg).items()}}
     t0 = time.perf_counter()
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     rec = Recorder(dev)
-    res["band_skip"] = check_attn_options(rec, flush, cfg)
-    del flush
-    torch.cuda.empty_cache()
+    res["band_skip"] = check_attn_options(rec, flush, cfg, tag, wrong_scale)
     res["phase3_s"] = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    params = init_params(torch.Generator(device=dev).manual_seed(GEMMA_SEED),
-                         cfg, device=dev)
+    params = ml.init_params(torch.Generator(device=dev).manual_seed(
+        GEMMA_SEED), cfg, device=dev)
     sync(params["embed"].device)
     res.update(init_s=time.perf_counter() - t1,
                weight_bytes=param_bytes(params),
-               n_params=sum(p.numel() for _, p in named_leaves(params)))
+               n_params=sum(p.numel() for _, p in ml.named_leaves(params)))
+    sparams = params  # the Engine's params
+    if fused:
+        sparams = ml.fuse_params(params)  # the norms stay shared
+        t2 = time.perf_counter()
+        check_fused(rec, flush, sparams["layers"][0], cfg)
+        res["fused_check_s"] = time.perf_counter() - t2
+    del flush
+    torch.cuda.empty_cache()
     # a B=4 step reads every weight once: the tok/s ceiling
     res["tok_s_ceiling"] = GEMMA_SLOTS / (res["weight_bytes"]
                                           / HBM_BYTES_PER_S)
@@ -4250,38 +4381,50 @@ def gemma_path(dev="cuda"):
         0, cfg.vocab_size, (GEMMA_GEN_B, GEMMA_GEN_S)).astype(
             np.int32)).to(dev)
     with torch.no_grad():
-        res["witness_w1"] = depth_witness(params, cfg, prompts, control)
+        res["witness_w1"] = depth_witness(params, cfg, prompts, control,
+                                          sparams)
         res["roundoff_control"] = {
             "norms at 1": roundoff_control(params, cfg, control)}
         identity_norms(params)
         res["roundoff_control"]["norms at 0"] = roundoff_control(
             params, cfg, control)
-    generate(params, cfg, gprompts[:1, :16], 2, device=dev)  # warm-up
-    calls, kinds = {}, {}
+    generate(sparams, cfg, gprompts[:1, :16], 2, device=dev)  # warm-up
+    calls, kinds, fsteps = {}, {}, {}
 
     def serve():
-        with model_calls(calls), attention_windows(kinds):
-            return serve_gemma(params, cfg, prompts, lone, ragged, gprompts)
+        with model_calls(calls), attention_windows(kinds), \
+                fused_decode_steps(fsteps):
+            return serve_gemma(sparams, cfg, prompts, lone, ragged, gprompts,
+                               params)
 
-    (out, served, rserved, gtoks), counts, peak = drive("o", serve)
+    (out, served, rserved, gtoks), counts, peak = drive(tag, serve)
     res.update(out, launches=counts, model_calls=calls,
                attention_calls=kinds, peak_extra_bytes=peak,
+               fused_decode_steps=fsteps.get("decode_step", 0),
                peak_bytes=torch.cuda.max_memory_allocated())
     n_calls = sum(calls.values())
     attn = sum(counts.get(n, 0) for n in ATTN_COUNTERS)
     if attn != cfg.n_layers * n_calls or any(
             counts.get(n, 0) % cfg.n_layers for n in ATTN_COUNTERS):
-        raise AssertionError(f"path o: {attn} attention launches for "
+        raise AssertionError(f"path {tag}: {attn} attention launches for "
                              f"{calls}, not one per layer per call "
                              f"({cfg.n_layers * n_calls}): {counts}")
     half = cfg.n_layers // 2 * n_calls
     if kinds != {"local": half, "global": half}:
-        raise AssertionError(f"path o: attention calls by layer {kinds}, "
+        raise AssertionError(f"path {tag}: attention calls by layer {kinds}, "
                              f"not {half} windowed and {half} global")
+    fused_want = cfg.n_layers * res["fused_decode_steps"]
+    if counts.get("fused_norm_qkv_rope", 0) != fused_want or (
+            fused and not fused_want):
+        raise AssertionError(f"path {tag}: {counts.get('fused_norm_qkv_rope')}"
+                             f" fused entry blocks for "
+                             f"{res['fused_decode_steps']} decode steps over "
+                             f"fused params")
     for what in ("engine_tok_s", "generate_tok_s"):
         if res[what] > res["tok_s_ceiling"]:
-            raise AssertionError(f"path o: {what} {res[what]:.1f} exceeds "
-                                 f"its ceiling {res['tok_s_ceiling']:.1f}")
+            raise AssertionError(f"path {tag}: {what} {res[what]:.1f} "
+                                 f"exceeds its ceiling "
+                                 f"{res['tok_s_ceiling']:.1f}")
 
     # phase 5: every served stream against a solo replay in chunks
     t5 = time.perf_counter()
@@ -4297,12 +4440,12 @@ def gemma_path(dev="cuda"):
                              "gaps": gaps,
                              "seconds": time.perf_counter() - t5}
     if res["teacher_forced"]["worst"] > LOGIT_TOL:
-        raise AssertionError(f"path o: served tokens off the solo replay: "
-                             f"{gaps}")
+        raise AssertionError(f"path {tag}: served tokens off the solo "
+                             f"replay: {gaps}")
 
     # phase 6: one B=4 decode step at context 5120, attention by layer kind
     res["profile"] = profile_decode(
-        params, cfg, batch=GEMMA_SLOTS, context=GEMMA_PLENS[0],
+        sparams, cfg, batch=GEMMA_SLOTS, context=GEMMA_PLENS[0],
         classes={"attention": ("decode_attn",)},
         split=("decode_attn", cfg.n_layers))
     return rec.rows, res
@@ -4316,16 +4459,20 @@ def print_gemma(rows, res):
         print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms {lib} "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-    bs = res["band_skip"]
-    print(f"band skip (1, 32, {bs['N']}, 128): window {bs['window']} "
+    bs, tag = res["band_skip"], res["tag"]
+    print(f"band skip (1, {bs['H']}, {bs['N']}, {bs['D']}): window "
+          f"{bs['window']} "
           f"{bs['local_ms']:.4f} ms, causal {bs['global_ms']:.4f} ms, ratio "
           f"{bs['ratio']:.3f} (tiles {bs['tile_ratio']:.3f}, bar "
           f"{bs['max_ratio']})")
-    print(f"path (o) {res['model']} ({c['n_layers']} layers, "
-          f"{res['n_params'] / 1e9:.2f}B params, window "
+    print(f"path ({tag}) {res['model']} ({c['n_layers']} layers, "
+          f"{res['n_params'] / 1e9:.2f}B params, head dim "
+          f"{c['head_dim_override']}, window "
           f"{c['sliding_window']} on even layers, softcap "
           f"{c['attn_softcap']} / {c['final_softcap']}, bf16, random weights "
-          f"built in {res['init_s']:.1f} s): paged Engine, prefill_chunk "
+          f"built in {res['init_s']:.1f} s): paged Engine"
+          f"{' over dense fused params' if res['fused'] else ''}, "
+          f"prefill_chunk "
           f"{GEMMA_CHUNK}, {len(GEMMA_PLENS)} requests (prompts "
           f"{list(GEMMA_PLENS)}) x {GEMMA_NEW} tokens in "
           f"{res['engine_batch_s']:.3f} s = {res['engine_tok_s']:.1f} tok/s "
@@ -4341,7 +4488,8 @@ def print_gemma(rows, res):
           f"{res['kv_bytes'] / 2**30:.2f} GiB, peak device memory "
           f"{res['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     print(f"  model calls {res['model_calls']}; attention calls by layer "
-          f"{res['attention_calls']}; launches: {res['launches']}")
+          f"{res['attention_calls']}; decode steps over fused params "
+          f"{res['fused_decode_steps']}; launches: {res['launches']}")
     tf = res["teacher_forced"]
     print(f"  teacher-forced: worst gap {tf['worst']:.4f} (tol {tf['tol']}) "
           f"over {len(tf['gaps'])} streams in {tf['seconds']:.1f} s")
@@ -4356,13 +4504,122 @@ def print_gemma(rows, res):
             print(f"  cap control {r['check']}: {r['cap_controls']} (bar "
                   f"{KERNEL_TOL})")
     prof = res["profile"]
-    print_profile("(o) Gemma-2-27B, contiguous bf16 cache", prof)
+    print_profile(f"({tag}) {res['model']}, contiguous bf16 cache"
+                  + (", dense fused params" if res["fused"] else ""), prof)
     split = prof.get("split_ms")
     print(f"  attention device ms a step: "
           + ("not measured" if not split else
              f"windowed layers {split['even']:.4f}, global layers "
              f"{split['odd']:.4f} ({split['launches']} launches)"),
           flush=True)
+
+
+# Path (s) trains Gemma-2-2B (models/llama.py gemma2_2b_config: 26 layers,
+# 8 / 4 heads of 256, a 4096-token window on the even layers, caps 50 / 30)
+# at its published width and depth and context, B=1 x S=8192, so that the
+# window bands the even layers' backward: random bf16 weights from
+# GEMMA_TRAIN_SEED with the (1 + w) norms at w = 0 (Gemma's own init and
+# path (o)'s served scale; see ``gemma_path``), AdamW at TRAIN_LR under
+# remat, GEMMA_TRAIN_WARMUP + 4 timed steps on crops of the learnable
+# corpus. Its phase 3 holds the backward kernels at (1, 8, 8192, 256) with
+# 4 KV heads (GEMMA_BWD_N): causal, the local layer's window 4096 with cap
+# 50, and the same at BWD_CAP with the cap's controls and a wrong scale's.
+GEMMA_TRAIN_SEED = 13
+GEMMA_TRAIN_B, GEMMA_TRAIN_S = 1, 8192
+GEMMA_TRAIN_STEPS, GEMMA_TRAIN_WARMUP = 6, 2
+GEMMA_REPLAY_B, GEMMA_REPLAY_S = 1, 2048
+GEMMA_BWD_N = 8192
+
+
+def gemma_train_path(dev="cuda"):
+    """Path (s): phase 3's backward checks at Gemma-2-2B's training shape
+    on the empty card; then its weights; one B=1, S=2048 step replayed
+    against the plain attention forward and backward (``replay_train_step``,
+    path (i)'s bounds); then ``train`` at B=1, S=8192 with the launch counts
+    zeroed just before and read just after (each step: the forward with
+    its lse twice per layer, dQ and dK/dV once, nothing else), a falling
+    loss. Returns (rows for the kernels line, the path's report)."""
+    from leetcuda_tpu_torch.models.llama import gemma2_2b_config, init_params
+
+    cfg = gemma2_2b_config()
+    W, cap = cfg.sliding_window, cfg.attn_softcap
+    res = {"model": "Gemma-2-2B",
+           "config": {k: (str(v) if isinstance(v, torch.dtype) else v)
+                      for k, v in dataclasses.asdict(cfg).items()}}
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rec = Recorder(dev)
+    shape = (1, cfg.n_heads, cfg.n_kv_heads, GEMMA_BWD_N, cfg.head_dim)
+    for label, window, c, wrong in (
+            ("causal", None, None, None),
+            (f"window {W}, cap {cap:g}", W, cap, None),
+            (f"window {W}, cap {BWD_CAP:g}", W, BWD_CAP,
+             (cfg.head_dim // 2) ** -0.5)):
+        bwd_case(rec, flush, f"D={cfg.head_dim} {label}", shape, True,
+                 window=window, cap=c, prefix="(s) ", wrong_scale=wrong)
+    del flush
+    torch.cuda.empty_cache()
+    res["phase3_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(
+        GEMMA_TRAIN_SEED), cfg, device=dev)
+    identity_norms(params)
+    sync(params["embed"].device)
+    res["init_s"] = time.perf_counter() - t1
+    corpus = train_corpus(cfg.vocab_size, 200_000, seed=0)
+    rng = np.random.default_rng(GEMMA_TRAIN_SEED + 1)
+    t2 = time.perf_counter()
+    res["replay"] = replay_train_step(cfg, params, crops(
+        corpus, rng, GEMMA_REPLAY_B, GEMMA_REPLAY_S, dev))
+    res["replay"]["seconds"] = time.perf_counter() - t2
+    res["replay"].update(batch=GEMMA_REPLAY_B, seq=GEMMA_REPLAY_S)
+    torch.cuda.empty_cache()
+    (out, _, _, _), counts, peak = drive("s", lambda: train(
+        cfg, params, corpus, rng, B=GEMMA_TRAIN_B, S=GEMMA_TRAIN_S,
+        steps=GEMMA_TRAIN_STEPS, warmup=GEMMA_TRAIN_WARMUP))
+    res.update(out, launches=counts, peak_extra_bytes=peak,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               corpus_distinct_tokens=int(np.unique(corpus).size))
+    return rec.rows, res
+
+
+def print_gemma_train(rows, res):
+    c = res["config"]
+    for r in rows.values():
+        errs = ", ".join(f"{n} {e:.3g}" for n, e in r["rel_l2"].items())
+        print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+              f"{r['library_ms']:.4f} ms ({r['library_kernel']}) bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); relative L2 "
+              f"{errs}; whole backward {r['backward_ms']:.4f} ms; controls "
+              f"{r['cap_controls_rel_l2']}", flush=True)
+    rp = res["replay"]
+    print(f"path (s) replayed step B={rp['batch']} S={rp['seq']}: loss "
+          f"{rp['loss_kernels']:.6f} through the kernels, "
+          f"{rp['loss_plain']:.6f} through the plain attention (relative "
+          f"{rp['loss_rel_err']:.2e}, tol {REPLAY_LOSS_TOL}); worst gradient "
+          f"relative L2 {rp['worst_grad_rel_l2_plain']:.2e} "
+          f"({rp['worst_grad_plain']}, tol {REPLAY_GRAD_TOL}); against the "
+          f"kernel forward with the plain backward "
+          f"{rp['worst_grad_rel_l2_plain_bwd']:.2e} "
+          f"({rp['worst_grad_plain_bwd']}, tol {REPLAY_BWD_TOL}), roundoff "
+          f"floor {rp['worst_grad_rel_l2_nudged']:.2e}; backward kernels per "
+          f"layer {rp['worst_call_rel_l2']:.2e} at worst (tol "
+          f"{REPLAY_CALL_TOL}) in {rp['seconds']:.1f} s", flush=True)
+    print(f"path (s) {res['model']} training ({c['n_layers']} layers, "
+          f"{res['n_params'] / 1e9:.3f}B params, head dim "
+          f"{c['head_dim_override']}, window {c['sliding_window']} on even "
+          f"layers), make_train_step remat, AdamW lr {TRAIN_LR}, "
+          f"B={res['batch']} S={res['seq']}: losses "
+          f"{[round(x, 4) for x in res['losses']]}; after "
+          f"{GEMMA_TRAIN_WARMUP} warm-up steps {res['step_s']:.4f} s a step "
+          f"= {res['tok_s']:.1f} tok/s, model-FLOP share "
+          f"{res['model_flop_share']:.4f} of {BF16_FLOP_PER_S / 1e12:.0f} "
+          f"TFLOP/s; peak device memory {res['peak_bytes'] / 2**30:.2f} GiB; "
+          f"corpus cycle {res['corpus_distinct_tokens']} tokens; phase 3 "
+          f"{res['phase3_s']:.1f} s", flush=True)
+    print(f"  launches: {res['launches']}")
 
 
 # Path (p) serves GPT-OSS-20B (models/llama.py gpt_oss_20b_config) at its
@@ -5591,7 +5848,7 @@ def drive(path, fn):
     if missing:
         raise AssertionError(f"path {path}: kernels not launched: {missing}")
     forbidden = (PATH_FORBIDDEN.get(path, ())
-                 + (TRAIN_KERNELS if path != "i" else ())
+                 + (TRAIN_KERNELS if path not in ("i", "s") else ())
                  + (GEMM_KERNELS if not path.startswith("j") else ())
                  + (ROW_KERNELS if not path.startswith("k") else ())
                  + (CORPUS_KERNELS if not path.startswith("l") else ())
@@ -5884,6 +6141,21 @@ def main() -> int:
     print_mla(qrows, qres)
     phase_done("mla", q=qres, q_checks=qrows)
 
+    # path (r) next, on the card emptied again: Gemma-2-9B at head dim 256,
+    # 18.5 GB of weights and 11 GB more of their fused copies
+    rrows, rres = gemma_path(tag="r")
+    torch.cuda.empty_cache()
+    print_gemma(rrows, rres)
+    phase_done("gemma9b", r=rres, r_checks=rrows)
+
+    # path (s) next, on the card emptied again: Gemma-2-2B trained at B=1,
+    # S=8192 (params, grads and AdamW moments in bf16, 21 GB; the f32
+    # logits of 8192 rows over 256000 tokens, 8.4 GB each)
+    srows, sres = gemma_train_path()
+    torch.cuda.empty_cache()
+    print_gemma_train(srows, sres)
+    phase_done("gemma2b_train", s=sres, s_checks=srows)
+
     # the full-width model, its quantized params and the paths' requests
     cfg = ModelConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5941,6 +6213,8 @@ def main() -> int:
     checks.update(orows)
     checks.update(prows)
     checks.update(qrows)
+    checks.update(rrows)
+    checks.update(srows)
     report["kernel_checks"] = checks
     phase_done("kernel_checks")
     del flush
@@ -6005,7 +6279,8 @@ def main() -> int:
     print(f"  launches: {counts}")
     report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres,
                        "m": mres, "n": nres, "o": ores, "p": pres,
-                       "p2": pres["speculative"], "q": qres}
+                       "p2": pres["speculative"], "q": qres, "r": rres,
+                       "s": sres}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():

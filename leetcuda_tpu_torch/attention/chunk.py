@@ -17,7 +17,8 @@ cache (B, Hkv, S, D), bf16 or quantized (int8 / float8_e4m3fn with f32 scales
 p * v_scale after the denominator has summed p), and page pools
 (N, Hkv, page, D) (scale pools (N, Hkv, page)) behind ``page_table``
 (B, P_max) int32, as ``attention/paged.py`` lays them out. On CUDA tensors
-the wrappers launch the kernel (bf16 q, head dim 64 or 128, any GQA group)
+the wrappers launch the kernel (bf16 q, head dim 64, 128 or 256, any GQA
+group)
 and raise on what it does not take; on CPU tensors they run the plain
 PyTorch versions below. The TPU factories' ``block_k`` is DMA tiling and has
 no counterpart. ``softcap`` caps each score (after a quantized cache's scale
@@ -36,7 +37,8 @@ import math
 import torch
 
 from leetcuda_tpu_torch.attention.decode import _outputs
-from leetcuda_tpu_torch.attention.flash import attn_options, cap_scores
+from leetcuda_tpu_torch.attention.flash import (HEAD_DIMS, attn_options,
+                                                cap_scores)
 from leetcuda_tpu_torch.attention.paged import _gather
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
 
@@ -199,7 +201,7 @@ def _check(q, k, v, base_lengths, window, softcap, page_table=None,
 
 def _check_kernel_args(q, k, v, base_lengths, page_table=None, scales=None):
     """What the CUDA kernel takes: bf16 q, contiguous operands, int32
-    ``base_lengths`` and table, head dim 64/128, bf16 caches or f32 scales,
+    ``base_lengths`` and table, head dim 64/128/256, bf16 caches or f32 scales,
     and a cache its 32-bit row index and position count can address."""
     B, H, T, D = q.shape
     if q.dtype != torch.bfloat16:
@@ -223,11 +225,11 @@ def _check_kernel_args(q, k, v, base_lengths, page_table=None, scales=None):
     rows = k.shape[0] * k.shape[1] * k.shape[2]
     cap = (k.shape[2] if page_table is None
            else page_table.shape[1] * k.shape[2])
-    if (D not in (64, 128) or B > 65535 or k.shape[1] > 65535
+    if (D not in HEAD_DIMS or B > 65535 or k.shape[1] > 65535
             or rows >= 2 ** 32 or cap + T >= 2 ** 31
             or H // k.shape[1] * T >= 2 ** 31):
         raise ValueError(
-            f"chunk kernel: head dim {D} (64/128), batch {B} and kv heads "
+            f"chunk kernel: head dim {D} {HEAD_DIMS}, batch {B} and kv heads "
             f"{k.shape[1]} (<= 65535), {rows} cache rows (< 2^32), capacity "
             f"{cap} + T {T} (< 2^31)")
 

@@ -20,8 +20,9 @@ for).
 
 On CUDA tensors the wrappers launch ``csrc/decode_attn.cu`` where it takes
 the call (bf16 q, head dim 64 or 128, GQA group 1/2/4/8) and
-``csrc/decode_attn_wide.cu`` otherwise (a bf16 or f32 q, head dim 64, 128 or
-576, any group: the heads in blocks of 8), and raise on what neither takes.
+``csrc/decode_attn_wide.cu`` otherwise (a bf16 or f32 q, head dim 64, 128,
+256 or 576, any group: the heads in blocks of 8), and raise on what neither
+takes.
 On CPU tensors they run the plain PyTorch versions below, which take the
 same forms.
 
@@ -88,7 +89,7 @@ _WIDE_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8
 # and groups; decode_attn_wide.cu a bf16 or f32 q at these head dims, any
 # group.
 NARROW_HEAD_DIMS, NARROW_GROUPS = (64, 128), (1, 2, 4, 8)
-HEAD_DIMS = (64, 128, 576)
+HEAD_DIMS = (64, 128, 256, 576)
 _CACHE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 _DECODE_NAMES = ("k_cache", "v_cache", "lengths")
@@ -207,7 +208,7 @@ def _check(q, k_cache, v_cache, lengths):
 
 def _check_kernel_args(q, lengths, tensors):
     """What the CUDA kernels take: a bf16 or f32 q, contiguous operands,
-    (B,) int32 lengths, head dim 64/128/576, any GQA group."""
+    (B,) int32 lengths, head dim 64/128/256/576, any GQA group."""
     B, H, D = q.shape
     Hkv = tensors["k_cache"].shape[1]
     if q.dtype not in (torch.bfloat16, torch.float32):

@@ -5,8 +5,8 @@ and ``make_flash_attention_ragged``). Layouts are the JAX package's:
 q (B, H, N, D), k/v (B, Hkv, N, D), lengths (B,) int32.
 
 On CUDA tensors each wrapper launches the hand-written kernel in
-``csrc/flash_fwd.cu`` (bf16, head dim 64 or 128) and raises on what it does
-not take. On CPU tensors it runs the plain PyTorch version in this module,
+``csrc/flash_fwd.cu`` (bf16, head dim 64, 128 or 256) and raises on what it
+does not take. On CPU tensors it runs the plain PyTorch version in this module,
 which the tests hold against the JAX kernel and ``chip_smoke.py`` holds the
 CUDA kernel against.
 
@@ -40,6 +40,8 @@ FLASH_LSE = LaunchCounter("flash_attention_lse")
 _FLASH_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                   ctypes.c_void_p))
+# the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu instantiate
+HEAD_DIMS = (64, 128, 256)
 
 
 def attn_options(window, softcap):
@@ -127,21 +129,18 @@ def flash_attention_plain(q, k, v, *, causal=False, sm_scale=None,
     return out
 
 
-def _launch(q, k, v, lengths, causal, scale, counter, with_lse, window,
-            softcap):
-    """Launch csrc/flash_fwd.cu on the current stream; ``with_lse``: also
-    write the (B, H, N) f32 lse and count on FLASH_LSE."""
-    from leetcuda_tpu_torch.build import kernel
-
+def _check_kernel_args(q, k, v, lengths=None):
+    """Raise on what csrc/flash_fwd.cu does not take: contiguous bf16
+    q, k, v, a head dim of HEAD_DIMS, B * H within the grid, and a
+    contiguous (B,) int32 ``lengths`` on q's device."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"flash kernel takes contiguous bf16 tensors; "
                              f"{name} is {t.dtype}, contiguous="
                              f"{t.is_contiguous()}")
     B, H, N, D = q.shape
-    Hkv, Nk = k.shape[1], k.shape[2]
-    if D not in (64, 128):
-        raise ValueError(f"flash kernel: head dim {D} not in (64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim {D} not in {HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"flash kernel: B*H={B * H} exceeds the grid")
     if lengths is not None:
@@ -149,6 +148,17 @@ def _launch(q, k, v, lengths, causal, scale, counter, with_lse, window,
                 or lengths.shape != (B,) or not lengths.is_contiguous()):
             raise ValueError("lengths must be a contiguous (B,) int32 tensor "
                              "on q's device")
+
+
+def _launch(q, k, v, lengths, causal, scale, counter, with_lse, window,
+            softcap):
+    """Launch csrc/flash_fwd.cu on the current stream; ``with_lse``: also
+    write the (B, H, N) f32 lse and count on FLASH_LSE."""
+    from leetcuda_tpu_torch.build import kernel
+
+    _check_kernel_args(q, k, v, lengths)
+    B, H, N, D = q.shape
+    Hkv, Nk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
            if with_lse else None)

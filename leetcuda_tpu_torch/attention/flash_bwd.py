@@ -8,8 +8,8 @@ forward is the flash forward with its log-sum-exp (attention/flash.py,
 are the JAX package's: q, out, do (B, H, N, D), k/v (B, Hkv, N, D), lse
 (B, H, N) f32.
 
-On CUDA tensors the wrappers launch the kernels (bf16, head dim 64 or 128,
-contiguous) and raise on what they do not take; on CPU tensors they run the
+On CUDA tensors the wrappers launch the kernels (bf16, head dim 64, 128 or
+256, contiguous) and raise on what they do not take; on CPU tensors they run the
 plain PyTorch versions in this module and attention/flash.py.
 
 ``window`` (the causal band, implying causal) and ``softcap`` are the
@@ -26,9 +26,10 @@ import math
 
 import torch
 
-from leetcuda_tpu_torch.attention.flash import (_NEG_INF, _check_qkv,
-                                                attn_options, band_mask,
-                                                cap_scores, flash_attention)
+from leetcuda_tpu_torch.attention.flash import (HEAD_DIMS, _NEG_INF,
+                                                _check_qkv, attn_options,
+                                                band_mask, cap_scores,
+                                                flash_attention)
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
 
 FLASH_BWD_DQ = LaunchCounter("flash_attention_bwd_dq")
@@ -99,9 +100,9 @@ def _check_launch_args(q, k, v, out, lse, do, dlse):
                              f"tensors; {name} is {t.dtype}, contiguous="
                              f"{t.is_contiguous()}")
     B, H, N, D = q.shape
-    if D not in (64, 128):
+    if D not in HEAD_DIMS:
         raise ValueError(f"flash backward kernels: head dim {D} not in "
-                         "(64, 128)")
+                         f"{HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"flash backward kernels: B*H={B * H} exceeds the "
                          "grid")

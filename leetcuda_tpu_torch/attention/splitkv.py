@@ -6,7 +6,7 @@ Counterpart of ``leetcuda_tpu/attention/splitkv.py``: the same merge order
 (a running merge that takes each next split as the suffix), non-causal
 only, ``Nkv % num_splits == 0``. On CUDA tensors it runs ``num_splits``
 launches of the flash forward with its lse (``csrc/flash_fwd.cu``: bf16,
-head dim 64 or 128) and ``num_splits - 1`` of the merge
+head dim 64, 128 or 256) and ``num_splits - 1`` of the merge
 (``csrc/merge_attn.cu``); on CPU tensors their plain versions. The flash
 kernel takes contiguous keys, so each split's K and V slice is copied.
 The merge works on the flash output's token-major view (B * Nq, H, D),

@@ -45,7 +45,10 @@
 // below base + t_hi + 1 and, with a window, from base + t_lo + 1 - window:
 // tiles outside are never loaded. Each thread fetches a tile's vectors in
 // batches of four loads in flight at once (one dependent load at a time took
-// twice as long at both shapes). Warps whose 16 rows lie past G * T only
+// twice as long at both shapes). At head dim 256 the tiles change as the
+// flash kernel's do (common.cuh ``fwd_kv_tile``): Q fragments from a q
+// tile in shared memory, 32-key tiles, and the K, V and q tiles (67.6 KB)
+// as dynamic shared memory. Warps whose 16 rows lie past G * T only
 // help load: at verify one warp of four computes and 32 CTAs walk up to 32
 // tiles each, load then compute, so the kernel is far from its byte bound;
 // spreading a sequence's keys over warps and CTAs is later work.
@@ -63,7 +66,6 @@
 namespace {
 
 constexpr int kBQ = 64;  // query rows per CTA (16 per warp)
-constexpr int kBK = 64;  // keys per KV tile
 constexpr int kThreads = 128;
 
 __device__ __forceinline__ uint32_t ld_pair(const uint16_t* base, int row,
@@ -105,6 +107,8 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
                   int Hkv, int T, int S,
                   int page, int window, float scale_log2,
                   float scale_over_cap, float cap_log2) {
+  constexpr int kBK = lc::fwd_kv_tile(D);
+  constexpr bool kQSmem = lc::fwd_dyn_smem_bytes(D, kBQ) > 0;  // Q from smem
   constexpr int LDS = D + 8;       // padded smem row: conflict-free fragments
   constexpr int KSTEPS = D / 16;   // k-steps of Q.K^T
   constexpr int DT = D / 8;        // n-tiles of the output
@@ -113,8 +117,18 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
   constexpr int kLoads = kBK * VPR / kThreads;  // vectors per thread and tile
   constexpr int kBatch = kLoads < 4 ? kLoads : 4;
   static_assert(kBK * VPR % kThreads == 0 && kLoads % kBatch == 0, "tile");
-  __shared__ __align__(16) uint16_t sk[kBK * LDS];
-  __shared__ __align__(16) uint16_t sv[kBK * LDS];
+  extern __shared__ __align__(16) uint16_t dsmem[];
+  uint16_t *sk, *sv, *sq = nullptr;
+  if constexpr (kQSmem) {
+    sk = dsmem;
+    sv = sk + kBK * LDS;
+    sq = sv + kBK * LDS;
+  } else {
+    __shared__ __align__(16) uint16_t ssk[kBK * LDS];
+    __shared__ __align__(16) uint16_t ssv[kBK * LDS];
+    sk = ssk;
+    sv = ssv;
+  }
   __shared__ float sks[kBK];       // the tile keys' scales (quantized)
   __shared__ float svs[kBK];
   __shared__ uint32_t srow[kBK];   // the tile keys' cache rows
@@ -154,14 +168,26 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
     lo[i] = window > 0 ? lim - window : 0;
   }
 
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[kQSmem ? 1 : KSTEPS][4];
+  if constexpr (kQSmem) {
+    // the q tile into shared memory, rows past n_rows as zeros; the first
+    // key tile's barriers publish it
+    for (int i = tid; i < kBQ * (D / 8); i += kThreads) {
+      const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + row < n_rows)
+        x = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + row) * D + col);
+      *reinterpret_cast<uint4*>(sq + row * LDS + col) = x;
+    }
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int c = ks * 16 + t4 * 2;
-    qa[ks][0] = ld_pair(qb, r0, n_rows, c, D);
-    qa[ks][1] = ld_pair(qb, r0 + 8, n_rows, c, D);
-    qa[ks][2] = ld_pair(qb, r0, n_rows, c + 8, D);
-    qa[ks][3] = ld_pair(qb, r0 + 8, n_rows, c + 8, D);
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int c = ks * 16 + t4 * 2;
+      qa[ks][0] = ld_pair(qb, r0, n_rows, c, D);
+      qa[ks][1] = ld_pair(qb, r0 + 8, n_rows, c, D);
+      qa[ks][2] = ld_pair(qb, r0, n_rows, c + 8, D);
+      qa[ks][3] = ld_pair(qb, r0 + 8, n_rows, c + 8, D);
+    }
   }
 
   float acc[DT][4];
@@ -239,12 +265,18 @@ chunk_attn_kernel(const uint16_t* __restrict__ q,
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
+      const uint32_t* a = qa[kQSmem ? 0 : ks];
+      uint32_t qf[4];
+      if constexpr (kQSmem) {
+        lc::lds_a(qf, sq + (warp * 16 + g) * LDS + ks * 16 + t4 * 2, LDS);
+        a = qf;
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const uint16_t* kr = sk + (nt * 8 + g) * LDS + ks * 16 + t4 * 2;
         uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(kr),
                           *reinterpret_cast<const uint32_t*>(kr + 8)};
-        lc::mma_bf16_16816(s[nt], qa[ks], bf);
+        lc::mma_bf16_16816(s[nt], a, bf);
       }
     }
 
@@ -367,7 +399,15 @@ int launch_d(const void* q, const void* k, const void* v, const void* ks,
                          : chunk_attn_kernel<C, D, kPaged, false, true>)
                   : (cap ? chunk_attn_kernel<C, D, kPaged, true, false>
                          : chunk_attn_kernel<C, D, kPaged, false, false>);
-  kern<<<grid, kThreads, 0, stream>>>(
+  constexpr int smem = lc::fwd_dyn_smem_bytes(D, kBQ);
+  if constexpr (smem > 0) {
+    // per instantiation: [lse][cap]
+    static unsigned long long attr_devices[2][2] = {{0, 0}, {0, 0}};
+    const cudaError_t e = lc::smem_limit_per_device(
+        kern, smem, attr_devices[lse != nullptr][cap]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const typename C::T*>(k),
       static_cast<const typename C::T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
@@ -393,12 +433,14 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
     switch (D) {
       case 64: return launch_d<C, 64, true>(q, k, v, ks, vs, table, base, o, lse, B, H, Hkv, T, S, page, window, scale, softcap, s);
       case 128: return launch_d<C, 128, true>(q, k, v, ks, vs, table, base, o, lse, B, H, Hkv, T, S, page, window, scale, softcap, s);
+      case 256: return launch_d<C, 256, true>(q, k, v, ks, vs, table, base, o, lse, B, H, Hkv, T, S, page, window, scale, softcap, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (D) {
     case 64: return launch_d<C, 64, false>(q, k, v, ks, vs, nullptr, base, o, lse, B, H, Hkv, T, S, 1, window, scale, softcap, s);
     case 128: return launch_d<C, 128, false>(q, k, v, ks, vs, nullptr, base, o, lse, B, H, Hkv, T, S, 1, window, scale, softcap, s);
+    case 256: return launch_d<C, 256, false>(q, k, v, ks, vs, nullptr, base, o, lse, B, H, Hkv, T, S, 1, window, scale, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -406,7 +448,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 }  // namespace
 
 // Every entry point returns cudaGetLastError() after the launch (0 =
-// launched). Head dims 64 and 128 are instantiated; any GQA group and any
+// launched). Head dims 64, 128 and 256 are instantiated; any GQA group and any
 // T >= 1. ``window`` <= 0 means no window, ``softcap`` <= 0 no cap; ``lse``
 // is null (no lse) or (B, H, T) f32. They launch on ``stream``, do not
 // synchronise and allocate nothing.

@@ -44,6 +44,35 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragment of mma_bf16_16816 from a padded bf16 tile in shared
+// memory (``lds`` elements a row): ``p`` points at row g, column 2t of the
+// 16 x 16 block, as the fragment layout above lays it out.
+__device__ __forceinline__ void lds_a(uint32_t a[4], const uint16_t* p,
+                                      int lds) {
+  a[0] = lds32(p);
+  a[1] = lds32(p + 8 * lds);
+  a[2] = lds32(p + 8);
+  a[3] = lds32(p + 8 * lds + 8);
+}
+
+// The tiles of the forward attention kernels (flash_fwd.cu, chunk_attn.cu)
+// by head dim. A warp's 16 x D f32 accumulator is 128 registers a thread
+// at D = 256, so there the Q fragments are read from the q tile in shared
+// memory instead of held (64 registers more) and the key tiles hold 32
+// keys (half the S registers); the K, V and q tiles then take dynamic
+// shared memory (67.6 KB for 64 q rows). Below 256: 64-key static tiles
+// and Q in registers (no dynamic shared memory).
+__host__ __device__ constexpr int fwd_kv_tile(int D) {
+  return D > 128 ? 32 : 64;
+}
+__host__ __device__ constexpr int fwd_dyn_smem_bytes(int D, int q_rows) {
+  return D > 128 ? (2 * fwd_kv_tile(D) + q_rows) * (D + 8) * 2 : 0;
+}
+
 // Raise ``kern``'s dynamic shared-memory limit to ``bytes`` on the current
 // device, once per device: CUDA keeps the attribute per device context, so
 // a flag per process would leave a second device's first launch refused.

@@ -1,5 +1,6 @@
-// Decode attention in head blocks: any GQA group, head dim 64, 128 or 576
-// (MLA's latent: kv_lora_rank 512 + qk_rope_head_dim 64), a bf16 or f32 q
+// Decode attention in head blocks: any GQA group, head dim 64, 128, 256
+// (Gemma 2's) or 576 (MLA's latent: kv_lora_rank 512 + qk_rope_head_dim
+// 64), a bf16 or f32 q
 // and output, over a contiguous cache or a paged pool, bf16 or quantized
 // (int8 / e4m3 with f32 scales), K and V apart or one shared operand.
 //
@@ -7,7 +8,8 @@
 // make_decode_attention_quantized, and leetcuda_tpu/attention/paged.py
 // make_paged_attention (_decode_kernel, _paged_kernel) where the narrow
 // kernel (decode_attn.cu: bf16 q, head dim 64 or 128, a group of 1, 2, 4 or
-// 8) does not take the call; above all their ``shared_kv`` form, which
+// 8) does not take the call: every head dim 256 call, and above all their
+// ``shared_kv`` form, which
 // models/mla.py runs: one latent cache (B, 1, S, 576) read as both K and V
 // (decode.py:172-176), q (B, H, 576) with the whole of H in one group.
 // The quantized latent path passes an f32 q (the absorbed q . W_uk, not
@@ -249,6 +251,7 @@ int launch_p(const void* q, const void* k, const void* v, const void* ks,
   switch (D) {
     case 64: return launch_d<C, 64, kPaged>(q, k, v, ks, vs, table, lengths, o, lse, B, H, Hkv, S, page, q_f32, scale, window, softcap, s);
     case 128: return launch_d<C, 128, kPaged>(q, k, v, ks, vs, table, lengths, o, lse, B, H, Hkv, S, page, q_f32, scale, window, softcap, s);
+    case 256: return launch_d<C, 256, kPaged>(q, k, v, ks, vs, table, lengths, o, lse, B, H, Hkv, S, page, q_f32, scale, window, softcap, s);
     case 576: return launch_d<C, 576, kPaged>(q, k, v, ks, vs, table, lengths, o, lse, B, H, Hkv, S, page, q_f32, scale, window, softcap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -276,8 +279,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 // (N, Hkv, page)). ``page`` = 0: contiguous caches (B, Hkv, S, D) and
 // ``table`` unused; ``page`` > 0: pools (N, Hkv, page, D), ``table`` (B,
 // S / page) int32 and S = P_max * page (the pools must hold fewer than 2^32
-// rows). ``q_f32``: q and out are f32 (else bf16). Head dims 64, 128 and
-// 576; any group H / Hkv (H % Hkv == 0); B and Hkv up to 65535. k == v (and
+// rows). ``q_f32``: q and out are f32 (else bf16). Head dims 64, 128, 256
+// and 576; any group H / Hkv (H % Hkv == 0); B and Hkv up to 65535. k == v (and
 // k_scale == v_scale) is the shared form. ``window`` <= 0 and ``softcap``
 // <= 0 mean none; ``lse`` is null or (B, H) f32. Launches on ``stream``,
 // does not synchronise, allocates nothing.

@@ -42,6 +42,21 @@
 //   tile's Q, dO, lse and delta live in (dynamic) shared memory; A
 //   fragments of K and V are read per k-step, and the q tile is consumed
 //   in two halves of 32 rows, for the same register reason.
+// * Head dim 256: a thread's 16 x D accumulator is 128 f32 registers, and
+//   dK/dV's two are 256, past the 255 a thread may hold. So the dQ kernel
+//   reads its Q and dO fragments from the q tile in shared memory instead
+//   of holding them (128 more registers) and walks 32-key tiles; and dK
+//   and dV are computed by two launches of the dK/dV kernel, one for each
+//   output (kOut): the dV launch recomputes S^T only, the dK launch S^T and
+//   dP^T, so the split costs one product in five (S^T again), where
+//   splitting the output columns across CTAs would recompute both S^T and
+//   dP^T (two in six), and shared-memory accumulators would pay a load and
+//   a store around every mma. Both launches stage the same tiles (135 KB of
+//   dynamic shared memory; the dV launch leaves V out), walk each q tile in
+//   steps of 16 rows (S^T and dP^T of 16 x 16 a warp), are as
+//   deterministic as the joint kernel and need no atomics. Head dims 64
+//   and 128 keep the joint kernel and the registers Q and dO of the dQ
+//   kernel.
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) throughout; P and dS are
 // rounded to bf16 before the second products, as the TPU kernel casts them.
 // The cap is a compile-time flag (kCap, tanhf): the uncapped kernels carry
@@ -63,9 +78,8 @@ __device__ __forceinline__ uint32_t ld_pair(const uint16_t* base, int row,
   return *reinterpret_cast<const uint32_t*>(base + (size_t)row * D + col);
 }
 
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using lc::lds32;
+using lc::lds_a;
 
 // Two keys (rows r, r + 1) of one column as a bf16x2 B-fragment register.
 __device__ __forceinline__ uint32_t col_pair(const uint16_t* p, int lds) {
@@ -87,6 +101,17 @@ __device__ __forceinline__ void stage(uint16_t* dst, const uint16_t* src,
   }
 }
 
+// The dQ kernel at head dim 256 keeps Q and dO in shared memory and walks
+// 32-key tiles (see the design note); its dynamic shared memory holds the
+// K and V tiles and the q tile's Q and dO. 0 below 256: static K and V.
+__host__ __device__ constexpr bool dq_smem_q(int D) { return D > 128; }
+__host__ __device__ constexpr int dq_key_tile(int D) {
+  return dq_smem_q(D) ? kSub : kBK;
+}
+__host__ __device__ constexpr int dq_smem_bytes(int D) {
+  return dq_smem_q(D) ? (2 * dq_key_tile(D) + 2 * kBQ) * (D + 8) * 2 : 0;
+}
+
 template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
@@ -97,12 +122,25 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
                     const float* __restrict__ delta,
                     uint16_t* __restrict__ dq, int H, int Hkv, int Nq, int Nk,
                     float scale, int causal, int window, float softcap) {
+  constexpr bool kSmemQ = dq_smem_q(D);  // Q and dO fragments from smem
+  constexpr int kKT = dq_key_tile(D);    // keys per tile
   constexpr int LDS = D + 8;
   constexpr int KSTEPS = D / 16;  // k-steps over the head dim
   constexpr int DT = D / 8;       // n-tiles of dQ
   constexpr int NT = kSub / 8;    // n-tiles of S and dP per half
-  __shared__ __align__(16) uint16_t sk[kBK * LDS];
-  __shared__ __align__(16) uint16_t sv[kBK * LDS];
+  extern __shared__ __align__(16) uint16_t smem[];
+  uint16_t *sk, *sv, *sq = nullptr, *sdo = nullptr;
+  if constexpr (kSmemQ) {
+    sk = smem;
+    sv = sk + kKT * LDS;
+    sq = sv + kKT * LDS;
+    sdo = sq + kBQ * LDS;
+  } else {
+    __shared__ __align__(16) uint16_t ssk[kBK * LDS];
+    __shared__ __align__(16) uint16_t ssv[kBK * LDS];
+    sk = ssk;
+    sv = ssv;
+  }
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -120,18 +158,25 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
   const uint16_t* vb = v + (size_t)(b * Hkv + kvh) * Nk * D;
 
   const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
+  uint32_t qa[kSmemQ ? 1 : KSTEPS][4], da[kSmemQ ? 1 : KSTEPS][4];
+  if constexpr (kSmemQ) {
+    // the q tile's Q and dO, rows past Nq as zeros; the first key tile's
+    // barrier publishes them
+    stage<D, kBQ>(sq, qb, q0, Nq);
+    stage<D, kBQ>(sdo, dob, q0, Nq);
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int c = ks * 16 + t * 2;
-    qa[ks][0] = ld_pair(qb, r0, Nq, c, D);
-    qa[ks][1] = ld_pair(qb, r0 + 8, Nq, c, D);
-    qa[ks][2] = ld_pair(qb, r0, Nq, c + 8, D);
-    qa[ks][3] = ld_pair(qb, r0 + 8, Nq, c + 8, D);
-    da[ks][0] = ld_pair(dob, r0, Nq, c, D);
-    da[ks][1] = ld_pair(dob, r0 + 8, Nq, c, D);
-    da[ks][2] = ld_pair(dob, r0, Nq, c + 8, D);
-    da[ks][3] = ld_pair(dob, r0 + 8, Nq, c + 8, D);
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int c = ks * 16 + t * 2;
+      qa[ks][0] = ld_pair(qb, r0, Nq, c, D);
+      qa[ks][1] = ld_pair(qb, r0 + 8, Nq, c, D);
+      qa[ks][2] = ld_pair(qb, r0, Nq, c + 8, D);
+      qa[ks][3] = ld_pair(qb, r0 + 8, Nq, c + 8, D);
+      da[ks][0] = ld_pair(dob, r0, Nq, c, D);
+      da[ks][1] = ld_pair(dob, r0 + 8, Nq, c, D);
+      da[ks][2] = ld_pair(dob, r0, Nq, c + 8, D);
+      da[ks][3] = ld_pair(dob, r0 + 8, Nq, c + 8, D);
+    }
   }
   float lse2[2], dl[2];  // lse in the log2 domain, delta; rows past Nq: 0
 #pragma unroll
@@ -151,18 +196,18 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
   // window those left of its first row's band (flash_bwd.py:79-87)
   int kv_end = Nk;
   if (causal) kv_end = min(kv_end, q0 + kBQ);
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
-  const int kt0 = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
+  const int n_tiles = (kv_end + kKT - 1) / kKT;
+  const int kt0 = window > 0 ? max(q0 - window + 1, 0) / kKT : 0;
 
   for (int kt = kt0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * kKT;
     __syncthreads();  // the previous tile's readers are done
-    stage<D, kBK>(sk, kb, k0, Nk);
-    stage<D, kBK>(sv, vb, k0, Nk);
+    stage<D, kKT>(sk, kb, k0, Nk);
+    stage<D, kKT>(sv, vb, k0, Nk);
     __syncthreads();
 
 #pragma unroll
-    for (int half = 0; half < kBK / kSub; ++half) {
+    for (int half = 0; half < kKT / kSub; ++half) {
       const int kh = half * kSub;  // first key of this half in the tile
       // S = Q K^T and dP = dO V^T, 16 rows x 32 keys per warp, f32
       float s[NT][4], dp[NT][4];
@@ -173,13 +218,23 @@ flash_bwd_dq_kernel(const uint16_t* __restrict__ q,
       }
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks) {
+        const uint32_t* aq = qa[kSmemQ ? 0 : ks];
+        const uint32_t* ad = da[kSmemQ ? 0 : ks];
+        uint32_t qf[4], df[4];
+        if constexpr (kSmemQ) {
+          const int aoff = (warp * 16 + g) * LDS + ks * 16 + t * 2;
+          lds_a(qf, sq + aoff, LDS);
+          lds_a(df, sdo + aoff, LDS);
+          aq = qf;
+          ad = df;
+        }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int off = (kh + nt * 8 + g) * LDS + ks * 16 + t * 2;
           const uint32_t bk[2] = {lds32(sk + off), lds32(sk + off + 8)};
           const uint32_t bv[2] = {lds32(sv + off), lds32(sv + off + 8)};
-          lc::mma_bf16_16816(s[nt], qa[ks], bk);
-          lc::mma_bf16_16816(dp[nt], da[ks], bv);
+          lc::mma_bf16_16816(s[nt], aq, bk);
+          lc::mma_bf16_16816(dp[nt], ad, bv);
         }
       }
 
@@ -244,7 +299,10 @@ constexpr int dkv_smem_bytes() {
   return (2 * kBK + 2 * kBQ) * (D + 8) * 2 + 2 * kBQ * 4;
 }
 
-template <int D, bool kCap>
+// kOut: which outputs a launch computes, kDV | kDK (see the design note).
+constexpr int kDV = 1, kDK = 2;
+
+template <int D, bool kCap, int kOut>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
                      const uint16_t* __restrict__ k,
@@ -258,7 +316,10 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
   constexpr int LDS = D + 8;
   constexpr int KSTEPS = D / 16;
   constexpr int DT = D / 8;
-  constexpr int NT = kSub / 8;  // n-tiles of S^T and dP^T per half
+  // q rows per inner step: 32, and 16 at head dim 256 (its 128 accumulator
+  // registers leave less room for S^T and dP^T)
+  constexpr int kQS = D > 128 ? 16 : kSub;
+  constexpr int NT = kQS / 8;  // n-tiles of S^T and dP^T per step
   extern __shared__ __align__(16) uint16_t smem[];
   uint16_t* sk = smem;
   uint16_t* sv = sk + kBK * LDS;
@@ -277,16 +338,19 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
   const float scale_over_cap = kCap ? scale / softcap : 0.f;
   const float cap_log2 = softcap * kLog2e;
 
+  constexpr bool kWantV = kOut & kDV, kWantK = kOut & kDK;
   stage<D, kBK>(sk, k + (size_t)bkv * Nk * D, k0, Nk);
-  stage<D, kBK>(sv, v + (size_t)bkv * Nk * D, k0, Nk);
+  if constexpr (kWantK)  // V enters dP^T only
+    stage<D, kBK>(sv, v + (size_t)bkv * Nk * D, k0, Nk);
 
   const int kl = warp * 16 + g;  // this thread's keys: kl and kl + 8 (local)
-  float dka[DT][4], dva[DT][4];
+  float dka[kWantK ? DT : 1][4], dva[kWantV ? DT : 1][4];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
+  for (int dt = 0; dt < (kWantK ? DT : 1); ++dt)
     dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
+#pragma unroll
+  for (int dt = 0; dt < (kWantV ? DT : 1); ++dt)
     dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
-  }
 
   // causal q tiles that end before this key tile see none of it, and with
   // a window neither do those that start past the band of its last key,
@@ -313,9 +377,9 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
       __syncthreads();
 
 #pragma unroll
-      for (int half = 0; half < kBQ / kSub; ++half) {
-        const int qh = half * kSub;  // first q row of this half in the tile
-        // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 q rows per warp
+      for (int half = 0; half < kBQ / kQS; ++half) {
+        const int qh = half * kQS;  // first q row of this step in the tile
+        // S^T = K Q^T and dP^T = V dO^T, 16 keys x kQS q rows per warp
         float st[NT][4], dpt[NT][4];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -328,22 +392,24 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
           const uint32_t ka[4] = {lds32(sk + aoff), lds32(sk + aoff + 8 * LDS),
                                   lds32(sk + aoff + 8),
                                   lds32(sk + aoff + 8 * LDS + 8)};
-          const uint32_t va[4] = {lds32(sv + aoff), lds32(sv + aoff + 8 * LDS),
-                                  lds32(sv + aoff + 8),
-                                  lds32(sv + aoff + 8 * LDS + 8)};
+          uint32_t va[4];
+          if constexpr (kWantK) lds_a(va, sv + aoff, LDS);
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             const int boff = (qh + nt * 8 + g) * LDS + ks * 16 + t * 2;
             const uint32_t bq[2] = {lds32(sq + boff), lds32(sq + boff + 8)};
-            const uint32_t bd[2] = {lds32(sdo + boff), lds32(sdo + boff + 8)};
             lc::mma_bf16_16816(st[nt], ka, bq);
-            lc::mma_bf16_16816(dpt[nt], va, bd);
+            if constexpr (kWantK) {  // dP^T feeds dS^T only
+              const uint32_t bd[2] = {lds32(sdo + boff),
+                                      lds32(sdo + boff + 8)};
+              lc::mma_bf16_16816(dpt[nt], va, bd);
+            }
           }
         }
 
         // P^T = exp(S^T * scale - lse) (masked: 0), dS^T = P^T (dP^T -
         // delta), both as bf16 A fragments over the q rows
-        uint32_t pa[kSub / 16][4], dsa[kSub / 16][4];
+        uint32_t pa[kQS / 16][4], dsa[kQS / 16][4];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           float p[4], ds[4];
@@ -358,33 +424,42 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
             if constexpr (kCap) {
               const float th = tanhf(st[nt][e] * scale_over_cap);
               p[e] = keep ? exp2f(th * cap_log2 - slse[ql]) : 0.f;
-              ds[e] = p[e] * (dpt[nt][e] - sdl[ql]) * (1.f - th * th);
+              if constexpr (kWantK)
+                ds[e] = p[e] * (dpt[nt][e] - sdl[ql]) * (1.f - th * th);
             } else {
               p[e] = keep ? exp2f(st[nt][e] * scale_log2 - slse[ql]) : 0.f;
-              ds[e] = p[e] * (dpt[nt][e] - sdl[ql]);
+              if constexpr (kWantK) ds[e] = p[e] * (dpt[nt][e] - sdl[ql]);
             }
           }
-          pa[nt / 2][(nt % 2) * 2 + 0] = lc::pack_bf16x2(p[0], p[1]);
-          pa[nt / 2][(nt % 2) * 2 + 1] = lc::pack_bf16x2(p[2], p[3]);
-          dsa[nt / 2][(nt % 2) * 2 + 0] = lc::pack_bf16x2(ds[0], ds[1]);
-          dsa[nt / 2][(nt % 2) * 2 + 1] = lc::pack_bf16x2(ds[2], ds[3]);
+          if constexpr (kWantV) {
+            pa[nt / 2][(nt % 2) * 2 + 0] = lc::pack_bf16x2(p[0], p[1]);
+            pa[nt / 2][(nt % 2) * 2 + 1] = lc::pack_bf16x2(p[2], p[3]);
+          }
+          if constexpr (kWantK) {
+            dsa[nt / 2][(nt % 2) * 2 + 0] = lc::pack_bf16x2(ds[0], ds[1]);
+            dsa[nt / 2][(nt % 2) * 2 + 1] = lc::pack_bf16x2(ds[2], ds[3]);
+          }
         }
 
         // dV += P^T dO and dK += dS^T Q: B fragments gather two q rows of
         // one column from smem
 #pragma unroll
-        for (int kk = 0; kk < kSub / 16; ++kk) {
+        for (int kk = 0; kk < kQS / 16; ++kk) {
           const int roff = (qh + kk * 16 + t * 2) * LDS + g;
 #pragma unroll
           for (int dt = 0; dt < DT; ++dt) {
-            const uint16_t* dc = sdo + roff + dt * 8;
-            const uint16_t* qc = sq + roff + dt * 8;
-            const uint32_t bd[2] = {col_pair(dc, LDS),
-                                    col_pair(dc + 8 * LDS, LDS)};
-            const uint32_t bq[2] = {col_pair(qc, LDS),
-                                    col_pair(qc + 8 * LDS, LDS)};
-            lc::mma_bf16_16816(dva[dt], pa[kk], bd);
-            lc::mma_bf16_16816(dka[dt], dsa[kk], bq);
+            if constexpr (kWantV) {
+              const uint16_t* dc = sdo + roff + dt * 8;
+              const uint32_t bd[2] = {col_pair(dc, LDS),
+                                      col_pair(dc + 8 * LDS, LDS)};
+              lc::mma_bf16_16816(dva[dt], pa[kk], bd);
+            }
+            if constexpr (kWantK) {
+              const uint16_t* qc = sq + roff + dt * 8;
+              const uint32_t bq[2] = {col_pair(qc, LDS),
+                                      col_pair(qc + 8 * LDS, LDS)};
+              lc::mma_bf16_16816(dka[dt], dsa[kk], bq);
+            }
           }
         }
       }
@@ -400,10 +475,12 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       const size_t off = (size_t)key * D + dt * 8 + t * 2;
-      *reinterpret_cast<uint32_t*>(dkb + off) = lc::pack_bf16x2(
-          dka[dt][2 * i] * scale, dka[dt][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + off) =
-          lc::pack_bf16x2(dva[dt][2 * i], dva[dt][2 * i + 1]);
+      if constexpr (kWantK)
+        *reinterpret_cast<uint32_t*>(dkb + off) = lc::pack_bf16x2(
+            dka[dt][2 * i] * scale, dka[dt][2 * i + 1] * scale);
+      if constexpr (kWantV)
+        *reinterpret_cast<uint32_t*>(dvb + off) =
+            lc::pack_bf16x2(dva[dt][2 * i], dva[dt][2 * i + 1]);
     }
   }
 }
@@ -416,7 +493,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid((Nq + kBQ - 1) / kBQ, B * H);
   auto kern = softcap > 0.f ? flash_bwd_dq_kernel<D, true>
                             : flash_bwd_dq_kernel<D, false>;
-  kern<<<grid, kThreads, 0, stream>>>(
+  constexpr int smem = dq_smem_bytes(D);
+  if constexpr (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -425,25 +508,34 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int kOut>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int H, int Hkv, int Nq, int Nk, float scale, int causal,
                int window, float softcap, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  auto kern = softcap > 0.f ? flash_bwd_dkv_kernel<D, true>
-                            : flash_bwd_dkv_kernel<D, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Nk + kBK - 1) / kBK, B * Hkv);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, Hkv, Nq, Nk,
-      scale, causal || window > 0, window, softcap);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (D > 128 && kOut == (kDV | kDK)) {  // one launch per output
+    const int err = launch_dkv<D, kDV>(q, k, v, dout, lse, delta, dk, dv, B,
+                                       H, Hkv, Nq, Nk, scale, causal, window,
+                                       softcap, stream);
+    if (err != 0) return err;
+    return launch_dkv<D, kDK>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
+                              Nq, Nk, scale, causal, window, softcap, stream);
+  } else {
+    constexpr int smem = dkv_smem_bytes<D>();
+    auto kern = softcap > 0.f ? flash_bwd_dkv_kernel<D, true, kOut>
+                              : flash_bwd_dkv_kernel<D, false, kOut>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((Nk + kBK - 1) / kBK, B * Hkv);
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, Hkv, Nq,
+        Nk, scale, causal || window > 0, window, softcap);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 bool bad_shape(int B, int H, int Hkv) {
@@ -456,7 +548,9 @@ bool bad_shape(int B, int H, int Hkv) {
 // launched), launch on ``stream``, do not synchronise and allocate nothing.
 // ``delta`` is rowsum(dO * O) - dlse, (B, H, Nq) f32, computed by the caller.
 // ``window`` > 0 implies causal; ``window`` <= 0 and ``softcap`` <= 0 mean
-// none (the forward's options, which produced ``lse``).
+// none (the forward's options, which produced ``lse``). Head dims 64, 128
+// and 256; at 256 the dK/dV entry point launches its kernel twice, once
+// for dV and once for dK.
 
 // dq (B, H, Nq, D) bf16.
 extern "C" int lc_flash_bwd_dq_bf16(const void* q, const void* k,
@@ -473,6 +567,9 @@ extern "C" int lc_flash_bwd_dq_bf16(const void* q, const void* k,
                            scale, causal, window, softcap, s);
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Nq, Nk,
+                            scale, causal, window, softcap, s);
+    case 256:
+      return launch_dq<256>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Nq, Nk,
                             scale, causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -491,11 +588,17 @@ extern "C" int lc_flash_bwd_dkv_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Nq,
-                            Nk, scale, causal, window, softcap, s);
+      return launch_dkv<64, kDV | kDK>(q, k, v, dout, lse, delta, dk, dv, B,
+                                       H, Hkv, Nq, Nk, scale, causal, window,
+                                       softcap, s);
     case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv,
-                             Nq, Nk, scale, causal, window, softcap, s);
+      return launch_dkv<128, kDV | kDK>(q, k, v, dout, lse, delta, dk, dv, B,
+                                        H, Hkv, Nq, Nk, scale, causal, window,
+                                        softcap, s);
+    case 256:
+      return launch_dkv<256, kDV | kDK>(q, k, v, dout, lse, delta, dk, dv, B,
+                                        H, Hkv, Nq, Nk, scale, causal, window,
+                                        softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

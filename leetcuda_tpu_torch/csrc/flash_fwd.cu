@@ -24,21 +24,25 @@
 // sequential KV grid axis of the TPU kernel becomes a loop over 64-key
 // tiles staged in padded shared memory; Q.K^T and P.V run on the tensor
 // cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), and P is handed
-// from the first product to the second in registers. Tiles above the
-// diagonal, past lengths[b] and (with a window) wholly left of the band
-// are never loaded, so a windowed forward costs O(N * window), as the TPU
-// kernel's block skip makes it (flash.py:124-133). The heaviest causal q
-// tiles are scheduled first. The cap is taken on the natural-unit scaled
-// score, then moved into the log2 domain the softmax runs in:
-// cap * log2(e) * tanh(qk * scale / cap), with tanhf (a compile-time flag:
-// the uncapped kernel carries no tanh). wgmma, TMA and a multi-stage pipeline are
-// later work: this kernel cannot reach the tensor-core peak.
+// from the first product to the second in registers. At head dim 256 the
+// 16 x D accumulator alone is 128 f32 registers a thread, so that
+// instantiation reads the Q fragments from a q tile in shared memory
+// instead of holding them, walks 32-key tiles and takes its K, V and q
+// tiles (67.6 KB) as dynamic shared memory (common.cuh ``fwd_kv_tile``);
+// head dims 64 and 128 keep registers Q and 64-key static tiles. Tiles
+// above the diagonal, past lengths[b] and (with a window) wholly left of
+// the band are never loaded, so a windowed forward costs O(N * window), as
+// the TPU kernel's block skip makes it (flash.py:124-133). The heaviest
+// causal q tiles are scheduled first. The cap is taken on the natural-unit
+// scaled score, then moved into the log2 domain the softmax runs in: cap *
+// log2(e) * tanh(qk * scale / cap), with tanhf (a compile-time flag: the
+// uncapped kernel carries no tanh). wgmma, TMA and a multi-stage pipeline
+// are later work: this kernel cannot reach the tensor-core peak.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;  // query rows per CTA (16 per warp)
-constexpr int kBK = 64;  // keys per KV tile
 constexpr int kThreads = 128;
 
 __device__ __forceinline__ uint32_t ld_pair(const uint16_t* base, int row,
@@ -56,12 +60,24 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                  uint16_t* __restrict__ o, float* __restrict__ lse, int H,
                  int Hkv, int Nq, int Nk, float scale_log2, int causal,
                  int window, float scale_over_cap, float cap_log2) {
+  constexpr int kBK = lc::fwd_kv_tile(D);
+  constexpr bool kQSmem = lc::fwd_dyn_smem_bytes(D, kBQ) > 0;  // Q from smem
   constexpr int LDS = D + 8;      // padded smem row: conflict-free fragments
   constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
   constexpr int DT = D / 8;       // n-tiles of the output
   constexpr int NT = kBK / 8;     // n-tiles of S
-  __shared__ __align__(16) uint16_t sk[kBK * LDS];
-  __shared__ __align__(16) uint16_t sv[kBK * LDS];
+  extern __shared__ __align__(16) uint16_t dsmem[];
+  uint16_t *sk, *sv, *sq = nullptr;
+  if constexpr (kQSmem) {
+    sk = dsmem;
+    sv = sk + kBK * LDS;
+    sq = sv + kBK * LDS;
+  } else {
+    __shared__ __align__(16) uint16_t ssk[kBK * LDS];
+    __shared__ __align__(16) uint16_t ssv[kBK * LDS];
+    sk = ssk;
+    sv = ssv;
+  }
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -93,14 +109,26 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 
   const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[kQSmem ? 1 : KSTEPS][4];
+  if constexpr (kQSmem) {
+    // the q tile into shared memory, rows past Nq as zeros; the first key
+    // tile's barrier publishes it
+    for (int i = threadIdx.x; i < kBQ * (D / 8); i += kThreads) {
+      const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + row < Nq)
+        x = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + row) * D + col);
+      *reinterpret_cast<uint4*>(sq + row * LDS + col) = x;
+    }
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int c = ks * 16 + t * 2;
-    qa[ks][0] = ld_pair(qb, r0, Nq, c, D);
-    qa[ks][1] = ld_pair(qb, r0 + 8, Nq, c, D);
-    qa[ks][2] = ld_pair(qb, r0, Nq, c + 8, D);
-    qa[ks][3] = ld_pair(qb, r0 + 8, Nq, c + 8, D);
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int c = ks * 16 + t * 2;
+      qa[ks][0] = ld_pair(qb, r0, Nq, c, D);
+      qa[ks][1] = ld_pair(qb, r0 + 8, Nq, c, D);
+      qa[ks][2] = ld_pair(qb, r0, Nq, c + 8, D);
+      qa[ks][3] = ld_pair(qb, r0 + 8, Nq, c + 8, D);
+    }
   }
 
   float acc[DT][4];
@@ -139,12 +167,18 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
+      const uint32_t* a = qa[kQSmem ? 0 : ks];
+      uint32_t qf[4];
+      if constexpr (kQSmem) {
+        lc::lds_a(qf, sq + (warp * 16 + g) * LDS + ks * 16 + t * 2, LDS);
+        a = qf;
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const uint16_t* kr = sk + (nt * 8 + g) * LDS + ks * 16 + t * 2;
         uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(kr),
                           *reinterpret_cast<const uint32_t*>(kr + 8)};
-        lc::mma_bf16_16816(s[nt], qa[ks], bf);
+        lc::mma_bf16_16816(s[nt], a, bf);
       }
     }
 
@@ -249,7 +283,14 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const float scale_over_cap = cap ? scale / softcap : 0.f;
   auto kern = cap ? flash_fwd_kernel<D, kLse, true>
                   : flash_fwd_kernel<D, kLse, false>;
-  kern<<<grid, kThreads, 0, stream>>>(
+  constexpr int smem = lc::fwd_dyn_smem_bytes(D, kBQ);
+  if constexpr (smem > 0) {
+    static unsigned long long attr_devices[2] = {0, 0};  // per instantiation
+    const cudaError_t e =
+        lc::smem_limit_per_device(kern, smem, attr_devices[cap]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const int*>(lengths),
       static_cast<uint16_t*>(o), static_cast<float*>(lse), H, Hkv, Nq, Nk,
@@ -260,7 +301,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched). ``lengths``
+// Head dims 64, 128 and 256. Returns cudaGetLastError() after the launch
+// (0 = launched). ``lengths``
 // may be null (plain flash attention), and so may ``lse`` (no LSE output).
 // ``window`` > 0 implies causal; ``window`` <= 0 and ``softcap`` <= 0 mean
 // none. Launches on ``stream``; does not synchronise and allocates nothing.
@@ -284,6 +326,12 @@ extern "C" int lc_flash_fwd_bf16(const void* q, const void* k, const void* v,
           ? launch<128, true>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
                               scale, causal, window, softcap, s)
           : launch<128, false>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
+                               scale, causal, window, softcap, s);
+    case 256:
+      return with_lse
+          ? launch<256, true>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
+                              scale, causal, window, softcap, s)
+          : launch<256, false>(q, k, v, lengths, o, lse, B, H, Hkv, Nq, Nk,
                                scale, causal, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

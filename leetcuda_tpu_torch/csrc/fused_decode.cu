@@ -22,15 +22,18 @@
 // side, so each CTA normalises its 16 rows itself into shared memory (16 x
 // D bf16, 64 KB at D = 2048: cheap beside its weight panel, and its first
 // weight loads are already in flight). A CTA of eight warps owns a panel
-// of 128 columns = whole heads (head dim 64 or 128), so the RoPE partner
-// of column c, c +/- Dh/2 inside its head, lies in the same CTA and is
-// reached through shared memory (the TPU's lane-roll is a Mosaic
-// workaround). The panel is walked in stages of 128 k rows: the weight
+// of BN = max(128, Dh) columns = whole heads (head dim 64, 128 or 256), so
+// the RoPE partner of column c, c +/- Dh/2 inside its head, lies in the
+// same CTA and is reached through shared memory (the TPU's lane-roll is a
+// Mosaic workaround). The panel is walked in stages of 16384 / BN k rows
+// (128 at BN = 128, 64 at BN = 256: a 32 KB stage either way, so the 16
+// normalised rows of D = 6144 still fit beside it): the weight
 // tile is loaded into registers one stage ahead and interleaved on its way
 // into shared memory into bf16x2 words (W[2kp][n], W[2kp+1][n]), exactly
 // one B-fragment register of mma.sync m16n8k16; each warp multiplies the
 // 16-row A tile (rows past B are zeros) into its 16 columns. Rows beyond
 // 16 go to further CTAs along grid.y, which read the panel again (from L2).
+// The norm -> matmul kernel and head dims 64 and 128 take BN = 128.
 // What holds it back: X / 128 CTAs (24 at X = 3072) on 132 SMs, each
 // walking all of D with one stage (32 KB) in flight. Narrower panels need
 // the partner exchange across CTAs or split-K: later work, with TMA.
@@ -41,15 +44,21 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int BM = 16;    // rows per CTA: one m16 tile
-constexpr int BN = 128;   // columns per CTA: whole heads
-constexpr int BK = 128;   // k rows per stage
-constexpr int LDW = BN + 8;  // uint32 per sw row; 8 mod 32: no bank conflicts
-constexpr int WCH = (BK / 2) * (BN / 8) / kThreads;  // chunks per thread
-constexpr int WN = BN / kWarps;                      // columns per warp
-constexpr int NT = WN / 8;
-constexpr int LDO = BN + 4;  // floats per row of the epilogue tile
-static_assert(WCH * kThreads * 16 == BK * BN, "w chunks per thread");
-static_assert((BK / 2) * LDW >= BM * LDO, "the epilogue tile reuses sw");
+
+// The panel of BN columns (whole heads: 128 or 256) and its stages.
+template <int BN_>
+struct Panel {
+  static constexpr int BN = BN_;
+  static constexpr int BK = 16384 / BN;  // k rows per stage: 32 KB of w
+  // uint32 per sw row; 8 mod 32: no bank conflicts
+  static constexpr int LDW = BN + 8;
+  static constexpr int WCH = (BK / 2) * (BN / 8) / kThreads;  // chunks a thread
+  static constexpr int WN = BN / kWarps;                      // columns a warp
+  static constexpr int NT = WN / 8;
+  static constexpr int LDO = BN + 4;  // floats per row of the epilogue tile
+  static_assert(WCH * kThreads * 16 == BK * BN, "w chunks per thread");
+  static_assert((BK / 2) * LDW >= BM * LDO, "the epilogue tile reuses sw");
+};
 
 __device__ __forceinline__ void unpack8(uint4 v, float f[8]) {
   const uint32_t ws[4] = {v.x, v.y, v.z, v.w};
@@ -66,21 +75,23 @@ __device__ __forceinline__ float round_bf16(float x) {
 
 // Chunk i of this thread in a (BK x BN) stage: rows 2 kp and 2 kp + 1,
 // columns [8 n8, 8 n8 + 8).
+template <class P>
 __device__ __forceinline__ void w_chunk(int i, int& kp, int& n8) {
   const int c = threadIdx.x + i * kThreads;
-  kp = c / (BN / 8);
-  n8 = c % (BN / 8);
+  kp = c / (P::BN / 8);
+  n8 = c % (P::BN / 8);
 }
 
 // Rows [k0, k0 + BK), columns [n0, n0 + BN) of w (D, X) into registers; D is
 // even and X a multiple of 8, so a chunk lies wholly inside or outside.
-__device__ __forceinline__ void load_w(uint4 (&r)[WCH][2],
+template <class P>
+__device__ __forceinline__ void load_w(uint4 (&r)[P::WCH][2],
                                        const uint16_t* __restrict__ w, int D,
                                        int X, int n0, int k0) {
 #pragma unroll
-  for (int i = 0; i < WCH; ++i) {
+  for (int i = 0; i < P::WCH; ++i) {
     int kp, n8;
-    w_chunk(i, kp, n8);
+    w_chunk<P>(i, kp, n8);
     const int k = k0 + 2 * kp, n = n0 + 8 * n8;
     r[i][0] = r[i][1] = make_uint4(0u, 0u, 0u, 0u);
     if (k < D && n < X) {
@@ -93,12 +104,13 @@ __device__ __forceinline__ void load_w(uint4 (&r)[WCH][2],
 
 // The staged rows, interleaved into bf16x2 words (row 2 kp low, 2 kp + 1
 // high), into sw[kp][8 n8 .. 8 n8 + 7].
+template <class P>
 __device__ __forceinline__ void store_w(uint32_t* sw,
-                                        const uint4 (&r)[WCH][2]) {
+                                        const uint4 (&r)[P::WCH][2]) {
 #pragma unroll
-  for (int i = 0; i < WCH; ++i) {
+  for (int i = 0; i < P::WCH; ++i) {
     int kp, n8;
-    w_chunk(i, kp, n8);
+    w_chunk<P>(i, kp, n8);
     const uint32_t a[4] = {r[i][0].x, r[i][0].y, r[i][0].z, r[i][0].w};
     const uint32_t b[4] = {r[i][1].x, r[i][1].y, r[i][1].z, r[i][1].w};
     uint32_t v[8];
@@ -107,7 +119,7 @@ __device__ __forceinline__ void store_w(uint32_t* sw,
       v[2 * e] = __byte_perm(a[e], b[e], 0x5410);      // columns 2e
       v[2 * e + 1] = __byte_perm(a[e], b[e], 0x7632);  // columns 2e + 1
     }
-    uint4* p = reinterpret_cast<uint4*>(sw + kp * LDW + n8 * 8);
+    uint4* p = reinterpret_cast<uint4*>(sw + kp * P::LDW + n8 * 8);
     p[0] = make_uint4(v[0], v[1], v[2], v[3]);
     p[1] = make_uint4(v[4], v[5], v[6], v[7]);
   }
@@ -115,7 +127,7 @@ __device__ __forceinline__ void store_w(uint32_t* sw,
 
 // Dp = D rounded up to BK; dynamic shared memory: sxn[BM][Dp + 8] bf16, then
 // sw[BK / 2][LDW] uint32 (reused as the f32 epilogue tile).
-template <bool kRope>
+template <bool kRope, class P>
 __global__ void __launch_bounds__(kThreads)
 fused_norm_matmul_kernel(const uint16_t* __restrict__ x,
                          const uint16_t* __restrict__ nw,
@@ -123,6 +135,8 @@ fused_norm_matmul_kernel(const uint16_t* __restrict__ x,
                          const int* __restrict__ pos, uint16_t* __restrict__ o,
                          int B, int D, int X, int Dp, float eps, int offset,
                          int rope_end, int Dh, float theta) {
+  constexpr int BN = P::BN, BK = P::BK, LDW = P::LDW, WN = P::WN, NT = P::NT;
+  constexpr int LDO = P::LDO;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldx = Dp + 8;  // (Dp + 8) / 2 = 4 mod 32 words: A reads conflict-free
   uint16_t* sxn = reinterpret_cast<uint16_t*>(smem);
@@ -131,8 +145,8 @@ fused_norm_matmul_kernel(const uint16_t* __restrict__ x,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
 
-  uint4 wr[WCH][2];
-  load_w(wr, w, D, X, n0, 0);  // in flight while the rows are normalised
+  uint4 wr[P::WCH][2];
+  load_w<P>(wr, w, D, X, n0, 0);  // in flight while the rows are normalised
 
   // rms-norm of this CTA's rows into sxn; rows past B and columns past D
   // are zeros
@@ -182,9 +196,9 @@ fused_norm_matmul_kernel(const uint16_t* __restrict__ x,
   const int wn0 = warp * WN;
   const int nk = Dp / BK;
   for (int kt = 0; kt < nk; ++kt) {
-    store_w(sw, wr);
+    store_w<P>(sw, wr);
     __syncthreads();  // sw (and, the first time, sxn) is written
-    if (kt + 1 < nk) load_w(wr, w, D, X, n0, (kt + 1) * BK);
+    if (kt + 1 < nk) load_w<P>(wr, w, D, X, n0, (kt + 1) * BK);
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
       const uint16_t* p = sxn + g * ldx + kt * BK + ks * 16 + 2 * t;
@@ -215,17 +229,19 @@ fused_norm_matmul_kernel(const uint16_t* __restrict__ x,
   }
   __syncthreads();
 
-  // Thread -> (head of the panel, index i inside a half): 64 pairs of
-  // columns (c1, c1 + half) share one angle per row; four row groups.
+  // Thread -> (head of the panel, index i inside a half): BN / 2 pairs of
+  // columns (c1, c1 + half) share one angle per row; kThreads / (BN / 2)
+  // row groups (four at BN = 128, two at 256).
+  constexpr int kPairs = BN / 2;
   const int half = Dh / 2;
-  const int pair = tid & 63;
+  const int pair = tid % kPairs;
   const int hd = pair / half, i = pair - hd * half;
   const int c1 = hd * Dh + i, c2 = c1 + half;
   const bool roped = kRope && n0 + c1 < rope_end;
   float inv_freq = 0.f;
   if (roped)
     inv_freq = powf(theta, -static_cast<float>(i) / static_cast<float>(half));
-  for (int r = tid >> 6; r < BM; r += kThreads / 64) {
+  for (int r = tid / kPairs; r < BM; r += kThreads / kPairs) {
     const int row = m0 + r;
     if (row >= B) break;
     float x1 = so[r * LDO + c1], x2 = so[r * LDO + c2];
@@ -242,18 +258,21 @@ fused_norm_matmul_kernel(const uint16_t* __restrict__ x,
   }
 }
 
-template <bool kRope>
+template <bool kRope, int BN>
 int launch(const void* x, const void* nw, const void* w, const void* pos,
            void* o, int B, int D, int X, float eps, int offset, int rope_end,
            int Dh, float theta, void* stream) {
+  using P = Panel<BN>;
+  constexpr int BK = P::BK;
   if (B <= 0 || D <= 0 || X <= 0 || D % 16 || X % 8 || BN % Dh || Dh % 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int Dp = (D + BK - 1) / BK * BK;
-  const size_t smem = (size_t)BM * (Dp + 8) * 2 + (size_t)(BK / 2) * LDW * 4;
+  const size_t smem =
+      (size_t)BM * (Dp + 8) * 2 + (size_t)(BK / 2) * P::LDW * 4;
   const dim3 grid((X + BN - 1) / BN, (B + BM - 1) / BM);
   if (smem > 232448 || grid.y > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fused_norm_matmul_kernel<kRope>;
+  auto kernel = fused_norm_matmul_kernel<kRope, P>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -274,19 +293,23 @@ int launch(const void* x, const void* nw, const void* w, const void* pos,
 // 16-byte aligned operands.
 //
 // out (B, X) = rope(rms_norm(x) @ wqkv) with X = (H + 2 Hkv) Dh, RoPE on the
-// first (H + Hkv) Dh columns; head_dim 64 or 128.
+// first (H + Hkv) Dh columns; head_dim 64, 128 (panels of 128 columns) or
+// 256 (panels of 256).
 extern "C" int lc_fused_norm_qkv_rope(const void* x, const void* norm_w,
                                       const void* wqkv, const void* positions,
                                       void* out, int B, int D, int n_heads,
                                       int n_kv_heads, int head_dim, float eps,
                                       float theta, int rms_offset,
                                       void* stream) {
-  if (head_dim != 64 && head_dim != 128)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(x, norm_w, wqkv, positions, out, B, D,
-                      (n_heads + 2 * n_kv_heads) * head_dim, eps, rms_offset,
-                      (n_heads + n_kv_heads) * head_dim, head_dim, theta,
-                      stream);
+  const int X = (n_heads + 2 * n_kv_heads) * head_dim;
+  const int rope_end = (n_heads + n_kv_heads) * head_dim;
+  if (head_dim == 64 || head_dim == 128)
+    return launch<true, 128>(x, norm_w, wqkv, positions, out, B, D, X, eps,
+                             rms_offset, rope_end, head_dim, theta, stream);
+  if (head_dim == 256)
+    return launch<true, 256>(x, norm_w, wqkv, positions, out, B, D, X, eps,
+                             rms_offset, rope_end, head_dim, theta, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // out (B, X) = rms_norm(x) @ w.
@@ -294,6 +317,6 @@ extern "C" int lc_fused_norm_matmul(const void* x, const void* norm_w,
                                     const void* w, void* out, int B, int D,
                                     int X, float eps, int rms_offset,
                                     void* stream) {
-  return launch<false>(x, norm_w, w, nullptr, out, B, D, X, eps, rms_offset,
-                       0, BN, 0.f, stream);
+  return launch<false, 128>(x, norm_w, w, nullptr, out, B, D, X, eps,
+                            rms_offset, 0, 128, 0.f, stream);
 }

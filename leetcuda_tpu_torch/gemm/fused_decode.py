@@ -9,8 +9,8 @@ the norm and the RoPE ride it instead of costing launches and activation
 round trips of their own.
 
 On CUDA tensors the wrappers launch ``csrc/fused_decode.cu`` (bf16
-operands, head dim 64 or 128, D % 16 == 0 and D <= 6144) and raise on what
-it does not take. On CPU tensors they run the plain versions below: the
+operands, head dim 64, 128 or 256, D % 16 == 0 and D <= 6144) and raise on
+what it does not take. On CPU tensors they run the plain versions below: the
 unfused composition with the kernel's roundings, which are the model's own
 (``models/llama.py`` ``_rms_norm``, the activation-dtype product,
 ``ops/rope.py`` ``apply_rope_half``): the normalised x is cast to the
@@ -43,6 +43,7 @@ _QKV_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5
 _NM_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
             + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _MAX_D = 6144  # the kernel keeps 16 normalised rows in shared memory
+HEAD_DIMS = (64, 128, 256)  # whole heads in the kernel's column panel
 
 
 def _norm_plain(x, norm_w, eps, rms_offset):
@@ -103,6 +104,18 @@ def _check_kernel_operands(what, x, norm_w, w):
                          f"D={D}, X={X}")
 
 
+def _check_qkv_kernel_args(what, x, norm_w, wqkv, positions, head_dim):
+    """What the norm->QKV->RoPE kernel takes beyond
+    ``_check_kernel_operands``: contiguous int32 positions and a head dim
+    of HEAD_DIMS."""
+    _check_kernel_operands(what, x, norm_w, wqkv)
+    if positions.dtype != torch.int32 or not positions.is_contiguous() \
+            or head_dim not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes contiguous int32 positions "
+                         f"and a head dim of {HEAD_DIMS}, got "
+                         f"{positions.dtype}, {head_dim}")
+
+
 def fused_norm_qkv_rope(x, norm_w, wqkv, positions, *, n_heads, n_kv_heads,
                         head_dim, eps=1e-5, theta=10000.0, rms_offset=False):
     """rope(rms_norm(x, norm_w) @ wqkv): x (B, D), norm_w (D,), wqkv (D, X)
@@ -126,12 +139,7 @@ def fused_norm_qkv_rope(x, norm_w, wqkv, positions, *, n_heads, n_kv_heads,
 
     from leetcuda_tpu_torch.build import kernel
 
-    _check_kernel_operands(what, x, norm_w, wqkv)
-    if positions.dtype != torch.int32 or not positions.is_contiguous() \
-            or Dh not in (64, 128):
-        raise ValueError(f"{what} kernel takes contiguous int32 positions "
-                         f"and head dim 64 or 128, got {positions.dtype}, "
-                         f"{Dh}")
+    _check_qkv_kernel_args(what, x, norm_w, wqkv, positions, Dh)
     B, D = x.shape
     out = torch.empty((B, wqkv.shape[1]), dtype=x.dtype, device=x.device)
     fn = kernel("fused_decode", "lc_fused_norm_qkv_rope", _QKV_ARGS)

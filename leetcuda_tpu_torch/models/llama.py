@@ -215,6 +215,30 @@ def gemma2_27b_config() -> ModelConfig:
                        alt_window=True, sandwich_norms=True)
 
 
+def gemma2_9b_config() -> ModelConfig:
+    """google/gemma-2-9b's published config.json (model_type gemma2: 42
+    layers, hidden 3584, 16 query and 8 KV heads of 256, intermediate
+    14336, vocab 256000, gelu_pytorch_tanh, a 4096-token sliding window on
+    alternating layers, attention softcap 50, final softcap 30,
+    query_pre_attn_scalar 256, rms eps 1e-6, rope theta 10000) as the JAX
+    loader's ``config_from_hf`` maps it: (1 + w) norms, sandwich norms, the
+    embedding scaled by sqrt(hidden) and tied, bf16. About 9.24B
+    parameters."""
+    return dataclasses.replace(gemma2_27b_config(), dim=3584, n_layers=42,
+                               n_heads=16, n_kv_heads=8, ffn_dim=14336,
+                               head_dim_override=256,
+                               query_scale=256 ** -0.5)
+
+
+def gemma2_2b_config() -> ModelConfig:
+    """google/gemma-2-2b's published config.json (model_type gemma2: 26
+    layers, hidden 2304, 8 query and 4 KV heads of 256, intermediate 9216,
+    and otherwise gemma-2-9b's switches) as the JAX loader's
+    ``config_from_hf`` maps it. About 2.61B parameters."""
+    return dataclasses.replace(gemma2_9b_config(), dim=2304, n_layers=26,
+                               n_heads=8, n_kv_heads=4, ffn_dim=9216)
+
+
 def gpt_oss_20b_config() -> ModelConfig:
     """openai/gpt-oss-20b's published config.json (model_type gpt_oss: 24
     layers, hidden 2880, 64 query and 8 KV heads of 64, 32 experts of 2880
@@ -308,13 +332,15 @@ def linear(x, w, adapter_ids=None):
 
 def fuse_params(params):
     """Concatenate wq|wk|wv into wqkv and w_gate|w_up into w_gate_up. A pure
-    layout transform: the fused params compute the same function."""
+    layout transform: the fused params compute the same function. Every
+    other key of a layer is kept (the same tensors), Gemma 2's sandwich
+    norms among them; JAX's ``fuse_params`` keeps a fixed list that leaves
+    them out, so its fused Gemma 2 computes another function."""
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = []
     for layer in params["layers"]:
         fused = {k: v for k, v in layer.items()
-                 if k in ("attn_norm", "mlp_norm", "wo", "w_down",
-                          "bq", "bk", "bv", "q_norm", "k_norm")}
+                 if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
         fused["wqkv"] = torch.cat([layer["wq"], layer["wk"], layer["wv"]],
                                   dim=1)
         fused["w_gate_up"] = torch.cat([layer["w_gate"], layer["w_up"]], dim=1)

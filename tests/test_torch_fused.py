@@ -52,7 +52,7 @@ def _f32(a):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rms_offset", [False, True])
-@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("Dh", [64, 128, 256])
 def test_fused_norm_qkv_rope_matches_pallas(dtype, rms_offset, Dh):
     rng = np.random.default_rng(Dh + rms_offset)
     B, D, H, Hkv = 4, 256, 4, 2
