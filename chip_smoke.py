@@ -290,6 +290,30 @@ Phases; any failure raises and the script exits non-zero:
           lse twice per layer and dQ and dK/dV once, nothing else; s a
           step, tok/s, model-FLOP share (attention over each layer's band)
           and peak device memory.
+   (t)    the parallel layer, run seventh (after (s), on the card emptied
+          again), on meshes of 8 ranks on the one card (``parallel_path``):
+          first the ring kernels (csrc/ring_p2p.cu) against their plain
+          versions bit for bit at 2, 3 and 8 ranks, f32 / bf16 / int8 /
+          e4m3 bytes (NaN bytes included), shards of 91-364 bytes and 0.25-1
+          MiB, every rank's result and input checked, timed at 8 ranks
+          over Qwen3-30B-A3B's K shard at context 32768 (4 MiB a rank) and
+          64 MiB a rank (the launch alone, into buffers allocated once),
+          a launch too large to stay resident refused and a ring with no
+          spin budget raising (the card fine after); the attention kernels
+          at the main path's shapes against their plain versions (a ring
+          rank's flash step with its lse, a Ulysses rank's call, every
+          rank's decode with its lse); then its main path: K and V of that
+          context through ``ppermute_p2p`` and ``ring_all_gather_p2p``,
+          ``collectives.run_all``, ``ring_attention`` (sp = 8) and
+          ``ulysses_attention`` (sp = 4) at Qwen3-30B-A3B's attention width
+          (B=1, N=32768, causal and not) against the single-device flash
+          kernel, the context-parallel decode (sp = 8; dp = 2 x sp = 4)
+          with whole ranks empty against the single-device decode kernel,
+          each at KERNEL_TOL and every row's relative L2 under PAR_REL_L2,
+          beside controls that must miss it (the merge at equal weights,
+          the ring's last hop dropped, Ulysses' heads misrouted), and
+          ``pipeline_forward`` of ModelConfig() at pp = 4 against
+          ``forward`` at KERNEL_TOL.
    Paths bf16, (a)-(e), (n), (o), (p), (q) and (r) must stay under their
    weight-bandwidth ceilings; no serving path launches a training kernel, no serving or
    training path launches a GEMM library kernel, none but (k) a row-op
@@ -598,15 +622,20 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, flush, iters=20, warmup=3):
-    """Median of per-launch CUDA-event times, L2 flushed before each."""
+def time_ms(fn, flush, iters=20, warmup=3, prep=None):
+    """Median of per-launch CUDA-event times, L2 flushed before each;
+    ``prep`` (if given) runs before every call, outside the window."""
     for _ in range(warmup):
+        if prep:
+            prep()
         fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()  # a 256 MB write evicts the 50 MB L2
+        if prep:
+            prep()
         starts[i].record()
         fn()
         ends[i].record()
@@ -1933,8 +1962,8 @@ def uncounted():
     try:
         yield
     finally:
-        for n, c in _COUNTERS.items():
-            c.launches = saved[n]
+        for n, c in _COUNTERS.items():  # a counter made inside starts at 0
+            c.launches = saved.get(n, 0)
 
 
 def tflops(flops, ms):
@@ -5829,6 +5858,508 @@ def print_mla(rows, res):
           f"device ms by class {prof['device_ms_by_class']}", flush=True)
 
 
+# Path (t), the parallel layer: 8 ranks on one card, as JAX's test
+# mesh is 8 virtual devices on one CPU. First the ring kernels (rows 36-37,
+# csrc/ring_p2p.cu) against their plain versions bit for bit, uncounted
+# (``check_ring``): 2, 3 and 8 ranks of random bytes (e4m3's NaN bytes 0x7F
+# and 0xFF among them) viewed as f32, bf16, int8 and e4m3, shards of
+# PAR_SMALL (7 x 13 elements: 91-364 bytes a rank, no multiple of 16; 256 x
+# 1024: 0.25-1 MiB), every rank's result and input checked; then timed at 8
+# ranks over Qwen3-30B-A3B's K shard at its context over 8 ranks and over
+# PAR_BIG bytes a rank, where a launch too large to stay resident must be
+# refused and a ring whose waits have no spin budget must raise; and the
+# attention kernels at the main path's shapes against their plain versions
+# (``check_parallel_attn``). Then the main path (``parallel_main``),
+# counted:
+# the sequence-sharded K and V of Qwen3-30B-A3B's layer at context PAR_N
+# through ``ppermute_p2p`` and ``ring_all_gather_p2p`` (the result against
+# the known answer), ``collectives.run_all`` over 8 ranks,
+# ``ring_attention`` over sp = 8 and ``ulysses_attention`` over sp = 4 at
+# Qwen3-30B-A3B's attention width (32 / 4 heads of 128, B=1, N=32768,
+# causal and not) against the single-device flash kernel, the
+# context-parallel decode over sp = 8 and dp = 2 x sp = 4 against the
+# single-device decode kernel (lengths PAR_DECODE_LENS leave whole ranks
+# empty; NaN past every length), and ``pipeline_forward`` of the default
+# ModelConfig() at pp = 4, M = 4, B=8, S=2048 against ``forward``. Each
+# distributed attention holds every row's relative L2 under PAR_REL_L2
+# beside controls that must miss it (``attn_pair``).
+RING_SRC = "leetcuda_tpu_torch/csrc/ring_p2p.cu"
+RING_REPLACES = {
+    "ppermute_p2p": "leetcuda_tpu/parallel/ring_pallas.py:44",
+    "ring_all_gather_p2p": "leetcuda_tpu/parallel/ring_pallas.py:105"}
+PAR_SEED = 15
+PAR_RANKS = (2, 3, 8)
+PAR_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+PAR_SMALL = ((7, 13), (256, 1024))
+PAR_BIG = 64 << 20
+PAR_N = 32768  # Qwen3-30B-A3B's max_position_embeddings
+PAR_SP, PAR_ULYSSES_SP = 8, 4
+PAR_DECODE_LENS = np.array([1, 100, 4095, 4097, 10000, 20000, 30000, 32768],
+                           np.int32)
+PAR_PP, PAR_PP_M, PAR_PP_B, PAR_PP_S = 4, 4, 8, 2048
+PAR_REL_L2 = 1e-2  # a distributed attention against one device's, each row
+PAR_HELD_ROWS = 2048  # query rows of the Ulysses call held against plain
+PAR_TIMED_RANKS = {"sp=8": (0, 2), "dp=2 x sp=4": (1, 3)}  # (dp, sp) rank
+PATH_KERNELS["t"] = ("ppermute_p2p", "ring_all_gather_p2p",
+                     "flash_attention", "flash_attention_lse",
+                     "decode_attention_lse")
+
+
+def as_u8(t):
+    """A tensor's bytes, flat."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def rank_shards(gen, n, shape, dtype, dev):
+    """n shards of ``shape`` and ``dtype`` made of random bytes, e4m3's NaN
+    bytes 0x7F and 0xFF among them, each its own allocation."""
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    out = []
+    for _ in range(n):
+        b = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        b[::61] = 0x7F
+        b[29::61] = 0xFF
+        out.append(b.view(dtype).reshape(shape))
+    return out
+
+
+def same_bytes(what, got, want):
+    for r, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(as_u8(g), as_u8(w)):
+            raise AssertionError(f"{what}: rank {r}'s result differs from "
+                                 f"the plain version")
+
+
+def ring_case(shards, what):
+    """Both kernels against their plain versions, every rank's result bit
+    for bit, every input unchanged."""
+    from leetcuda_tpu_torch.parallel import ring_p2p as rp
+
+    before = [as_u8(s).clone() for s in shards]
+    same_bytes(f"ppermute_p2p {what}", rp.ppermute_p2p_shards(shards),
+               rp.ppermute_plain(shards))
+    same_bytes(f"ring_all_gather_p2p {what}",
+               rp.ring_all_gather_p2p_shards(shards),
+               rp.ring_all_gather_plain(shards))
+    same_bytes(f"{what} inputs", shards, before)
+
+
+def ring_rows(rec, flush, label, shards):
+    """Rows of both kernels at ``shards`` (8 ranks): the launch alone timed,
+    into buffers allocated once (the all-gather's flags zeroed before each
+    window, outside it), beside the plain and library times; bounds 2 n C
+    (permute) and n C + n^2 C (all-gather). Then the all-gather's fault
+    checks: one CTA a rank more than the card holds resident is refused at
+    launch, and waits with no spin budget set the error word."""
+    from leetcuda_tpu_torch.core.runtime import KernelLaunchError
+    from leetcuda_tpu_torch.parallel import ring_p2p as rp
+
+    n, C = len(shards), as_u8(shards[0]).numel()
+    ring_case(shards, label)
+    stacked = torch.stack([as_u8(s) for s in shards])  # (n, C) bytes
+    name = "ppermute_p2p"
+    out = [torch.empty_like(s) for s in shards]
+    ms = time_ms(lambda: rp._ppermute_into(shards, out), flush)
+    want = rp.ppermute_plain(shards)
+    same_bytes(f"{name} {label} (timed)", out, want)
+    rec.record(f"{name} {label}", name, RING_SRC, RING_REPLACES[name],
+               torch.cat([as_u8(g) for g in out]),
+               torch.cat([as_u8(w) for w in want]), ms,
+               time_ms(lambda: rp.ppermute_plain(shards), flush, iters=5),
+               time_ms(lambda: torch.roll(stacked, 1, 0), flush),
+               0, 2 * n * C)
+    name = "ring_all_gather_p2p"
+    out, comm, flags = rp.ring_workspace(shards)
+    ms = time_ms(lambda: rp._ring_all_gather_into(shards, out, comm, flags),
+                 flush, prep=lambda: flags[:-1].zero_())
+    rp.check_ring_error(flags[-1:])  # sticky over every timed launch
+    want = rp.ring_all_gather_plain(shards)
+    same_bytes(f"{name} {label} (timed)", out, want)
+    rec.record(f"{name} {label}", name, RING_SRC, RING_REPLACES[name],
+               as_u8(out[0]), as_u8(want[0]), ms,
+               time_ms(lambda: rp.ring_all_gather_plain(shards), flush,
+                       iters=5),
+               time_ms(lambda: stacked.reshape(1, -1).expand(
+                   n, -1).contiguous(), flush),
+               0, n * C + n * n * C)
+    rec.rows[f"{name} {label}"].update(bytes_a_rank=C)
+    flags.zero_()
+    try:  # more CTAs than stay resident: refused at launch, never hangs
+        rp._ring_all_gather_into(shards, out, comm, flags,
+                                 ctas=rp.resident_ctas(shards[0].device) // n
+                                 + 1)
+    except KernelLaunchError:
+        pass
+    else:
+        raise AssertionError(f"{name}: a launch too large to stay resident "
+                             "was not refused")
+    try:  # waits with no budget: the error word set, the wrapper raises
+        rp.check_ring_error(rp._ring_all_gather_into(shards, out, comm,
+                                                     flags, budget=0))
+    except KernelLaunchError:
+        pass
+    else:
+        raise AssertionError(f"{name}: waits with no spin budget did not "
+                             "fail")
+    same_bytes(f"{name} {label} after the failed ring",
+               rp.ring_all_gather_p2p_shards(shards), want)
+
+
+def check_ring(rec, flush, dev):
+    """Phase 3 of path (t), launches uncounted. Returns the case count."""
+    from leetcuda_tpu_torch.models.llama import qwen3_30b_a3b_config
+
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    cases = 0
+    with uncounted():
+        for n in PAR_RANKS:
+            for dname, dtype in PAR_DTYPES.items():
+                for shape in PAR_SMALL:
+                    ring_case(rank_shards(gen, n, shape, dtype, dev),
+                              f"{n} ranks {dname} {shape}")
+                    cases += 1
+        cfg = qwen3_30b_a3b_config()
+        kshape = (1, cfg.n_kv_heads, PAR_N // PAR_SP, cfg.head_dim)
+        ring_rows(rec, flush, f"K shard {kshape} bf16 x {PAR_SP}",
+                  rank_shards(gen, PAR_SP, kshape, torch.bfloat16, dev))
+        ring_rows(rec, flush, f"{PAR_BIG >> 20} MiB x {PAR_SP}",
+                  rank_shards(gen, PAR_SP, (PAR_BIG // 2,), torch.bfloat16,
+                              dev))
+    return cases + 2
+
+
+def check_parallel_attn(rec, flush, dev):
+    """Phase 3 of path (t), launches uncounted: the attention kernels at the
+    shapes the main path gives them, against their plain versions. A ring
+    rank's step (flash_attention with its lse: q (1, 32, 4096, 128) over a
+    KV chunk (1, 4, 4096, 128), the diagonal causal and an earlier chunk in
+    full; out and lse, timed, with ``lse_case``'s control), a Ulysses rank's
+    call (flash_attention, (1, 8, 32768, 128) over (1, 1, 32768, 128), its
+    first PAR_HELD_ROWS query rows), and every rank's decode_attention with
+    its lse over its cache slice on the sp = 8 and dp = 2 x sp = 4 meshes
+    (the local lengths clipped: whole rows empty; NaN past every length;
+    the PAR_TIMED_RANKS calls timed by ``lse_case``). Returns the errors of
+    the untimed checks."""
+    from leetcuda_tpu_torch.attention import decode as dec
+    from leetcuda_tpu_torch.attention import flash as fl
+    from leetcuda_tpu_torch.models.llama import qwen3_30b_a3b_config
+    from leetcuda_tpu_torch.parallel.mesh import split
+
+    cfg = qwen3_30b_a3b_config()
+    H, Hkv, D, N = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, PAR_N
+    n_loc, errs = N // PAR_SP, {}
+    with uncounted():
+        q = rec.randn(1, H, n_loc, D)
+        k, v = rec.randn(1, Hkv, n_loc, D), rec.randn(1, Hkv, n_loc, D)
+        for causal in (True, False):
+            pairs = n_loc * (n_loc + 1) // 2 if causal else n_loc * n_loc
+            lse_case(rec, flush, f"(t) flash_attention_lse ring step "
+                     f"{'diagonal, causal' if causal else 'earlier chunk'} "
+                     f"q {tuple(q.shape)} kv {tuple(k.shape)}",
+                     "flash_attention_lse", FLASH_SRC,
+                     "leetcuda_tpu/attention/flash.py:259",
+                     fl.flash_attention, fl.flash_attention_plain,
+                     (q, k, v), {"causal": causal}, 4.0 * H * pairs * D,
+                     2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                     4.0 * H * n_loc,
+                     lambda c=causal: sdpa(q, k, v, is_causal=c))
+        del q, k, v
+        hu, hk, R = H // PAR_ULYSSES_SP, Hkv // PAR_ULYSSES_SP, PAR_HELD_ROWS
+        q, k, v = rec.randn(1, hu, N, D), rec.randn(1, hk, N, D), \
+            rec.randn(1, hk, N, D)
+        for causal in (True, False):
+            nk = R if causal else N  # the keys the held rows attend
+            errs[f"ulysses rank call causal={causal}"] = hold(
+                fl.flash_attention(q, k, v, causal=causal)[:, :, :R],
+                fl.flash_attention_plain(q[:, :, :R], k[:, :, :nk],
+                                         v[:, :, :nk], causal=causal))
+        del q, k, v
+
+        gen = torch.Generator(device=dev).manual_seed(PAR_SEED + 2)
+        B = len(PAR_DECODE_LENS)
+        qd, kc, vc = (torch.randn(shape, generator=gen, device=dev,
+                                  dtype=torch.bfloat16)
+                      for shape in ((B, H, D), (B, Hkv, N, D),
+                                    (B, Hkv, N, D)))
+        lens = torch.from_numpy(PAR_DECODE_LENS).to(dev)
+        past = torch.arange(N, device=dev)[None, :] >= lens[:, None]
+        kc.masked_fill_(past[:, None, :, None], float("nan"))
+        vc.masked_fill_(past[:, None, :, None], float("nan"))
+        for label, (n_dp, n_sp) in (("sp=8", (1, PAR_SP)),
+                                    ("dp=2 x sp=4", (2, 4))):
+            s_loc, b_loc = N // n_sp, B // n_dp
+            for d in range(n_dp):
+                rows = slice(d * b_loc, (d + 1) * b_loc)
+                ks, vs = (split(t[rows], [dev] * n_sp, 2) for t in (kc, vc))
+                for i in range(n_sp):
+                    li = torch.clamp(lens[rows] - i * s_loc, 0, s_loc)
+                    args = (qd[rows], ks[i], vs[i], li)
+                    got, got_lse = dec.decode_attention(*args, with_lse=True)
+                    want, want_lse = dec.decode_attention_plain(
+                        *args, with_lse=True)
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"decode rank {d}, {i} "
+                                             f"({label}): non-finite output")
+                    errs[f"decode {label} rank ({d}, {i})"] = max(
+                        hold(got, want), hold(got_lse, want_lse))
+                    if (d, i) != PAR_TIMED_RANKS[label]:
+                        continue
+                    n_att = int(li.sum())
+                    mask = (torch.arange(s_loc, device=dev)[None, :]
+                            < li[:, None])[:, None, None, :]
+                    kd, vd = torch.nan_to_num(ks[i]), torch.nan_to_num(vs[i])
+                    lse_case(rec, flush, f"(t) decode_attention_lse {label} "
+                             f"rank ({d}, {i}) B={b_loc} S={s_loc} lengths "
+                             f"{li.tolist()}", "decode_attention_lse",
+                             "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                             "leetcuda_tpu/attention/decode.py:223",
+                             dec.decode_attention, dec.decode_attention_plain,
+                             args, {}, 4.0 * H * D * n_att,
+                             4.0 * Hkv * n_att * D + 4.0 * b_loc * H * D
+                             + 4 * b_loc, 4.0 * b_loc * H,
+                             lambda q_=qd[rows], kd=kd, vd=vd, m=mask: sdpa(
+                                 q_[:, :, None], kd, vd, attn_mask=m))
+    return errs
+
+
+def row_rel_l2(got, want, dims):
+    """The largest relative L2 error of a row, ||got - want|| / ||want||
+    over ``dims``, in f32."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=dims) / w.norm(dim=dims)).max())
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` is ``value`` inside (a control's broken step)."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def attn_pair(flush, name, run, single, dims, controls=()):
+    """A distributed attention ``run`` against the single-device ``single``:
+    at KERNEL_TOL, and every row's relative L2 over ``dims`` under
+    PAR_REL_L2; each control (a label and a context that breaks one step of
+    the distributed path: uncounted) must miss PAR_REL_L2. Max error, the
+    worst row's relative L2, the controls' and both times."""
+    got, want = run(), single()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = hold(got, want)
+    rel = row_rel_l2(got, want, dims)
+    if rel > PAR_REL_L2:
+        raise AssertionError(f"{name}: a row's relative L2 {rel:.3g} over "
+                             f"{PAR_REL_L2}")
+    ctl = {}
+    with uncounted():
+        for label, broken in controls:
+            with broken():
+                ctl[label] = row_rel_l2(run(), want, dims)
+            if ctl[label] <= PAR_REL_L2:  # NaN misses too
+                raise AssertionError(f"{name}: the control '{label}' passes "
+                                     f"(relative L2 {ctl[label]:.3g})")
+        ms = time_ms(run, flush, iters=3, warmup=1)
+        single_ms = time_ms(single, flush, iters=3, warmup=1)
+    return {"max_abs_err": err, "rel_l2": rel, "controls_rel_l2": ctl,
+            "ms": ms, "single_device_ms": single_ms}
+
+
+def parallel_main(dev, flush, gen):
+    """Path (t)'s main path (counted by ``drive``)."""
+    from leetcuda_tpu_torch.attention.decode import decode_attention
+    from leetcuda_tpu_torch.attention.flash import flash_attention
+    from leetcuda_tpu_torch.models.llama import (ModelConfig, forward,
+                                                 init_params,
+                                                 pipeline_forward,
+                                                 qwen3_30b_a3b_config)
+    from leetcuda_tpu_torch.parallel import collectives, cp_decode, ring
+    from leetcuda_tpu_torch.parallel.mesh import (Mesh, MeshConfig,
+                                                  all_to_all, make_mesh,
+                                                  ppermute)
+    from leetcuda_tpu_torch.parallel.ring_p2p import (ppermute_p2p,
+                                                      ring_all_gather_p2p)
+
+    res = {}
+    cfg = qwen3_30b_a3b_config()
+    H, Hkv, D, N = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, PAR_N
+    sp = make_mesh(MeshConfig(sp=PAR_SP), devices=[dev] * PAR_SP)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v = randn(1, H, N, D), randn(1, Hkv, N, D), randn(1, Hkv, N, D)
+
+    # the sequence-sharded K and V around the ring (sequence-major rows)
+    t0 = time.perf_counter()
+    for name, x in (("k", k), ("v", v)):
+        rows = x[0].transpose(0, 1).contiguous()  # (N, Hkv, D)
+        shifted = ppermute_p2p(rows, sp, axis="sp")
+        if not torch.equal(as_u8(shifted), as_u8(torch.roll(
+                rows, N // PAR_SP, 0))):
+            raise AssertionError(f"ppermute_p2p of {name}: not the shards "
+                                 "rotated one rank")
+        if not torch.equal(as_u8(ring_all_gather_p2p(rows, sp, axis="sp")),
+                           as_u8(rows)):
+            raise AssertionError(f"ring_all_gather_p2p of {name}: not the "
+                                 "whole array")
+    sync(torch.device(dev))
+    res["kv_ring_s"] = time.perf_counter() - t0
+
+    # the nine demos over 8 ranks, against their known answers
+    c = np.arange(8 * 8, dtype=np.float32).reshape(8, 8)  # rank j: c[j]
+    expect = {"broadcast": np.tile(c[0], 8), "all_reduce": np.tile(
+        c.sum(0), 8), "reduce_max": np.tile(c.max(0), 8),
+        "all_gather": c.ravel(), "gather": c.ravel(), "scatter": c.ravel(),
+        "reduce_scatter": 8 * c.ravel(), "all_to_all": c.T.ravel(),
+        "p2p": np.roll(c, 1, 0).ravel()}
+    got = collectives.run_all([dev] * 8, verbose=False)
+    for name, want in expect.items():
+        np.testing.assert_array_equal(got[name].cpu().numpy(), want,
+                                      err_msg=name)
+    res["demos"] = sorted(got)
+
+    def last_hop_dropped():  # the ring's last rotation of K and V skipped
+        hops = []
+
+        def hop(xs, *a):
+            hops.append(1)
+            return list(xs) if len(hops) > 2 * (PAR_SP - 2) else ppermute(
+                xs, *a)
+        return patched(ring, "ppermute", hop)
+
+    def heads_misrouted():  # Ulysses' return trip from the wrong ranks
+        calls = []
+
+        def a2a(xs, *a):
+            calls.append(1)
+            return all_to_all(xs[::-1] if len(calls) == 4 else xs, *a)
+        return patched(ring, "all_to_all", a2a)
+
+    ring_controls = (
+        ("equal weights", lambda: patched(
+            ring, "_merge", lambda o1, l1, o2, l2, m=ring._merge: m(
+                o1, l1, o2, l1))),
+        ("last hop dropped", last_hop_dropped))
+    for causal in (False, True):
+        res[f"ring causal={causal}"] = attn_pair(
+            flush, "ring_attention",
+            lambda: ring.ring_attention(q, k, v, sp, causal=causal),
+            lambda: flash_attention(q, k, v, causal=causal), (1, 3),
+            ring_controls)
+        uly = make_mesh(MeshConfig(sp=PAR_ULYSSES_SP),
+                        devices=[dev] * PAR_ULYSSES_SP)
+        res[f"ulysses causal={causal}"] = attn_pair(
+            flush, "ulysses_attention",
+            lambda: ring.ulysses_attention(q, k, v, uly, causal=causal),
+            lambda: flash_attention(q, k, v, causal=causal), (1, 3),
+            (("heads misrouted", heads_misrouted),))
+    del q, k, v
+
+    B = len(PAR_DECODE_LENS)
+    qd, kc, vc = randn(B, H, D), randn(B, Hkv, N, D), randn(B, Hkv, N, D)
+    lens = torch.from_numpy(PAR_DECODE_LENS).to(dev)
+    past = (torch.arange(N, device=dev)[None, :] >= lens[:, None])
+    kc.masked_fill_(past[:, None, :, None], float("nan"))
+    vc.masked_fill_(past[:, None, :, None], float("nan"))
+    for label, mesh in (("sp=8", sp), ("dp=2 x sp=4", make_mesh(
+            MeshConfig(dp=2, sp=4), devices=[dev] * 8))):
+        s_loc = N // mesh.shape["sp"]
+        empty = int(sum((PAR_DECODE_LENS <= i * s_loc).sum()
+                        for i in range(mesh.shape["sp"])))
+        cp = cp_decode.make_decode_attention_cp(mesh)
+        res[f"cp_decode {label}"] = {
+            **attn_pair(flush, f"cp decode {label}",
+                        lambda: cp(qd, kc, vc, lens),
+                        lambda: decode_attention(qd, kc, vc, lens), (1, 2),
+                        (("equal weights", lambda: patched(
+                            cp_decode, "pmax", list)),)),
+            "empty_rank_rows": empty}
+    del qd, kc, vc
+
+    mcfg = ModelConfig()
+    params = init_params(torch.Generator(device=dev).manual_seed(PAR_SEED),
+                         mcfg, device=dev)
+    toks = torch.randint(0, mcfg.vocab_size, (PAR_PP_B, PAR_PP_S),
+                         generator=gen, device=dev, dtype=torch.int32)
+    pp = Mesh([dev] * PAR_PP, ("pp",))
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        got = pipeline_forward(params, toks, mcfg, pp,
+                               n_microbatches=PAR_PP_M)
+        sync(torch.device(dev))
+        t2 = time.perf_counter()
+        want = forward(params, toks, mcfg)
+        sync(torch.device(dev))
+        t3 = time.perf_counter()
+    if not torch.isfinite(got).all():
+        raise AssertionError("pipeline_forward: non-finite logits")
+    res["pipeline"] = {"max_abs_err": hold(got, want),
+                       "pipeline_s": t2 - t1, "forward_s": t3 - t2,
+                       "n_layers": mcfg.n_layers}
+    return res
+
+
+def parallel_path(dev="cuda"):
+    """Path (t): ``check_ring`` (rows for the kernels line), then the main
+    path with the launch counts zeroed just before and read just after.
+    Returns (rows, the path's report)."""
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rec = Recorder(dev)
+    res = {"ring_cases": check_ring(rec, flush, dev),
+           "attn_checks": check_parallel_attn(rec, flush, dev)}
+    torch.cuda.empty_cache()
+    res["phase3_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED + 1)
+    out, counts, peak = drive("t", lambda: parallel_main(dev, flush, gen))
+    res.update(out, launches=counts, peak_extra_bytes=peak,
+               seconds=time.perf_counter() - t0)
+    return rec.rows, res
+
+
+def print_parallel(rows, res):
+    for r in rows.values():
+        lse = ("" if "lse_controls" not in r else
+               f"; out max_abs_err {r['out_max_abs_err']:.3g}, "
+               f"{r['ms_without_lse']:.4f} ms without the lse; lse "
+               f"controls {r['lse_controls']}")
+        print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+              f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){lse}", flush=True)
+    print(f"path (t) the ring kernels bit for bit over {res['ring_cases']} "
+          f"cases (ranks {PAR_RANKS}, {list(PAR_DTYPES)}, shards "
+          f"{PAR_SMALL} and two timed payloads) in {res['phase3_s']:.1f} s; "
+          f"K and V around the ring in {res['kv_ring_s']:.3f} s; the nine "
+          f"demos {res['demos']}", flush=True)
+    print(f"path (t) untimed kernel checks against the plain versions "
+          f"(max_abs_err): {res['attn_checks']}", flush=True)
+    for key in [k for k in res if k.startswith(("ring ", "ulysses ",
+                                                 "cp_decode "))]:
+        r = res[key]
+        print(f"path (t) {key}: max_abs_err {r['max_abs_err']:.3g} (tol "
+              f"{KERNEL_TOL['atol']}), worst row's relative L2 "
+              f"{r['rel_l2']:.3g} (tol {PAR_REL_L2}; controls, which must "
+              f"miss it: {r['controls_rel_l2']}), {r['ms']:.3f} ms against "
+              f"one device's {r['single_device_ms']:.3f} ms"
+              + (f"; {r['empty_rank_rows']} (row, rank) pairs empty"
+                 if "empty_rank_rows" in r else ""), flush=True)
+    p = res["pipeline"]
+    print(f"path (t) pipeline_forward pp={PAR_PP} M={PAR_PP_M} B={PAR_PP_B} "
+          f"S={PAR_PP_S}, {p['n_layers']} layers: logits max_abs_err "
+          f"{p['max_abs_err']:.3g} against forward (tol "
+          f"{KERNEL_TOL['atol']}); {p['pipeline_s']:.3f} s against "
+          f"{p['forward_s']:.3f} s; path {res['seconds']:.1f} s", flush=True)
+    print(f"  launches: { {k: v for k, v in res['launches'].items() if v} }")
+
+
 def drive(path, fn):
     """Run one main path with the launch counts zeroed just before and read
     just after; fail if a kernel of the path was not launched. Returns the
@@ -6156,6 +6687,12 @@ def main() -> int:
     print_gemma_train(srows, sres)
     phase_done("gemma2b_train", s=sres, s_checks=srows)
 
+    # path (t) next: the parallel layer on 8 ranks of the card
+    trows, tres = parallel_path()
+    torch.cuda.empty_cache()
+    print_parallel(trows, tres)
+    phase_done("parallel", t=tres, t_checks=trows)
+
     # the full-width model, its quantized params and the paths' requests
     cfg = ModelConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6215,6 +6752,7 @@ def main() -> int:
     checks.update(qrows)
     checks.update(rrows)
     checks.update(srows)
+    checks.update(trows)
     report["kernel_checks"] = checks
     phase_done("kernel_checks")
     del flush
@@ -6280,7 +6818,7 @@ def main() -> int:
     report["paths"] = {"bf16": main_path, "j": jres, "k": kres, "l": lres,
                        "m": mres, "n": nres, "o": ores, "p": pres,
                        "p2": pres["speculative"], "q": qres, "r": rres,
-                       "s": sres}
+                       "s": sres, "t": tres}
 
     qserved = {}
     for name, (wfmt, fuse, kvq) in QUANT_PATHS.items():

@@ -43,6 +43,9 @@ combine in plain PyTorch (``_gptoss_moe``, no kernel in the JAX package
 either). ``glm_rope_dim`` rotates GLM-4's first lanes in interleaved pairs
 (ops/rope.py ``apply_rope_glm``).
 
+``pipeline_forward`` runs the layer stack as a GPipe pipeline over a
+mesh's "pp" ranks (parallel/pipeline.py).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): LoRA and multi-LoRA weight packs, training under a mesh or FSDP.
 """
@@ -580,6 +583,47 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
             kvs.append(kv)
     logits = _logits(params, x, cfg)
     return (logits, kvs) if return_kv else logits
+
+
+def pipeline_forward(params, tokens, cfg: ModelConfig, mesh,
+                     n_microbatches: int | None = None):
+    """Pipeline-parallel forward over the mesh's "pp" axis (GPipe,
+    parallel/pipeline.py): the layers split into pp stages, each stage's
+    weights on its rank's device; the batch splits into microbatches that
+    stream through the stages. Embedding, final norm and the LM head run
+    outside the pipeline. Layers run as JAX's stage scan runs them, without
+    their index, so per-layer windows (``alt_window``) are refused.
+
+    Requires n_layers % pp == 0 and batch % n_microbatches == 0."""
+    from leetcuda_tpu_torch.parallel.pipeline import pipeline_apply
+
+    n_stages = mesh.shape["pp"]
+    if cfg.alt_window:
+        raise ValueError("alt_window models need per-layer static kernels; "
+                         "pipeline paths support uniform-window configs "
+                         "only")
+    B, S = tokens.shape
+    M = n_microbatches or n_stages
+    if B % M:
+        raise ValueError(f"batch {B} does not split into {M} microbatches")
+    layers = params["layers"]
+    if len(layers) % n_stages:
+        raise ValueError(f"n_layers={len(layers)} must divide into "
+                         f"{n_stages} stages")
+    k = len(layers) // n_stages
+    stages = [layers[s * k:(s + 1) * k] for s in range(n_stages)]
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=tokens.device).expand(B // M, S)
+
+    def stage_fn(stage_layers, xmb):
+        pos = positions.to(xmb.device)
+        for layer in stage_layers:
+            xmb, _ = apply_layer(layer, xmb, pos, cfg)
+        return xmb
+
+    x = pipeline_apply(stage_fn, stages, x.reshape(M, B // M, S, cfg.dim),
+                       mesh)
+    return _logits(params, x.reshape(B, S, cfg.dim).to(tokens.device), cfg)
 
 
 def loss_fn(params, tokens, cfg: ModelConfig, remat: bool = False):
