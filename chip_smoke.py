@@ -17,7 +17,13 @@ Phases; any failure raises and the script exits non-zero:
    runs over shuffled pools full of NaN wherever no row owns a position;
    the fused norm->QKV->RoPE and norm->matmul kernels run on layer 0 of
    path (d)'s params, beside the eager unfused sequence and the bare
-   ``torch.matmul``. The chunk kernel's four entry points run at the
+   ``torch.matmul``. The split-KV decode kernel's own checks
+   (``check_decode_split``): lengths on both sides of its split edges with
+   NaN past them (and their lse), a window over e4m3 pools of 16, every
+   row launched alone against its row in the batch, two launches back to
+   back and a CUDA-graph capture replayed, each bit for bit, and path
+   (t)'s cp-decode shape (a group of 8, lengths to 32768) timed beside
+   SDPA. The chunk kernel's four entry points run at the
    verify shape (B = 8, T = 4) and at admission shapes (B = 1, T = 256 and
    1024), NaN in every position at or past base + T. The flash forward's
    lse (causal and ragged), then the FA-2 backward's dQ and dK/dV kernels
@@ -807,7 +813,7 @@ def check_paged(rec, flush):
             raise AssertionError("paged kernel read a position no row owns")
         kg, vg = pg._gather(kp, table), pg._gather(vp, table)
         rec.record(f"paged_attention/page{page}", "paged_attention",
-                   "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                   DECODE_SRC,
                    "leetcuda_tpu/attention/paged.py:232", got,
                    pg.paged_attention_plain(*args),
                    time_ms(lambda: pg.paged_attention(*args), flush),
@@ -840,7 +846,7 @@ def check_paged(rec, flush):
             rec.record(
                 f"paged_attention_quantized/{fmt}/page{page}",
                 "paged_attention_quantized",
-                "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                DECODE_SRC,
                 "leetcuda_tpu/attention/paged.py:232", got,
                 pg.paged_attention_quantized_plain(*qargs),
                 time_ms(lambda: pg.paged_attention_quantized(*qargs), flush),
@@ -851,6 +857,172 @@ def check_paged(rec, flush):
                 4.0 * H * D * n_valid,
                 2 * Hkv * n_valid * D + 8.0 * Hkv * n_valid
                 + 4.0 * B * H * D + 4 * B + tbl_bytes)
+
+
+# The split-KV decode kernel's own checks (``check_decode_split``): the
+# decode check's batch at lengths on both sides of the split edges (filled in
+# from attention/decode.py SPLIT_KEYS[128]: 0, 1, L - 1, L, L + 1, 2L - 1,
+# 2L + 1 and the capacity), a window of SPLIT_WINDOW keys (its band ends
+# inside a split), and path (t)'s cp-decode shape: Qwen3-30B-A3B's 32 / 4
+# heads of 128 (a group of 8) at B=8 over 32768 positions.
+DECODE_SRC = "leetcuda_tpu_torch/csrc/decode_attn.cu"
+SPLIT_WINDOW = 300
+CP_DECODE_S = 32768
+CP_DECODE_LENS = np.array([1, 100, 4095, 4097, 10000, 20000, 30000, 32768],
+                          np.int32)
+
+
+def same_bits(what, got, want):
+    """Assert two kernel results equal bit for bit (NaN payloads too)."""
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.equal(as_u8(got), as_u8(want)):
+        raise AssertionError(f"{what}: not bit for bit equal")
+
+
+def check_decode_split(rec, flush):
+    """Phase 3: what the split-KV design adds to rows 3-5. At B=8, 16 / 4
+    heads of 128 over 2048 positions, lengths on both sides of the split
+    edges with NaN past every length: decode over a bf16 cache (and its
+    lse), and with a window of SPLIT_WINDOW over shuffled e4m3 pools of 16,
+    each against its plain version. Then, bit for bit on the card: every row
+    launched alone against its row in the batch (contiguous and paged); two
+    back-to-back launches; one CUDA-graph capture replayed twice, and an
+    eager launch after it (the arrival counters zeroed again each time,
+    nothing read on the host inside the capture). Last, path (t)'s
+    cp-decode shape (B=8, 32 / 4 heads of 128, lengths CP_DECODE_LENS up to
+    32768) with its lse, timed beside SDPA. The first row keeps the
+    seconds the whole check took (``check_s``)."""
+    from leetcuda_tpu_torch.attention import decode as dec
+    from leetcuda_tpu_torch.attention import paged as pg
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    t0 = time.perf_counter()
+    dev, bf = rec.dev, torch.bfloat16
+    B, H, Hkv, S, D = 8, 16, 4, 2048, 128
+    L = dec.SPLIT_KEYS[D]
+    lens_np = np.array([0, 1, L - 1, L, L + 1, 2 * L - 1, 2 * L + 1, S],
+                       np.int32)
+    lengths = torch.from_numpy(lens_np).to(dev)
+    cols = torch.arange(S, device=dev)[None, :]
+    past = (cols >= lengths[:, None])[:, None, :].expand(B, Hkv, S)
+    q = rec.randn(B, H, D)
+    kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+    k0, v0 = kc.clone(), vc.clone()
+    kc[past], vc[past] = float("nan"), float("nan")
+    n_valid = int(lens_np.sum())
+    mask = ~past[:, :1, None, :]
+    args = (q, kc, vc, lengths)
+    edges = f"decode_attention_lse/split edges L={L}"
+    lse_case(rec, flush, edges, "decode_attention_lse", DECODE_SRC,
+             "leetcuda_tpu/attention/decode.py:223", dec.decode_attention,
+             dec.decode_attention_plain, args, {}, 4.0 * H * D * n_valid,
+             2.0 * (2 * Hkv * n_valid * D + 2 * B * H * D) + 4 * B,
+             4.0 * B * H, lambda: sdpa(q[:, :, None], k0, v0,
+                                       attn_mask=mask))
+    rec.rows[edges]["lengths"] = lens_np.tolist()
+
+    # e4m3 pools of 16 with a window: NaN bytes past the lengths, NaN
+    # wherever no row owns a position
+    page, W = 16, SPLIT_WINDOW
+    kq, ks = _quantize_token_kv(k0, torch.float8_e4m3fn)
+    vq, vs = _quantize_token_kv(v0, torch.float8_e4m3fn)
+    ks[past], vs[past] = float("nan"), float("nan")
+    as_bytes(kq)[past], as_bytes(vq)[past] = 0x7F, 0xFF
+    n_pages = -(-lens_np // page)
+    table, owned = shuffled_table(rec.rng, n_pages, S // page, dev)
+    pools = [to_pool(c, page, table, owned, f) for c, f in (
+        (kq, 0x7F), (vq, 0xFF), (ks, float("nan")), (vs, float("nan")))]
+    qargs = (q, *pools, table, lengths)
+    got = pg.paged_attention_quantized(*qargs, window=W)
+    if not torch.isfinite(got).all():
+        raise AssertionError("split edges: NaN padding reached the output")
+    band = (cols < lengths[:, None]) & (cols >= lengths[:, None] - W)
+    n_band = int(band.sum())
+    kd = (kq.float() * ks.nan_to_num()[..., None]).nan_to_num().to(bf)
+    vd = (vq.float() * vs.nan_to_num()[..., None]).nan_to_num().to(bf)
+    check = f"paged_attention_quantized/fp8 page{page} W{W} split edges"
+    rec.record(check, "paged_attention_quantized", DECODE_SRC,
+               "leetcuda_tpu/attention/paged.py:232", got,
+               pg.paged_attention_quantized_plain(*qargs, window=W),
+               time_ms(lambda: pg.paged_attention_quantized(*qargs, window=W),
+                       flush),
+               time_ms(lambda: pg.paged_attention_quantized_plain(
+                   *qargs, window=W), flush, iters=5),
+               time_ms(lambda: sdpa(q[:, :, None], kd, vd,
+                                    attn_mask=band[:, None, None, :]),
+                       flush),
+               4.0 * H * D * n_band,
+               2 * Hkv * n_band * D + 8.0 * Hkv * n_band + 4.0 * B * H * D
+               + 4 * B + 4.0 * int(n_pages.sum()))
+    rec.rows[check].update(lengths=lens_np.tolist(), window=W)
+    del kd, vd
+
+    # bit for bit: a row alone against its row in the batch
+    bf_pools = [to_pool(c, page, table, owned, float("nan"))
+                for c in (kc, vc)]
+    batch = {"decode": dec.decode_attention(q, kc, vc, lengths,
+                                            with_lse=True),
+             "paged": pg.paged_attention(q, *bf_pools, table, lengths,
+                                         with_lse=True)}
+    for b in range(B):
+        sl = slice(b, b + 1)
+        alone = {"decode": dec.decode_attention(
+                     q[sl], kc[sl], vc[sl], lengths[sl], with_lse=True),
+                 "paged": pg.paged_attention(
+                     q[sl], *bf_pools, table[sl], lengths[sl],
+                     with_lse=True)}
+        for form, (o, l) in alone.items():
+            same_bits(f"{form} row {b} alone", o, batch[form][0][sl])
+            same_bits(f"{form} row {b} alone (lse)", l, batch[form][1][sl])
+
+    # two launches back to back, a graph replayed, an eager launch after it
+    def run():
+        return dec.decode_attention(q, kc, vc, lengths, with_lse=True)
+    first, second = run(), run()
+    same_bits("second launch", second[0], first[0])
+    same_bits("second launch (lse)", second[1], first[1])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # the stream's counters, made outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        static = run()
+    for i in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same_bits(f"graph replay {i}", static[0], first[0])
+        same_bits(f"graph replay {i} (lse)", static[1], first[1])
+    after = run()
+    same_bits("eager after the replays", after[0], first[0])
+    del graph, static, bf_pools, pools, kc, vc, k0, v0
+
+    # path (t)'s cp-decode shape, with the lse, beside SDPA
+    H, Hkv, S = 32, 4, CP_DECODE_S
+    lens_np = CP_DECODE_LENS
+    B = len(lens_np)
+    lengths = torch.from_numpy(lens_np).to(dev)
+    cols = torch.arange(S, device=dev)[None, :]
+    past = (cols >= lengths[:, None])[:, None, :].expand(B, Hkv, S)
+    q = rec.randn(B, H, D)
+    kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+    mask = ~past[:, :1, None, :]
+    k0, v0 = kc.clone(), vc.clone()
+    kc[past], vc[past] = float("nan"), float("nan")
+    n_valid = int(lens_np.sum())
+    check = f"decode_attention_lse/cp decode B={B} H={H}/{Hkv} S={S}"
+    lse_case(rec, flush, check, "decode_attention_lse", DECODE_SRC,
+             "leetcuda_tpu/attention/decode.py:223", dec.decode_attention,
+             dec.decode_attention_plain, (q, kc, vc, lengths), {},
+             4.0 * H * D * n_valid,
+             2.0 * (2 * Hkv * n_valid * D + 2 * B * H * D) + 4 * B,
+             4.0 * B * H, lambda: sdpa(q[:, :, None], k0, v0,
+                                       attn_mask=mask))
+    rec.rows[check]["lengths"] = lens_np.tolist()
+    del kc, vc, k0, v0
+    rec.rows[edges]["check_s"] = time.perf_counter() - t0
 
 
 # The chunk checks' verify batch: B = 8, T = 4 (k = 3) over a capacity of
@@ -1342,7 +1514,7 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
              < lengths[:, None])[:, None, None, :]
     n_valid = int(lens_np.sum())
     record("decode_attention", "decode_attention",
-           "leetcuda_tpu_torch/csrc/decode_attn.cu",
+           DECODE_SRC,
            "leetcuda_tpu/attention/decode.py:223", got, want,
            time_ms(lambda: dec.decode_attention(q, kc, vc, lengths), flush),
            time_ms(lambda: dec.decode_attention_plain(q, kc, vc, lengths),
@@ -1373,7 +1545,7 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
         vd = (vq.float() * vs[..., None]).to(bf)
         record(f"decode_attention_quantized/{fmt}",
                "decode_attention_quantized",
-               "leetcuda_tpu_torch/csrc/decode_attn.cu",
+               DECODE_SRC,
                "leetcuda_tpu/attention/decode.py:308", got, want,
                time_ms(lambda: dec.decode_attention_quantized(*args), flush),
                time_ms(lambda: dec.decode_attention_quantized_plain(*args),
@@ -1446,6 +1618,7 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
         if not (nan_k[:, :8].all() and torch.equal(nan_k, nan_p)):
             raise AssertionError("e4m3 bytes 0x7F / 0xFF do not decode to NaN")
 
+    check_decode_split(rec, flush)
     check_paged(rec, flush)
     check_fused(rec, flush, fused_layer, cfg)
     check_chunk(rec, flush)
@@ -3836,9 +4009,8 @@ def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
     that the cap bends the scores, and beside every check the kernel
     uncapped and at cap / log2(e) must fail it (``Recorder.cap_controls``),
     and with ``wrong_scale`` also the kernel at that scale. Decode and paged
-    go to the narrow kernel (csrc/decode_attn.cu) at head dim 128 and to
-    the wide one (csrc/decode_attn_wide.cu) at 256. Each bound counts the
-    band's work. Returns the band skip's times."""
+    go to the split-KV kernel (csrc/decode_attn.cu) at head dim 128 and
+    256. Each bound counts the band's work. Returns the band skip's times."""
     from leetcuda_tpu_torch.attention import decode as dec
     from leetcuda_tpu_torch.attention import flash as fl
     from leetcuda_tpu_torch.attention import paged as pg
@@ -3847,9 +4019,6 @@ def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
 
     dev, bf = rec.dev, torch.bfloat16
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dec_src = ("leetcuda_tpu_torch/csrc/decode_attn.cu"
-               if D in dec.NARROW_HEAD_DIMS and H // Hkv in dec.NARROW_GROUPS
-               else MLA_SRC)
     W, cap, scale = cfg.sliding_window, cfg.attn_softcap, cfg.query_scale
     layers = {"local": dict(window=W, softcap=cap),
               "global": dict(softcap=cap)}
@@ -3992,7 +4161,7 @@ def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
             raise AssertionError("decode kernel let NaN padding through")
         check = f"({tag}) decode_attention/{layer} B={B} S={S}"
         want = dec.decode_attention_plain(*args, sm_scale=scale, **opt)
-        rec.record(check, "decode_attention", dec_src,
+        rec.record(check, "decode_attention", DECODE_SRC,
                    "leetcuda_tpu/attention/decode.py:223", got, want,
                    time_ms(lambda: dec.decode_attention(
                        *args, sm_scale=scale, **opt), flush),
@@ -4027,7 +4196,7 @@ def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
         check = f"({tag}) decode_attention_quantized/{fmt} local B={B} S={S}"
         want = dec.decode_attention_quantized_plain(*args, sm_scale=scale,
                                                     **opt)
-        rec.record(check, "decode_attention_quantized", dec_src,
+        rec.record(check, "decode_attention_quantized", DECODE_SRC,
                    "leetcuda_tpu/attention/decode.py:308", got, want,
                    time_ms(lambda: dec.decode_attention_quantized(
                        *args, sm_scale=scale, **opt), flush),
@@ -4081,7 +4250,7 @@ def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
             raise AssertionError(f"{name} read a position no row owns")
         check = f"({tag}) {name}/{fmt or 'bf16'} local page{PAGE}"
         want = plain(*args, sm_scale=scale, **opt)
-        rec.record(check, name, dec_src,
+        rec.record(check, name, DECODE_SRC,
                    "leetcuda_tpu/attention/paged.py:232", got, want,
                    time_ms(lambda: fn(*args, sm_scale=scale, **opt), flush),
                    time_ms(lambda: plain(*args, sm_scale=scale, **opt),
@@ -4761,7 +4930,6 @@ def check_lse(rec, flush, cfg):
     W = cfg.sliding_window
     windows = {"local": W, "global": None}
     qdts = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
-    DEC = "leetcuda_tpu_torch/csrc/decode_attn.cu"
 
     # decode and paged: B=8 rows of LSE_DECODE_LENS
     lens_np = LSE_DECODE_LENS
@@ -4823,8 +4991,8 @@ def check_lse(rec, flush, cfg):
                 name = fn.__name__ + "_lse"
                 check = (f"(p) {name}/{fmt or 'bf16'} {layer} B={B} S={S}"
                          + (f" page{PAGE}" if paged else ""))
-                lse_case(rec, flush, check, name, DEC, replaces, fn, plain,
-                         args, kw, 4.0 * H * D * n_att, nbytes + extra,
+                lse_case(rec, flush, check, name, DECODE_SRC, replaces, fn,
+                         plain, args, kw, 4.0 * H * D * n_att, nbytes + extra,
                          4.0 * B * H,
                          lambda kd=kd, vd=vd, mask=mask: sdpa(
                              q[:, :, None], kd, vd, attn_mask=mask))
@@ -5322,7 +5490,6 @@ def print_gptoss(rows, res):
 # cache and the decode step over int8 / e4m3 latent caches and paged bf16 /
 # int8 pools (pages of MLA_PAGE, a PageManager with a shuffled free list),
 # every stream MLA_NEW tokens.
-MLA_SRC = "leetcuda_tpu_torch/csrc/decode_attn_wide.cu"
 MLA_SEED = 11
 MLA_B, MLA_S, MLA_NEW = 8, 128, 32
 MLA_PAGE = 16
@@ -5353,7 +5520,7 @@ def shared_case(rec, flush, check, name, replaces, fn, plain, args, kw,
     if isinstance(got, tuple):  # with the lse: hold the output, record the lse
         out_err = hold(got[0], want[0])
         got, want = got[1], want[1]
-    rec.record(check, name, MLA_SRC, replaces, got, want,
+    rec.record(check, name, DECODE_SRC, replaces, got, want,
                time_ms(lambda: fn(*args, **kw), flush),
                time_ms(lambda: plain(*args, **kw), flush, iters=5),
                time_ms(lib, flush), flops, nbytes,
@@ -5499,7 +5666,7 @@ def check_shared(rec, flush, cfg):
         raise AssertionError("group 7: NaN padding reached the output")
     n_att = int(lens_np.sum())
     rec.record(f"(q) decode_attention/group 7 ({H} / {Hkv} heads of {D})",
-               "decode_attention", MLA_SRC,
+               "decode_attention", DECODE_SRC,
                "leetcuda_tpu/attention/decode.py:223", got,
                dec.decode_attention_plain(*args),
                time_ms(lambda: dec.decode_attention(*args), flush),
@@ -6113,7 +6280,7 @@ def check_parallel_attn(rec, flush, dev):
                     lse_case(rec, flush, f"(t) decode_attention_lse {label} "
                              f"rank ({d}, {i}) B={b_loc} S={s_loc} lengths "
                              f"{li.tolist()}", "decode_attention_lse",
-                             "leetcuda_tpu_torch/csrc/decode_attn.cu",
+                             DECODE_SRC,
                              "leetcuda_tpu/attention/decode.py:223",
                              dec.decode_attention, dec.decode_attention_plain,
                              args, {}, 4.0 * H * D * n_att,

@@ -18,11 +18,17 @@ A shared launch counts on its own counter (``decode_attention_shared``,
 ``decode_attention_quantized_shared``, with ``_lse`` where the lse is asked
 for).
 
-On CUDA tensors the wrappers launch ``csrc/decode_attn.cu`` where it takes
-the call (bf16 q, head dim 64 or 128, GQA group 1/2/4/8) and
-``csrc/decode_attn_wide.cu`` otherwise (a bf16 or f32 q, head dim 64, 128,
-256 or 576, any group: the heads in blocks of 8), and raise on what neither
-takes.
+On CUDA tensors the wrappers launch ``csrc/decode_attn.cu``, one split-KV
+kernel for every head dim (64, 128, 256, 576), GQA group, q type (bf16, or
+f32 as MLA's absorbed query), cache type and layout, once per call, and
+raise on what it does not take. Each row's band of keys is cut into splits
+of ``SPLIT_KEYS[D]`` keys counted from the band's start (``split_plan``), the
+splits run on their own CTAs and the last to finish merges them in split
+order in the same launch, through a workspace from torch's allocator and a
+counter buffer of the stream (``_stream_counters``). No length is read on
+the host, so a launch can be captured in a CUDA graph (launch once on the
+stream before capturing: the counter buffer is made outside the capture).
+``attend_split_plain`` is the kernel's split and merge in torch ops.
 On CPU tensors they run the plain PyTorch versions below, which take the
 same forms.
 
@@ -42,11 +48,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from leetcuda_tpu_torch.attention.flash import attn_options, cap_scores
-from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
+from leetcuda_tpu_torch.core.runtime import (LaunchCounter, cdiv,
+                                             check_launch)
 
 _NEG_INF = -1e30
 
@@ -58,38 +66,20 @@ DECODE_SHARED = LaunchCounter("decode_attention_shared")
 DECODE_Q_SHARED = LaunchCounter("decode_attention_quantized_shared")
 DECODE_SHARED_LSE = LaunchCounter("decode_attention_shared_lse")
 DECODE_Q_SHARED_LSE = LaunchCounter("decode_attention_quantized_shared_lse")
-# lc_decode_attn_bf16(q, k, v, lengths, out, lse, B, H, Hkv, S, D, scale,
-#                     window, softcap, stream)
-_DECODE_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
-                + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p))
-# lc_decode_attn_q(q, k, v, k_scale, v_scale, lengths, out, lse, B, H, Hkv,
-#                  S, D, fp8, scale, window, softcap, stream)
-_DECODE_Q_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
-                  + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                     ctypes.c_void_p))
-# lc_paged_attn_bf16(q, k_pages, v_pages, page_table, lengths, out, lse, B, H,
-#                    Hkv, P_max, page, D, scale, window, softcap, stream)
-_PAGED_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
-               + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_void_p))
-# lc_paged_attn_q(q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-#                 out, lse, B, H, Hkv, P_max, page, D, fp8, scale, window,
-#                 softcap, stream)
-_PAGED_Q_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
-                 + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p))
-# lc_decode_attn_wide(q, k, v, k_scale, v_scale, table, lengths, out, lse, B,
-#                     H, Hkv, S, page, D, cache, q_f32, scale, window,
-#                     softcap, stream)
-_WIDE_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8
-              + (ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                 ctypes.c_void_p))
-# What the kernels take: decode_attn.cu (narrow) a bf16 q at these head dims
-# and groups; decode_attn_wide.cu a bf16 or f32 q at these head dims, any
-# group.
-NARROW_HEAD_DIMS, NARROW_GROUPS = (64, 128), (1, 2, 4, 8)
+# lc_decode_attn(q, k, v, k_scale, v_scale, table, lengths, out, lse, ws,
+#                counters, B, H, Hkv, S, page, D, cache, q_f32, split,
+#                n_split, scale, window, softcap, stream)
+_ARGS = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 10
+         + (ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p))
 HEAD_DIMS = (64, 128, 256, 576)
+# Keys a CTA takes (a split) by head dim, a multiple of the kernel's
+# 32-key tile (TILE_KEYS): fixed, so that a row's splits and merge order
+# depend on its length and window alone; chosen by timing candidates at the
+# main paths' shapes on an H100 (PERF.md).
+SPLIT_KEYS = {64: 128, 128: 256, 256: 256, 576: 128}
+TILE_KEYS = 32
+HEAD_BLOCK = 16  # query heads a CTA (the tensor-core tile's 16 rows)
+MAX_SPLITS = 1024  # the merge keeps each split's weights in shared memory
 _CACHE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 _DECODE_NAMES = ("k_cache", "v_cache", "lengths")
@@ -217,13 +207,17 @@ def _check_kernel_args(q, lengths, tensors):
     for name, t in dict(q=q, **tensors).items():
         if not t.is_contiguous():
             raise ValueError(f"decode kernel: {name} must be contiguous")
+        if (t.dim() == 4 or name == "q") and t.data_ptr() % 16:
+            raise ValueError(f"decode kernel: {name} must start on a "
+                             "16-byte boundary (16-byte copies)")
     if lengths.dtype != torch.int32 or lengths.shape != (B,) \
             or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous (B,) int32 tensor")
-    if D not in HEAD_DIMS or B > 65535 or Hkv > 65535:
+    blocks = Hkv * cdiv(H // Hkv, HEAD_BLOCK)
+    if D not in HEAD_DIMS or B > 65535 or blocks > 65535:
         raise ValueError(f"decode kernel: head dim {D} (takes "
                          f"{'/'.join(map(str, HEAD_DIMS))}), batch {B} and "
-                         f"{Hkv} KV heads (<= 65535)")
+                         f"{blocks} head blocks (<= 65535)")
 
 
 def _outputs(q, with_lse):
@@ -234,46 +228,162 @@ def _outputs(q, with_lse):
     return torch.empty_like(q), lse
 
 
+class SplitPlan(NamedTuple):
+    """How the kernel cuts a call: ``split_keys`` keys a split, ``n_splits``
+    split CTAs a (row, KV head, head block) in the grid, ``head_blocks``
+    blocks of up to HEAD_BLOCK query heads a KV head; with more than one
+    split, ``workspace`` f32 of partials (the outputs' (B * H, n_splits, D)
+    then the (m, l) pairs' (B * H, n_splits, 2)) and ``counters`` int32
+    arrival counts; 0 and 0 with one split."""
+    split_keys: int
+    n_splits: int
+    head_blocks: int
+    workspace: int
+    counters: int
+
+
+def split_plan(B: int, H: int, Hkv: int, D: int, S: int,
+               window: int | None = None) -> SplitPlan:
+    """The kernel's split plan for a call over capacity ``S`` (S_max, or
+    P_max * page): the band a row attends is at most min(S, window) keys,
+    so ``n_splits`` = ceil(min(S, window) / SPLIT_KEYS[D]), known on the
+    host without reading a length. A row of length n uses the first
+    max(1, ceil(band / split_keys)) of them, band = min(n, window)."""
+    split = SPLIT_KEYS[D]
+    band = min(S, window) if window else S
+    n = max(1, cdiv(band, split))
+    hb = cdiv(H // Hkv, HEAD_BLOCK)
+    if n == 1:
+        return SplitPlan(split, 1, hb, 0, 0)
+    return SplitPlan(split, n, hb, B * H * n * (D + 2), B * Hkv * hb)
+
+
+def attend_split_plain(q, k_cache, v_cache, lengths, *, sm_scale=None,
+                       k_scale=None, v_scale=None, window=None, softcap=None,
+                       with_lse=False, split_keys=None):
+    """The kernel's split and merge in torch ops, f32, beside
+    ``attend_plain`` (same arguments; ``split_keys`` defaults to
+    SPLIT_KEYS[D]). Row b's band [lo, len), lo = max(len - window, 0) or 0,
+    is cut into splits of ``split_keys`` keys from lo; each split takes its
+    own max m_s, sum l_s and unnormalized P.V acc_s (P times the v scales);
+    a row of one split returns acc_0 / max(l_0, 1e-30) and m_0 + log(max(
+    l_0, 1e-30)); otherwise M = max_s m_s, w_s = exp(m_s - M), L = sum_s
+    w_s l_s and the output sum_s w_s acc_s / max(L, 1e-30), lse M +
+    log(max(L, 1e-30)), summed in split order. Positions outside the band
+    are zeroed on both sides of P.V, as in ``attend_plain``."""
+    window, softcap = attn_options(window, softcap)
+    B, H, D = q.shape
+    _, Hkv, S, _ = k_cache.shape
+    group = H // Hkv
+    split = split_keys or SPLIT_KEYS[D]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    cols = torch.arange(S, device=dev)[None, :]
+    lens = lengths.to(dev).long().clamp(0, S)[:, None]           # (B, 1)
+    lo = (lens - window).clamp(min=0) if window else torch.zeros_like(lens)
+    band = (cols >= lo) & (cols < lens)                            # (B, S)
+    zero = torch.zeros((), device=dev)
+    vmask = band[:, None, :, None]
+    kf = torch.where(vmask, k_cache.float(), zero)
+    vf = kf if v_cache is k_cache else torch.where(vmask, v_cache.float(),
+                                                   zero)
+    qg = q.float().reshape(B, Hkv, group, D)
+    s = torch.matmul(qg, kf.transpose(-1, -2)) * scale           # (B,Hkv,G,S)
+    if k_scale is not None:
+        s = s * k_scale.float()[:, :, None, :]
+    s = cap_scores(s, softcap)
+    n_split = max(1, cdiv(min(S, window) if window else S, split))
+    n_live = ((lens - lo + split - 1) // split).clamp(min=1)        # (B, 1)
+    split_of = torch.div(cols - lo, split, rounding_mode="floor")   # (B, S)
+    neg = torch.full((), _NEG_INF, device=dev)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        keep = (band & (split_of == i))[:, None, None, :]
+        si = torch.where(keep, s, neg)
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.where(keep, torch.exp(si - m), zero)
+        ls.append(p.sum(-1, keepdim=True))
+        if v_scale is not None:
+            p = torch.where(keep, p * v_scale.float()[:, :, None, :], zero)
+        ms.append(m)
+        accs.append(torch.matmul(p, vf))
+    live = (torch.arange(n_split, device=dev)[None, :]
+            < n_live)[:, None, None, :, None]                    # (B,1,1,n,1)
+    m_all = torch.where(live, torch.stack(ms, 3), neg)           # (B,Hkv,G,n,1)
+    M = m_all.amax(dim=3)
+    w = torch.where(live, torch.exp(m_all - M[:, :, :, None]), zero)
+    l_all, acc_all = torch.stack(ls, 3), torch.stack(accs, 3)
+    L, acc = torch.zeros_like(M), torch.zeros_like(acc_all[:, :, :, 0])
+    for i in range(n_split):  # in split order
+        L = L + w[:, :, :, i] * l_all[:, :, :, i]
+        acc = acc + w[:, :, :, i] * acc_all[:, :, :, i]
+    one = (n_live == 1)[:, :, None, None]                           # (B,1,1,1)
+    L = torch.where(one, l_all[:, :, :, 0], L)
+    acc = torch.where(one, acc_all[:, :, :, 0], acc)
+    M = torch.where(one, m_all[:, :, :, 0], M)
+    out = (acc * (1.0 / torch.clamp(L, min=1e-30))).reshape(B, H, D)
+    out = out.to(q.dtype)
+    if with_lse:
+        lse = M + torch.log(torch.clamp(L, min=1e-30))
+        return out, lse.reshape(B, H)
+    return out
+
+
+# One zeroed int32 counter buffer per (device, stream): the kernel's last
+# split of a block zeroes its counter again, so the buffer is zero between
+# launches and two streams never share a counter.
+_STREAM_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+_MIN_COUNTERS = 4096
+
+
+def _stream_counters(device, stream: int, n: int) -> torch.Tensor:
+    """The counter buffer of ``stream`` on ``device``, at least ``n`` long,
+    made (zeroed, on the stream) at its first use. Inside a graph capture
+    it must exist already: launch once on the stream before capturing."""
+    key = (device.index, stream)
+    buf = _STREAM_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode kernel: this stream has no split "
+                               "counters of that size yet; launch the call "
+                               "once on it before capturing a graph")
+        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
+                          device=device)
+        _STREAM_COUNTERS[key] = buf
+    return buf
+
+
 def launch(q, k, v, ks, vs, table, lengths, out, lse, *, scale, window,
            softcap):
-    """Launch one decode or paged kernel: the narrow kernel of
-    ``csrc/decode_attn.cu`` where it takes the call (bf16 q, head dim 64 or
-    128, a group of 1, 2, 4 or 8), else ``csrc/decode_attn_wide.cu``. k, v
-    (and the scales ks, vs, or None for a bf16 cache) are caches (B, Hkv,
-    S, D) with ``table`` None, or pools (N, Hkv, page, D) with ``table``
-    (B, P_max); k is v for the shared form. Returns the CUDA error code."""
+    """Launch ``csrc/decode_attn.cu`` once. k, v (and the scales ks, vs, or
+    None for a bf16 cache) are caches (B, Hkv, S, D) with ``table`` None, or
+    pools (N, Hkv, page, D) with ``table`` (B, P_max); k is v for the
+    shared form. The workspace comes from torch's allocator, the counters
+    from the stream's buffer. Returns the CUDA error code."""
     from leetcuda_tpu_torch.build import kernel
 
     B, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    paged = table is not None
-    page = S if paged else 0
-    if paged:
+    page = S if table is not None else 0
+    if page:
         S = table.shape[1] * page
-    cache = _CACHE_CODE[k.dtype]
+    plan = split_plan(B, H, Hkv, D, S, window)
+    if plan.n_splits > MAX_SPLITS:
+        raise ValueError(f"decode kernel: a band of up to {S} keys makes "
+                         f"{plan.n_splits} splits of {plan.split_keys} "
+                         f"(at most {MAX_SPLITS})")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = counters = None
+    if plan.n_splits > 1:
+        ws = torch.empty(plan.workspace, dtype=torch.float32,
+                         device=q.device)
+        counters = _stream_counters(q.device, stream, plan.counters)
     ptr = [None if t is None else t.data_ptr()
-           for t in (q, k, v, ks, vs, table, lengths, out, lse)]
-    opts = (float(scale), window, softcap, stream)
-    if not (q.dtype == torch.bfloat16 and D in NARROW_HEAD_DIMS
-            and H // Hkv in NARROW_GROUPS):
-        fn = kernel("decode_attn_wide", "lc_decode_attn_wide", _WIDE_ARGS)
-        return fn(*ptr, B, H, Hkv, S, page, D, cache,
-                  int(q.dtype == torch.float32), *opts)
-    qp, kp, vp, ksp, vsp, tp, lp, op, sp = ptr
-    fp8 = int(cache == 2)
-    if paged and cache:
-        return kernel("decode_attn", "lc_paged_attn_q", _PAGED_Q_ARGS)(
-            qp, kp, vp, ksp, vsp, tp, lp, op, sp, B, H, Hkv, S // page, page,
-            D, fp8, *opts)
-    if paged:
-        return kernel("decode_attn", "lc_paged_attn_bf16", _PAGED_ARGS)(
-            qp, kp, vp, tp, lp, op, sp, B, H, Hkv, S // page, page, D, *opts)
-    if cache:
-        return kernel("decode_attn", "lc_decode_attn_q", _DECODE_Q_ARGS)(
-            qp, kp, vp, ksp, vsp, lp, op, sp, B, H, Hkv, S, D, fp8, *opts)
-    return kernel("decode_attn", "lc_decode_attn_bf16", _DECODE_ARGS)(
-        qp, kp, vp, lp, op, sp, B, H, Hkv, S, D, *opts)
+           for t in (q, k, v, ks, vs, table, lengths, out, lse, ws, counters)]
+    fn = kernel("decode_attn", "lc_decode_attn", _ARGS)
+    return fn(*ptr, B, H, Hkv, S, page, D, _CACHE_CODE[k.dtype],
+              int(q.dtype == torch.float32), plan.split_keys, plan.n_splits,
+              float(scale), window, softcap, stream)
 
 
 def decode_attention(q, *args, sm_scale=None, window=None, softcap=None,

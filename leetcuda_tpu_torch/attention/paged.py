@@ -18,13 +18,12 @@ page, d_c + d_r)). A shared launch counts on its own counter
 ``_lse`` where the lse is asked for).
 
 On CUDA tensors ``paged_attention`` and ``paged_attention_quantized``
-launch the paged entry points of ``csrc/decode_attn.cu`` where they take
-the call (bf16 q, head dim 64 or 128, GQA group 1/2/4/8) and
-``csrc/decode_attn_wide.cu`` otherwise (a bf16 or f32 q, head dim 64, 128,
-256 or 576, any group), any page size, and raise on what neither takes. On CPU
-tensors they run the plain versions below: gather each row's pages through
-the table into a contiguous view, then the plain decode attention. The TPU
-kernel's ``pages_per_step`` is DMA tiling and has no counterpart.
+launch the split-KV kernel of ``csrc/decode_attn.cu`` in its paged
+addressing (attention/decode.py ``launch``: every head dim, group and q
+type, any page size, one launch a call) and raise on what it does not take.
+On CPU tensors they run the plain versions below: gather each row's pages
+through the table into a contiguous view, then the plain decode attention.
+The TPU kernel's ``pages_per_step`` is DMA tiling and has no counterpart.
 ``window`` and ``softcap`` are decode attention's (attention/decode.py):
 the kernel looks up no page wholly before the window and reads no position
 before it, and ``with_lse`` its (B, H) f32 log-sum-exp beside the output

@@ -12,7 +12,7 @@ query in f32, W_uv applied to the attended latent):
 so the decode and paged attention kernels run it with ``shared_kv``: the
 latent cache is both K and V, one KV head of d_c + d_r = 576 lanes under
 the whole of H (attention/decode.py, attention/paged.py; on the card
-``csrc/decode_attn_wide.cu``), and lanes [:d_c] of the output are the
+``csrc/decode_attn.cu``), and lanes [:d_c] of the output are the
 attended latent. Prefill runs the expanded multi-head form in f32 einsums
 (plain PyTorch, as JAX computes it outside any Pallas kernel) and returns
 the latent cache. Four decode caches: contiguous bf16, contiguous int8 /
@@ -34,8 +34,9 @@ which clamps an out-of-range position; here it is a device assert), and
 ``mla_generate`` is a Python loop over ``mla_model_decode_step``. The TPU
 tiling arguments (``block_k``) have no counterpart. Under a mesh
 (``mla_decode_step(mesh=)``, ``mla_param_shardings``,
-``shard_mla_params``) nothing is ported yet (ROADMAP item 12), nor is
-training (``mla_loss_fn``, ``make_mla_train_step``: ROADMAP item 11e2).
+``shard_mla_params``) nothing is ported yet: it needs item 12b's
+tensor-parallel runtime (ROADMAP item 12b), nor is training
+(``mla_loss_fn``, ``make_mla_train_step``: ROADMAP item 11e3).
 """
 
 from __future__ import annotations
@@ -131,14 +132,14 @@ def init_mla_params(generator: torch.Generator, cfg: MLAConfig,
 
 def mla_param_shardings(cfg: MLAConfig):
     raise NotImplementedError(
-        "mla_param_shardings: tensor parallelism needs a mesh, which the "
-        "port does not have yet (ROADMAP item 12, the parallel layer)")
+        "mla_param_shardings: tensor parallelism needs the tensor-parallel "
+        "runtime over a mesh, which the port lacks (ROADMAP item 12b)")
 
 
 def shard_mla_params(params, cfg: MLAConfig, mesh):
     raise NotImplementedError(
-        "shard_mla_params: tensor parallelism needs a mesh, which the port "
-        "does not have yet (ROADMAP item 12, the parallel layer)")
+        "shard_mla_params: tensor parallelism needs the tensor-parallel "
+        "runtime over a mesh, which the port lacks (ROADMAP item 12b)")
 
 
 def _mla_rms(x, w, eps):
@@ -270,7 +271,7 @@ def mla_decode_step(params, x_t, cache, lengths, cfg: MLAConfig, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "mla_decode_step: decoding under a mesh is not ported yet "
-            "(ROADMAP item 12, the parallel layer)")
+            "(ROADMAP item 12b)")
     B, _ = x_t.shape
     H, dc = cfg.n_heads, cfg.kv_lora_rank
     pos = lengths

@@ -21,8 +21,9 @@ no order on CUDA). The dropless combine sums each token's k weighted copies
 with ``index_add_`` in f32; on CUDA its order among the k copies is not
 fixed, so results agree with JAX's to f32 rounding, not bit for bit.
 
-Expert parallelism (``moe_shardings``, ``shard_moe_params``) needs a mesh,
-which the port does not have yet (ROADMAP item 12).
+Expert parallelism (``moe_shardings``, ``shard_moe_params``) needs the
+sharded runtime over a mesh (``parallel/mesh.py`` has the mesh), which the
+port lacks (ROADMAP item 12b).
 """
 
 from __future__ import annotations
@@ -77,14 +78,14 @@ def init_moe_params(generator: torch.Generator, cfg: MoEConfig,
 
 def moe_shardings():
     raise NotImplementedError(
-        "moe_shardings: expert parallelism needs a mesh, which the port does "
-        "not have yet (ROADMAP item 12, the parallel layer)")
+        "moe_shardings: expert parallelism needs the sharded runtime over "
+        "a mesh, which the port lacks (ROADMAP item 12b)")
 
 
 def shard_moe_params(params, mesh):
     raise NotImplementedError(
-        "shard_moe_params: expert parallelism needs a mesh, which the port "
-        "does not have yet (ROADMAP item 12, the parallel layer)")
+        "shard_moe_params: expert parallelism needs the sharded runtime "
+        "over a mesh, which the port lacks (ROADMAP item 12b)")
 
 
 def _top_k(probs, k: int):
