@@ -148,13 +148,19 @@ Phases; any failure raises and the script exits non-zero:
           every RoPE rung in f32 at (65536, 128) and (4096, 2048) at 1e-4
           (no library call); ``mat_transpose`` and every transpose rung at
           8192^2 f32 bit for bit beside ``x.t().contiguous()``; the
-          resident chain at 4096^3 bf16, 5 reps, at 2e-2 beside 5
-          torch.matmul (the library) and 5 of the port's hgemm; then,
-          untimed: every transpose rung at (4097, 3001) in f32, bf16 and
-          bytes; ids that clamp (negative, past V - 1), NaN rows with
-          distinct payloads and int64 ids, bit for bit; RoPE in bf16; the
-          chain in f16 and f32 at 1024^2, 1 and 4 reps. Every call's
-          inputs are checked unchanged.
+          resident chain (one persistent TMA + wgmma launch) at 4096^3
+          bf16, 5 reps, at 2e-2 beside 5 torch.matmul (the library) and 5
+          of the port's hgemm, with its TFLOP/s, share of the bound, grid
+          and tile; then, untimed: every transpose rung at (4097, 3001) in
+          f32, bf16 and bytes; ids that clamp (negative, past V - 1), NaN
+          rows with distinct payloads and int64 ids, bit for bit; RoPE in
+          bf16; the chain in f16 and f32 at 1024^2 and in bf16 and f32 at
+          (1000, 1030), 1 and 4 reps, and in bf16 at (4097, 2048), 3 reps;
+          reps 5 in one launch against 5 launches at reps 1 at 4096^3 and
+          (1000, 1030), a second call and two replays of a CUDA graph, bit
+          for bit; reps 5 against the plain chain at reps 4, which must
+          miss 2e-2; the chain's SASS (wgmma and TMA, no mma.sync). Every
+          call's inputs are checked unchanged.
    (m)    the op corpus's add, activations, reductions, dot product and
           histogram (after path (l)), in three parts, each with the counts
           zeroed: the 136 registered ops of the elementwise, activation,
@@ -361,6 +367,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2864,7 +2871,7 @@ CORPUS_SRC = {
     "rope": ("leetcuda_tpu_torch/csrc/rope.cu", "leetcuda_tpu/ops/rope.py:57"),
     "rope_lane": ("leetcuda_tpu_torch/csrc/rope.cu",
                   "leetcuda_tpu/ops/rope.py:105"),
-    "matmul_resident": ("leetcuda_tpu_torch/csrc/matmul.cu",
+    "matmul_resident": ("leetcuda_tpu_torch/csrc/matmul_resident.cu",
                         "leetcuda_tpu/gemm/matmul.py:412"),
 }
 CORPUS_FAMILIES = ("transpose", "embedding", "rope", "gemm-resident")
@@ -2875,9 +2882,11 @@ CORPUS_FAMILIES = ("transpose", "embedding", "rope", "gemm-resident")
 ROPE_SHAPES = ((65536, 128), (4096, 2048))
 TRANSPOSE_DIM, RAGGED_T = 8192, (4097, 3001)
 RESIDENT_DIM, RESIDENT_REPS, RESIDENT_SMALL = 4096, 5, 1024
-# a (M, N) with N % 8 != 0: the tiles' element-by-element loads and a
-# partial last row block, where a rep reads back rows through plain loads.
-RESIDENT_RAGGED = (1000, 1030)
+# a (M, N) with N % 8 != 0: a and b zero-padded to N8 by the wrapper (no
+# tensor map takes rows of 2060 bytes), a partial last row block and a
+# partial last column tile; and more tiles in a rep (33 x 8) than CTAs,
+# with a last row block of one row, at 3 reps.
+RESIDENT_RAGGED, RESIDENT_TALL = (1000, 1030), (4097, 2048)
 # The registry's; A is drawn at unit scale and B at N^-0.5, so every rep's
 # output has RMS ~1 and 2e-2 is a few bf16 ulps there.
 RESIDENT_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -2995,17 +3004,23 @@ def _resident_cases(run):
             c = mm.hgemm(c, b)
         return c
 
+    tile, co_resident = mm.resident_build_info(a.device)
+    plan = mm.resident_plan(n, n, reps, ctas=co_resident, tile=tile)
     row = run.case(f"matmul_resident/bf16 {n}^3 reps {reps}",
                    "matmul_resident", lambda: chain(a, b),
                    lambda: mm.matmul_chain_plain(a, b, reps), lib,
                    3.0 * n * n * 2, (a, b), tol=RESIDENT_TOL,
                    flops=2.0 * reps * n ** 3, rate=BF16_FLOP_PER_S,
-                   M=n, reps=reps, ctas=-(-n // mm.RESIDENT_ROWS))
+                   M=n, reps=reps, ctas=plan["grid"], plan=plan,
+                   co_resident_ctas=co_resident)
     with uncounted():
         row["hgemm_x5_ms"] = time_ms(hgemm5, run.flush)
         row["max_abs_err_vs_library"] = float(
             (chain(a, b).float() - lib().float()).abs().max())
-    row["tflops"] = tflops(row["flops"], row["ms"])
+    row.update(tflops=tflops(row["flops"], row["ms"]),
+               share_of_bound=row["bound_ms"] / row["ms"],
+               x_library=row["ms"] / row["library_ms"],
+               x_hgemm5=row["ms"] / row["hgemm_x5_ms"])
 
 
 def corpus_shapes(run, embed):
@@ -3083,6 +3098,104 @@ def corpus_checks(run, embed):
                      lambda: mm.make_matmul_resident(reps=reps)(a, b),
                      lambda: mm.matmul_chain_plain(a, b, reps), None, 0.0,
                      (a, b), tol=tol, timed=False)
+    resident_checks(run)
+
+
+def resident_checks(run):
+    """The one-launch chain's own controls, bit for bit where the kernel must
+    repeat itself: reps 5 in one launch against five launches at reps 1
+    (the counters' waits and the proxy fences: a stale row shows here) at
+    4096^3 and at the padded (1000, 1030); two calls in a row and a
+    CUDA-graph capture replayed twice, against the eager call; the chain at
+    (4097, 2048), 3 reps, against the plain chain; and a control that must
+    fail: reps 5 against the plain chain at reps 4 misses RESIDENT_TOL."""
+    from leetcuda_tpu_torch.gemm import matmul as mm
+
+    def exact(check, got, want):
+        if not torch.equal(bits(got), bits(want)):
+            n_bad = int((bits(got) != bits(want)).sum())
+            raise AssertionError(f"{check}: {n_bad} elements differ")
+        run.checks[check] = 0.0
+
+    m, n = RESIDENT_TALL
+    a = run.rand(m, n, dtype=torch.bfloat16)
+    b = run.rand(n, n, dtype=torch.bfloat16, scale=n ** -0.5)
+    run.case(f"matmul_resident/bf16 {RESIDENT_TALL} reps 3",
+             "matmul_resident", lambda: mm.make_matmul_resident(reps=3)(a, b),
+             lambda: mm.matmul_chain_plain(a, b, 3), None, 0.0, (a, b),
+             tol=RESIDENT_TOL, timed=False)
+    one = mm.make_matmul_resident(reps=1)
+    chain = mm.make_matmul_resident(reps=RESIDENT_REPS)
+    for m, n in ((RESIDENT_DIM, RESIDENT_DIM), RESIDENT_RAGGED):
+        a = run.rand(m, n, dtype=torch.bfloat16)
+        b = run.rand(n, n, dtype=torch.bfloat16, scale=n ** -0.5)
+        got = chain(a, b)
+        c = a
+        for _ in range(RESIDENT_REPS):
+            c = one(c, b)
+        exact(f"matmul_resident/({m}, {n}) reps {RESIDENT_REPS} against "
+              f"{RESIDENT_REPS} launches at reps 1", got, c)
+    exact("matmul_resident/a second call", chain(a, b), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        chain(a, b)  # warm-up on the capturing stream
+        with torch.cuda.graph(graph):
+            captured = chain(a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    for k in (1, 2):
+        graph.replay()
+        exact(f"matmul_resident/graph replay {k}", captured, got)
+    short = mm.matmul_chain_plain(a, b, RESIDENT_REPS - 1)
+    err = float((got.float() - short.float()).abs().max())
+    if torch.allclose(got.float(), short.float(), **RESIDENT_TOL):
+        raise AssertionError(f"matmul_resident: reps {RESIDENT_REPS} passes "
+                             f"against the plain chain at reps "
+                             f"{RESIDENT_REPS - 1} (max abs {err:.3g})")
+    run.checks["matmul_resident/control: reps 5 against plain reps 4 "
+               "(must miss 2e-2)"] = err
+
+
+def ptxas_entries(log, needle):
+    """The ``-Xptxas -v`` report of the kernels whose mangled names hold
+    ``needle``: [{kernel, registers, spill_stores, spill_loads}]."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)} if needle in m.group(1) else None
+            if cur:
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur.update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def resident_sass():
+    """Counts of wgmma (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG)
+    instructions in the SASS of ``csrc/matmul_resident.cu``'s library: the
+    chain must run on wgmma fed by TMA and keep no mma.sync route."""
+    from leetcuda_tpu_torch.build import _lib_path, _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_lib_path("matmul_resident"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "HMMA", "UTMALDG")}
+    if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0 or counts["HMMA"]:
+        raise AssertionError(f"matmul_resident's SASS: {counts}; the chain "
+                             "must be wgmma fed by TMA, with no mma.sync")
+    return counts
 
 
 def corpus_path(embed):
@@ -3103,7 +3216,8 @@ def corpus_path(embed):
         res[f"launches_{part}"] = counts
         for k, v in counts.items():
             res["launches"][k] = res["launches"].get(k, 0) + v
-    res.update(untimed_checks=run.checks, seconds=time.perf_counter() - t0)
+    res.update(untimed_checks=run.checks, seconds=time.perf_counter() - t0,
+               resident_sass=resident_sass())
     return run.rec.rows, res
 
 
@@ -3116,14 +3230,22 @@ def print_corpus(rows, res):
         lib = ("library none" if r["library_ms"] is None
                else f"library {r['library_ms']:.4f} ms")
         extra = ("" if "hgemm_x5_ms" not in r else
-                 f"; {r['tflops']:.1f} TFLOP/s on {r['ctas']} CTAs, 5 x "
-                 f"hgemm {r['hgemm_x5_ms']:.4f} ms, max_abs_err against the "
-                 f"library {r['max_abs_err_vs_library']:.3g}")
+                 f"; {r['tflops']:.1f} TFLOP/s, {r['share_of_bound']:.3f} of "
+                 f"the bound, {r['x_library']:.2f}x the library's time and "
+                 f"{r['x_hgemm5']:.3f}x 5 x hgemm ({r['hgemm_x5_ms']:.4f} "
+                 f"ms), grid {r['ctas']} CTAs of {r['co_resident_ctas']} "
+                 f"co-resident, tile {r['plan']['block_m']} x "
+                 f"{r['plan']['block_n']} x {r['plan']['block_k']}, "
+                 f"{r['plan']['stages']} stages, cluster "
+                 f"{r['plan']['cluster']}, {r['plan']['tiles']} tiles; "
+                 f"max_abs_err against the library "
+                 f"{r['max_abs_err_vs_library']:.3g}")
         print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
               f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
               f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}){extra}", flush=True)
     print(f"  untimed checks, max abs error: {res['untimed_checks']}")
+    print(f"  matmul_resident SASS: {res['resident_sass']}")
     print(f"  launches: {res['launches']}")
 
 
@@ -6809,6 +6931,12 @@ def main() -> int:
     for name, lines in report["build_resources"].items():
         for line in lines:
             print(f"  {name}: {line}")
+    report["resident_ptxas"] = ptxas_entries(
+        reports.get("matmul_resident", ""), "mm_resident")
+    for e in report["resident_ptxas"]:
+        print(f"  matmul_resident {e['kernel']}: {e.get('registers')} "
+              f"registers, {e.get('spill_stores')} / {e.get('spill_loads')} "
+              f"bytes of spill stores / loads")
 
     phase_done("build")
 

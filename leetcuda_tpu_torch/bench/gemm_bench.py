@@ -6,6 +6,20 @@ same dtype.
     python -m leetcuda_tpu_torch.bench.gemm_bench --mnk 2048 4096 8192
     python -m leetcuda_tpu_torch.bench.gemm_bench --m 16384 --n 3072 \\
         --k 2048 --variants auto hgemm_mma_stages_block_swizzle
+    python -m leetcuda_tpu_torch.bench.gemm_bench --resident \\
+        --json resident_bench.json
+
+``--resident`` is the A/B of the resident chain's build
+(``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
+shared memory, the 128 x 256 tile (two consumer warpgroups) against 128 x
+128 (one), and clusters of 1, 2 and 4 CTAs along M, each a variant build
+(``build.build_variants``, not kept by the package), and the package's
+build with the products, then also the stores, left out (two probes whose
+results are wrong: what the feed alone takes), at the chains
+``--mnk`` x ``--reps`` (default 4096^3 x 5 and the registry's 128^2 x 3),
+beside 5 (reps) ``torch.matmul`` and the port's ``hgemm``; the candidates
+of a shape are timed in turn, ``--repeats`` rounds, and each reports its
+median over the rounds.
 
 On a GPU each time is the median over ``--iters`` launches of CUDA-event
 times, with the 50 MB L2 flushed by a 256 MB write before each launch (as
@@ -111,6 +125,97 @@ def bench_size(M, N, K, variants, dtype, dev, iters, repeats, check, flush):
     return rows + [("torch.matmul", best)]
 
 
+# the variants of --resident: every (BN, stages, cluster) whose stages and
+# staged output tile fit the 227 KB of shared memory (matmul_resident.cu
+# ResTile::SMEM_BYTES), clusters at most the B boxes a stage
+RESIDENT_VARIANTS = [
+    {"LC_RES_BN": bn, "LC_RES_STAGES": st, "LC_RES_CLUSTER": cl}
+    for bn in (256, 128) for st in (3, 4, 5) for cl in (1, 2, 4)
+    if 1024 + st * (128 * 64 * 2 + 64 * bn * 2) + 128 * bn * 2
+    + 8 * (2 * st + 2) <= 232448 and cl <= bn // 64]
+
+
+# the package's build with parts left out (matmul_resident.cu LC_RES_PROBE):
+# what the loads, the walk and the stores take without the products
+RESIDENT_PROBES = {1: "probe: no wgmma", 2: "probe: no wgmma, no stores"}
+
+
+def _variant_label(v):
+    if v.get("LC_RES_PROBE"):
+        return RESIDENT_PROBES[v["LC_RES_PROBE"]]
+    return (f"128x{v['LC_RES_BN']} stages {v['LC_RES_STAGES']} cluster "
+            f"{v['LC_RES_CLUSTER']}")
+
+
+def bench_resident(cases, dev, iters, rounds, flush):
+    """The resident chain's variant builds at each (n, reps) of ``cases``,
+    in turn with 5 torch.matmul and the port's hgemm. Returns the rows."""
+    variants = []
+    if dev.type == "cuda":
+        from leetcuda_tpu_torch.build import build_variants
+
+        t = mm.RESIDENT_TILE
+        builds = RESIDENT_VARIANTS + [
+            {"LC_RES_BN": t["block_n"], "LC_RES_STAGES": t["stages"],
+             "LC_RES_CLUSTER": t["cluster"], "LC_RES_PROBE": p}
+            for p in RESIDENT_PROBES]
+        for v, (lib, log) in zip(builds, build_variants("matmul_resident",
+                                                        builds)):
+            regs = [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+            print(f"  built {_variant_label(v)}: {regs[:2]}", flush=True)
+            variants.append((_variant_label(v), lib))
+    rows = []
+    for n, reps in cases:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        a = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+        b = (torch.randn((n, n), generator=gen, device=dev)
+             * n ** -0.5).to(torch.bfloat16)
+        want = mm.matmul_chain_plain(a, b, reps).float()
+
+        def chained(step):
+            def run():
+                c = a
+                for _ in range(reps):
+                    c = step(c, b)
+                return c
+            return run
+
+        fns = [(label, lambda lib=lib: mm._launch_resident(a, b, reps, lib))
+               for label, lib in variants]
+        if dev.type != "cuda":  # the plain chain: a check of the CLI
+            fns.append(("plain chain", lambda: mm.matmul_chain_plain(
+                a, b, reps)))
+        fns += [(f"{reps} torch.matmul", chained(torch.matmul)),
+                (f"{reps} hgemm", chained(mm.hgemm))]
+        errs = {}
+        for label, fn in fns:
+            got = fn().float()
+            errs[label] = float((got - want).abs().max())
+            if (label, fn) in fns[:len(variants)] \
+                    and not label.startswith("probe"):  # the kernel's builds
+                torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+        times = {label: [] for label, _ in fns}
+        for _ in range(rounds):
+            for label, fn in fns:
+                times[label].append(time_ms(fn, dev, iters, flush))
+        flops = 2.0 * reps * n ** 3
+        print(f"--- chain {n}^3 x {reps} (bound "
+              f"{flops / 989e12 * 1e3:.4f} ms at 989 TFLOP/s) ---")
+        for label, _ in fns:
+            ms = float(np.median(times[label]))
+            rows.append({"n": n, "reps": reps, "variant": label, "ms": ms,
+                         "rounds": times[label],
+                         "max_abs_err": errs[label]})
+            rate = ("" if label.startswith("probe")  # not the product
+                    else _rate(flops, ms, dev))
+            print(f"  {label}: {ms:.4f} ms{rate}"
+                  f" (rounds {min(times[label]):.4f}-"
+                  f"{max(times[label]):.4f}; max|diff| vs plain "
+                  f"{errs[label]:.4g})", flush=True)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mnk", type=int, nargs="*", default=None,
@@ -129,6 +234,13 @@ def main(argv=None):
     ap.add_argument("--check", action="store_true",
                     help="hold each variant against the plain version")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--resident", action="store_true",
+                    help="the A/B of the resident chain's builds at the "
+                         "chains --mnk x --reps")
+    ap.add_argument("--reps", type=int, nargs="*", default=None,
+                    help="--resident: reps of each --mnk chain (default 5 "
+                         "and 3 for 4096 and 128)")
+    ap.add_argument("--json", help="--resident: write the rows here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -152,6 +264,22 @@ def main(argv=None):
     else:
         print(f"device {dev} (host clock: a check of the CLI, no device "
               f"metric), {args.dtype}")
+    if args.resident:
+        ns, reps = args.mnk or [4096, 128], args.reps or [5, 3]
+        if len(reps) == 1:
+            reps = reps * len(ns)
+        rows = bench_resident(list(zip(ns, reps)), dev, args.iters,
+                              args.repeats, flush)
+        if args.json:
+            import json
+            from pathlib import Path
+
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"device": (torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else str(dev)),
+                 "rows": rows}, indent=1))
+        return
     for M, N, K in shapes:
         print(f"--- M={M} N={N} K={K} ---", flush=True)
         bench_size(M, N, K, variants, dtype, dev, args.iters, args.repeats,

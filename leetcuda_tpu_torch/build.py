@@ -11,6 +11,10 @@ in seconds. The library name carries a hash of the source, the shared
 headers and the flags, so an edited source rebuilds and an unchanged one is
 reused. ``build_all`` starts one ``nvcc`` per source, all at once.
 
+``build_variants`` compiles one source again with macros set (``-D``), each
+variant into a library of its own, for a benchmark that compares builds;
+the package itself only loads the plain builds.
+
 Nothing here runs at import time: the first wrapper call on a CUDA tensor
 builds its kernel and binds its entry point (``kernel``), or a script calls
 ``build_all`` first.
@@ -50,13 +54,44 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + list(defines)).encode())
+    tag = "-variant" if defines else ""
+    return BUILD_DIR / f"{name}{tag}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(jobs: dict) -> dict[str, str]:
+    """Run one ``nvcc`` per job {key: (source name, -D flags)} whose library
+    is missing, all started together. Returns {key: the compiler's report,
+    or "" when cached}; raises with the compiler's output if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for key, (name, defines) in jobs.items():
+        out = _lib_path(name, defines)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    reports, failed = {key: "" for key in jobs}, []
+    for key, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[key] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {key} (exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
 
 
 def build_all(names: list[str] | None = None) -> dict[str, str]:
@@ -65,29 +100,18 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     compiler's resource report (``-Xptxas -v``), or "" when cached}.
     Raises with the compiler's output if any build fails."""
     names = sources() if names is None else names
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    reports, failed = {name: "" for name in names}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return reports
+    return _compile({name: (name, ()) for name in names})
+
+
+def build_variants(name: str, variants: list[dict]):
+    """Compile ``csrc/<name>.cu`` once per variant ({macro: value}), all at
+    once, and load each. Returns [(loaded library, the compiler's report)]
+    in the order given."""
+    jobs = {str(i): (name, tuple(f"-D{k}={v}" for k, v in sorted(d.items())))
+            for i, d in enumerate(variants)}
+    reports = _compile(jobs)
+    return [(ctypes.CDLL(str(_lib_path(*jobs[k]))), reports[k])
+            for k in jobs]
 
 
 def load(name: str) -> ctypes.CDLL:

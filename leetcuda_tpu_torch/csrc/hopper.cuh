@@ -1,0 +1,365 @@
+// Hopper's datapath in PTX (sm_90a), for the kernels that feed the tensor
+// cores by TMA and wgmma: mbarriers, 2-D TMA loads (plain and multicast to
+// a cluster) and stores, wgmma with shared-memory descriptors, register
+// reallocation, proxy fences, the device-scope flags a persistent walk waits
+// on, and the host-side tensor maps. First used by the resident chain
+// (matmul_resident.cu); the base for the later speed slices.
+//
+// Conventions:
+// - A tile that TMA writes with the 128-byte swizzle is a stack of rows of
+//   128 bytes (64 16-bit values), the 16-byte chunks of row r XOR-ed with
+//   r % 8; its base is 1024-byte aligned, so that the swizzle pattern
+//   starts at row 0 and descriptors need no base offset.
+// - Every wait is bounded: past kSpinNs of the global timer the thread
+//   traps, so a protocol fault ends the launch with an error instead of
+//   hanging the card.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lc {
+namespace sm90 {
+
+constexpr unsigned long long kSpinNs = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// ------------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the cluster (and to TMA).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival that also expects ``bytes`` of TMA transactions this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival on the barrier at ``bar``'s offset in CTA ``cta`` of the
+// cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n\t}"
+      :: "r"(smem_u32(bar)), "r"(cta) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of parity ``parity`` has completed (a fresh barrier
+// is in phase 0, so waiting on parity 1 passes at once).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > kSpinNs) __trap();
+}
+
+// ------------------------------------------------------------------- TMA
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// The box of ``map`` at (c0 inner, c1 outer) into shared memory at ``dst``,
+// its bytes counted on ``bar``. Elements past the tensor's bounds read 0.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same box written at ``dst``'s offset in every CTA of ``mask`` (bit c:
+// CTA c of the cluster), its bytes counted on the barrier at ``bar``'s
+// offset in each.
+__device__ __forceinline__ void tma_load_2d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// The box of ``map`` at (c0 inner, c1 outer) written from shared memory at
+// ``src`` (laid out as a load of the same box would leave it); elements past
+// the tensor's bounds are not written. One bulk group per commit_bulk.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void commit_bulk() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups are pending: their
+// shared-memory sources read (kRead) or their writes complete.
+template <int N, bool kRead>
+__device__ __forceinline__ void wait_bulk() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy accesses to global memory with the
+// async proxy's (TMA), both ways: where rows that one proxy wrote are read
+// by the other, or a flag in one releases writes of the other.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// The same for shared memory: plain stores into a tile that a TMA store
+// then reads.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ----------------------------------------------------------------- wgmma
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units in the fields).
+// K-major tiles (rows of 64 values along k): lbo unused (16), sbo = 1024,
+// the stride between groups of 8 rows. MN-major tiles (rows of 64 values
+// along m or n, one row per k): lbo = the stride between 64-wide chunks
+// along m or n, sbo = 1024, between groups of 8 k-rows.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of an accumulator register across
+// the wgmma fence / wait around it.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+
+#define LC_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define LC_F16(d, i) \
+  LC_F4(d, i), LC_F4(d, i + 4), LC_F4(d, i + 8), LC_F4(d, i + 12)
+#define LC_F64(d, i) \
+  LC_F16(d, i), LC_F16(d, i + 16), LC_F16(d, i + 32), LC_F16(d, i + 48)
+#define LC_R64                                                                \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63"
+#define LC_R128_HI                                                            \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \
+  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "   \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "   \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+// D (64 x N, f32, in registers) (+)= A (64 x 16, K-major, descriptor ``da``)
+// @ B (16 x N, MN-major: the transpose bit set, descriptor ``db``), f16 or
+// bf16 inputs; ``acc`` 0 overwrites D. Thread t of the warpgroup holds
+// d[4 c + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 c + 2 (t % 4) + e].
+template <bool kF16>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db, int acc) {
+  if constexpr (kF16) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {" LC_R64
+        ", " LC_R128_HI "}, %128, %129, p, 1, 1, 0, 1;\n\t}"
+        : LC_F64(d, 0), LC_F64(d, 64)
+        : "l"(da), "l"(db), "r"(acc));
+  } else {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" LC_R64
+        ", " LC_R128_HI "}, %128, %129, p, 1, 1, 0, 1;\n\t}"
+        : LC_F64(d, 0), LC_F64(d, 64)
+        : "l"(da), "l"(db), "r"(acc));
+  }
+}
+
+template <bool kF16>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int acc) {
+  if constexpr (kF16) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" LC_R64
+        "}, %64, %65, p, 1, 1, 0, 1;\n\t}"
+        : LC_F64(d, 0)
+        : "l"(da), "l"(db), "r"(acc));
+  } else {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LC_R64
+        "}, %64, %65, p, 1, 1, 0, 1;\n\t}"
+        : LC_F64(d, 0)
+        : "l"(da), "l"(db), "r"(acc));
+  }
+}
+
+#undef LC_F4
+#undef LC_F16
+#undef LC_F64
+#undef LC_R64
+#undef LC_R128_HI
+
+// ------------------------------------------- warpgroups, clusters, flags
+
+// Give this warpgroup's registers back (producer) or take them (consumers);
+// every warp of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(N));
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_gpu_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Spin (one thread) until *flag >= target, with acquire semantics.
+__device__ __forceinline__ void wait_flag_at_least(const int* flag,
+                                                   int target) {
+  if (ld_acquire_gpu(flag) >= target) return;
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire_gpu(flag) < target) {
+    if (global_ns() - t0 > kSpinNs) __trap();
+    __nanosleep(64);
+  }
+}
+
+// ------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled, found through the runtime, so that the library
+// needs no -lcuda. Null if the driver does not have it.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major (rows, cols) matrix of 16-bit values, ``ld`` values a row (a
+// multiple of 8), read in boxes of box_rows x box_cols (box_cols * 2 <=
+// 128 bytes) with the 128-byte swizzle; out-of-range elements read 0.
+// Returns a CUDA error code (0 = encoded).
+inline int map_2d(CUtensorMap* map, const void* ptr, bool f16, int rows,
+                  int cols, int ld, int box_rows, int box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r =
+      fn(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+         2, const_cast<void*>(ptr), dims, strides, box, unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace sm90
+}  // namespace lc

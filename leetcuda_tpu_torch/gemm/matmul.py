@@ -17,9 +17,12 @@ as the JAX ``_swizzled_ij`` does (L2 reuse of the B panels on the GPU).
 ``vmem_limit_mb`` is TPU-only and not taken.
 
 ``make_matmul_resident`` is the chain A <- cast(A @ B), ``reps`` times in
-one launch of ``lc_matmul_resident`` (the same source), a CTA owning a
-block of ``RESIDENT_ROWS`` rows for every rep; ``block_m`` and
-``vmem_limit_mb`` are the TPU's tiling and are accepted and ignored.
+one launch of ``csrc/matmul_resident.cu``: for f16 / bf16 one persistent,
+warp-specialised TMA + wgmma kernel that walks every rep's output tiles
+(``RESIDENT_TILE``; ``resident_plan`` gives the tiles, the grid, the
+counters and the padded N), for f32 the CUDA cores, a CTA owning 64 rows
+for every rep. ``block_m`` and ``vmem_limit_mb`` are the TPU's tiling and
+are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -38,9 +41,20 @@ MATMUL_RESIDENT = LaunchCounter("matmul_resident")
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-# lc_matmul_resident(a, b, out, scratch, M, N, reps, dtype, stream)
-_RES_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
-RESIDENT_ROWS = 64  # csrc/matmul.cu TcRes::BM, kResRows: rows of a CTA
+# lc_matmul_resident(a, b, out, scratch, done, M, N, reps, dtype, grid,
+#                    stream); lc_matmul_resident_info(int info[6]);
+# lc_matmul_resident_f32(a, b, out, scratch, M, N, reps, stream)
+_RES_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_RES_INFO_ARGS = (ctypes.c_void_p,)
+_RES_F32_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+                 + (ctypes.c_void_p,))
+# The f16 / bf16 chain's build (csrc/matmul_resident.cu's macros, chosen by
+# bench/gemm_bench.py --resident): output tiles of block_m x block_n over
+# block_k-deep stages, CTAs in clusters of ``cluster``; the wrapper holds the
+# library's own report (lc_matmul_resident_info) to it. (f32: a CTA owns 64
+# rows for every rep.)
+RESIDENT_TILE = {"block_m": 128, "block_n": 256, "block_k": 64, "stages": 3,
+                 "cluster": 2}
 
 # (BM, BN, BK) -> (the source's config id, datapath). CUDA cores: one thread
 # per output with BK 1 (naive), or shared-memory tiles with a register block
@@ -204,6 +218,96 @@ def matmul_chain_plain(a, b, reps: int):
 matmul_chain_ref = matmul_chain_plain
 
 
+def resident_plan(M: int, N: int, reps: int, ctas: int = 132,
+                  tile: dict | None = None) -> dict:
+    """What one f16 / bf16 chain launch of (M, N) @ (N, N), ``reps`` times,
+    runs: N padded to ``n_pad`` (a multiple of 8, as a tensor map needs),
+    output tiles of ``tile`` (default ``RESIDENT_TILE``), ``tiles`` of them
+    over the reps, taken by ``grid`` CTAs (at most ``ctas``, the co-resident
+    count, in whole clusters, none without a work unit) that walk them, and
+    ``counters`` = reps x row blocks."""
+    t = dict(RESIDENT_TILE if tile is None else tile)
+    n_pad = cdiv(N, 8) * 8
+    row_blocks, col_blocks = cdiv(M, t["block_m"]), cdiv(n_pad, t["block_n"])
+    units = reps * cdiv(row_blocks, t["cluster"]) * col_blocks
+    return {**t, "n_pad": n_pad,
+            "row_blocks": row_blocks, "col_blocks": col_blocks,
+            "tiles": reps * row_blocks * col_blocks,
+            "grid": min(ctas // t["cluster"], units) * t["cluster"],
+            "counters": reps * row_blocks}
+
+
+_RES_INFO: dict = {}
+
+
+def _entry(lib, symbol, argtypes):
+    """``symbol`` of the chain's library: ``lib`` a source name (built and
+    bound by ``build.kernel``) or a loaded library (a variant build)."""
+    if isinstance(lib, str):
+        from leetcuda_tpu_torch.build import kernel
+
+        return kernel(lib, symbol, argtypes)
+    fn = getattr(lib, symbol)
+    fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+    return fn
+
+
+def resident_build_info(device, lib="matmul_resident"):
+    """(tile, co-resident CTAs) of the chain's build ``lib`` (a source name,
+    or a loaded variant library) on ``device``, read once from the
+    library's ``lc_matmul_resident_info``."""
+    key = (lib if isinstance(lib, str) else id(lib), device.index)
+    got = _RES_INFO.get(key)
+    if got is None:
+        fn = _entry(lib, "lc_matmul_resident_info", _RES_INFO_ARGS)
+        info = (ctypes.c_int * 6)()
+        with torch.cuda.device(device):
+            check_launch(fn(ctypes.addressof(info)), MATMUL_RESIDENT.name)
+        tile = dict(zip(("block_m", "block_n", "block_k", "stages",
+                         "cluster"), info[:5]))
+        got = _RES_INFO[key] = (tile, info[5])
+    return got
+
+
+def _launch_resident(a, b, reps, lib="matmul_resident"):
+    """The f16 / bf16 chain through ``lib`` on checked CUDA operands: a and
+    b zero-padded to ``n_pad`` columns where N is not a multiple of 8 (B's
+    extra rows and columns are 0, so A's extra columns stay 0 every rep:
+    exact), one launch, the counters zeroed on the stream."""
+    M, N = a.shape
+    tile, ctas = resident_build_info(a.device, lib)
+    if lib == "matmul_resident" and tile != RESIDENT_TILE:
+        raise RuntimeError(f"csrc/matmul_resident.cu was built with {tile}, "
+                           f"the wrapper plans {RESIDENT_TILE}")
+    plan = resident_plan(M, N, reps, ctas=ctas, tile=tile)
+    n8 = plan["n_pad"]
+    if n8 != N:
+        a = torch.nn.functional.pad(a, (0, n8 - N))
+        b = torch.nn.functional.pad(b, (0, n8 - N, 0, n8 - N))
+    out = torch.empty((M, n8), dtype=a.dtype, device=a.device)
+    scratch = torch.empty_like(out) if reps > 1 else out
+    done = torch.zeros(plan["counters"], dtype=torch.int32, device=a.device)
+    err = _entry(lib, "lc_matmul_resident", _RES_ARGS)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        done.data_ptr(), M, n8, reps, _DTYPES[a.dtype], plan["grid"],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    check_launch(err, MATMUL_RESIDENT.name)
+    MATMUL_RESIDENT.add()
+    return out if n8 == N else out[:, :N].contiguous()
+
+
+def _launch_resident_f32(a, b, reps):
+    M, N = a.shape
+    out = torch.empty_like(a)
+    scratch = torch.empty_like(a) if reps > 1 else out
+    err = _entry("matmul_resident", "lc_matmul_resident_f32", _RES_F32_ARGS)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), M, N,
+        reps, torch.cuda.current_stream(a.device).cuda_stream)
+    check_launch(err, MATMUL_RESIDENT.name)
+    MATMUL_RESIDENT.add()
+    return out
+
+
 def make_matmul_resident(*, reps: int, block_m: int = 1024,
                          vmem_limit_mb: int = 100):
     """chain(a (M, K), b (K, N)) with K == N: a @ b ``reps`` times, rounded
@@ -231,19 +335,11 @@ def make_matmul_resident(*, reps: int, block_m: int = 1024,
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"resident chain kernel: {name} must be "
                                  "contiguous and 16-byte aligned")
-        from leetcuda_tpu_torch.build import kernel
-
-        out = torch.empty_like(a)
         if a.numel() == 0:
-            return out
-        scratch = torch.empty_like(a) if reps > 1 else out
-        err = kernel("matmul", "lc_matmul_resident", _RES_ARGS)(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            M, N, reps, _DTYPES[a.dtype],
-            torch.cuda.current_stream(a.device).cuda_stream)
-        check_launch(err, MATMUL_RESIDENT.name)
-        MATMUL_RESIDENT.add()
-        return out
+            return torch.empty_like(a)
+        if a.dtype == torch.float32:
+            return _launch_resident_f32(a, b, reps)
+        return _launch_resident(a, b, reps)
 
     return fn
 

@@ -3,7 +3,7 @@ resident matmul chain) against the JAX package's.
 
 On this CPU the port's wrappers run their plain PyTorch versions (the CUDA
 kernels of ``csrc/transpose.cu``, ``csrc/embedding.cu``, ``csrc/rope.cu``
-and ``lc_matmul_resident`` of ``csrc/matmul.cu`` run on the GPU, held
+and ``csrc/matmul_resident.cu`` run on the GPU, held
 against these same plain versions by ``chip_smoke.py`` path (l)); the JAX
 kernels run in Pallas interpret mode, as ``tests/test_ops_registry.py`` runs
 them. Inputs come from a numpy seed and go to both packages as the same
