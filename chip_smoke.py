@@ -29,10 +29,14 @@ Phases; any failure raises and the script exits non-zero:
    lse (causal and ragged), then the FA-2 backward's dQ and dK/dV kernels
    at training's shape (8, 16, 2048, 128), 4 KV heads: causal, non-causal,
    head dim 64, with an lse cotangent, and with Gemma 2's options (a window
-   of 512 with a softcap of 50, the cap alone, a window of 1000), by
-   relative L2 error (BWD_REL_L2) and elementwise; beside them SDPA's
-   backward (``torch.autograd.grad``; with a window over an explicit band
-   mask) and the name of its longest kernel. Path (o) runs its own phase 3
+   of 512 with a softcap of 50, the cap alone, a window of 1000), and the
+   TMA kernels' edges (BWD_EDGE_CASES: tiles past the end of a head at N =
+   1000, groups of 1 and 8, Nq != Nk), by relative L2 error (BWD_REL_L2)
+   and elementwise, a second call bit for bit and the delta that the dQ
+   launch writes; beside them SDPA's backward (``torch.autograd.grad``;
+   with a window over an explicit band mask) and the name of its longest
+   kernel; the backward library's SASS (wgmma and TMA, no mma.sync). Path
+   (o) runs its own phase 3
    (``check_attn_options``): the window and softcap of every attention
    kernel at Gemma-2-27B's layer-0 shapes; path (p) its own
    (``check_lse``): the lse of the decode, paged and chunk kernels at
@@ -1263,6 +1267,19 @@ def sdpa_backward(q, k, v, do, causal, flush, mask=None):
 
 FLASH_SRC = "leetcuda_tpu_torch/csrc/flash_fwd.cu"
 FLASH_BWD_SRC = "leetcuda_tpu_torch/csrc/flash_bwd.cu"
+# (label, (B, H, Hkv, N, D), causal, window, cap, Nk when not N): shapes
+# whose tiles cross the end of a head (N = 1000), the group of 1 and of 8,
+# and Nq != Nk without a mask
+BWD_EDGE_CASES = (
+    ("ragged (2, 16, 4, 1000, 128) causal", (2, 16, 4, 1000, 128), True,
+     None, None, None),
+    ("ragged D=256 window 300, cap 50", (1, 8, 4, 1000, 256), True, 300,
+     50.0, None),
+    ("group 1", (2, 8, 8, 1024, 128), True, None, None, None),
+    ("group 8", (1, 16, 2, 1024, 128), True, None, None, None),
+    ("Nq 1000, Nk 1500, non-causal", (1, 8, 2, 1000, 128), False, None,
+     None, 1500),
+)
 
 
 def band_pairs(n, window):
@@ -1281,10 +1298,12 @@ def check_flash_bwd(rec, flush):
     a window of 512 (on a 64-key tile edge) with the cap of 50, the cap
     alone, the same two at BWD_CAP, a window of 1000 (inside a tile);
     ``out`` and ``lse`` from the kernel forward, held against the plain
-    forward's first, and a random ``do``. Each backward case holds dq, dk
-    and dv by relative L2 error (BWD_REL_L2) and elementwise (KERNEL_TOL);
-    at BWD_CAP the backward uncapped and at cap / log2(e) must fail
-    BWD_REL_L2 (see CAP_Q_SCALE). The plain time is
+    forward's first, and a random ``do``; then BWD_EDGE_CASES. Each
+    backward case holds dq, dk and dv by relative L2 error (BWD_REL_L2) and
+    elementwise (KERNEL_TOL), a second call bit for bit and the dQ launch's
+    delta against ``_delta``; at BWD_CAP the backward uncapped and at cap /
+    log2(e) must fail BWD_REL_L2 (see CAP_Q_SCALE), and without the lse
+    cotangent the "dlse" case. The plain time is
     the whole plain backward and the library time SDPA's (both give all
     three gradients; with a window SDPA takes the band as an explicit mask,
     and it has no softcap)."""
@@ -1358,34 +1377,49 @@ def check_flash_bwd(rec, flush):
             ("window 1000", 128, True, False, 1000, None)):
         bwd_case(rec, flush, label, (TRAIN_B, H, Hkv, TRAIN_S, D), causal,
                  with_dlse, window, cap)
+    # the TMA kernels' edges (BWD_EDGE_CASES): tiles that run past N (zero
+    # rows, never the next head's), groups of 1 and 8, Nq != Nk
+    for label, shape, causal, window, cap, nk in BWD_EDGE_CASES:
+        bwd_case(rec, flush, label, shape, causal, window=window, cap=cap,
+                 nk=nk)
+    # both kernels on wgmma fed by TMA; no mma.sync route left
+    rec.rows["flash_attention_bwd_dq/causal"]["sass"] = resident_sass(
+        "flash_bwd")
 
 
 def bwd_case(rec, flush, label, shape, causal, with_dlse=False, window=None,
-             cap=None, prefix="", wrong_scale=None):
+             cap=None, prefix="", wrong_scale=None, nk=None):
     """One backward check at ``shape`` (B, H, Hkv, N, D), the default scale
     1 / sqrt(D): ``out`` and ``lse`` from the kernel forward, held against
-    the plain forward's first, a random ``do`` (and ``dlse``); dq, dk and dv
-    by relative L2 error (BWD_REL_L2) and elementwise (KERNEL_TOL). At
-    BWD_CAP the backward uncapped and at cap / log2(e) must fail
-    BWD_REL_L2, and with ``wrong_scale`` so must the backward at that
-    scale. The plain time is the whole plain backward, the library time
-    SDPA's (all three gradients; a window as an explicit band mask; no
-    softcap). Each check's name starts with ``prefix``."""
+    the plain forward's first (with ``nk`` keys, Nq != Nk: from the plain
+    forward), a random ``do`` (and ``dlse``); dq, dk and dv by relative L2
+    error (BWD_REL_L2) and elementwise (KERNEL_TOL); a second call bit for
+    bit; the delta that the dQ launch writes against ``_delta`` (relative
+    L2 at most 1e-5). At BWD_CAP the backward uncapped and at cap / log2(e)
+    must fail BWD_REL_L2, with ``wrong_scale`` so must the backward at that
+    scale, and with ``dlse`` so must the backward without it. The plain
+    time is the whole plain backward, the library time SDPA's (all three
+    gradients; a window as an explicit band mask; no softcap). Each check's
+    name starts with ``prefix``."""
     from leetcuda_tpu_torch.attention import flash as fl
     from leetcuda_tpu_torch.attention import flash_bwd as fb
 
     dev = rec.dev
     B, H, Hkv, N, D = shape
+    Nk = N if nk is None else nk
     scale = 1.0 / np.sqrt(D)
     opt = dict(window=window, softcap=cap)
-    q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, N, D), rec.randn(
-        B, Hkv, N, D)
-    out, lse = fl.flash_attention(q, k, v, causal=causal, with_lse=True,
-                                  **opt)
+    q, k, v = rec.randn(B, H, N, D), rec.randn(B, Hkv, Nk, D), rec.randn(
+        B, Hkv, Nk, D)
     w_out, w_lse = fl.flash_attention_plain(q, k, v, causal=causal,
                                             with_lse=True, **opt)
-    torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
-    torch.testing.assert_close(lse, w_lse, **KERNEL_TOL)
+    if nk is None:
+        out, lse = fl.flash_attention(q, k, v, causal=causal, with_lse=True,
+                                      **opt)
+        torch.testing.assert_close(out.float(), w_out.float(), **KERNEL_TOL)
+        torch.testing.assert_close(lse, w_lse, **KERNEL_TOL)
+    else:
+        out, lse = w_out.to(q.dtype).contiguous(), w_lse
     del w_out, w_lse
     do = rec.randn(B, H, N, D)
     dlse = rec.randn(B, H, N).float() if with_dlse else None
@@ -1398,13 +1432,28 @@ def bwd_case(rec, flush, label, shape, causal, with_dlse=False, window=None,
     if max(errs.values()) > BWD_REL_L2:
         raise AssertionError(f"flash backward ({label}): relative L2 "
                              f"errors {errs} over {BWD_REL_L2}")
-    controls = {}  # a wrong cap or scale must fail the check (NaN too)
-    runs = ((("uncapped", None, scale), ("log2 domain", cap / LOG2E, scale))
+    again = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
+                                   causal=causal, **opt)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash backward ({label}): a second call "
+                             "differs")
+    del again
+    _, rows = fb._launch_dq(q, k, v, out, do, lse, dlse, causal, scale,
+                            window or 0, cap or 0.0)
+    delta_err = rel_l2(fb.rows_delta(rows, N), fb._delta(out, do, dlse))
+    if not delta_err <= 1e-5:
+        raise AssertionError(f"flash backward ({label}): the dQ launch's "
+                             f"delta is {delta_err} from _delta")
+    controls = {}  # a wrong cap, scale or lse cotangent must fail the check
+    runs = ((("uncapped", None, scale, dlse),
+             ("log2 domain", cap / LOG2E, scale, dlse))
             if cap == BWD_CAP else ())
     if wrong_scale is not None:
-        runs += ((f"scale {wrong_scale:.4g}", cap, wrong_scale),)
-    for c_label, c, c_scale in runs:
-        c_got = fb.flash_attention_bwd(q, k, v, out, lse, do, dlse,
+        runs += ((f"scale {wrong_scale:.4g}", cap, wrong_scale, dlse),)
+    if with_dlse:
+        runs += (("dlse dropped", cap, scale, None),)
+    for c_label, c, c_scale, c_dlse in runs:
+        c_got = fb.flash_attention_bwd(q, k, v, out, lse, do, c_dlse,
                                        causal=causal, window=window,
                                        softcap=c, sm_scale=c_scale)
         controls[c_label] = {f"d{n}": rel_l2(g, w) for n, g, w in
@@ -1413,43 +1462,52 @@ def bwd_case(rec, flush, label, shape, causal, with_dlse=False, window=None,
             raise AssertionError(f"flash backward ({label}): the kernel "
                                  f"{c_label} passes the check")
         del c_got
-    delta = fb._delta(out, do, dlse).contiguous()
     plain_ms = time_ms(lambda: fb.flash_attention_bwd_plain(
         q, k, v, out, lse, do, dlse, causal=causal, sm_scale=scale,
         **opt), flush, iters=5)
     lib_ms, lib_kernel = sdpa_backward(
         q, k, v, do, causal, flush,
-        None if window is None else fl.band_mask(N, N, dev, True, window))
+        None if window is None else fl.band_mask(N, Nk, dev, True, window))
     whole_ms = time_ms(lambda: fb.flash_attention_bwd(
         q, k, v, out, lse, do, dlse, causal=causal, **opt), flush)
-    pairs = band_pairs(N, window) if causal else N * N
-    product = 2.0 * B * H * D * pairs  # FLOPs of one N x N x D product
-    q_bytes, kv_bytes = 2.0 * B * H * N * D, 2.0 * B * Hkv * N * D
-    row_bytes = 8.0 * B * H * N  # lse and delta, f32
+    dq_ms = time_ms(lambda: fb._launch_dq(q, k, v, out, do, lse, dlse,
+                                          causal, scale, window or 0,
+                                          cap or 0.0), flush)
+    dkv_ms = time_ms(lambda: fb._launch_dkv(q, k, v, do, rows, causal,
+                                            scale, window or 0, cap or 0.0),
+                     flush)
+    pairs = (N * Nk if not causal else band_pairs(N, window) if Nk == N
+             else int(fl.band_mask(N, Nk, "cpu", True, window).sum()))
+    product = 2.0 * B * H * D * pairs  # FLOPs of one N x Nk x D product
+    q_bytes, kv_bytes = 2.0 * B * H * N * D, 2.0 * B * Hkv * Nk * D
+    # lse and delta (and dlse), f32
+    row_bytes = (12.0 if with_dlse else 8.0) * B * H * N
+    bound_ms = 5 * product / BF16_FLOP_PER_S * 1e3
     extra = dict(rel_l2=errs, library_kernel=lib_kernel,
                  cap_controls_rel_l2=controls or None,
-                 backward_ms=whole_ms, shape=list(shape),
-                 backward_bound_ms=5 * product / BF16_FLOP_PER_S * 1e3)
+                 delta_rel_l2=delta_err, repeat_bit_equal=True,
+                 backward_ms=whole_ms, shape=list(shape) + [Nk],
+                 backward_bound_ms=bound_ms,
+                 backward_share=bound_ms / whole_ms,
+                 backward_tflops=5 * product / whole_ms / 1e9,
+                 backward_over_sdpa=whole_ms / lib_ms,
+                 plan=fb.bwd_plan(D, B, H, Hkv, N, Nk))
     check = f"{prefix}flash_attention_bwd_dq/{label}"
     rec.record(check, "flash_attention_bwd_dq", FLASH_BWD_SRC,
                "leetcuda_tpu/attention/flash_bwd.py:196", got[0], want[0],
-               time_ms(lambda: fb._launch_dq(q, k, v, do, lse, delta,
-                                             causal, scale, window or 0,
-                                             cap or 0.0), flush),
-               plain_ms, lib_ms, 3 * product,
-               3 * q_bytes + 2 * kv_bytes + row_bytes)
+               dq_ms, plain_ms, lib_ms, 3 * product,
+               4 * q_bytes + 2 * kv_bytes + row_bytes)
     rec.rows[check].update(extra)
+    rec.rows[check]["share"] = rec.rows[check]["bound_ms"] / dq_ms
     check = f"{prefix}flash_attention_bwd_dkv/{label}"
     rec.record(check, "flash_attention_bwd_dkv", FLASH_BWD_SRC,
                "leetcuda_tpu/attention/flash_bwd.py:215",
                torch.cat([got[1].flatten(), got[2].flatten()]),
                torch.cat([want[1].flatten(), want[2].flatten()]),
-               time_ms(lambda: fb._launch_dkv(q, k, v, do, lse, delta,
-                                              causal, scale, window or 0,
-                                              cap or 0.0), flush),
-               plain_ms, lib_ms, 4 * product,
+               dkv_ms, plain_ms, lib_ms, 4 * product,
                2 * q_bytes + 4 * kv_bytes + row_bytes)
     rec.rows[check].update(extra)
+    rec.rows[check]["share"] = rec.rows[check]["bound_ms"] / dkv_ms
 
 
 def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
@@ -3179,22 +3237,22 @@ def ptxas_entries(log, needle):
     return out
 
 
-def resident_sass():
+def resident_sass(name="matmul_resident"):
     """Counts of wgmma (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG)
-    instructions in the SASS of ``csrc/matmul_resident.cu``'s library: the
-    chain must run on wgmma fed by TMA and keep no mma.sync route."""
+    instructions in the SASS of ``csrc/<name>.cu``'s library (the resident
+    chain's, or the flash backward's): it must run on wgmma fed by TMA and
+    keep no mma.sync route."""
     from leetcuda_tpu_torch.build import _lib_path, _nvcc
 
     tool = Path(_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_lib_path("matmul_resident"))],
+    sass = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     counts = {op: len(re.findall(rf"\b{op}\b", sass))
               for op in ("HGMMA", "HMMA", "UTMALDG")}
     if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0 or counts["HMMA"]:
-        raise AssertionError(f"matmul_resident's SASS: {counts}; the chain "
-                             "must be wgmma fed by TMA, with no mma.sync")
+        raise AssertionError(f"{name}'s SASS: {counts}; its kernels must "
+                             "be wgmma fed by TMA, with no mma.sync")
     return counts
 
 
@@ -6931,12 +6989,14 @@ def main() -> int:
     for name, lines in report["build_resources"].items():
         for line in lines:
             print(f"  {name}: {line}")
-    report["resident_ptxas"] = ptxas_entries(
-        reports.get("matmul_resident", ""), "mm_resident")
-    for e in report["resident_ptxas"]:
-        print(f"  matmul_resident {e['kernel']}: {e.get('registers')} "
-              f"registers, {e.get('spill_stores')} / {e.get('spill_loads')} "
-              f"bytes of spill stores / loads")
+    for key, name, needle in (("resident_ptxas", "matmul_resident",
+                               "mm_resident"),
+                              ("flash_bwd_ptxas", "flash_bwd", "flash_bwd")):
+        report[key] = ptxas_entries(reports.get(name, ""), needle)
+        for e in report[key]:
+            print(f"  {name} {e['kernel']}: {e.get('registers')} "
+                  f"registers, {e.get('spill_stores')} / "
+                  f"{e.get('spill_loads')} bytes of spill stores / loads")
 
     phase_done("build")
 

@@ -34,21 +34,101 @@ from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
 
 FLASH_BWD_DQ = LaunchCounter("flash_attention_bwd_dq")
 FLASH_BWD_DKV = LaunchCounter("flash_attention_bwd_dkv")
-# lc_flash_bwd_dq_bf16(q, k, v, do, lse, delta, dq, B, H, Hkv, N, Nk, D,
-#                      scale, causal, window, softcap, stream)
-_DQ_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
+# lc_flash_bwd_dq_bf16(q, k, v, out, do, lse, dlse, rows, dq, B, H, Hkv,
+#                      N, Nk, D, scale, causal, window, softcap, stream)
+_DQ_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
             + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                ctypes.c_void_p))
-# lc_flash_bwd_dkv_bf16(q, k, v, do, lse, delta, dk, dv, B, H, Hkv, N, Nk,
-#                       D, scale, causal, window, softcap, stream)
-_DKV_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
+# lc_flash_bwd_dkv_bf16(q, k, v, do, rows, dk, dv, B, H, Hkv, N, Nk, D,
+#                       scale, causal, window, softcap, stream)
+_DKV_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
              + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p))
+_PLAN_ARGS = (ctypes.c_int, ctypes.c_void_p)  # lc_flash_bwd_plan(D, info)
+
+# The kernels' tile plan (csrc/flash_bwd.cu dq_plan / dkv_plan, the source's
+# defaults): dQ's consumer warpgroups (64 q rows each), key tile and stages;
+# dK/dV's consumer warpgroups (64 keys each), q tile, stages, and at head
+# dim 256 the split-D kernel (two warpgroups sharing 64 keys, each half of
+# D).
+DQ_PLAN = {64: (2, 128, 3), 128: (2, 128, 2), 256: (1, 64, 2)}
+DKV_PLAN = {64: (2, 64, 3, False), 128: (2, 64, 2, False),
+            256: (2, 64, 2, True)}
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+
+
+def cdiv(a, b):
+    return -(-a // b)
+
+
+def bwd_plan(D, B=1, H=1, Hkv=1, Nq=1, Nk=1, dq_plan=None, dkv_plan=None):
+    """What the two launches of one backward at head dim ``D`` run: for
+    each kernel its tiles, stages, threads, grid and shared-memory bytes
+    (the byte counts of csrc/flash_bwd.cu DqTile / DkvTile). ``dq_plan`` /
+    ``dkv_plan`` replace the defaults (a variant build's)."""
+    cons, keys, stages = dq_plan or DQ_PLAN[D]
+    rows = 64 * cons
+    dq = {"rows": rows, "keys": keys, "stages": stages,
+          "threads": 128 * cons, "grid": (cdiv(Nq, rows), B * H),
+          "smem": 1024 + 2 * rows * D * 2 + stages * 2 * keys * D * 2
+          + rows * 8 + 8 * (1 + 2 * stages)}
+    cons, rows_q, stages, split = dkv_plan or DKV_PLAN[D]
+    kv_keys = 64 if split else 64 * cons
+    dkv = {"keys": kv_keys, "rows": rows_q, "stages": stages,
+           "threads": 128 * cons, "split": split,
+           "grid": (cdiv(Nk, kv_keys), B * Hkv),
+           "smem": 1024 + 2 * kv_keys * D * 2
+           + stages * (2 * rows_q * D * 2 + 2 * rows_q * 4)
+           + (64 * rows_q * 8 if split else 0) + 8 * (1 + 2 * stages)}
+    return {"dq": dq, "dkv": dkv}
+
+
+def key_range(r0, r1, Nq, Nk, causal, window):
+    """Keys [lo, hi) that q rows [r0, r1) keep ((0, 0): none); the dQ
+    kernel walks the key tiles over it (csrc/flash_bwd.cu key_range)."""
+    r1 = min(r1, Nq)
+    if r1 <= r0:
+        return 0, 0
+    lo = max(r0 - window + 1, 0) if window > 0 else 0
+    return lo, (min(Nk, r1) if causal else Nk)
+
+
+def row_range(c0, c1, Nq, Nk, causal, window):
+    """Q rows [lo, hi) that keep keys [c0, c1) ((0, 0): none, hi == lo:
+    none of them below Nq); the dK/dV kernel walks the q tiles over it
+    (csrc/flash_bwd.cu row_range)."""
+    c1 = min(c1, Nk)
+    if c1 <= c0:
+        return 0, 0
+    lo = c0 if causal else 0
+    return lo, max(lo, min(Nq, c1 - 1 + window) if window > 0 else Nq)
+
+
+def band_tiles(lo, hi, tile):
+    """The tiles of ``tile`` rows or keys that cover [lo, hi)."""
+    return range(lo // tile, cdiv(hi, tile) if hi > lo else lo // tile)
+
+
+def dq_edge(r0, k0, keys, Nq, Nk, causal, window):
+    """Whether the dQ kernel masks key tile [k0, k0 + keys) for the 64 q
+    rows from r0: only where the tile crosses Nk, the causal diagonal or
+    the window's edge (csrc/flash_bwd.cu; rows past Nq are not written)."""
+    return (k0 + keys > Nk or (causal and k0 + keys - 1 > r0)
+            or (window > 0 and r0 + 63 - k0 >= window))
+
+
+def dkv_edge(q0, rows, c0, Nq, Nk, causal, window):
+    """Whether the dK/dV kernel masks q tile [q0, q0 + rows) for the 64
+    keys from c0 (csrc/flash_bwd.cu)."""
+    return (q0 + rows > Nq or c0 + 64 > Nk or (causal and q0 < c0 + 63)
+            or (window > 0 and q0 + rows - 1 - c0 >= window))
 
 
 def _delta(out, do, dlse):
     """rowsum(dO * O) - dlse (B, H, N) f32: the lse cotangent folds into the
-    delta operand, d lse_i / d s_ij = p_ij (flash_bwd.py:168-179)."""
+    delta operand, d lse_i / d s_ij = p_ij (flash_bwd.py:168-179). The
+    plain version of the dQ kernel's delta fold, which writes this for the
+    dK/dV launch."""
     delta = (do.float() * out.float()).sum(-1)
     return delta if dlse is None else delta - dlse.float()
 
@@ -117,38 +197,101 @@ def _check_launch_args(q, k, v, out, lse, do, dlse):
         raise ValueError("lse must be a contiguous f32 tensor")
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal, scale, window=0,
-               softcap=0.0):
-    """Launch the dQ kernel of csrc/flash_bwd.cu on the current stream
-    (arguments checked by the caller; ``delta`` from ``_delta``)."""
-    from leetcuda_tpu_torch.build import kernel
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (TMA
+    and the kernels' vector loads need it; a slice of a larger tensor may
+    start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
+
+def _entry(lib, symbol, argtypes):
+    """``symbol`` of ``lib``: a source name (built and bound by
+    ``build.kernel``) or a loaded library (a variant build)."""
+    if isinstance(lib, str):
+        from leetcuda_tpu_torch.build import kernel
+
+        return kernel(lib, symbol, argtypes)
+    fn = getattr(lib, symbol)
+    fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+    return fn
+
+
+_BUILD_PLANS: dict = {}
+
+
+def build_plan(D, lib="flash_bwd"):
+    """The plan ``lib`` was built with at head dim ``D`` (its
+    ``lc_flash_bwd_plan``), as ``bwd_plan``'s tiles: (dq plan, dkv plan)."""
+    key = (lib if isinstance(lib, str) else id(lib), D)
+    got = _BUILD_PLANS.get(key)
+    if got is None:
+        info = (ctypes.c_int * 9)()
+        check_launch(_entry(lib, "lc_flash_bwd_plan", _PLAN_ARGS)(
+            D, ctypes.addressof(info)), FLASH_BWD_DQ.name)
+        dq_cons = info[0] // 64
+        split = bool(info[8])
+        dkv_cons = 2 if split else info[4] // 64
+        got = _BUILD_PLANS[key] = (
+            (dq_cons, info[1], info[2]), (dkv_cons, info[5], info[6], split),
+            info[3], info[7])
+        if lib == "flash_bwd":
+            want = bwd_plan(D, dq_plan=got[0], dkv_plan=got[1])
+            if (got[0] != DQ_PLAN[D] or got[1] != DKV_PLAN[D]
+                    or (info[3], info[7]) != (want["dq"]["smem"],
+                                              want["dkv"]["smem"])):
+                raise RuntimeError(
+                    f"csrc/flash_bwd.cu was built with plan {list(info)} at "
+                    f"D={D}; the wrapper plans {DQ_PLAN[D]}, {DKV_PLAN[D]}")
+    return got
+
+
+def rows_delta(rows, N):
+    """The delta (B, H, N) f32 view of the rows buffer that the dQ launch
+    writes: (B, H, 2, cdiv(N, 64) * 64), lse * log2(e) then delta, zeros
+    past N (the dK/dV launch's bulk copies read whole tiles of it)."""
+    return rows[:, :, 1, :N]
+
+
+def _launch_dq(q, k, v, out, do, lse, dlse, causal, scale, window=0,
+               softcap=0.0, lib="flash_bwd"):
+    """Launch the dQ kernel of csrc/flash_bwd.cu (or of the variant build
+    ``lib``) on the current stream (arguments checked by the caller).
+    Returns (dq, rows): the rows buffer holds lse * log2(e) and delta =
+    rowsum(do * out) - dlse, formed by the kernel, for the dK/dV launch
+    (``rows_delta`` views delta)."""
     B, H, N, D = q.shape
+    build_plan(D, lib)
+    q, k, v, out, do = map(_aligned, (q, k, v, out, do))
     dq = torch.empty_like(q)
-    fn = kernel("flash_bwd", "lc_flash_bwd_dq_bf16", _DQ_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H,
-             k.shape[1], N, k.shape[2], D, float(scale), int(causal),
-             int(window), float(softcap),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    rows = torch.empty((B, H, 2, cdiv(N, 64) * 64), dtype=torch.float32,
+                       device=q.device)
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    err = _entry(lib, "lc_flash_bwd_dq_bf16", _DQ_ARGS)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(),
+        None if dlse is None else dlse.data_ptr(), rows.data_ptr(),
+        dq.data_ptr(), B, H, k.shape[1], N, k.shape[2], D, float(scale),
+        int(causal), int(window), float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, FLASH_BWD_DQ.name)
     FLASH_BWD_DQ.add()
-    return dq
+    return dq, rows
 
 
-def _launch_dkv(q, k, v, do, lse, delta, causal, scale, window=0,
-                softcap=0.0):
-    """Launch the dK/dV kernel of csrc/flash_bwd.cu on the current stream."""
-    from leetcuda_tpu_torch.build import kernel
-
+def _launch_dkv(q, k, v, do, rows, causal, scale, window=0, softcap=0.0,
+                lib="flash_bwd"):
+    """Launch the dK/dV kernel of csrc/flash_bwd.cu (or of ``lib``) on the
+    current stream; ``rows`` from ``_launch_dq``."""
     B, H, N, D = q.shape
+    build_plan(D, lib)
+    q, k, v, do = map(_aligned, (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = kernel("flash_bwd", "lc_flash_bwd_dkv_bf16", _DKV_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             B, H, k.shape[1], N, k.shape[2], D, float(scale), int(causal),
-             int(window), float(softcap),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _entry(lib, "lc_flash_bwd_dkv_bf16", _DKV_ARGS)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        rows.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], N,
+        k.shape[2], D, float(scale), int(causal), int(window), float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, FLASH_BWD_DKV.name)
     FLASH_BWD_DKV.add()
     return dk, dv
@@ -158,7 +301,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, dlse=None, *, causal=False,
                         sm_scale=None, window=None, softcap=None):
     """Gradients (dq, dk, dv) of flash attention from its forward's ``out``
     and ``lse`` and the cotangents ``do`` (and ``dlse``, the lse's, when the
-    caller used it); ``window`` and ``softcap`` must be the forward's."""
+    caller used it); ``window`` and ``softcap`` must be the forward's. On
+    CUDA: the dQ launch (which also forms delta), then the dK/dV launch."""
     window, softcap = attn_options(window, softcap)
     _check_qkv(q, k, v)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[3])
@@ -168,9 +312,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, dlse=None, *, causal=False,
                                          causal=causal, sm_scale=scale,
                                          window=window, softcap=softcap)
     _check_launch_args(q, k, v, out, lse, do, dlse)
-    delta = _delta(out, do, dlse).contiguous()
-    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale, window, softcap)
-    return (dq, *_launch_dkv(q, k, v, do, lse, delta, causal, scale, window,
+    dq, rows = _launch_dq(q, k, v, out, do, lse, dlse, causal, scale,
+                          window, softcap)
+    return (dq, *_launch_dkv(q, k, v, do, rows, causal, scale, window,
                              softcap))
 
 

@@ -3,7 +3,10 @@
 // a cluster) and stores, wgmma with shared-memory descriptors, register
 // reallocation, proxy fences, the device-scope flags a persistent walk waits
 // on, and the host-side tensor maps. First used by the resident chain
-// (matmul_resident.cu); the base for the later speed slices.
+// (matmul_resident.cu); the base for the later speed slices. The flash
+// backward (flash_bwd.cu) adds 3-D maps and loads, 1-D bulk copies, a
+// barrier test that does not wait, wgmma with B K-major or A in registers,
+// and named barriers.
 //
 // Conventions:
 // - A tile that TMA writes with the 128-byte swizzle is a stack of rows of
@@ -78,6 +81,18 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   return ok != 0;
 }
 
+// Whether the phase of parity ``parity`` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test_wait(uint64_t* bar,
+                                               uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
+
 // Wait until the phase of parity ``parity`` has completed (a fresh barrier
 // is in phase 0, so waiting on parity 1 passes at once).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -103,6 +118,32 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global ``src`` to shared ``dst`` (both
+// 16-byte aligned), counted on ``bar``: a 1-D bulk copy, no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The box of a 3-D ``map`` at (c0 inner, c1, c2 outer); elements past the
+// tensor's bounds read 0 (so a box of rows past the end of one matrix of
+// the stack reads zeros, never the next matrix's rows).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -260,6 +301,95 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
 #undef LC_R64
 #undef LC_R128_HI
 
+// ------------------------------------- wgmma: both B layouts, A in registers
+//
+// wgmma_ss_bf16<kTnspB>: D (64 x N, f32) (+)= A (64 x 16, K-major,
+// descriptor ``da``) @ B (16 x N, descriptor ``db``), bf16 inputs. kTnspB
+// 0 reads B K-major (N rows of 16 values along k: K for Q K^T, as stored),
+// 1 MN-major (16 k-rows of N values: V for P V, as stored). wgmma_rs_bf16
+// is the same with A from registers: thread t of the warpgroup holds
+// A[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e] in the half e
+// of a[2 j + h], the layout of columns [16 kk, 16 kk + 16) of an m64
+// accumulator (d[8 kk + 4 j + 2 h + e]), so an accumulator rounded to
+// bf16 feeds the next product without passing through shared memory.
+// N is 32, 64, 128 or 256 (N / 2 accumulators a thread); ``acc`` 0
+// overwrites D. The resident chain's wrappers above stay as they are.
+
+#define LC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define LC_D16(i) LC_D4(i), LC_D4(i + 4), LC_D4(i + 8), LC_D4(i + 12)
+#define LC_D64(i) LC_D16(i), LC_D16(i + 16), LC_D16(i + 32), LC_D16(i + 48)
+#define LC_S16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15"
+#define LC_S32 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31"
+#define LC_S64 \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+  "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63"
+#define LC_S128 \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, " \
+  "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, " \
+  "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, " \
+  "%113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127"
+
+// The SS and RS wrappers of one N: NF accumulators, their register list
+// REGS, then the operands' numbers (A0-A6) and the accumulators'
+// constraints (the variadic part).
+#define LC_WGMMA_PAIR(N, NF, REGS, A0, A1, A2, A3, A4, A5, A6, ...)          \
+  template <int kTnspB>                                                      \
+  __device__ __forceinline__ void wgmma_ss_bf16(float(&d)[NF], uint64_t da,  \
+                                                uint64_t db, int acc) {      \
+    asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %" #A2 ", 0;\n\t"    \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k16.f32.bf16.bf16 {" REGS "}, %" #A0 ", %" #A1             \
+                 ", p, 1, 1, 0, %" #A3 ";\n\t}"                              \
+                 : __VA_ARGS__                                               \
+                 : "l"(da), "l"(db), "r"(acc), "n"(kTnspB));                 \
+  }                                                                          \
+  template <int kTnspB>                                                      \
+  __device__ __forceinline__ void wgmma_rs_bf16(                             \
+      float(&d)[NF], const uint32_t(&a)[4], uint64_t db, int acc) {          \
+    asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %" #A5 ", 0;\n\t"    \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k16.f32.bf16.bf16 {" REGS "}, {%" #A0 ", %" #A1            \
+                 ", %" #A2 ", %" #A3 "}, %" #A4 ", p, 1, 1, %" #A6           \
+                 ";\n\t}"                                                    \
+                 : __VA_ARGS__                                               \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                   "r"(acc), "n"(kTnspB));                                   \
+  }
+
+LC_WGMMA_PAIR(32, 16, LC_S16, 16, 17, 18, 19, 20, 21, 22, LC_D16(0))
+LC_WGMMA_PAIR(64, 32, LC_S16 ", " LC_S32, 32, 33, 34, 35, 36, 37, 38,
+              LC_D16(0), LC_D16(16))
+LC_WGMMA_PAIR(128, 64, LC_S16 ", " LC_S32 ", " LC_S64, 64, 65, 66, 67, 68,
+              69, 70, LC_D64(0))
+LC_WGMMA_PAIR(256, 128, LC_S16 ", " LC_S32 ", " LC_S64 ", " LC_S128, 128,
+              129, 130, 131, 132, 133, 134, LC_D64(0), LC_D64(64))
+
+#undef LC_WGMMA_PAIR
+#undef LC_D4
+#undef LC_D16
+#undef LC_D64
+#undef LC_S16
+#undef LC_S32
+#undef LC_S64
+#undef LC_S128
+
+// All threads of the ``threads`` (a multiple of 32) that use named barrier
+// ``id`` (1-15; 0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+// This thread's arrival at named barrier ``id`` without waiting.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ------------------------------------------- warpgroups, clusters, flags
 
 // Give this warpgroup's registers back (producer) or take them (consumers);
@@ -358,6 +488,30 @@ inline int map_2d(CUtensorMap* map, const void* ptr, bool f16, int rows,
          2, const_cast<void*>(ptr), dims, strides, box, unit,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A stack of ``depth`` row-major (rows, cols) matrices of bf16, contiguous
+// ((depth, rows, cols), cols a multiple of 8), read in boxes of box_rows x
+// box_cols (box_cols * 2 <= 128 bytes) of one matrix with the 128-byte
+// swizzle; out-of-range elements read 0. Returns a CUDA error code.
+inline int map_3d_bf16(CUtensorMap* map, const void* ptr, int depth,
+                       int rows, int cols, int box_rows, int box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
