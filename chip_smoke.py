@@ -35,7 +35,16 @@ Phases; any failure raises and the script exits non-zero:
    and elementwise, a second call bit for bit and the delta that the dQ
    launch writes; beside them SDPA's backward (``torch.autograd.grad``;
    with a window over an explicit band mask) and the name of its longest
-   kernel; the backward library's SASS (wgmma and TMA, no mma.sync). Path
+   kernel; the backward library's SASS (wgmma and TMA, no mma.sync). Then
+   the TMA + wgmma flash forward's edges (FWD_EDGE_CASES: N = 1000 tiles
+   that cross a head's end, groups of 1 and 8, Nq 1000 / Nk 1500
+   non-causal, head dim 64, ragged batches with NaN in K and V past every
+   length, whose output must stay finite), each a second time bit for bit,
+   with the lse's control (log2 units) and the cap's (uncapped, cap /
+   log2(e)) that must fail, and its SASS. The w4a16 matmul runs both of its
+   routes (split-K at decode rows, 64- or 128-row tiles at prefill rows)
+   at path (c)'s weight shapes and 1-1024 rows, each twice bit for bit,
+   and its SASS (wgmma and TMA, no mma.sync). Path
    (o) runs its own phase 3
    (``check_attn_options``): the window and softcap of every attention
    kernel at Gemma-2-27B's layer-0 shapes; path (p) its own
@@ -1282,6 +1291,125 @@ BWD_EDGE_CASES = (
 )
 
 
+# (label, (B, H, Hkv, N, D), causal, window, cap, Nk when not N, ragged,
+# with_lse): the TMA forward's edges: tiles that cross the end of a head (N
+# = 1000), the group of 1 and of 8, Nq != Nk without a mask, head dim 64,
+# and ragged batches whose K and V rows past every length are NaN (the
+# output must stay finite: the kernel zeroes those V rows before P V)
+FWD_EDGE_CASES = (
+    ("N 1000 causal", (2, 16, 4, 1000, 128), True, None, None, None, False,
+     True),
+    ("group 1", (2, 8, 8, 1024, 128), True, None, None, None, False, False),
+    ("group 8", (1, 16, 2, 1024, 128), True, None, None, None, False, True),
+    ("Nq 1000, Nk 1500, non-causal", (1, 8, 2, 1000, 128), False, None,
+     None, 1500, False, True),
+    ("D=64 window 100", (2, 8, 2, 1500, 64), True, 100, None, None, False,
+     False),
+    ("D=64 non-causal", (2, 8, 2, 1000, 64), False, None, None, None, False,
+     True),
+    ("ragged NaN past the lengths", (8, 16, 4, 1536, 128), True, None, None,
+     None, True, True),
+    ("ragged D=256 NaN, window 300, cap 50", (4, 8, 4, 1000, 256), True, 300,
+     50.0, None, True, True),
+    ("ragged D=64 NaN", (4, 8, 1, 700, 64), True, None, None, None, True,
+     False),
+)
+
+
+def check_flash_fwd(rec, flush):
+    """The TMA forward's edges (FWD_EDGE_CASES) against
+    ``flash_attention_plain`` at KERNEL_TOL, out and lse, a second call bit
+    for bit, NaN padding kept out of the output; the lse's control (the lse
+    in log2 units must fail) and the cap's (uncapped and at cap / log2(e),
+    over q at CAP_Q_SCALE, must fail); each case timed beside its plain
+    version and SDPA (causal or not, no cap; a window or lengths as an
+    explicit mask); the library's SASS (wgmma and TMA, no mma.sync)."""
+    from leetcuda_tpu_torch.attention import flash as fl
+
+    dev = rec.dev
+    for (label, (B, H, Hkv, N, D), causal, window, cap, nk, ragged,
+         with_lse) in FWD_EDGE_CASES:
+        Nk = N if nk is None else nk
+        q = rec.randn(B, H, N, D, scale=CAP_Q_SCALE if cap else 1.0)
+        k, v = rec.randn(B, Hkv, Nk, D), rec.randn(B, Hkv, Nk, D)
+        opt = dict(window=window, softcap=cap)
+        lengths = mask = None
+        if ragged:
+            lens_np = np.linspace(1, N, B).astype(np.int32)
+            lengths = torch.from_numpy(lens_np).to(dev)
+            kd, vd = k.clone(), v.clone()
+            for b, n in enumerate(lens_np):
+                k[b, :, n:], v[b, :, n:] = float("nan"), float("nan")
+            cols = torch.arange(N, device=dev)
+            mask = (fl.band_mask(N, N, dev, True, window)[None]
+                    & (cols[None, None, :] < lengths[:, None, None]))[:, None]
+            pairs = int(sum(int(fl.band_mask(n, n, "cpu", True, window).sum())
+                            for n in lens_np))
+
+            def run(c=cap, with_lse=with_lse):
+                return fl.flash_attention_ragged(
+                    q, k, v, lengths, window=window, softcap=c,
+                    with_lse=with_lse)
+
+            def plain():
+                return fl.flash_attention_plain(
+                    q, k, v, causal=True, lengths=lengths,
+                    with_lse=with_lse, **opt)
+            lib = (lambda: sdpa(q, kd, vd, attn_mask=mask))
+            name, replaces = ("flash_attention_ragged",
+                              "leetcuda_tpu/attention/flash.py:367")
+        else:
+            pairs = (N * Nk if not causal else
+                     int(fl.band_mask(N, Nk, "cpu", True, window).sum()))
+            if window:
+                mask = fl.band_mask(N, Nk, dev, True, window)
+
+            def run(c=cap, with_lse=with_lse):
+                return fl.flash_attention(q, k, v, causal=causal, window=window,
+                                          softcap=c, with_lse=with_lse)
+
+            def plain():
+                return fl.flash_attention_plain(q, k, v, causal=causal,
+                                                with_lse=with_lse, **opt)
+            lib = ((lambda: sdpa(q, k, v, attn_mask=mask)) if window
+                   else (lambda: sdpa(q, k, v, is_causal=causal)))
+            name, replaces = ("flash_attention",
+                              "leetcuda_tpu/attention/flash.py:259")
+        got, want, again = run(), plain(), run()
+        gots = got if with_lse else (got,)
+        wants = want if with_lse else (want,)
+        if not torch.isfinite(gots[0]).all():
+            raise AssertionError(f"flash forward ({label}): a non-finite "
+                                 "output (NaN padding got through)")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(gots, again if with_lse else (again,))):
+            raise AssertionError(f"flash forward ({label}): a second call "
+                                 "differs")
+        out_err = hold(gots[0], wants[0])
+        if with_lse:
+            name = "flash_attention_lse"
+        check = f"{name}/edge: {label}"
+        q_bytes, kv_bytes = 2.0 * B * H * N * D, 2.0 * B * Hkv * Nk * D
+        rec.record(check, name, FLASH_SRC, replaces, gots[-1], wants[-1],
+                   time_ms(run, flush), time_ms(plain, flush, iters=5),
+                   time_ms(lib, flush), 4.0 * (B if not ragged else 1)
+                   * H * D * pairs, 2 * q_bytes + 2 * kv_bytes
+                   + (4.0 * B * H * N if with_lse else 0.0))
+        rec.rows[check].update(out_max_abs_err=out_err, repeat_bit_equal=True,
+                               shape=[B, H, Hkv, N, Nk, D], window=window,
+                               softcap=cap, plan=fl.fwd_plan(D, B, H, N),
+                               library="SDPA" + (", explicit mask" if mask
+                                                 is not None else "")
+                               + (", no softcap" if cap else ""))
+        if with_lse and not ragged and not cap:
+            lse_controls(rec, check, wants[-1], lambda w: run()[1], None)
+        if cap:
+            rec.cap_controls(check, lambda c: run(c)[-1] if with_lse
+                             else run(c), wants[-1], cap)
+        del q, k, v, got, want, again, mask
+    rec.rows["flash_attention"]["sass"] = resident_sass("flash_fwd")
+
+
 def band_pairs(n, window):
     """(row, key) pairs the causal band of n rows keeps."""
     if not window or window >= n:
@@ -1623,7 +1751,8 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
 
     # the quantized matmuls at every weight shape and row count of the main
     # paths, each in the wrapper's tiling and in both tilings (the A/B that
-    # sets gq.DECODE_TILE_MAX_ROWS). Library
+    # sets gq.DECODE_TILE_MAX_ROWS; for w4a16 both routes, the A/B that sets
+    # gq.W4_DECODE_MAX_ROWS, each route twice bit for bit). Library
     # yardstick: torch.matmul on the weight dequantized to bf16 beforehand,
     # which reads twice (w8a16) or four times (w4a16) the weight bytes.
     for path, key, w, m_rows in mm_cases:
@@ -1653,6 +1782,10 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
                 got = launch(x, *args, tile == "decode")
                 torch.testing.assert_close(got.float(), want.float(),
                                            **KERNEL_TOL)
+                if name == "matmul_w4a16" and not torch.equal(
+                        got, launch(x, *args, tile == "decode")):
+                    raise AssertionError(f"w4a16 {tile} route M={M} K={K} "
+                                         f"N={N}: a second call differs")
                 tiles[tile] = (
                     time_ms(lambda: launch(x, *args, tile == "decode"),
                             flush),
@@ -1669,6 +1802,13 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
                 ms_decode_tile=tiles["decode"][0],
                 ms_prefill_tile=tiles["prefill"][0],
                 max_abs_err_tiles=max(e for _, e in tiles.values()))
+            if name == "matmul_w4a16":
+                rows[check].update(repeat_bit_equal=True, route_plan={
+                    r: gq.w4_plan(M, N, K, r == "decode")["grid"]
+                    for r in ("decode", "prefill")})
+    w4_rows = [r for r in rows.values() if r["name"] == "matmul_w4a16"]
+    if w4_rows:  # wgmma fed by TMA on both routes, no mma.sync
+        w4_rows[0]["sass"] = resident_sass("w4_matmul")
 
     # e4m3 NaN bytes decode to NaN in both tilings as in the plain version
     w = next(w for _, _, w, _ in mm_cases
@@ -1687,7 +1827,8 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
     check_paged(rec, flush)
     check_fused(rec, flush, fused_layer, cfg)
     check_chunk(rec, flush)
-    check_flash_bwd(rec, flush)
+    check_flash_bwd(rec, flush)  # first: its rows lead the kernels line
+    check_flash_fwd(rec, flush)
     return rows
 
 
@@ -4224,6 +4365,10 @@ def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
             mask = fl.band_mask(N, N, dev, True, w)
             lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask,
                                           scale=scale), flush)
+            # the nearest flash call of the library: SDPA causal, no cap
+            causal_ms = (time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                              scale=scale), flush)
+                         if N == GEMMA_FLASH_N else None)
             pairs = band_pairs(N, w)
             for with_lse in (False, True):
                 def kern(c=cap, s=scale, with_lse=with_lse):
@@ -4244,7 +4389,8 @@ def check_attn_options(rec, flush, cfg, tag="o", wrong_scale=None):
                            4.0 * H * D * pairs,
                            2.0 * (2 * H * N * D + 2 * Hkv * N * D)
                            + (4.0 * H * N if with_lse else 0.0))
-                note(check, window=w, softcap=cap, N=N)
+                note(check, window=w, softcap=cap, N=N,
+                     sdpa_causal_ms=causal_ms)
                 rec.cap_controls(check, part, want, cap, wrong_scale)
             del w_out, w_lse, mask
 
@@ -6991,7 +7137,9 @@ def main() -> int:
             print(f"  {name}: {line}")
     for key, name, needle in (("resident_ptxas", "matmul_resident",
                                "mm_resident"),
-                              ("flash_bwd_ptxas", "flash_bwd", "flash_bwd")):
+                              ("flash_bwd_ptxas", "flash_bwd", "flash_bwd"),
+                              ("flash_fwd_ptxas", "flash_fwd", "flash_fwd"),
+                              ("w4_ptxas", "w4_matmul", "w4_mm")):
         report[key] = ptxas_entries(reports.get(name, ""), needle)
         for e in report[key]:
             print(f"  {name} {e['kernel']}: {e.get('registers')} "
@@ -7067,7 +7215,8 @@ def main() -> int:
     # projection: 8 (a decode step over 8 slots or a B=8 batch), the padded
     # ragged admission (8 x 1536) and the lone prompt (384) of the Engine,
     # generate's B=8 x 128 prefill; and 16-128 rows on paths (a) and (c),
-    # where the two tilings of each matmul cross over.
+    # where the two tilings (routes) of each matmul cross over; on (c) also
+    # 1, 9 and 72 rows (the w4a16 kernel's row tiles of 8 and 64 ragged).
     bucket = 128
 
     def pad(n):
@@ -7077,14 +7226,15 @@ def main() -> int:
     path_rows = {"a": (8, len(prompts) * pad(int(max(plens))),
                        pad(len(lone)), *sweep),
                  "b": (8, gprompts.numel()),
-                 "c": (8, gprompts.numel(), *sweep)}
+                 "c": (1, 8, 9, 72, gprompts.numel(), *sweep)}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     checks = check_kernels(flush, matmul_cases(qparams, path_rows),
                            fparams["layers"][0], cfg)
     for r in checks.values():
+        cut = "route" if r["name"] == "matmul_w4a16" else "tiling"
         tiles = ("" if "ms_decode_tile" not in r else
-                 f" [decode tiling {r['ms_decode_tile']:.4f} ms, prefill "
-                 f"tiling {r['ms_prefill_tile']:.4f} ms]")
+                 f" [decode {cut} {r['ms_decode_tile']:.4f} ms, prefill "
+                 f"{cut} {r['ms_prefill_tile']:.4f} ms]")
         lib = (f"library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else
                f"library none [eager unfused {r['eager_unfused_ms']:.4f} ms, "

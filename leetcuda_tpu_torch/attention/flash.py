@@ -5,8 +5,9 @@ and ``make_flash_attention_ragged``). Layouts are the JAX package's:
 q (B, H, N, D), k/v (B, Hkv, N, D), lengths (B,) int32.
 
 On CUDA tensors each wrapper launches the hand-written kernel in
-``csrc/flash_fwd.cu`` (bf16, head dim 64, 128 or 256) and raises on what it
-does not take. On CPU tensors it runs the plain PyTorch version in this module,
+``csrc/flash_fwd.cu`` (bf16, head dim 64, 128 or 256; TMA + wgmma, its
+tiles and its walk over the band mirrored by ``fwd_plan``, ``key_range``
+and ``fwd_edge`` here) and raises on what it does not take. On CPU tensors it runs the plain PyTorch version in this module,
 which the tests hold against the JAX kernel and ``chip_smoke.py`` holds the
 CUDA kernel against.
 
@@ -40,8 +41,85 @@ FLASH_LSE = LaunchCounter("flash_attention_lse")
 _FLASH_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                   ctypes.c_void_p))
+_PLAN_ARGS = (ctypes.c_int, ctypes.c_void_p)  # lc_flash_fwd_plan(D, info)
 # the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu instantiate
 HEAD_DIMS = (64, 128, 256)
+# The forward's tile plan (csrc/flash_fwd.cu fwd_plan, the source's
+# defaults): consumer warpgroups (64 q rows each), keys a stage, stages.
+FWD_PLAN = {64: (2, 128, 3), 128: (2, 128, 2), 256: (2, 64, 2)}
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+
+
+def cdiv(a, b):
+    return -(-a // b)
+
+
+def fwd_plan(D, B=1, H=1, Nq=1, plan=None):
+    """What one forward launch at head dim ``D`` runs: its q rows, keys
+    a stage, stages, threads, grid and shared-memory bytes (the byte count
+    of csrc/flash_fwd.cu FwdTile). ``plan`` replaces the default (a
+    variant build's (warpgroups, keys, stages))."""
+    cons, keys, stages = plan or FWD_PLAN[D]
+    rows = 64 * cons
+    return {"rows": rows, "keys": keys, "stages": stages,
+            "threads": 128 * cons, "grid": (cdiv(Nq, rows), B * H),
+            "smem": 1024 + rows * D * 2 + stages * 2 * keys * D * 2
+            + 8 * (1 + 2 * stages)}
+
+
+def key_range(r0, r1, Nq, Nk, causal, window):
+    """Keys [lo, hi) that q rows [r0, r1) keep ((0, 0): none): the key
+    tiles the forward and the dQ kernel walk (csrc/common.cuh key_range).
+    The forward passes its live rows as Nq and the keys below the length as
+    Nk."""
+    r1 = min(r1, Nq)
+    if r1 <= r0:
+        return 0, 0
+    lo = max(r0 - window + 1, 0) if window > 0 else 0
+    return lo, (min(Nk, r1) if causal else Nk)
+
+
+def band_tiles(lo, hi, tile):
+    """The tiles of ``tile`` rows or keys that cover [lo, hi)."""
+    return range(lo // tile, cdiv(hi, tile) if hi > lo else lo // tile)
+
+
+def fwd_edge(r0, k0, keys, kv_len, causal, window):
+    """Whether the forward masks key tile [k0, k0 + keys) for the 64 q
+    rows from r0: only where the tile crosses the keys below the length,
+    the causal diagonal or the window's edge (csrc/flash_fwd.cu)."""
+    return (k0 + keys > kv_len or (causal and k0 + keys - 1 > r0)
+            or (window > 0 and r0 + 63 - k0 >= window))
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (TMA
+    needs it; a slice of a larger tensor may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_BUILD_PLANS: dict = {}
+
+
+def build_plan(D, lib="flash_fwd"):
+    """The plan ``lib`` (a source name or a variant build) was built
+    with at head dim ``D`` (its ``lc_flash_fwd_plan``), as ``fwd_plan``
+    takes it; the package's build must be FWD_PLAN's."""
+    from leetcuda_tpu_torch.build import entry
+
+    key = (lib if isinstance(lib, str) else id(lib), D)
+    got = _BUILD_PLANS.get(key)
+    if got is None:
+        info = (ctypes.c_int * 4)()
+        check_launch(entry(lib, "lc_flash_fwd_plan", _PLAN_ARGS)(
+            D, ctypes.addressof(info)), FLASH.name)
+        got = _BUILD_PLANS[key] = (info[0] // 64, info[1], info[2])
+        if lib == "flash_fwd" and (got != FWD_PLAN[D] or info[3] != fwd_plan(
+                D, plan=got)["smem"]):
+            raise RuntimeError(f"csrc/flash_fwd.cu was built with plan "
+                               f"{list(info)} at D={D}; the wrapper plans "
+                               f"{FWD_PLAN[D]}")
+    return got
 
 
 def attn_options(window, softcap):
@@ -151,20 +229,23 @@ def _check_kernel_args(q, k, v, lengths=None):
 
 
 def _launch(q, k, v, lengths, causal, scale, counter, with_lse, window,
-            softcap):
-    """Launch csrc/flash_fwd.cu on the current stream; ``with_lse``: also
-    write the (B, H, N) f32 lse and count on FLASH_LSE."""
-    from leetcuda_tpu_torch.build import kernel
+            softcap, lib="flash_fwd"):
+    """Launch csrc/flash_fwd.cu (or the variant build ``lib``) on the
+    current stream; ``with_lse``: also write the (B, H, N) f32 lse and
+    count on FLASH_LSE."""
+    from leetcuda_tpu_torch.build import entry
 
     _check_kernel_args(q, k, v, lengths)
     B, H, N, D = q.shape
     Hkv, Nk = k.shape[1], k.shape[2]
+    build_plan(D, lib)
+    q, k, v = map(_aligned, (q, k, v))
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if with_lse:
         counter = FLASH_LSE
-    fn = kernel("flash_fwd", "lc_flash_fwd_bf16", _FLASH_ARGS)
+    fn = entry(lib, "lc_flash_fwd_bf16", _FLASH_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if lengths is None else lengths.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(),

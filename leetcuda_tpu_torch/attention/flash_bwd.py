@@ -27,9 +27,12 @@ import math
 import torch
 
 from leetcuda_tpu_torch.attention.flash import (HEAD_DIMS, _NEG_INF,
+                                                SMEM_LIMIT, _aligned,
                                                 _check_qkv, attn_options,
-                                                band_mask, cap_scores,
-                                                flash_attention)
+                                                band_mask, band_tiles,
+                                                cap_scores, cdiv,
+                                                flash_attention, key_range)
+from leetcuda_tpu_torch.build import entry
 from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
 
 FLASH_BWD_DQ = LaunchCounter("flash_attention_bwd_dq")
@@ -54,11 +57,6 @@ _PLAN_ARGS = (ctypes.c_int, ctypes.c_void_p)  # lc_flash_bwd_plan(D, info)
 DQ_PLAN = {64: (2, 128, 3), 128: (2, 128, 2), 256: (1, 64, 2)}
 DKV_PLAN = {64: (2, 64, 3, False), 128: (2, 64, 2, False),
             256: (2, 64, 2, True)}
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
-
-
-def cdiv(a, b):
-    return -(-a // b)
 
 
 def bwd_plan(D, B=1, H=1, Hkv=1, Nq=1, Nk=1, dq_plan=None, dkv_plan=None):
@@ -83,30 +81,15 @@ def bwd_plan(D, B=1, H=1, Hkv=1, Nq=1, Nk=1, dq_plan=None, dkv_plan=None):
     return {"dq": dq, "dkv": dkv}
 
 
-def key_range(r0, r1, Nq, Nk, causal, window):
-    """Keys [lo, hi) that q rows [r0, r1) keep ((0, 0): none); the dQ
-    kernel walks the key tiles over it (csrc/flash_bwd.cu key_range)."""
-    r1 = min(r1, Nq)
-    if r1 <= r0:
-        return 0, 0
-    lo = max(r0 - window + 1, 0) if window > 0 else 0
-    return lo, (min(Nk, r1) if causal else Nk)
-
-
 def row_range(c0, c1, Nq, Nk, causal, window):
     """Q rows [lo, hi) that keep keys [c0, c1) ((0, 0): none, hi == lo:
     none of them below Nq); the dK/dV kernel walks the q tiles over it
-    (csrc/flash_bwd.cu row_range)."""
+    (csrc/common.cuh row_range)."""
     c1 = min(c1, Nk)
     if c1 <= c0:
         return 0, 0
     lo = c0 if causal else 0
     return lo, max(lo, min(Nq, c1 - 1 + window) if window > 0 else Nq)
-
-
-def band_tiles(lo, hi, tile):
-    """The tiles of ``tile`` rows or keys that cover [lo, hi)."""
-    return range(lo // tile, cdiv(hi, tile) if hi > lo else lo // tile)
 
 
 def dq_edge(r0, k0, keys, Nq, Nk, causal, window):
@@ -197,25 +180,6 @@ def _check_launch_args(q, k, v, out, lse, do, dlse):
         raise ValueError("lse must be a contiguous f32 tensor")
 
 
-def _aligned(t):
-    """``t``, or a copy of it where its data is not 16-byte aligned (TMA
-    and the kernels' vector loads need it; a slice of a larger tensor may
-    start anywhere)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _entry(lib, symbol, argtypes):
-    """``symbol`` of ``lib``: a source name (built and bound by
-    ``build.kernel``) or a loaded library (a variant build)."""
-    if isinstance(lib, str):
-        from leetcuda_tpu_torch.build import kernel
-
-        return kernel(lib, symbol, argtypes)
-    fn = getattr(lib, symbol)
-    fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
-    return fn
-
-
 _BUILD_PLANS: dict = {}
 
 
@@ -226,7 +190,7 @@ def build_plan(D, lib="flash_bwd"):
     got = _BUILD_PLANS.get(key)
     if got is None:
         info = (ctypes.c_int * 9)()
-        check_launch(_entry(lib, "lc_flash_bwd_plan", _PLAN_ARGS)(
+        check_launch(entry(lib, "lc_flash_bwd_plan", _PLAN_ARGS)(
             D, ctypes.addressof(info)), FLASH_BWD_DQ.name)
         dq_cons = info[0] // 64
         split = bool(info[8])
@@ -267,7 +231,7 @@ def _launch_dq(q, k, v, out, do, lse, dlse, causal, scale, window=0,
                        device=q.device)
     if dlse is not None:
         dlse = dlse.float().contiguous()
-    err = _entry(lib, "lc_flash_bwd_dq_bf16", _DQ_ARGS)(
+    err = entry(lib, "lc_flash_bwd_dq_bf16", _DQ_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(),
         None if dlse is None else dlse.data_ptr(), rows.data_ptr(),
@@ -287,7 +251,7 @@ def _launch_dkv(q, k, v, do, rows, causal, scale, window=0, softcap=0.0,
     build_plan(D, lib)
     q, k, v, do = map(_aligned, (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _entry(lib, "lc_flash_bwd_dkv_bf16", _DKV_ARGS)(
+    err = entry(lib, "lc_flash_bwd_dkv_bf16", _DKV_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         rows.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], N,
         k.shape[2], D, float(scale), int(causal), int(window), float(softcap),

@@ -1,6 +1,19 @@
-"""Attention benchmark CLI: the A/B of the flash backward's builds.
+"""Attention benchmark CLI: the A/B of the flash kernels' builds.
 
     python -m leetcuda_tpu_torch.bench.attn_bench --bwd --json bwd_bench.json
+    python -m leetcuda_tpu_torch.bench.attn_bench --fwd --json fwd_bench.json
+
+``--fwd`` builds ``csrc/flash_fwd.cu`` once per variant of ``FWD_VARIANTS``
+(its ``LC_FWD_*`` macros: the next tile's S issued behind P V or not, the
+key tile, the stage count; three probes that compute nothing right:
+without the exp, without the products, without the products and the
+softmax) and times each variant's forward in turn with
+SDPA (``is_causal``, no cap) at the cases the variant changes: (1, 16,
+2048, 128) with 4 KV heads, causal, the serving shape; (8, 16, 2048, 128)
+with its lse, training's; (1, 32, 8192, 128) with 16 KV heads, causal, cap
+50 (Gemma-2-27B's); (1, 16, 8192, 256) with 8 KV heads, causal, cap 50
+(head dim 256). Each is held against ``flash_attention_plain`` (atol and
+rtol 1e-2, q at 10x with the cap, as chip_smoke.py draws it).
 
 ``--bwd`` builds ``csrc/flash_bwd.cu`` once per variant of ``BWD_VARIANTS``
 (``build.build_variants``: its ``LC_BWD_*`` macros set with -D, each build a
@@ -18,9 +31,10 @@ Every other variant is held against ``flash_attention_bwd_plain``
 kernel run uncapped or at cap / log2(e) must miss that bar (chip_smoke.py's
 BWD_CAP controls).
 
-On a GPU each time is the median over ``--rounds`` rounds of the median of
+Each build's ptxas registers and spills are printed. On a GPU each time
+is the median over ``--rounds`` rounds of the median of
 ``--iters`` CUDA-event times with the 50 MB L2 flushed before each launch.
-``--device cpu`` runs the plain backward on the host clock, a check of the
+``--device cpu`` runs the plain versions on the host clock, a check of the
 CLI and not a device measurement.
 """
 
@@ -57,6 +71,138 @@ CASES = {"d128": ("(8, 16, 2048, 128) causal", (8, 16, 4, 2048, 128), None),
          "d256": ("(1, 8, 8192, 256) causal", (1, 8, 4, 8192, 256), None),
          "cap": ("(8, 16, 2048, 128) causal, cap 50", (8, 16, 4, 2048, 128),
                  50.0)}
+
+
+# The forward's variant builds: the package's default, then one change each.
+FWD_VARIANTS = [
+    {},
+    {"LC_FWD_OVERLAP": 0},
+    {"LC_FWD_KEYS": 64},
+    {"LC_FWD_STAGES": 3},
+    {"LC_FWD_PROBE": 1},
+    {"LC_FWD_PROBE": 2},
+    {"LC_FWD_PROBE": 3},
+]
+_FWD_D128_KEYS = ("LC_FWD_KEYS", "LC_FWD_STAGES")
+
+# --fwd-cases: run only these forward cases (all when empty)
+CASE_FILTER: list = []
+
+# (label, (B, H, Hkv, N, D), softcap, with_lse)
+FWD_CASES = {
+    "d128": ("(1, 16, 2048, 128) causal", (1, 16, 4, 2048, 128), None, False),
+    "lse": ("(8, 16, 2048, 128) causal, lse", (8, 16, 4, 2048, 128), None,
+            True),
+    "gemma": ("(1, 32, 8192, 128) causal, cap 50", (1, 32, 16, 8192, 128),
+              50.0, False),
+    "d256": ("(1, 16, 8192, 256) causal, cap 50", (1, 16, 8, 8192, 256),
+             50.0, False)}
+
+
+def fwd_variant_plan(v, D):
+    """(warpgroups, keys, stages) of the forward's variant build ``v`` at
+    head dim ``D`` (csrc/flash_fwd.cu fwd_plan with the macros of ``v``)."""
+    if D > 128:
+        return (2, 64, 2)
+    return (2, v.get("LC_FWD_KEYS") or 128,
+            v.get("LC_FWD_STAGES") or (2 if D > 64 else 3))
+
+
+def fwd_variant_cases(v):
+    """The cases where the forward's variant ``v`` differs from the default."""
+    if CASE_FILTER:
+        return [k for k in CASE_FILTER if k in FWD_CASES]
+    if any(k in v for k in _FWD_D128_KEYS):
+        return [k for k, c in FWD_CASES.items() if c[1][4] <= 128]
+    return list(FWD_CASES)
+
+
+def _fwd_label(v):
+    return "default" if not v else ", ".join(
+        f"{k[7:].lower()} {x}" for k, x in sorted(v.items()))
+
+
+def bench_fwd(dev, iters, rounds, flush):
+    """Each forward variant build at each case it changes, in turn with
+    SDPA (the plain forward on the CPU). Returns the rows."""
+    builds = []
+    if dev.type == "cuda":
+        from leetcuda_tpu_torch.build import build_variants
+
+        for v, (lib, log) in zip(FWD_VARIANTS,
+                                 build_variants("flash_fwd", FWD_VARIANTS)):
+            print(f"  built {_fwd_label(v)}: "
+                  f"{ptxas_summary(log) if log else 'cached'}", flush=True)
+            builds.append((v, lib))
+    rows = []
+    for key, (label, shape, cap, with_lse) in FWD_CASES.items():
+        if CASE_FILTER and key not in CASE_FILTER:
+            continue
+        B, H, Hkv, N, D = shape
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def rnd(*s, scale=1.0):
+            return (torch.randn(s, generator=gen, device=dev)
+                    * scale).to(torch.bfloat16)
+
+        q = rnd(B, H, N, D, scale=10.0 if cap else 1.0)
+        k, v = rnd(B, Hkv, N, D), rnd(B, Hkv, N, D)
+        scale = D ** -0.5
+        want = fl.flash_attention_plain(q, k, v, causal=True, softcap=cap,
+                                        with_lse=with_lse)
+        want = want[0] if with_lse else want
+        fns = []
+        for vb, lib in builds:
+            if key not in fwd_variant_cases(vb):
+                continue
+
+            def run(lib=lib):
+                return fl._launch(q, k, v, None, True, scale, fl.FLASH,
+                                  with_lse, 0, cap or 0.0, lib)
+            got = run()
+            got = got[0] if with_lse else got
+            err = float((got.float() - want.float()).abs().max())
+            if "LC_FWD_PROBE" not in vb and not torch.allclose(
+                    got.float(), want.float(), atol=1e-2,
+                    rtol=1e-2):  # chip_smoke.py's KERNEL_TOL
+                raise AssertionError(f"{_fwd_label(vb)} at {label}: max abs "
+                                     f"{err}")
+            fns.append((_fwd_label(vb), err, run, vb))
+        if dev.type == "cuda":
+            fns.append(("SDPA, causal, no cap", 0.0, lambda: sdpa_fwd(
+                q, k, v), None))
+        else:  # the plain forward: a check of the CLI
+            fns.append(("plain forward", 0.0, lambda: fl.flash_attention_plain(
+                q, k, v, causal=True, softcap=cap, with_lse=with_lse), None))
+        times = {n: [] for n, *_ in fns}
+        for _ in range(rounds):
+            for n, _, fn, _ in fns:
+                times[n].append(time_ms(fn, dev, iters, flush))
+        flops = 4.0 * B * H * D * N * (N + 1) / 2  # the causal band, 2 products
+        bound = flops / 989e12 * 1e3
+        print(f"--- forward {label} (bound {bound:.4f} ms at 989 TFLOP/s) ---")
+        for n, err, _, vb in fns:
+            ms = float(np.median(times[n]))
+            row = {"case": key, "shape": list(shape), "softcap": cap,
+                   "with_lse": with_lse, "variant": n, "macros": vb,
+                   "max_abs_err": err, "ms": ms, "rounds": times[n]}
+            if vb is not None:
+                row["plan"] = fl.fwd_plan(D, B, H, N,
+                                          fwd_variant_plan(vb, D))
+            share = ""
+            if dev.type == "cuda" and "PROBE" not in str(vb):
+                row["share"] = bound / ms
+                share = f" ({bound / ms:.3f} of the bound)"
+            rows.append(row)
+            print(f"  {n}: {ms:.4f} ms{share}; max abs {err:.3g}", flush=True)
+        del q, k, v, want, fns
+    return rows
+
+
+def sdpa_fwd(q, k, v):
+    """SDPA's forward, causal, with GQA: the library yardstick."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
 
 
 def variant_plan(v, D):
@@ -264,8 +410,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bwd", action="store_true",
                     help="the A/B of the flash backward's builds")
+    ap.add_argument("--fwd", action="store_true",
+                    help="the A/B of the flash forward's builds")
     ap.add_argument("--cases", nargs="*", choices=sorted(CASES),
-                    default=None)
+                    default=None, help="--bwd: the cases to run")
+    ap.add_argument("--fwd-cases", nargs="*", choices=sorted(FWD_CASES),
+                    default=[], help="--fwd: the cases to run (default all)")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--device", default="cuda")
@@ -275,14 +425,17 @@ def main(argv=None):
                          "CLI on the CPU)")
     ap.add_argument("--json", help="write the rows here")
     args = ap.parse_args(argv)
-    if not args.bwd:
-        ap.error("nothing to run: pass --bwd")
+    if args.bwd == args.fwd:
+        ap.error("pass one of --bwd and --fwd")
+    CASE_FILTER[:] = args.fwd_cases
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the bench measures the card")
     if args.shape:
         for key, (label, _, cap) in list(CASES.items()):
             CASES[key] = (label, tuple(args.shape), cap)
+        for key, (label, _, cap, lse) in list(FWD_CASES.items()):
+            FWD_CASES[key] = (label, tuple(args.shape), cap, lse)
     flush = None
     if dev.type == "cuda":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
@@ -291,7 +444,8 @@ def main(argv=None):
     else:
         print(f"device {dev} (host clock: a check of the CLI, no device "
               f"metric)")
-    rows = bench_bwd(dev, args.iters, args.rounds, flush, args.cases)
+    rows = (bench_bwd(dev, args.iters, args.rounds, flush, args.cases)
+            if args.bwd else bench_fwd(dev, args.iters, args.rounds, flush))
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(

@@ -8,6 +8,17 @@ same dtype.
         --k 2048 --variants auto hgemm_mma_stages_block_swizzle
     python -m leetcuda_tpu_torch.bench.gemm_bench --resident \\
         --json resident_bench.json
+    python -m leetcuda_tpu_torch.bench.gemm_bench --w4 --json w4_bench.json
+
+``--w4`` is the A/B of the w4a16 kernel (``csrc/w4_matmul.cu``): the
+package's build and variant builds of its macros (prefill CTAs of 64 rows,
+3 and 5 stages) and two probes whose results are wrong (LC_W4_PROBE 1:
+the products on fixed fragments, no unpack; 2: no products, the feed
+alone), each printing its ptxas registers and spills, time both routes
+(decode: split-K; prefill) in turn with ``torch.matmul`` on the weight
+dequantized to bf16 beforehand, at path (c)'s weight shapes (``--w4-kn``)
+and the rows ``--m`` (default 1, 8, 16, 32, 64, 128, 1024), each route of
+each build held against ``matmul_w4a16_plain`` (atol / rtol 1e-2).
 
 ``--resident`` is the A/B of the resident chain's build
 (``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
@@ -216,6 +227,95 @@ def bench_resident(cases, dev, iters, rounds, flush):
     return rows
 
 
+# the w4a16 kernel's variant builds: the package's, then one change each,
+# then the probes
+W4_VARIANTS = [{}, {"LC_W4_PREFILL_M": 64}, {"LC_W4_STAGES": 3},
+               {"LC_W4_STAGES": 5}, {"LC_W4_PROBE": 1}, {"LC_W4_PROBE": 2}]
+# path (c)'s weight shapes (K, N) of ModelConfig(): w_gate / w_up, w_down,
+# wq / wo, wk / wv
+W4_KN = ((2048, 5632), (5632, 2048), (2048, 2048), (2048, 512))
+W4_ROWS = (1, 8, 16, 32, 64, 128, 1024)
+
+
+def _w4_label(v):
+    return "default" if not v else ", ".join(
+        f"{k[6:].lower()} {x}" for k, x in sorted(v.items()))
+
+
+def bench_w4(shapes, rows_m, dev, iters, rounds, flush):
+    """Each w4a16 build's two routes at each (K, N) and M, in turn with
+    torch.matmul on the weight dequantized beforehand (the plain version on
+    the CPU). Returns the rows."""
+    from leetcuda_tpu_torch.gemm import quant as gq
+
+    builds = []
+    if dev.type == "cuda":
+        from leetcuda_tpu_torch.build import build_variants
+
+        from .attn_bench import ptxas_summary
+
+        for v, (lib, log) in zip(W4_VARIANTS,
+                                 build_variants("w4_matmul", W4_VARIANTS)):
+            print(f"  built {_w4_label(v)}: "
+                  f"{ptxas_summary(log) if log else 'cached'}", flush=True)
+            builds.append((v, lib))
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for K, N in shapes:
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+        packed, scales = gq.quantize_groupwise_int4(w)
+        wd = gq.dequantize_int4(packed, scales).to(torch.bfloat16)
+        for M in rows_m:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            want = gq.matmul_w4a16_plain(x, packed, scales)
+            fns = []
+            for vb, lib in builds:
+                for decode in (True, False):
+                    def run(lib=lib, decode=decode):
+                        return gq._launch_w4a16(x, packed, scales, decode,
+                                                lib)
+                    err = float((run().float() - want.float()).abs().max())
+                    if "LC_W4_PROBE" not in vb and not err <= 1e-2 + 1e-2 * \
+                            float(want.float().abs().max()):
+                        raise AssertionError(f"w4 {_w4_label(vb)} M={M} "
+                                             f"K={K} N={N}: max abs {err}")
+                    route = "decode" if decode else "prefill"
+                    fns.append((f"{_w4_label(vb)} {route}", err, run, vb,
+                                route))
+            if dev.type == "cuda":
+                fns.append(("torch.matmul, dequantized", 0.0,
+                            lambda: torch.matmul(x, wd), None, None))
+            else:  # the plain version: a check of the CLI
+                fns.append(("plain", 0.0, lambda: gq.matmul_w4a16_plain(
+                    x, packed, scales), None, None))
+            times = {n: [] for n, *_ in fns}
+            for _ in range(rounds):
+                for n, _, fn, _, _ in fns:
+                    times[n].append(time_ms(fn, dev, iters, flush))
+            flops = 2.0 * M * N * K
+            nbytes = 2.0 * M * K + K * N / 2 + 4.0 * (K // 128) * N \
+                + 2.0 * M * N
+            bound = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+            print(f"--- w4a16 M={M} K={K} N={N} (bound {bound:.4f} ms) ---")
+            for n, err, _, vb, route in fns:
+                ms = float(np.median(times[n]))
+                row = {"M": M, "K": K, "N": N, "variant": n, "macros": vb,
+                       "route": route, "max_abs_err": err, "ms": ms,
+                       "rounds": times[n], "bound_ms": bound}
+                if vb is not None:
+                    row["plan"] = gq.w4_plan(
+                        M, N, K, route == "decode",
+                        vb.get("LC_W4_PREFILL_M", gq.W4_PREFILL_ROWS),
+                        vb.get("LC_W4_STAGES", gq.W4_STAGES))
+                rows.append(row)
+                share = (f" ({bound / ms:.3f} of the bound)"
+                         if dev.type == "cuda" else "")
+                print(f"  {n}: {ms:.4f} ms{share}; max abs {err:.3g}",
+                      flush=True)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mnk", type=int, nargs="*", default=None,
@@ -240,7 +340,14 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, nargs="*", default=None,
                     help="--resident: reps of each --mnk chain (default 5 "
                          "and 3 for 4096 and 128)")
-    ap.add_argument("--json", help="--resident: write the rows here")
+    ap.add_argument("--w4", action="store_true",
+                    help="the A/B of the w4a16 kernel's builds and routes at "
+                         "--w4-kn x --m")
+    ap.add_argument("--w4-kn", type=int, nargs=2, action="append",
+                    default=None, metavar=("K", "N"),
+                    help="--w4: a weight shape (repeatable; default path "
+                         "(c)'s four)")
+    ap.add_argument("--json", help="--resident, --w4: write the rows here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -264,6 +371,19 @@ def main(argv=None):
     else:
         print(f"device {dev} (host clock: a check of the CLI, no device "
               f"metric), {args.dtype}")
+    if args.w4:
+        rows = bench_w4(args.w4_kn or W4_KN, args.m or W4_ROWS, dev,
+                        args.iters, args.repeats, flush)
+        if args.json:
+            import json
+            from pathlib import Path
+
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(
+                {"device": (torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else str(dev)),
+                 "rows": rows}, indent=1))
+        return
     if args.resident:
         ns, reps = args.mnk or [4096, 128], args.reps or [5, 3]
         if len(reps) == 1:

@@ -124,6 +124,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(lib, symbol: str, argtypes: tuple):
+    """``symbol`` of ``lib``: a source name (built and bound by ``kernel``)
+    or a loaded library (a variant build of ``build_variants``), with
+    ``argtypes`` set and an int (CUDA error code) result."""
+    if isinstance(lib, str):
+        return kernel(lib, symbol, argtypes)
+    fn = getattr(lib, symbol)
+    fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+    return fn
+
+
 def kernel(name: str, symbol: str, argtypes: tuple):
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, bound once: its
     library loaded (built first if needed), ``argtypes`` set and an int

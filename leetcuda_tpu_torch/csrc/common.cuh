@@ -92,6 +92,33 @@ inline cudaError_t smem_limit_per_device(Kern kern, int bytes,
   return e;
 }
 
+// The causal band of the attention kernels (flash_fwd.cu, flash_bwd.cu):
+// the keys [lo, hi) that q rows [r0, r1) keep, and the q rows [lo, hi) that
+// keys [c0, c1) are kept by (none: 0, 0); ``window`` > 0 keeps rows - cols <
+// window. attention/flash.py ``key_range`` and attention/flash_bwd.py
+// ``row_range`` are the same formulas.
+__device__ __forceinline__ void key_range(int r0, int r1, int Nq, int Nk,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  r1 = min(r1, Nq);
+  lo = r1 <= r0 ? 0 : window > 0 ? max(r0 - window + 1, 0) : 0;
+  hi = r1 <= r0 ? 0 : causal ? min(Nk, r1) : Nk;
+}
+__device__ __forceinline__ void row_range(int c0, int c1, int Nq, int Nk,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  c1 = min(c1, Nk);
+  lo = c1 <= c0 ? 0 : causal ? c0 : 0;
+  hi = c1 <= c0 ? 0 : window > 0 ? min(Nq, c1 - 1 + window) : Nq;
+  if (hi < lo) hi = lo;
+}
+
+__device__ __forceinline__ bool keep(int row, int col, int Nq, int Nk,
+                                     int causal, int window) {
+  return row < Nq && col < Nk && (!causal || col <= row) &&
+         (window <= 0 || row - col < window);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

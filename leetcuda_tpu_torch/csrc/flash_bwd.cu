@@ -185,93 +185,7 @@ struct DkvTile {
   static_assert(SMEM_BYTES <= 232448, "dK/dV tiles exceed the shared memory");
 };
 
-// ----------------------------------------------------------------- band
-
-// The keys [lo, hi) that q rows [r0, r1) keep, and the q rows [lo, hi) that
-// keys [c0, c1) are kept by (none: 0, 0); attention/flash_bwd.py
-// ``key_range`` / ``row_range`` are the same formulas.
-__device__ __forceinline__ void key_range(int r0, int r1, int Nq, int Nk,
-                                          int causal, int window, int& lo,
-                                          int& hi) {
-  r1 = min(r1, Nq);
-  lo = r1 <= r0 ? 0 : window > 0 ? max(r0 - window + 1, 0) : 0;
-  hi = r1 <= r0 ? 0 : causal ? min(Nk, r1) : Nk;
-}
-__device__ __forceinline__ void row_range(int c0, int c1, int Nq, int Nk,
-                                          int causal, int window, int& lo,
-                                          int& hi) {
-  c1 = min(c1, Nk);
-  lo = c1 <= c0 ? 0 : causal ? c0 : 0;
-  hi = c1 <= c0 ? 0 : window > 0 ? min(Nq, c1 - 1 + window) : Nq;
-  if (hi < lo) hi = lo;
-}
-
-__device__ __forceinline__ bool keep(int row, int col, int Nq, int Nk,
-                                     int causal, int window) {
-  return row < Nq && col < Nk && (!causal || col <= row) &&
-         (window <= 0 || row - col < window);
-}
-
-// ------------------------------------------------------------------ ring
-
-// The ring of stages: tile i of the walk goes to stage i % kStages behind
-// full[stage], an mbarrier that counts its bytes. Each consumer warp
-// releases a stage once its products have read it; the warp whose release
-// completes the stage (a counter in shared memory) issues tile i + kStages
-// into it at once, so a load starts as early as its stage is free. (A
-// producer warp beside two consumer warpgroups would make a block of 9
-// warps, which caps every thread at 168 registers: the SM's four register
-// partitions hold 3 of its warps in one; a consumer thread polling for
-// free stages starts each load only just before it is needed.)
-template <int kStages, int kWarps>
-struct Ring {
-  uint64_t* full;
-  int* released;  // [kStages]
-  __device__ __forceinline__ void init() const {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      released[s] = 0;
-    }
-  }
-  __device__ __forceinline__ void wait(int i) const {
-    mbar_wait(&full[i % kStages], (i / kStages) & 1);
-  }
-  // the first tiles, one thread
-  template <class Issue>
-  __device__ __forceinline__ void start(int n, Issue&& issue) const {
-    for (int i = 0; i < kStages && i < n; ++i) issue(i, i, &full[i]);
-  }
-  // this warp is done with tile i (lane 0 counts it)
-  template <class Issue>
-  __device__ __forceinline__ void release(int i, int n, int lane,
-                                          Issue&& issue) const {
-    if (lane != 0) return;
-    const int s = i % kStages;
-    __threadfence_block();  // this warp's reads before its count
-    if (atomicAdd(&released[s], 1) == kWarps - 1) {
-      released[s] = 0;
-      __threadfence_block();
-      fence_proxy_async_shared();  // the stage's readers before TMA's writes
-      if (i + kStages < n) issue(i + kStages, s, &full[s]);
-    }
-  }
-};
-
 // ------------------------------------------------------------ elementwise
-
-__device__ __forceinline__ float tanh_cap(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 2^x in one MUFU op (flushing results below 2^-126 to 0, which no
-// tolerance of a P in [0, 1] sees); exp2f adds range handling around it.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The scalars of P and dS: scale * log2(e), scale / cap, cap * log2(e).
 struct Consts {
@@ -298,26 +212,6 @@ __device__ __forceinline__ float prob(float s, float lse2, const Consts& k,
 #endif
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) a[i] = 0.f;
-}
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&a)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_operand(a[i]);
-}
-// Keeps A fragments that an RS wgmma in flight reads in their registers
-// until the wait that retires it.
-template <int N>
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
-}
-
 __device__ __forceinline__ float dot_bf16x8(uint4 a, uint4 b) {
   const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
   float s = 0.f;
@@ -328,21 +222,6 @@ __device__ __forceinline__ float dot_bf16x8(uint4 a, uint4 b) {
          __uint_as_float(y[i] & 0xffff0000u);
   }
   return s;
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// A K-major descriptor of a 128-byte swizzled tile (rows of 64 values along
-// k, 8-row groups 1024 bytes apart) and an MN-major one (k-rows of 64
-// values along m or n, 64-wide chunks ``chunk`` bytes apart).
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
-  return gmma_desc(addr, 16, 1024);
-}
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, uint32_t chunk) {
-  return gmma_desc(addr, chunk, 1024);
 }
 
 struct Maps {

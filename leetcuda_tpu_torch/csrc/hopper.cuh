@@ -6,7 +6,9 @@
 // (matmul_resident.cu); the base for the later speed slices. The flash
 // backward (flash_bwd.cu) adds 3-D maps and loads, 1-D bulk copies, a
 // barrier test that does not wait, wgmma with B K-major or A in registers,
-// and named barriers.
+// and named barriers; the flash forward (flash_fwd.cu) and the w4a16 matmul
+// (w4_matmul.cu) share its ring of stages, descriptors and approximations,
+// and the w4a16 matmul adds wgmma at N = 8 and 16 and byte-tile maps.
 //
 // Conventions:
 // - A tile that TMA writes with the 128-byte swizzle is a stack of rows of
@@ -312,7 +314,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
 // of a[2 j + h], the layout of columns [16 kk, 16 kk + 16) of an m64
 // accumulator (d[8 kk + 4 j + 2 h + e]), so an accumulator rounded to
 // bf16 feeds the next product without passing through shared memory.
-// N is 32, 64, 128 or 256 (N / 2 accumulators a thread); ``acc`` 0
+// N is 8, 16, 32, 64, 128 or 256 (N / 2 accumulators a thread); ``acc`` 0
 // overwrites D. The resident chain's wrappers above stay as they are.
 
 #define LC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
@@ -363,6 +365,9 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                    "r"(acc), "n"(kTnspB));                                   \
   }
 
+LC_WGMMA_PAIR(8, 4, "%0, %1, %2, %3", 4, 5, 6, 7, 8, 9, 10, LC_D4(0))
+LC_WGMMA_PAIR(16, 8, "%0, %1, %2, %3, %4, %5, %6, %7", 8, 9, 10, 11, 12, 13,
+              14, LC_D4(0), LC_D4(4))
 LC_WGMMA_PAIR(32, 16, LC_S16, 16, 17, 18, 19, 20, 21, 22, LC_D16(0))
 LC_WGMMA_PAIR(64, 32, LC_S16 ", " LC_S32, 32, 33, 34, 35, 36, 37, 38,
               LC_D16(0), LC_D16(16))
@@ -389,6 +394,103 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(threads) : "memory");
 }
+
+// ------------------------------------- descriptors, fences, approximations
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// A K-major descriptor of a 128-byte swizzled tile (rows of 64 values along
+// k, 8-row groups 1024 bytes apart) and an MN-major one (k-rows of 64
+// values along m or n, 64-wide chunks ``chunk`` bytes apart).
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return gmma_desc(addr, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, uint32_t chunk) {
+  return gmma_desc(addr, chunk, 1024);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(a[i]);
+}
+// Keeps A fragments that an RS wgmma in flight reads in their registers
+// until the wait that retires it.
+template <int N, int W>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][W]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < W; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// tanh in one MUFU op (the softcap's: tanhf took the cap-50 backward 23%
+// longer, and the approximation holds every cap check and control).
+__device__ __forceinline__ float tanh_cap(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 2^x in one MUFU op (flushing results below 2^-126 to 0, which no
+// tolerance of a P in [0, 1] sees); exp2f adds range handling around it.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------------------------ ring
+
+// A ring of stages: tile i of a walk goes to stage i % kStages behind
+// full[stage], an mbarrier that counts its bytes. Each of the kWarps
+// consumer warps releases a stage once its reads of it are done; the warp
+// whose release completes the stage (a counter in shared memory) issues
+// tile i + kStages into it at once, so a load starts as early as its stage
+// is free. (A producer warp beside two consumer warpgroups would make a
+// block of 9 warps, which caps every thread at 168 registers: the SM's four
+// register partitions hold 3 of its warps in one.)
+template <int kStages, int kWarps>
+struct Ring {
+  uint64_t* full;
+  int* released;  // [kStages]
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      released[s] = 0;
+    }
+  }
+  __device__ __forceinline__ void wait(int i) const {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+  }
+  // the first tiles, one thread
+  template <class Issue>
+  __device__ __forceinline__ void start(int n, Issue&& issue) const {
+    for (int i = 0; i < kStages && i < n; ++i) issue(i, i, &full[i]);
+  }
+  // this warp is done with tile i (lane 0 counts it)
+  template <class Issue>
+  __device__ __forceinline__ void release(int i, int n, int lane,
+                                          Issue&& issue) const {
+    if (lane != 0) return;
+    const int s = i % kStages;
+    __threadfence_block();  // this warp's reads before its count
+    if (atomicAdd(&released[s], 1) == kWarps - 1) {
+      released[s] = 0;
+      __threadfence_block();
+      fence_proxy_async_shared();  // the stage's readers before TMA's writes
+      if (i + kStages < n) issue(i + kStages, s, &full[s]);
+    }
+  }
+};
 
 // ------------------------------------------- warpgroups, clusters, flags
 
@@ -488,6 +590,27 @@ inline int map_2d(CUtensorMap* map, const void* ptr, bool f16, int rows,
          2, const_cast<void*>(ptr), dims, strides, box, unit,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A row-major (rows, cols) matrix of bytes, ``ld`` bytes a row (a multiple
+// of 16), read in boxes of box_rows x box_cols (box_cols <= 128) with the
+// 128-byte swizzle; out-of-range bytes read 0. Returns a CUDA error code.
+inline int map_2d_u8(CUtensorMap* map, const void* ptr, int rows, int cols,
+                     int ld, int box_rows, int box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

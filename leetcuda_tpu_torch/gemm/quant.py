@@ -14,7 +14,9 @@ two packages unchanged:
 
 On CUDA tensors ``matmul_w8a16`` and ``matmul_w4a16`` launch the kernels in
 ``csrc/wq_matmul.cu`` and ``csrc/w4_matmul.cu`` (bf16 activations) and
-raise on what those do not take. On CPU tensors they run the plain versions
+raise on what those do not take. The w4a16 kernel (TMA + wgmma) takes one of
+two routes by row count (``w4_plan``): decode rows split K over the card and
+sum the splits in the same launch, prefill rows take 128-row CTA tiles. On CPU tensors they run the plain versions
 below, which follow the kernels' order of rounding: f32 products of the
 exact weight values, the scale applied in f32 (once per column for w8a16,
 once per group for w4a16), one rounding to the activation dtype.
@@ -31,6 +33,7 @@ and the six registered w8a16 / w4a16 rungs go to those two functions.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,20 +45,41 @@ W4A16 = LaunchCounter("matmul_w4a16")
 I8I8I32 = LaunchCounter("matmul_i8i8i32")
 # lc_wq_matmul_bf16(x, w, s, out, M, N, K, fp8, decode_tile, stream)
 _W8A16_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-# lc_w4_matmul_bf16(x, packed, scales, out, M, N, K, decode_tile, stream)
-_W4A16_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# lc_w4_matmul_bf16(x, packed, scales, out, ws, counters, M, N, K, bm,
+#                   splits, stream); lc_w4_matmul_info(info)
+_W4A16_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_W4_INFO_ARGS = (ctypes.c_void_p,)
 # lc_i8_matmul(x, w, out, M, N, K, stream)
 _I8_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
-# Each kernel has two tilings: a decode tiling (16-row CTA tiles, 128-deep
-# k steps: many CTAs for a few rows) and a prefill tiling (64-row tiles,
-# 32-deep steps: each staged tile reused over more rows). The wrappers take
-# the decode tiling up to this many rows. chip_smoke.py times both at every
-# matmul shape of its main paths and at 16-128 rows; on an H100 80GB HBM3
-# (700 W) the decode tiling won every shape of both kernels up to 64 rows
-# and a layer's matmuls in sum at 128, the prefill tiling a layer's sum
-# at 384 rows and every shape at 1024 and 12288 (PERF.md).
+# The w8a16 kernel has two tilings: a decode tiling (16-row CTA tiles,
+# 128-deep k steps: many CTAs for a few rows) and a prefill tiling (64-row
+# tiles, 32-deep steps: each staged tile reused over more rows). The wrapper
+# takes the decode tiling up to this many rows. chip_smoke.py times both at
+# every matmul shape of its main paths and at 16-128 rows; on an H100 80GB
+# HBM3 (700 W) the decode tiling won every shape up to 64 rows and a layer's
+# matmuls in sum at 128, the prefill tiling a layer's sum at 384 rows and
+# every shape at 1024 and 12288 (PERF.md).
 DECODE_TILE_MAX_ROWS = 128
+
+# The w4a16 kernel's routes (csrc/w4_matmul.cu): up to W4_DECODE_MAX_ROWS
+# rows, CTAs of the fewest rows of (8, 16, 32, 64) that hold them, K split
+# into whole groups until about W4_SPLIT_CTAS CTAs run (two an SM of an
+# H100), the splits summed in the launch; above, no split and CTAs of 64
+# rows up to W4_PREFILL_SMALL_ROWS rows, of W4_PREFILL_ROWS beyond. On an
+# H100 80GB HBM3 (700 W) the decode route won at path (c)'s shapes up to
+# 32 rows and lost from 64, and 64-row prefill CTAs beat 128-row ones by
+# 14-18% up to 128 rows and lost by 35-53% at 1024 (bench/gemm_bench.py
+# --w4; PERF.md row 12). chip_smoke.py times both routes at every matmul
+# shape of path (c).
+W4_DECODE_MAX_ROWS = 32
+W4_PREFILL_SMALL_ROWS = 128
+W4_SPLIT_CTAS = 264
+# the source's defaults (LC_W4_PREFILL_M, LC_W4_STAGES), checked against
+# the library's lc_w4_matmul_info
+W4_PREFILL_ROWS = 128
+W4_STAGES = 4
+W4_COLS = 128  # output columns of a CTA
 
 _E4M3 = torch.float8_e4m3fn
 
@@ -132,6 +156,89 @@ def matmul_w4a16_plain(x, packed, scales, group: int = 128):
     return acc.to(x.dtype)
 
 
+# --- the w4a16 kernel's plan -----------------------------------------------------
+
+@functools.lru_cache(maxsize=1024)
+def w4_plan(M, N, K, decode=None, prefill_rows=W4_PREFILL_ROWS,
+            stages=W4_STAGES):
+    """What one launch of csrc/w4_matmul.cu runs for x (M, K) and a (K/2, N)
+    pack: the route (``decode``: None picks it by M), the CTA's rows
+    ``bm``, the K splits (whole groups of 128 packed rows, none empty), the
+    grid, shared-memory bytes, and the workspace (f32 partials) and counters
+    the split sum needs. N is padded to 16 first, as the wrapper pads it.
+    Cached: a decode step asks for the same plans every time (read it,
+    do not change it)."""
+    if decode is None:
+        decode = M <= W4_DECODE_MAX_ROWS
+    N16 = -(-N // 16) * 16
+    groups = K // 256
+    if decode:
+        bm = next(b for b in (8, 16, 32, 64) if b >= min(M, 64))
+    else:
+        bm = 64 if M <= W4_PREFILL_SMALL_ROWS else prefill_rows
+    n_tiles, m_tiles = -(-N16 // W4_COLS), -(-M // bm)
+    splits = 1
+    if decode:
+        want = min(groups, -(-W4_SPLIT_CTAS // (n_tiles * m_tiles)))
+        splits = -(-groups // -(-groups // want))
+    gps = -(-groups // splits)
+    return {"route": "decode" if decode else "prefill", "bm": bm,
+            "splits": splits,
+            "split_groups": [(s * gps, min(groups, (s + 1) * gps))
+                             for s in range(splits)],
+            "grid": (n_tiles, m_tiles, splits), "threads": 256,
+            "stages": stages,
+            "smem": 1024 + stages * (64 * W4_COLS + 2 * bm * 128)
+            + 16 * stages + 16,
+            "workspace": splits * M * N16 if splits > 1 else 0,
+            "counters": n_tiles * m_tiles if splits > 1 else 0}
+
+
+# One (workspace, counters) pair per (device, stream), grown on demand: the
+# last CTA of an output tile zeroes its counter again, so the counters are
+# zero between launches and two streams never share them.
+_W4_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _w4_scratch(device, stream: int, workspace: int, counters: int):
+    key = (device.index, stream)
+    ws, cnt = _W4_SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < workspace or cnt.numel() < counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("w4a16 kernel: this stream has no split "
+                               "workspace of that size yet; launch the call "
+                               "once on it before capturing a graph")
+        ws = torch.empty(max(workspace, 0 if ws is None else ws.numel()),
+                         dtype=torch.float32, device=device)
+        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32,
+                          device=device)
+        _W4_SCRATCH[key] = (ws, cnt)
+    return ws, cnt
+
+
+_W4_INFO: dict = {}
+
+
+def w4_build_info(lib="w4_matmul"):
+    """(prefill rows, stages) that ``lib`` (a source name or a variant
+    build) was compiled with; the package's build must match W4_PREFILL_ROWS
+    and W4_STAGES."""
+    from leetcuda_tpu_torch.build import entry
+
+    key = lib if isinstance(lib, str) else id(lib)
+    got = _W4_INFO.get(key)
+    if got is None:
+        info = (ctypes.c_int * 2)()
+        check_launch(entry(lib, "lc_w4_matmul_info", _W4_INFO_ARGS)(
+            ctypes.addressof(info)), W4A16.name)
+        got = _W4_INFO[key] = (info[0], info[1])
+        if lib == "w4_matmul" and got != (W4_PREFILL_ROWS, W4_STAGES):
+            raise RuntimeError(f"csrc/w4_matmul.cu was built with {got}; "
+                               f"the wrapper plans {W4_PREFILL_ROWS} rows, "
+                               f"{W4_STAGES} stages")
+    return got
+
+
 # --- wrappers -----------------------------------------------------------------
 
 def _check_x(x, K, what):
@@ -166,20 +273,34 @@ def _launch_w8a16(x, q, s, decode_tile: bool):
     return out
 
 
-def _launch_w4a16(x, packed, scales, decode_tile: bool):
-    """Launch csrc/w4_matmul.cu on the current stream, in the decode or the
-    prefill tiling, on operands the wrapper has checked."""
-    from leetcuda_tpu_torch.build import kernel
+def _launch_w4a16(x, packed, scales, decode: bool, lib="w4_matmul"):
+    """Launch csrc/w4_matmul.cu (or the variant build ``lib``) on the
+    current stream, on the decode or the prefill route (``w4_plan``), on
+    operands the wrapper has checked. N is padded to a multiple of 16 with
+    zero columns where it is not one (TMA reads rows of 16-byte multiples)."""
+    from leetcuda_tpu_torch.build import entry
 
-    M, N = x.shape[0], packed.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    fn = kernel("w4_matmul", "lc_w4_matmul_bf16", _W4A16_ARGS)
+    prefill_rows, stages = w4_build_info(lib)
+    (M, K), N = x.shape, packed.shape[1]
+    plan = w4_plan(M, N, K, decode, prefill_rows, stages)
+    N16 = -(-N // 16) * 16
+    if N16 != N:
+        packed = torch.nn.functional.pad(packed, (0, N16 - N))
+        scales = torch.nn.functional.pad(scales, (0, N16 - N))
+    out = torch.empty((M, N16), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = cnt = None
+    if plan["splits"] > 1:
+        ws, cnt = _w4_scratch(x.device, stream, plan["workspace"],
+                              plan["counters"])
+    fn = entry(lib, "lc_w4_matmul_bf16", _W4A16_ARGS)
     err = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-             out.data_ptr(), M, N, x.shape[1], int(decode_tile),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             out.data_ptr(), None if ws is None else ws.data_ptr(),
+             None if cnt is None else cnt.data_ptr(), M, N16, K, plan["bm"],
+             plan["splits"], stream)
     check_launch(err, W4A16.name)
     W4A16.add()
-    return out
+    return out if N16 == N else out[:, :N].contiguous()
 
 
 def matmul_w8a16(x, q, s):
@@ -229,8 +350,7 @@ def matmul_w4a16(x, packed, scales, group: int = 128):
                          f"N % 8 == 0; got group {group}, {scales.dtype}, "
                          f"N={N}")
     _check_kernel_operands("w4a16", x, packed=packed, scales=scales)
-    return _launch_w4a16(x, packed, scales,
-                         x.shape[0] <= DECODE_TILE_MAX_ROWS)
+    return _launch_w4a16(x, packed, scales, x.shape[0] <= W4_DECODE_MAX_ROWS)
 
 
 # --- int8 x int8 -> int32 -----------------------------------------------------
