@@ -13,7 +13,8 @@ Phases; any failure raises and the script exits non-zero:
    version's time, one PyTorch library call's time as a yardstick, and the
    least time the card could take (bound). The quantized matmuls run on
    the quantized paths' own weights at every row count each path gives
-   them, and are also timed in both of their tilings. Paged attention
+   them, and are also run in both of their routes, each twice bit for bit,
+   and timed. Paged attention
    runs over shuffled pools full of NaN wherever no row owns a position;
    the fused norm->QKV->RoPE and norm->matmul kernels run on layer 0 of
    path (d)'s params, beside the eager unfused sequence and the bare
@@ -44,8 +45,13 @@ Phases; any failure raises and the script exits non-zero:
    log2(e)) that must fail, and its SASS. The w4a16 matmul runs both of its
    routes (split-K at decode rows, 64- or 128-row tiles at prefill rows)
    at path (c)'s weight shapes and 1-1024 rows, each twice bit for bit,
-   and its SASS (wgmma and TMA, no mma.sync). Path
-   (o) runs its own phase 3
+   and its SASS (wgmma and TMA, no mma.sync); so does the w8a16 matmul
+   (split-K at decode rows; at prefill rows a conversion pass, then the
+   dense TMA + wgmma kernel) at paths (a) and (b)'s weight shapes and every
+   row count of theirs (1-12288), with e4m3's NaN bytes on both routes;
+   its conversion pass (``w8_to_bf16``, a kernel and a count of its own)
+   is also held exact and timed alone against its byte bound.
+   Path (o) runs its own phase 3
    (``check_attn_options``): the window and softcap of every attention
    kernel at Gemma-2-27B's layer-0 shapes; path (p) its own
    (``check_lse``): the lse of the decode, paged and chunk kernels at
@@ -122,7 +128,9 @@ Phases; any failure raises and the script exits non-zero:
           launch counts left as they were (``uncounted``); at the headline
           and the matmul_auto shapes every tensor-core tile is timed with
           and without a grouped walk (the A/B behind pick_matmul_config),
-          and at the gemv shapes each ``k_lanes``.
+          and at the gemv shapes each ``k_lanes``. The f16 / bf16 tiles are
+          one persistent TMA + wgmma kernel: the library's SASS holds
+          wgmma and TMA loads and no mma.sync.
    (k)    the row ops and split-KV attention (after path (j)), in three
           parts, each with the counts zeroed: the 27 registered ops of the
           rms-norm, layer-norm, softmax and attention-utils families at
@@ -348,7 +356,11 @@ Phases; any failure raises and the script exits non-zero:
    the same model and cache type: each must score within LOGIT_TOL of the
    replay's max logit. A prompt the Engine admitted in a ragged batch
    replays through a B=1 ``forward``; the bf16 path's lone request and its
-   ``generate`` streams replay token by token through ``decode_step``. Paths (d), (e) and (f) replay over a CONTIGUOUS cache
+   ``generate`` streams replay token by token through ``decode_step``. The
+   main paths' decode steps replay as CUDA graphs of ``decode_step``
+   (``StepGraphs``: the same kernels in the same order, without the host's
+   launches); the first stream of each params set and cache type replays
+   eagerly too and must give the same gaps bit for bit. Paths (d), (e) and (f) replay over a CONTIGUOUS cache
    with UNFUSED math, so the replay shares neither the paged, the fused nor
    the chunk kernel with them; (g) replays token by token through
    ``decode_step`` over a contiguous e4m3 cache (the shared prefix once),
@@ -432,13 +444,14 @@ QUANT_PATHS = {"a": ("fp8", True, "fp8"), "b": ("int8", True, "int8"),
 PATH_KERNELS = {
     "bf16": ("flash_attention", "flash_attention_ragged", "decode_attention"),
     "a": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
+          "w8_to_bf16", "decode_attention_quantized"),
+    "b": ("flash_attention", "matmul_w8a16", "w8_to_bf16",
           "decode_attention_quantized"),
-    "b": ("flash_attention", "matmul_w8a16", "decode_attention_quantized"),
     "c": ("flash_attention", "matmul_w4a16", "decode_attention_quantized"),
     "d": ("flash_attention", "flash_attention_ragged", "paged_attention",
           "fused_norm_qkv_rope"),
     "e": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
-          "paged_attention_quantized"),
+          "w8_to_bf16", "paged_attention_quantized"),
     "f": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
           "decode_attention", "paged_chunk_attention"),
     "g": ("matmul_w8a16", "paged_attention_quantized",
@@ -1750,11 +1763,11 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
                + 4.0 * B * H * D + 4 * B)
 
     # the quantized matmuls at every weight shape and row count of the main
-    # paths, each in the wrapper's tiling and in both tilings (the A/B that
-    # sets gq.DECODE_TILE_MAX_ROWS; for w4a16 both routes, the A/B that sets
-    # gq.W4_DECODE_MAX_ROWS, each route twice bit for bit). Library
-    # yardstick: torch.matmul on the weight dequantized to bf16 beforehand,
-    # which reads twice (w8a16) or four times (w4a16) the weight bytes.
+    # paths, each in the wrapper's route and in both routes (the A/B that
+    # sets gq.W8_DECODE_MAX_ROWS and gq.W4_DECODE_MAX_ROWS), each route
+    # twice bit for bit. Library yardstick: torch.matmul on the weight
+    # dequantized to bf16 beforehand, which reads twice (w8a16) or four
+    # times (w4a16) the weight bytes.
     for path, key, w, m_rows in mm_cases:
         if "q4" in w:
             name, args = "matmul_w4a16", (w["q4"], w["s4"])
@@ -1782,9 +1795,8 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
                 got = launch(x, *args, tile == "decode")
                 torch.testing.assert_close(got.float(), want.float(),
                                            **KERNEL_TOL)
-                if name == "matmul_w4a16" and not torch.equal(
-                        got, launch(x, *args, tile == "decode")):
-                    raise AssertionError(f"w4a16 {tile} route M={M} K={K} "
+                if not torch.equal(got, launch(x, *args, tile == "decode")):
+                    raise AssertionError(f"{name} {tile} route M={M} K={K} "
                                          f"N={N}: a second call differs")
                 tiles[tile] = (
                     time_ms(lambda: launch(x, *args, tile == "decode"),
@@ -1802,26 +1814,57 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
                 ms_decode_tile=tiles["decode"][0],
                 ms_prefill_tile=tiles["prefill"][0],
                 max_abs_err_tiles=max(e for _, e in tiles.values()))
-            if name == "matmul_w4a16":
-                rows[check].update(repeat_bit_equal=True, route_plan={
-                    r: gq.w4_plan(M, N, K, r == "decode")["grid"]
-                    for r in ("decode", "prefill")})
-    w4_rows = [r for r in rows.values() if r["name"] == "matmul_w4a16"]
-    if w4_rows:  # wgmma fed by TMA on both routes, no mma.sync
-        w4_rows[0]["sass"] = resident_sass("w4_matmul")
+            plan = gq.w4_plan if name == "matmul_w4a16" else gq.w8_plan
+            rows[check].update(repeat_bit_equal=True, route_plan={
+                r: plan(M, N, K, r == "decode")["grid"]
+                for r in ("decode", "prefill")})
+    for name, lib in (("matmul_w4a16", "w4_matmul"),
+                      ("matmul_w8a16", "wq_matmul")):
+        named = [r for r in rows.values() if r["name"] == name]
+        if named:  # wgmma fed by TMA on both routes, no mma.sync
+            named[0]["sass"] = resident_sass(lib)
 
-    # e4m3 NaN bytes decode to NaN in both tilings as in the plain version
+    # e4m3 NaN bytes decode to NaN on both routes as in the plain version, at
+    # a decode step's rows and at a prefill's
     w = next(w for _, _, w, _ in mm_cases
              if w.get("q") is not None and w["q"].dtype == torch.float8_e4m3fn)
     wq, ws = w["q"].clone(), w["s"]
     as_bytes(wq)[0, :8] = torch.tensor([0x7F, 0xFF] * 4, dtype=torch.uint8,
                                        device=dev)
-    x = randn(8, wq.shape[0])
-    nan_p = torch.isnan(gq.matmul_w8a16_plain(x, wq, ws))
-    for decode_tile in (True, False):
-        nan_k = torch.isnan(gq._launch_w8a16(x, wq, ws, decode_tile))
-        if not (nan_k[:, :8].all() and torch.equal(nan_k, nan_p)):
-            raise AssertionError("e4m3 bytes 0x7F / 0xFF do not decode to NaN")
+    for M in (8, 384):
+        x = randn(M, wq.shape[0])
+        nan_p = torch.isnan(gq.matmul_w8a16_plain(x, wq, ws))
+        for decode in (True, False):
+            nan_k = torch.isnan(gq._launch_w8a16(x, wq, ws, decode))
+            if not (nan_k[:, :8].all() and torch.equal(nan_k, nan_p)):
+                raise AssertionError("e4m3 bytes 0x7F / 0xFF do not decode "
+                                     f"to NaN (M={M}, decode={decode})")
+    nan_c = torch.isnan(gq._launch_w8_to_bf16(as_bytes(wq), True).float())
+    if not torch.equal(nan_c, torch.isnan(wq.float())):
+        raise AssertionError("w8_to_bf16: e4m3 bytes 0x7F / 0xFF do not "
+                             "decode to NaN")
+
+    # the prefill route's first pass alone, at the widest pack of each
+    # format (w_gate_up), exact and against its byte bound (the bytes read,
+    # twice as many written): its share of a prefill's w8a16 time
+    for qdt in (torch.float8_e4m3fn, torch.int8):
+        q = max((w["q"] for _, _, w, _ in mm_cases
+                 if w.get("q") is not None and w["q"].dtype == qdt),
+                key=lambda t: t.numel())
+        (K, N), fp8 = q.shape, qdt == torch.float8_e4m3fn
+        qb = as_bytes(q)
+        got, want = gq._launch_w8_to_bf16(qb, fp8), q.float().to(bf)
+        if not (torch.equal(got, want)
+                and torch.equal(got, gq._launch_w8_to_bf16(qb, fp8))):
+            raise AssertionError(f"w8_to_bf16 K={K} N={N}: not the exact "
+                                 f"values, or a second call differs")
+        check = f"w8_to_bf16/{'fp8' if fp8 else 'int8'} K={K} N={N}"
+        record(check, "w8_to_bf16", "leetcuda_tpu_torch/csrc/wq_matmul.cu",
+               "leetcuda_tpu/gemm/quant.py:108", got, want,
+               time_ms(lambda: gq._launch_w8_to_bf16(qb, fp8), flush),
+               time_ms(lambda: q.float().to(bf), flush, iters=5),
+               time_ms(lambda: q.to(bf), flush), 0.0, 3.0 * K * N)
+        rows[check].update(K=K, N=N, exact=True)
 
     check_decode_split(rec, flush)
     check_paged(rec, flush)
@@ -1832,53 +1875,154 @@ def check_kernels(flush, mm_cases, fused_layer, cfg, dev="cuda"):
     return rows
 
 
-def teacher_forced_gap(params, cfg, prompt, tokens):
+class StepGraphs:
+    """B=1 ``decode_step`` of one params set over one cache type (contiguous,
+    ``kv_quant``), captured as a CUDA graph per cache length and replayed
+    token by token: the same kernels on the same inputs in the same order as
+    the eager step, without the host's ~1000 launches a step, which made the
+    solo replays of phase 5 host-bound. The first stream replayed through
+    an instance is also replayed eagerly (``held``) and must give the same
+    gaps bit for bit."""
+
+    def __init__(self, params, cfg, kv_quant=None):
+        self.params, self.cfg, self.kvq = params, cfg, kv_quant
+        self.dev = params["embed"].device
+        self.stream = torch.cuda.Stream(self.dev)
+        self.graphs = {}
+        self.held = False
+
+    def caches(self, n):
+        """The length-``n`` graph's caches, reset to what init_kv_caches
+        makes (zeros, scales of one)."""
+        from leetcuda_tpu_torch.core.runtime import as_bytes
+        from leetcuda_tpu_torch.models.llama import init_kv_caches
+
+        caches = self._graph(n)["caches"]
+        fresh = init_kv_caches(self.cfg, 1, n, quant=self.kvq,
+                               device=self.dev)
+        for c, f in zip(caches, fresh):
+            for k, v in c.items():
+                as_bytes(v).copy_(as_bytes(f[k]))
+        return caches
+
+    def step(self, n, tok, pos):
+        """One decode step of ``tok`` ((1,) int32) at position ``pos`` over
+        the length-``n`` caches; the (1, V) logits, overwritten by the next
+        step of that length."""
+        g = self._graph(n)
+        g["tok"].copy_(tok)
+        g["lengths"].fill_(pos)
+        g["graph"].replay()
+        return g["logits"]
+
+    def _graph(self, n):
+        from leetcuda_tpu_torch.models.llama import decode_step, init_kv_caches
+
+        g = self.graphs.get(n)
+        if g is None:
+            caches = init_kv_caches(self.cfg, 1, n, quant=self.kvq,
+                                    device=self.dev)
+            tok = torch.zeros(1, dtype=torch.int32, device=self.dev)
+            lengths = torch.zeros(1, dtype=torch.int32, device=self.dev)
+            cur = torch.cuda.current_stream(self.dev)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):  # the kernels' split
+                decode_step(self.params, tok, caches, lengths,  # scratch,
+                            self.cfg)  # made outside the capture
+            cur.wait_stream(self.stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self.stream):
+                logits, _ = decode_step(self.params, tok, caches, lengths,
+                                        self.cfg)
+            g = self.graphs[n] = {"graph": graph, "caches": caches,
+                                  "tok": tok, "lengths": lengths,
+                                  "logits": logits}
+        return g
+
+
+def held_gap(graphs, gaps):
+    """The largest of ``gaps(graphs)`` (per-token gaps of one stream); the
+    first stream of a StepGraphs is also replayed eagerly (``gaps(None)``),
+    which must give the same gaps bit for bit."""
+    got = gaps(graphs)
+    if graphs is not None and not graphs.held:
+        want = gaps(None)
+        if not torch.equal(got, want):
+            raise AssertionError(f"a graphed replay differs from the eager "
+                                 f"one: {got.tolist()} vs {want.tolist()}")
+        graphs.held = True
+    return float(got.max())
+
+
+def teacher_forced_gap(params, cfg, prompt, tokens, graphs=None):
     """Largest (max logit - logit of the served token) over a solo B=1
-    decode_step replay of prompt + tokens, on the params' device."""
+    decode_step replay of prompt + tokens, on the params' device (through
+    ``graphs``, a StepGraphs of these params without KV quantization, where
+    given)."""
     from leetcuda_tpu_torch.models.llama import decode_step, init_kv_caches
 
     dev = params["embed"].device
     seq = list(prompt) + list(tokens)
-    caches = init_kv_caches(cfg, 1, len(seq) + (-len(seq) % 128), device=dev)
-    lengths = torch.zeros(1, dtype=torch.int32, device=dev)
+    n = len(seq) + (-len(seq) % 128)
     toks = torch.tensor(seq, dtype=torch.int32, device=dev)
     tgt = torch.tensor(list(tokens), dtype=torch.long, device=dev)
-    gaps = []
-    for t in range(len(seq) - 1):
-        logits, caches = decode_step(params, toks[t:t + 1], caches, lengths,
-                                     cfg)
-        lengths += 1
-        j = t - (len(prompt) - 1)
-        if j >= 0:
-            gaps.append(logits[0].max() - logits[0, tgt[j]])
-    return float(torch.stack(gaps).max())
+
+    def gaps(graphs):
+        if graphs is not None:
+            graphs.caches(n)
+        else:
+            caches = init_kv_caches(cfg, 1, n, device=dev)
+            lengths = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = []
+        for t in range(len(seq) - 1):
+            if graphs is not None:
+                logits = graphs.step(n, toks[t:t + 1], t)
+            else:
+                logits, caches = decode_step(params, toks[t:t + 1], caches,
+                                             lengths, cfg)
+                lengths += 1
+            j = t - (len(prompt) - 1)
+            if j >= 0:
+                out.append(logits[0].max() - logits[0, tgt[j]])
+        return torch.stack(out)
+
+    return held_gap(graphs, gaps)
 
 
-def replay_gap(params, cfg, prompt, tokens, kv_quant):
+def replay_gap(params, cfg, prompt, tokens, kv_quant, graphs=None):
     """The same gap over a solo replay of a quantized path: one B=1
     ``forward`` over the prompt, its K/V inserted into a B=1 cache of the
-    path's type, then one B=1 decode_step per served token."""
+    path's type, then one B=1 decode_step per served token (through
+    ``graphs``, a StepGraphs of these params and cache type, where given)."""
     from leetcuda_tpu_torch.engine.engine import _insert_kvs
     from leetcuda_tpu_torch.models.llama import (decode_step, forward,
                                                  init_kv_caches)
 
     dev = params["embed"].device
     L, n = len(prompt), len(tokens)
-    caches = init_kv_caches(cfg, 1, L + n + (-(L + n) % 128), quant=kv_quant,
-                            device=dev)
+    size = L + n + (-(L + n) % 128)
     toks = torch.tensor(list(tokens), dtype=torch.int32, device=dev)
-    logits, kvs = forward(params, torch.tensor([list(prompt)],
-                                               dtype=torch.int32, device=dev),
-                          cfg, return_kv=True)
-    _insert_kvs(caches, kvs, 0)
-    gaps = [logits[0, L - 1].max() - logits[0, L - 1, toks[0].long()]]
-    lengths = torch.full((1,), L, dtype=torch.int32, device=dev)
-    for j in range(n - 1):
-        logits, caches = decode_step(params, toks[j:j + 1], caches, lengths,
-                                     cfg)
-        lengths += 1
-        gaps.append(logits[0].max() - logits[0, toks[j + 1].long()])
-    return float(torch.stack(gaps).max())
+
+    def gaps(graphs):
+        caches = (graphs.caches(size) if graphs is not None else
+                  init_kv_caches(cfg, 1, size, quant=kv_quant, device=dev))
+        logits, kvs = forward(params, torch.tensor(
+            [list(prompt)], dtype=torch.int32, device=dev), cfg,
+            return_kv=True)
+        _insert_kvs(caches, kvs, 0)
+        out = [logits[0, L - 1].max() - logits[0, L - 1, toks[0].long()]]
+        lengths = torch.full((1,), L, dtype=torch.int32, device=dev)
+        for j in range(n - 1):
+            if graphs is not None:
+                logits = graphs.step(size, toks[j:j + 1], L + j)
+            else:
+                logits, caches = decode_step(params, toks[j:j + 1], caches,
+                                             lengths, cfg)
+                lengths += 1
+            out.append(logits[0].max() - logits[0, toks[j + 1].long()])
+        return torch.stack(out)
+
+    return held_gap(graphs, gaps)
 
 
 def sync(dev):
@@ -2065,36 +2209,30 @@ def serve_speculative(target, draft, cfg, gprompts, g_new, k, prompts,
             "sample_acceptance_rate": srate}, gtoks, served
 
 
-def stepwise_gaps(params, cfg, prefix, tails, kv_quant):
+def stepwise_gaps(graphs, prefix, tails):
     """Teacher-forced gaps of streams that share ``prefix``: a solo B=1
-    replay, token by token through ``decode_step`` over a contiguous cache
-    of the path's type, the prefix once (its cache is copied for every
-    stream). ``tails``: (suffix, served tokens) per stream."""
-    from leetcuda_tpu_torch.models.llama import decode_step, init_kv_caches
-
-    dev = params["embed"].device
+    replay, token by token through ``decode_step`` (``graphs``, a
+    StepGraphs of the path's params and cache type) over a contiguous
+    cache, the prefix once (its cache is copied for every stream).
+    ``tails``: (suffix, served tokens) per stream."""
+    dev = graphs.dev
     n = len(prefix) + max(len(s) + len(t) for s, t in tails)
-    caches = init_kv_caches(cfg, 1, n + (-n % 128), quant=kv_quant,
-                            device=dev)
-    lengths = torch.zeros(1, dtype=torch.int32, device=dev)
+    n += -n % 128
+    caches = graphs.caches(n)
     toks = torch.tensor(prefix, dtype=torch.int32, device=dev)
     for t in range(len(prefix)):
-        decode_step(params, toks[t:t + 1], caches, lengths, cfg)
-        lengths += 1
+        graphs.step(n, toks[t:t + 1], t)
     snapshot = [{k: v.clone() for k, v in c.items()} for c in caches]
     worst = []
     for suffix, tokens in tails:
         for c, snap in zip(caches, snapshot):
             for k, v in snap.items():
                 c[k].copy_(v)
-        lengths.fill_(len(prefix))
         seq = torch.tensor(list(suffix) + list(tokens), dtype=torch.int32,
                            device=dev)
         gaps = []
         for t in range(len(seq) - 1):
-            logits, _ = decode_step(params, seq[t:t + 1], caches, lengths,
-                                    cfg)
-            lengths += 1
+            logits = graphs.step(n, seq[t:t + 1], len(prefix) + t)
             if t >= len(suffix) - 1:
                 gaps.append(logits[0].max() - logits[0, seq[t + 1].long()])
         worst.append(float(torch.stack(gaps).max()))
@@ -2644,6 +2782,7 @@ def gemm_library(layer, embed, card):
         for k, v in counts.items():
             res["launches"][k] = res["launches"].get(k, 0) + v
     res["untimed_checks"] = run.checks
+    res["sass"] = resident_sass("matmul")  # wgmma fed by TMA, no mma.sync
     res["seconds"] = time.perf_counter() - t0
     rows = run.rec.rows
     bf, f16 = (rows[f"matmul/hgemm {t} {HEADLINE_MNK}^3"]
@@ -2680,6 +2819,7 @@ def print_gemm(rows, res):
             if key in r:
                 print("    " + ", ".join(f"{k}: {v:.4f}"
                                          for k, v in r[key].items()))
+    print(f"  matmul SASS: {res['sass']}")
     print(f"  launches: {res['launches']}")
 
 
@@ -3381,8 +3521,9 @@ def ptxas_entries(log, needle):
 def resident_sass(name="matmul_resident"):
     """Counts of wgmma (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG)
     instructions in the SASS of ``csrc/<name>.cu``'s library (the resident
-    chain's, or the flash backward's): it must run on wgmma fed by TMA and
-    keep no mma.sync route."""
+    chain's, the flash kernels', the quantized matmuls', the matmul
+    library's): it must run on wgmma fed by TMA and keep no mma.sync
+    route."""
     from leetcuda_tpu_torch.build import _lib_path, _nvcc
 
     tool = Path(_nvcc()).parent / "cuobjdump"
@@ -6895,23 +7036,26 @@ def param_bytes(params):
     return walk(params)
 
 
-def check_served(params, cfg, prompts, served, gprompts, gtoks):
+def check_served(params, cfg, prompts, served, gprompts, gtoks, graphs):
     """Phase 5 (bf16 path): teacher-forced gaps of every served stream. The
     requests of the ragged admission (all but the last) replay their prompt
     through a B=1 ``forward``, as the other paths' replays do (a kernel the
     ragged admission never ran); the lone request, which the Engine
     prefilled through ``forward``, and the ``generate`` streams replay token
-    by token through ``decode_step``."""
+    by token through ``decode_step``; the decode steps through ``graphs``
+    (a StepGraphs of ``params`` without KV quantization)."""
     gaps = {}
     for i, (prompt, toks) in enumerate(zip(prompts, served)):
         if i == len(prompts) - 1:
-            gaps[f"engine/{i}"] = teacher_forced_gap(params, cfg, prompt, toks)
+            gaps[f"engine/{i}"] = teacher_forced_gap(params, cfg, prompt, toks,
+                                                     graphs)
         else:
-            gaps[f"engine/{i}"] = replay_gap(params, cfg, prompt, toks, None)
+            gaps[f"engine/{i}"] = replay_gap(params, cfg, prompt, toks, None,
+                                             graphs)
     g_np = gtoks.cpu().numpy()
     for b in range(g_np.shape[0]):
         gaps[f"generate/{b}"] = teacher_forced_gap(
-            params, cfg, gprompts[b].tolist(), g_np[b].tolist())
+            params, cfg, gprompts[b].tolist(), g_np[b].tolist(), graphs)
     return gaps
 
 
@@ -7139,7 +7283,9 @@ def main() -> int:
                                "mm_resident"),
                               ("flash_bwd_ptxas", "flash_bwd", "flash_bwd"),
                               ("flash_fwd_ptxas", "flash_fwd", "flash_fwd"),
-                              ("w4_ptxas", "w4_matmul", "w4_mm")):
+                              ("w4_ptxas", "w4_matmul", "w4_mm"),
+                              ("w8_ptxas", "wq_matmul", ""),
+                              ("hgemm_ptxas", "matmul", "gemm_sm90")):
         report[key] = ptxas_entries(reports.get(name, ""), needle)
         for e in report[key]:
             print(f"  {name} {e['kernel']}: {e.get('registers')} "
@@ -7215,15 +7361,15 @@ def main() -> int:
     # projection: 8 (a decode step over 8 slots or a B=8 batch), the padded
     # ragged admission (8 x 1536) and the lone prompt (384) of the Engine,
     # generate's B=8 x 128 prefill; and 16-128 rows on paths (a) and (c),
-    # where the two tilings (routes) of each matmul cross over; on (c) also
-    # 1, 9 and 72 rows (the w4a16 kernel's row tiles of 8 and 64 ragged).
+    # where the two routes of each matmul cross over; on (a) and (c) also
+    # 1, 9 and 72 rows (the kernels' row tiles of 8 and 64 ragged).
     bucket = 128
 
     def pad(n):
         return -(-n // bucket) * bucket
 
     sweep = (16, 32, 64, 128)
-    path_rows = {"a": (8, len(prompts) * pad(int(max(plens))),
+    path_rows = {"a": (1, 8, 9, 72, len(prompts) * pad(int(max(plens))),
                        pad(len(lone)), *sweep),
                  "b": (8, gprompts.numel()),
                  "c": (1, 8, 9, 72, gprompts.numel(), *sweep)}
@@ -7231,10 +7377,9 @@ def main() -> int:
     checks = check_kernels(flush, matmul_cases(qparams, path_rows),
                            fparams["layers"][0], cfg)
     for r in checks.values():
-        cut = "route" if r["name"] == "matmul_w4a16" else "tiling"
         tiles = ("" if "ms_decode_tile" not in r else
-                 f" [decode {cut} {r['ms_decode_tile']:.4f} ms, prefill "
-                 f"{cut} {r['ms_prefill_tile']:.4f} ms]")
+                 f" [decode route {r['ms_decode_tile']:.4f} ms, prefill "
+                 f"route {r['ms_prefill_tile']:.4f} ms]")
         lib = (f"library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else
                f"library none [eager unfused {r['eager_unfused_ms']:.4f} ms, "
@@ -7506,8 +7651,15 @@ def main() -> int:
 
     # 5. teacher-forced checks against solo replays
     t3 = time.perf_counter()
+    graphs = {}  # a StepGraphs per (params, cache type)
+
+    def graphed(p, kvq):
+        if (id(p), kvq) not in graphs:
+            graphs[id(p), kvq] = StepGraphs(p, cfg, kvq)
+        return graphs[id(p), kvq]
+
     gaps = check_served(params, cfg, prompts + [lone], served, gprompts,
-                        gtoks)
+                        gtoks, graphed(params, None))
     replay_of = {**{name: (qparams[name], kvq)
                     for name, (_, _, kvq) in QUANT_PATHS.items()},
                  **{name: (rp, kvq)
@@ -7515,14 +7667,16 @@ def main() -> int:
                  "f": (params, None), "h": (params, "int8")}
     for name, (rp, kvq) in replay_of.items():
         for i, (prompt, toks) in enumerate(qserved[name]):
-            gaps[f"{name}/{i}"] = replay_gap(rp, cfg, prompt, toks, kvq)
+            gaps[f"{name}/{i}"] = replay_gap(rp, cfg, prompt, toks, kvq,
+                                             graphed(rp, kvq))
     for b, toks in enumerate(h_gtoks.tolist()):
         gaps[f"h/generate{b}"] = replay_gap(params, cfg, gprompts[b].tolist(),
-                                            toks, None)
+                                            toks, None, graphed(params, None))
     replay_of["g"] = (draft, QUANT_PATHS["a"][2])
-    for i, gap in enumerate(stepwise_gaps(draft, cfg, prefix, g_tails,
-                                          QUANT_PATHS["a"][2])):
+    for i, gap in enumerate(stepwise_gaps(graphed(*replay_of["g"]), prefix,
+                                          g_tails)):
         gaps[f"g/{i}"] = gap
+    graphs.clear()
     worst = {p: max(g for k, g in gaps.items()
                     if k.split("/")[0] in ((p,) if p != "bf16"
                                            else ("engine", "generate")))

@@ -9,6 +9,8 @@ same dtype.
     python -m leetcuda_tpu_torch.bench.gemm_bench --resident \\
         --json resident_bench.json
     python -m leetcuda_tpu_torch.bench.gemm_bench --w4 --json w4_bench.json
+    python -m leetcuda_tpu_torch.bench.gemm_bench --w8 --json w8_bench.json
+    python -m leetcuda_tpu_torch.bench.gemm_bench --hgemm --repeats 3
 
 ``--w4`` is the A/B of the w4a16 kernel (``csrc/w4_matmul.cu``): the
 package's build and variant builds of its macros (prefill CTAs of 64 rows,
@@ -20,13 +22,31 @@ dequantized to bf16 beforehand, at path (c)'s weight shapes (``--w4-kn``)
 and the rows ``--m`` (default 1, 8, 16, 32, 64, 128, 1024), each route of
 each build held against ``matmul_w4a16_plain`` (atol / rtol 1e-2).
 
+``--w8`` is the A/B of the w8a16 kernel (``csrc/wq_matmul.cu``): the
+package's build (the prefill route a conversion pass, then the dense
+kernel), variant builds of 3 and 6 decode stages and a probe whose results
+are wrong (LC_W8_PROBE 1: the decode route without its products, the feed
+alone), each printing its ptxas registers and spills, time both routes in
+turn with ``torch.matmul`` on the weight dequantized to bf16 beforehand, in
+fp8 and int8, at paths (a) and (b)'s weight shapes (``--w8-kn``) and the
+rows ``--m`` (default 1, 8, 16, 32, 64, 128, 192, 256, 384, 12288), each
+route of each build held against ``matmul_w8a16_plain`` (atol / rtol
+1e-2).
+
+``--hgemm`` is the A/B of the dense tensor-core kernel (``csrc/matmul.cu``
+on ``gemm_sm90.cuh``): each tensor-core tile with and without a group of 8
+(the A/B behind ``pick_matmul_config``), variant builds of the 128 x 128
+tile's stage count and a probe without products (LC_GEMM_PROBE 1), beside
+``torch.matmul``, taken in turn, at path (j)'s shapes or ``--m`` / ``--n``
+/ ``--k``.
+
 ``--resident`` is the A/B of the resident chain's build
 (``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
-shared memory, the 128 x 256 tile (two consumer warpgroups) against 128 x
-128 (one), and clusters of 1, 2 and 4 CTAs along M, each a variant build
-(``build.build_variants``, not kept by the package), and the package's
-build with the products, then also the stores, left out (two probes whose
-results are wrong: what the feed alone takes), at the chains
+shared memory, the 128 x 256 tile against 128 x 128 (two consumer
+warpgroups of 64 rows each), and clusters of 1, 2 and 4 CTAs along M, each
+a variant build (``build.build_variants``, not kept by the package), and
+the package's build with the products, then also the stores, left out (two
+probes whose results are wrong: what the feed alone takes), at the chains
 ``--mnk`` x ``--reps`` (default 4096^3 x 5 and the registry's 128^2 x 3),
 beside 5 (reps) ``torch.matmul`` and the port's ``hgemm``; the candidates
 of a shape are timed in turn, ``--repeats`` rounds, and each reports its
@@ -137,13 +157,13 @@ def bench_size(M, N, K, variants, dtype, dev, iters, repeats, check, flush):
 
 
 # the variants of --resident: every (BN, stages, cluster) whose stages and
-# staged output tile fit the 227 KB of shared memory (matmul_resident.cu
-# ResTile::SMEM_BYTES), clusters at most the B boxes a stage
+# staged output tile fit the 227 KB of shared memory (gemm_sm90.cuh
+# GemmPlan::SMEM_BYTES), clusters at most the B boxes a stage
 RESIDENT_VARIANTS = [
     {"LC_RES_BN": bn, "LC_RES_STAGES": st, "LC_RES_CLUSTER": cl}
     for bn in (256, 128) for st in (3, 4, 5) for cl in (1, 2, 4)
     if 1024 + st * (128 * 64 * 2 + 64 * bn * 2) + 128 * bn * 2
-    + 8 * (2 * st + 2) <= 232448 and cl <= bn // 64]
+    + 8 * (3 * st + 2) <= 232448 and cl <= bn // 64]
 
 
 # the package's build with parts left out (matmul_resident.cu LC_RES_PROBE):
@@ -316,6 +336,189 @@ def bench_w4(shapes, rows_m, dev, iters, rounds, flush):
     return rows
 
 
+# the w8a16 kernel's variant builds: the package's, other decode stage
+# counts, the decode probe
+W8_VARIANTS = [{}, {"LC_W8_STAGES": 3}, {"LC_W8_STAGES": 6},
+               {"LC_W8_PROBE": 1}]
+# paths (a) and (b)'s weight shapes (K, N) of ModelConfig(): wqkv, wo,
+# w_gate_up, w_down
+W8_KN = ((2048, 3072), (2048, 2048), (2048, 11264), (5632, 2048))
+W8_ROWS = (1, 8, 16, 32, 64, 128, 192, 256, 384, 12288)
+
+
+def _w8_label(v):
+    return "default" if not v else ", ".join(
+        f"{k[6:].lower()} {x}" for k, x in sorted(v.items()))
+
+
+def _builds(name, variants, label):
+    """[(variant, loaded library)] of ``csrc/<name>.cu``'s variant builds,
+    each printed with its ptxas registers and spills."""
+    from leetcuda_tpu_torch.build import build_variants
+
+    from .attn_bench import ptxas_summary
+
+    out = []
+    for v, (lib, log) in zip(variants, build_variants(name, variants)):
+        print(f"  built {label(v)}: "
+              f"{ptxas_summary(log) if log else 'cached'}", flush=True)
+        out.append((v, lib))
+    return out
+
+
+def bench_w8(shapes, rows_m, dev, iters, rounds, flush):
+    """Each w8a16 build's two routes at each (K, N), format and M, in turn
+    with torch.matmul on the weight dequantized beforehand (the plain
+    version on the CPU). Returns the rows."""
+    from leetcuda_tpu_torch.gemm import quant as gq
+
+    builds = (_builds("wq_matmul", W8_VARIANTS, _w8_label)
+              if dev.type == "cuda" else [])
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for K, N in shapes:
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+        for fmt, quant in (("fp8", gq.quantize_rowwise_fp8),
+                           ("int8", gq.quantize_rowwise_int8)):
+            q, s = quant(w)
+            wd = (q.float() * s).to(torch.bfloat16)
+            for M in rows_m:
+                x = torch.randn((M, K), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                want = gq.matmul_w8a16_plain(x, q, s)
+                fns = []
+                for vb, lib in builds:
+                    for decode in (True, False):
+                        if vb and not decode:
+                            continue  # the variants change the decode route
+
+                        def run(lib=lib, decode=decode):
+                            return gq._launch_w8a16(x, q, s, decode, lib)
+                        err = float((run().float() - want.float()).abs()
+                                    .max())
+                        if "LC_W8_PROBE" not in vb and not err <= 1e-2 + \
+                                1e-2 * float(want.float().abs().max()):
+                            raise AssertionError(
+                                f"w8 {_w8_label(vb)} {fmt} M={M} K={K} "
+                                f"N={N}: max abs {err}")
+                        route = "decode" if decode else "prefill"
+                        fns.append((f"{_w8_label(vb)} {route}", err, run, vb,
+                                    route))
+                if dev.type == "cuda":
+                    fns.append(("torch.matmul, dequantized", 0.0,
+                                lambda: torch.matmul(x, wd), None, None))
+                else:  # the plain version: a check of the CLI
+                    fns.append(("plain", 0.0, lambda: gq.matmul_w8a16_plain(
+                        x, q, s), None, None))
+                times = {n: [] for n, *_ in fns}
+                for _ in range(rounds):
+                    for n, _, fn, _, _ in fns:
+                        times[n].append(time_ms(fn, dev, iters, flush))
+                flops = 2.0 * M * N * K
+                nbytes = 2.0 * M * K + K * N + 4.0 * N + 2.0 * M * N
+                bound = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+                print(f"--- w8a16 {fmt} M={M} K={K} N={N} (bound "
+                      f"{bound:.4f} ms) ---")
+                for n, err, _, vb, route in fns:
+                    ms = float(np.median(times[n]))
+                    row = {"M": M, "K": K, "N": N, "fmt": fmt, "variant": n,
+                           "macros": vb, "route": route, "max_abs_err": err,
+                           "ms": ms, "rounds": times[n], "bound_ms": bound}
+                    if vb is not None:
+                        row["plan"] = gq.w8_plan(
+                            M, N, K, route == "decode",
+                            vb.get("LC_W8_STAGES", gq.W8_STAGES))
+                    rows.append(row)
+                    share = (f" ({bound / ms:.3f} of the bound)"
+                             if dev.type == "cuda" else "")
+                    print(f"  {n}: {ms:.4f} ms{share}; max abs {err:.3g}",
+                          flush=True)
+    return rows
+
+
+# the dense kernel's variant builds beside the package's: the 128 x 128
+# tile's other stage counts, and the probe without products
+HGEMM_VARIANTS = [{"LC_MM_STAGES128": 4}, {"LC_MM_STAGES128": 5},
+                  {"LC_GEMM_PROBE": 1}]
+# path (j)'s shapes: the headline, training's five projections at B * S =
+# 16384 rows (ModelConfig(): wqkv, wo, w_gate_up, w_down, the output
+# projection) and the skewed shapes
+HGEMM_MNK = ((8192, 8192, 8192), (16384, 3072, 2048), (16384, 2048, 2048),
+             (16384, 11264, 2048), (16384, 2048, 5632), (16384, 32000, 2048),
+             (8192, 1024, 8192), (1024, 8192, 8192), (4096, 14336, 4096),
+             (8192, 8192, 1024), (384, 640, 264))
+
+
+def _hgemm_label(v):
+    if v.get("LC_GEMM_PROBE"):
+        return "probe: no wgmma"
+    return ", ".join(f"{k[3:].lower()} {x}" for k, x in sorted(v.items()))
+
+
+def bench_hgemm(shapes, dtype, dev, iters, rounds, flush):
+    """Every tensor-core tile of csrc/matmul.cu with and without a group of
+    8, the variant builds (on the 128 x 128 tile; the probe on the default
+    tile) and torch.matmul, in turn at each (M, N, K). Returns the rows."""
+    builds = (_builds("matmul", HGEMM_VARIANTS, _hgemm_label)
+              if dev.type == "cuda" else [])
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for M, N, K in shapes:
+        x = (torch.randn((M, K), generator=gen, device=dev) * 0.5).to(dtype)
+        y = (torch.randn((K, N), generator=gen, device=dev) * 0.5).to(dtype)
+        want = mm.matmul_plain(x, y)
+        fns = {}
+        if dev.type == "cuda":
+            for blk, (_, path) in mm.BLOCKS.items():
+                if path != "tensor-core":
+                    continue
+                for g in (None, 8):
+                    f = mm.make_matmul(block=blk, swizzle_group=g)
+                    fns[f"{blk}/{g or 'rows'}"] = (lambda f=f: f(x, y), None)
+            for v, lib in builds:
+                blk = (mm.HALF_DEFAULT if v.get("LC_GEMM_PROBE")
+                       else (128, 128, 32))
+                fns[f"{blk}/rows {_hgemm_label(v)}"] = (
+                    lambda lib=lib, blk=blk: mm._launch(
+                        x, y, M, N, K, dtype, "nn", blk, None, lib), v)
+            fns["torch.matmul"] = (lambda: torch.matmul(x, y), None)
+        else:  # the plain version: a check of the CLI
+            fns["plain"] = (lambda: mm.matmul_plain(x, y), None)
+        errs = {}
+        for n, (fn, v) in fns.items():
+            errs[n] = float((fn().float() - want.float()).abs().max())
+            if not (v or {}).get("LC_GEMM_PROBE"):
+                torch.testing.assert_close(fn().float(), want.float(),
+                                           atol=2e-2, rtol=2e-2)
+        times = {n: [] for n in fns}
+        for _ in range(rounds):
+            for n, (fn, _) in fns.items():
+                times[n].append(time_ms(fn, dev, iters, flush))
+        flops = 2.0 * M * N * K
+        bound = flops / 989e12 * 1e3
+        print(f"--- hgemm {M}x{N}x{K} (bound {bound:.4f} ms) ---")
+        for n, (_, v) in fns.items():
+            ms = float(np.median(times[n]))
+            rows.append({"M": M, "N": N, "K": K, "variant": n, "macros": v,
+                         "ms": ms, "rounds": times[n], "bound_ms": bound,
+                         "max_abs_err": errs[n]})
+            share = (f" ({bound / ms:.3f} of the bound)"
+                     if dev.type == "cuda" and "probe" not in n else "")
+            print(f"  {n}: {ms:.4f} ms{share}; max abs {errs[n]:.3g}",
+                  flush=True)
+    return rows
+
+
+def _write_rows(path, dev, rows):
+    import json
+    from pathlib import Path
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(
+        {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else str(dev)), "rows": rows}, indent=1))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mnk", type=int, nargs="*", default=None,
@@ -347,7 +550,19 @@ def main(argv=None):
                     default=None, metavar=("K", "N"),
                     help="--w4: a weight shape (repeatable; default path "
                          "(c)'s four)")
-    ap.add_argument("--json", help="--resident, --w4: write the rows here")
+    ap.add_argument("--w8", action="store_true",
+                    help="the A/B of the w8a16 kernel's builds and routes at "
+                         "--w8-kn x --m, fp8 and int8")
+    ap.add_argument("--w8-kn", type=int, nargs=2, action="append",
+                    default=None, metavar=("K", "N"),
+                    help="--w8: a weight shape (repeatable; default paths "
+                         "(a) and (b)'s four)")
+    ap.add_argument("--hgemm", action="store_true",
+                    help="the A/B of the tensor-core tiles, groups and "
+                         "variant builds at path (j)'s shapes (or --m / "
+                         "--n / --k)")
+    ap.add_argument("--json", help="--resident, --w4, --w8, --hgemm: write "
+                                   "the rows here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -371,34 +586,27 @@ def main(argv=None):
     else:
         print(f"device {dev} (host clock: a check of the CLI, no device "
               f"metric), {args.dtype}")
+    rows = None
     if args.w4:
         rows = bench_w4(args.w4_kn or W4_KN, args.m or W4_ROWS, dev,
                         args.iters, args.repeats, flush)
-        if args.json:
-            import json
-            from pathlib import Path
-
-            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.json).write_text(json.dumps(
-                {"device": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else str(dev)),
-                 "rows": rows}, indent=1))
-        return
-    if args.resident:
+    elif args.w8:
+        rows = bench_w8(args.w8_kn or W8_KN, args.m or W8_ROWS, dev,
+                        args.iters, args.repeats, flush)
+    elif args.hgemm:
+        hshapes = (shapes if args.m or args.n or args.k or args.mnk
+                   else HGEMM_MNK)
+        rows = bench_hgemm(hshapes, dtype, dev, args.iters, args.repeats,
+                           flush)
+    elif args.resident:
         ns, reps = args.mnk or [4096, 128], args.reps or [5, 3]
         if len(reps) == 1:
             reps = reps * len(ns)
         rows = bench_resident(list(zip(ns, reps)), dev, args.iters,
                               args.repeats, flush)
+    if rows is not None:
         if args.json:
-            import json
-            from pathlib import Path
-
-            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.json).write_text(json.dumps(
-                {"device": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else str(dev)),
-                 "rows": rows}, indent=1))
+            _write_rows(args.json, dev, rows)
         return
     for M, N, K in shapes:
         print(f"--- M={M} N={N} K={K} ---", flush=True)

@@ -119,6 +119,67 @@ __device__ __forceinline__ bool keep(int row, int col, int Nq, int Nk,
          (window <= 0 || row - col < window);
 }
 
+// The epilogue of the split-K matmuls (w4_matmul.cu, wq_matmul.cu): the
+// thread holds acc[4 q + 2 h + e] = out[m0 + 8 q + 2 t + e][n + h] for q <
+// BM / 8. With one split it writes its part of the tile; otherwise each
+// split writes its f32 partial to ``ws`` (splits, M, N) and the CTA that
+// finishes last (``counter``, zero at launch and zeroed again by that CTA;
+// ``last`` a flag in shared memory) sums the partials in split order: no
+// float atomics, the same bits on every call. Columns n and n + 1 are
+// scaled by ``sc`` after the sum and rounded to bf16 once. Every thread of
+// the CTA calls it.
+template <int BM>
+__device__ __forceinline__ void store_split_k(
+    const float (&acc)[BM / 2], float2 sc, uint16_t* o, float* ws,
+    int* counter, int* last, int M, int N, int m0, int n, int t, int sp,
+    int splits) {
+  if (splits == 1) {
+#pragma unroll
+    for (int q = 0; q < BM / 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * q + 2 * t + e;
+        if (m < M && n < N)
+          *reinterpret_cast<uint32_t*>(o + (size_t)m * N + n) = pack_bf16x2(
+              acc[4 * q + e] * sc.x, acc[4 * q + 2 + e] * sc.y);
+      }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < BM / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * q + 2 * t + e;
+      if (m < M && n < N)
+        *reinterpret_cast<float2*>(ws + ((size_t)sp * M + m) * N + n) =
+            make_float2(acc[4 * q + e], acc[4 * q + 2 + e]);
+    }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();  // the other splits' partials before reading them
+#pragma unroll
+  for (int q = 0; q < BM / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * q + 2 * t + e;
+      if (m >= M || n >= N) continue;
+      const float* p = ws + (size_t)m * N + n;
+      float2 sum = __ldcg(reinterpret_cast<const float2*>(p));
+      for (int s = 1; s < splits; ++s) {
+        const float2 v =
+            __ldcg(reinterpret_cast<const float2*>(p + (size_t)s * M * N));
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+      *reinterpret_cast<uint32_t*>(o + (size_t)m * N + n) =
+          pack_bf16x2(sum.x * sc.x, sum.y * sc.y);
+    }
+  if (threadIdx.x == 0) *counter = 0;  // zero again for the next launch
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

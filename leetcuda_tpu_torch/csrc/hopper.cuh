@@ -8,7 +8,9 @@
 // barrier test that does not wait, wgmma with B K-major or A in registers,
 // and named barriers; the flash forward (flash_fwd.cu) and the w4a16 matmul
 // (w4_matmul.cu) share its ring of stages, descriptors and approximations,
-// and the w4a16 matmul adds wgmma at N = 8 and 16 and byte-tile maps.
+// and the w4a16 matmul adds wgmma at N = 8 and 16 and byte-tile maps. The
+// dense matmul's kernel (gemm_sm90.cuh, which the resident chain now runs
+// on) adds f16 inputs to the SS wgmma.
 //
 // Conventions:
 // - A tile that TMA writes with the 128-byte swizzle is a stack of rows of
@@ -235,87 +237,20 @@ __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r) :: "memory");
 }
 
-#define LC_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define LC_F16(d, i) \
-  LC_F4(d, i), LC_F4(d, i + 4), LC_F4(d, i + 8), LC_F4(d, i + 12)
-#define LC_F64(d, i) \
-  LC_F16(d, i), LC_F16(d, i + 16), LC_F16(d, i + 32), LC_F16(d, i + 48)
-#define LC_R64                                                                \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
-  "%58, %59, %60, %61, %62, %63"
-#define LC_R128_HI                                                            \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \
-  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "   \
-  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "   \
-  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
-  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-
-// D (64 x N, f32, in registers) (+)= A (64 x 16, K-major, descriptor ``da``)
-// @ B (16 x N, MN-major: the transpose bit set, descriptor ``db``), f16 or
-// bf16 inputs; ``acc`` 0 overwrites D. Thread t of the warpgroup holds
-// d[4 c + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 c + 2 (t % 4) + e].
-template <bool kF16>
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
-                                           uint64_t db, int acc) {
-  if constexpr (kF16) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {" LC_R64
-        ", " LC_R128_HI "}, %128, %129, p, 1, 1, 0, 1;\n\t}"
-        : LC_F64(d, 0), LC_F64(d, 64)
-        : "l"(da), "l"(db), "r"(acc));
-  } else {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" LC_R64
-        ", " LC_R128_HI "}, %128, %129, p, 1, 1, 0, 1;\n\t}"
-        : LC_F64(d, 0), LC_F64(d, 64)
-        : "l"(da), "l"(db), "r"(acc));
-  }
-}
-
-template <bool kF16>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
-                                           uint64_t db, int acc) {
-  if constexpr (kF16) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" LC_R64
-        "}, %64, %65, p, 1, 1, 0, 1;\n\t}"
-        : LC_F64(d, 0)
-        : "l"(da), "l"(db), "r"(acc));
-  } else {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LC_R64
-        "}, %64, %65, p, 1, 1, 0, 1;\n\t}"
-        : LC_F64(d, 0)
-        : "l"(da), "l"(db), "r"(acc));
-  }
-}
-
-#undef LC_F4
-#undef LC_F16
-#undef LC_F64
-#undef LC_R64
-#undef LC_R128_HI
-
 // ------------------------------------- wgmma: both B layouts, A in registers
 //
 // wgmma_ss_bf16<kTnspB>: D (64 x N, f32) (+)= A (64 x 16, K-major,
-// descriptor ``da``) @ B (16 x N, descriptor ``db``), bf16 inputs. kTnspB
-// 0 reads B K-major (N rows of 16 values along k: K for Q K^T, as stored),
-// 1 MN-major (16 k-rows of N values: V for P V, as stored). wgmma_rs_bf16
+// descriptor ``da``) @ B (16 x N, descriptor ``db``), bf16 inputs
+// (wgmma_ss_f16: f16 inputs). kTnspB 0 reads B K-major (N rows of 16
+// values along k: K for Q K^T, as stored), 1 MN-major (16 k-rows of N
+// values: V for P V, as stored). wgmma_rs_bf16
 // is the same with A from registers: thread t of the warpgroup holds
 // A[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e] in the half e
 // of a[2 j + h], the layout of columns [16 kk, 16 kk + 16) of an m64
 // accumulator (d[8 kk + 4 j + 2 h + e]), so an accumulator rounded to
 // bf16 feeds the next product without passing through shared memory.
 // N is 8, 16, 32, 64, 128 or 256 (N / 2 accumulators a thread); ``acc`` 0
-// overwrites D. The resident chain's wrappers above stay as they are.
+// overwrites D.
 
 #define LC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define LC_D16(i) LC_D4(i), LC_D4(i + 4), LC_D4(i + 8), LC_D4(i + 12)
@@ -353,6 +288,16 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                  : "l"(da), "l"(db), "r"(acc), "n"(kTnspB));                 \
   }                                                                          \
   template <int kTnspB>                                                      \
+  __device__ __forceinline__ void wgmma_ss_f16(float(&d)[NF], uint64_t da,   \
+                                               uint64_t db, int acc) {       \
+    asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %" #A2 ", 0;\n\t"    \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k16.f32.f16.f16 {" REGS "}, %" #A0 ", %" #A1               \
+                 ", p, 1, 1, 0, %" #A3 ";\n\t}"                              \
+                 : __VA_ARGS__                                               \
+                 : "l"(da), "l"(db), "r"(acc), "n"(kTnspB));                 \
+  }                                                                          \
+  template <int kTnspB>                                                      \
   __device__ __forceinline__ void wgmma_rs_bf16(                             \
       float(&d)[NF], const uint32_t(&a)[4], uint64_t db, int acc) {          \
     asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %" #A5 ", 0;\n\t"    \
@@ -377,6 +322,16 @@ LC_WGMMA_PAIR(256, 128, LC_S16 ", " LC_S32 ", " LC_S64 ", " LC_S128, 128,
               129, 130, 131, 132, 133, 134, LC_D64(0), LC_D64(64))
 
 #undef LC_WGMMA_PAIR
+
+// wgmma_ss_bf16 or wgmma_ss_f16 by the input type (N from the accumulator).
+template <bool kF16, int kTnspB, int NF>
+__device__ __forceinline__ void wgmma_ss(float (&d)[NF], uint64_t da,
+                                         uint64_t db, int acc) {
+  if constexpr (kF16)
+    wgmma_ss_f16<kTnspB>(d, da, db, acc);
+  else
+    wgmma_ss_bf16<kTnspB>(d, da, db, acc);
+}
 #undef LC_D4
 #undef LC_D16
 #undef LC_D64

@@ -11,17 +11,20 @@
 // its rep's A and an N x 256 panel of B (3 MiB at N = 4096) out of the L2,
 // which holds B (32 MiB at 4096^2 bf16) and the rows in flight.
 //
-// Design (f16 / bf16), one persistent, warp-specialised launch:
+// Design (f16 / bf16), one persistent, warp-specialised launch on the dense
+// matmul's pieces (gemm_sm90.cuh: its stages, producer loads, consumer k
+// loop and staging tile; the walk, the rep waits and the storer are this
+// file's):
 // - Tiles of BM x BN (128 x 256 by default) over a K loop of 64-deep
 //   stages. Warpgroup 0 is the producer: one thread keeps TMA loads of A
 //   (box 128 x 64, K-major) and B (boxes of 64 k-rows x 64 columns,
 //   MN-major) in flight over a ring of kStages stages, each behind a "full"
 //   mbarrier that counts the bytes and an "empty" one that the consumers
-//   arrive on. The consumer warpgroups (two of 64 rows each, or one of 128
-//   rows at BN = 128) issue wgmma m64nBNk16 from the stages into f32
-//   registers, one wgmma group in flight, and free a stage once the group
-//   that read it has retired. setmaxnreg moves registers from the producer
-//   to the consumers. Tiles use the 128-byte swizzle.
+//   arrive on. The two consumer warpgroups (64 rows each) issue wgmma
+//   m64nBNk16 from the stages into f32 registers, one wgmma group in
+//   flight, and free a stage once the group that read it has retired.
+//   setmaxnreg moves registers from the producer to the consumers. Tiles
+//   use the 128-byte swizzle.
 // - The epilogue: the consumers round the accumulators to f16 / bf16 into
 //   a staging tile in shared memory and go on to their next tile; a storer
 //   thread of warpgroup 0 writes it to ``out`` or ``scratch`` with TMA
@@ -63,12 +66,20 @@
 // The tile, the stage count and the cluster are the macros below; the
 // defaults are what bench/gemm_bench.py --resident chose on an H100. The
 // bench also builds two probes, which compute nothing right: LC_RES_PROBE
-// 1 leaves out the wgmma (the loads, the walk and the stores alone), 2 the
-// TMA stores too (the loads and the walk).
+// 1 leaves out the wgmma (the loads, the walk and the stores alone; the
+// same as gemm_sm90.cuh's LC_GEMM_PROBE 1, which it sets), 2 the TMA stores
+// too (the loads and the walk).
 //
 // f32 keeps the CUDA cores (f32 FMA, never TF32): a CTA owns 64 rows for
 // every rep, with no grid-wide wait (mm_resident_f32).
-#include "hopper.cuh"
+#ifndef LC_RES_PROBE
+#define LC_RES_PROBE 0
+#endif
+#if LC_RES_PROBE >= 1 && !defined(LC_GEMM_PROBE)
+#define LC_GEMM_PROBE 1
+#endif
+
+#include "gemm_sm90.cuh"
 #include "mm_tile.cuh"
 
 #ifndef LC_RES_BN
@@ -80,9 +91,6 @@
 #ifndef LC_RES_CLUSTER
 #define LC_RES_CLUSTER 2
 #endif
-#ifndef LC_RES_PROBE
-#define LC_RES_PROBE 0
-#endif
 
 namespace {
 
@@ -93,31 +101,7 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ------------------------------------------------- f16 / bf16: TMA + wgmma
 
-template <int BN_, int kStages_, int kCluster_>
-struct ResTile {
-  static constexpr int BM = 128, BN = BN_, BK = 64;
-  static constexpr int kStages = kStages_, kCluster = kCluster_;
-  static constexpr int kCons = BN == 256 ? 2 : 1;  // consumer warpgroups
-  static constexpr int kRows = BM / kCons;         // rows of a consumer
-  static constexpr int kSub = kRows / 64;          // its m64 blocks
-  static constexpr int kBoxes = BN / 64;           // B boxes a stage
-  static constexpr int A_BYTES = BM * BK * 2, BOX_BYTES = BK * 64 * 2;
-  static constexpr int STAGE_BYTES = A_BYTES + kBoxes * BOX_BYTES;
-  static constexpr int THREADS = 128 * (1 + kCons);
-  // the output tile staged for its TMA store: kBoxes boxes of BM rows x 64
-  static constexpr int EPI_BYTES = kBoxes * BM * 64 * 2, EPI_BOX = BM * 128;
-  // the stages from a 1024-byte aligned base, the staged output tile, then
-  // 2 kStages + 2 mbarriers
-  static constexpr int SMEM_BYTES =
-      1024 + kStages * STAGE_BYTES + EPI_BYTES + 8 * (2 * kStages + 2);
-  static_assert(BN == 128 || BN == 256, "BN is 128 or 256");
-  static_assert(kCluster == 1 || kCluster == 2 || kCluster == 4,
-                "clusters of 1, 2 or 4 CTAs");
-  static_assert(kBoxes % kCluster == 0, "B boxes split over the cluster");
-  static_assert(SMEM_BYTES <= 232448, "stages exceed the shared memory");
-};
-
-using Res = ResTile<LC_RES_BN, LC_RES_STAGES, LC_RES_CLUSTER>;
+using Res = GemmPlan<128, LC_RES_BN, LC_RES_STAGES, LC_RES_CLUSTER, 1, kBkn>;
 
 // The maps: A of rep 0 (``a``), of odd-from-last reps (``scratch``) and of
 // the others (``out``), boxes BM x BK; B, boxes BK x 64.
@@ -127,28 +111,13 @@ struct Maps {
 
 template <class C, bool kF16>
 __global__ void __launch_bounds__(C::THREADS, 1)
-mm_resident_tma(const __grid_constant__ Maps maps, uint16_t* out,
-                uint16_t* scratch, int* done, int M, int N, int reps) {
+mm_resident_tma(const __grid_constant__ Maps maps, int* done, int M, int N,
+                int reps) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* epi = smem + C::kStages * C::STAGE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(epi + C::EPI_BYTES);
-  uint64_t* empty = full + C::kStages;
-  uint64_t* epi_full = empty + C::kStages;  // the consumers staged a tile
-  uint64_t* epi_empty = epi_full + 1;       // the store has read it
+  const GemmSmem<C> sm(smem_raw);
   const int wg = threadIdx.x / 128;
   const uint32_t rank = C::kCluster > 1 ? cluster_ctarank() : 0;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * C::kCons * C::kCluster);
-    }
-    mbar_init(epi_full, 128 * C::kCons);
-    mbar_init(epi_empty, 1);
-    fence_mbar_init();
-  }
+  if (threadIdx.x == 0) sm.init();
   if constexpr (C::kCluster > 1)
     cluster_sync();
   else
@@ -159,19 +128,24 @@ mm_resident_tma(const __grid_constant__ Maps maps, uint16_t* out,
   const int units = reps * per_rep;
   const int first = blockIdx.x / C::kCluster;
   const int stride = gridDim.x / C::kCluster;
+  auto unit = [&](int u, int& r, int& i, int& j) {
+    r = u / per_rep;
+    const int rem = u % per_rep;
+    i = (rem / nbn) * C::kCluster + rank;
+    j = rem % nbn;
+  };
 
   if (wg == 0) {  // the producer
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<C::kProdRegs>();
     if (threadIdx.x == 0) {
       prefetch_map(&maps.a);
       prefetch_map(&maps.out);
       prefetch_map(&maps.scratch);
       prefetch_map(&maps.b);
-      int s = 0;
-      uint32_t ph = 0;
+      RingPos<C::kStages> pos;
       for (int u = first; u < units; u += stride) {
-        const int r = u / per_rep, rem = u % per_rep;
-        const int i = (rem / nbn) * C::kCluster + rank, j = rem % nbn;
+        int r, i, j;
+        unit(u, r, i, j);
         if (r > 0 && i < nbm) {
           wait_flag_at_least(done + (size_t)(r - 1) * nbm + i, nbn);
           fence_proxy_async_global();
@@ -179,62 +153,30 @@ mm_resident_tma(const __grid_constant__ Maps maps, uint16_t* out,
         // rep r reads what rep r - 1 wrote: out if reps - r is even
         const CUtensorMap* src =
             r == 0 ? &maps.a : ((reps - r) & 1) ? &maps.scratch : &maps.out;
-        for (int kb = 0; kb < nk; ++kb) {
-          mbar_wait(&empty[s], ph ^ 1);
-          mbar_expect_tx(&full[s], C::STAGE_BYTES);
-          uint8_t* st = smem + s * C::STAGE_BYTES;
-          tma_load_2d(st, src, &full[s], kb * C::BK, i * C::BM);
-          constexpr int kMine = C::kBoxes / C::kCluster;
-#pragma unroll
-          for (int q = 0; q < kMine; ++q) {
-            const int box = rank * kMine + q;
-            uint8_t* dst = st + C::A_BYTES + box * C::BOX_BYTES;
-            if constexpr (C::kCluster > 1)
-              tma_load_2d_multicast(dst, &maps.b, &full[s],
-                                    j * C::BN + box * 64, kb * C::BK,
-                                    (1 << C::kCluster) - 1);
-            else
-              tma_load_2d(dst, &maps.b, &full[s], j * C::BN + box * 64,
-                          kb * C::BK);
-          }
-          if (++s == C::kStages) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
+        for (int kb = 0; kb < nk; ++kb)
+          load_stage(sm, pos, src, &maps.b, kb, i, j, rank);
       }
-      // A pair's consumers arrive on this CTA's barriers: leave only once
-      // they have freed every stage (no CTA exits while its pair may still
-      // arrive on it or multicast into it).
-      if constexpr (C::kCluster > 1) {
-        for (int k = 0; k < C::kStages; ++k) {
-          mbar_wait(&empty[s], ph ^ 1);
-          if (++s == C::kStages) {
-            s = 0;
-            ph ^= 1;
-          }
-        }
-      }
+      drain(sm, pos);
     } else if (threadIdx.x == 32) {  // the storer
       uint32_t eph = 0;
       for (int u = first; u < units; u += stride) {
-        const int r = u / per_rep, rem = u % per_rep;
-        const int i = (rem / nbn) * C::kCluster + rank, j = rem % nbn;
+        int r, i, j;
+        unit(u, r, i, j);
         // rep r writes out if reps - 1 - r is even
         const CUtensorMap* dst =
             ((reps - 1 - r) & 1) ? &maps.scratch : &maps.out;
-        mbar_wait(epi_full, eph);
+        mbar_wait(sm.epi_full, eph);
         eph ^= 1;
         // rows and columns past M and N are not written
         if (i < nbm && LC_RES_PROBE < 2) {
 #pragma unroll
           for (int q = 0; q < C::kBoxes; ++q)
-            tma_store_2d(dst, epi + q * C::EPI_BOX, j * C::BN + q * 64,
+            tma_store_2d(dst, sm.epi + q * C::EPI_BOX, j * C::BN + q * 64,
                          i * C::BM);
           commit_bulk();
           wait_bulk<0, true>();
         }
-        mbar_arrive(epi_empty);  // the consumers may stage the next tile
+        mbar_arrive(sm.epi_empty);  // the consumers may stage the next tile
         if (i < nbm) {
           // the rows are in global memory: release them to the CTAs that
           // read them back through TMA
@@ -245,162 +187,53 @@ mm_resident_tma(const __grid_constant__ Maps maps, uint16_t* out,
         }
       }
     }
-  } else {  // a consumer: rows [cw kRows, (cw + 1) kRows) of each tile
-    setmaxnreg_inc<232>();
+  } else {  // a consumer: rows [64 cw, 64 cw + 64) of each tile
+    setmaxnreg_inc<C::kConsRegs>();
     const int cw = wg - 1, warp = threadIdx.x / 32 % 4;
     const int lane = threadIdx.x % 32;
-    float acc[C::kSub][C::BN / 2];
-    int s = 0;
-    uint32_t ph = 0, eph = 0;
-
-    auto fence_acc = [&] {  // keep acc's registers where wgmma has them
-#pragma unroll
-      for (int m = 0; m < C::kSub; ++m)
-#pragma unroll
-        for (int v = 0; v < C::BN / 2; ++v) fence_operand(acc[m][v]);
-    };
-    auto release = [&](int stage) {  // this warp is done with ``stage``
-      if (lane == 0) {
-        if constexpr (C::kCluster > 1) {
-#pragma unroll
-          for (int c = 0; c < C::kCluster; ++c)
-            mbar_arrive_cluster(&empty[stage], c);
-        } else {
-          mbar_arrive(&empty[stage]);
-        }
-      }
-    };
-
+    float acc[C::BN / 2];
+    RingPos<C::kStages> pos;
+    uint32_t eph = 0;
     for (int u = first; u < units; u += stride) {
-      int prev = -1;
-      for (int kb = 0; kb < nk; ++kb) {
-        mbar_wait(&full[s], ph);
-        const uint8_t* st = smem + s * C::STAGE_BYTES;
-        const uint32_t a0 = smem_u32(st) + cw * C::kRows * 128;
-        const uint32_t b0 = smem_u32(st + C::A_BYTES);
-        fence_acc();
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < C::BK / 16; ++kk) {
-          // B: 16 k-rows of 128 bytes a step; chunks of 64 columns 8 KiB
-          // apart (lbo), groups of 8 k-rows 1024 bytes apart (sbo)
-          const uint64_t db = gmma_desc(b0 + kk * 2048, C::BOX_BYTES, 1024);
-#pragma unroll
-          for (int m = 0; m < C::kSub; ++m) {
-            // A: 16 values (32 bytes) along k a step; 8-row groups 1024
-            // bytes apart
-            const uint64_t da = gmma_desc(a0 + m * 64 * 128 + kk * 32, 16,
-                                          1024);
-            if constexpr (LC_RES_PROBE > 0)
-              continue;
-            else if constexpr (C::BN == 256)
-              wgmma_n256<kF16>(acc[m], da, db, kb | kk);
-            else
-              wgmma_n128<kF16>(acc[m], da, db, kb | kk);
-          }
-        }
-        wgmma_commit();
-        wgmma_wait<1>();  // the group before this one has retired
-        fence_acc();
-        if (prev >= 0) release(prev);
-        prev = s;
-        if (++s == C::kStages) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_acc();
-      release(prev);
-
-      // the epilogue: the tile as f16 / bf16 into the staging tile, laid
-      // out as the output map's 128-byte swizzled boxes (row t at t * 128,
-      // its 16-byte chunk k at k ^ (t % 8)); the storer writes it out with
-      // TMA while these warps go on to the next tile
-      mbar_wait(epi_empty, eph ^ 1);
+      mma_tile<C, kF16>(acc, sm, cw, nk, pos, lane);
+      // the tile as f16 / bf16 into the staging tile; the storer writes it
+      // out with TMA while these warps go on to the next tile
+      mbar_wait(sm.epi_empty, eph ^ 1);
       eph ^= 1;
-#pragma unroll
-      for (int m = 0; m < C::kSub; ++m) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row =
-              cw * C::kRows + m * 64 + warp * 16 + lane / 4 + 8 * h;
-          uint8_t* rp = epi + row * 128 + (lane % 4) * 4;
-#pragma unroll
-          for (int c = 0; c < C::BN / 8; ++c) {
-            const float x = acc[m][4 * c + 2 * h];
-            const float y = acc[m][4 * c + 2 * h + 1];
-            uint32_t v;
-            if constexpr (kF16) {
-              const __half2 p = __floats2half2_rn(x, y);
-              v = *reinterpret_cast<const uint32_t*>(&p);
-            } else {
-              v = pack_bf16x2(x, y);
-            }
-            *reinterpret_cast<uint32_t*>(
-                rp + (c / 8) * C::EPI_BOX + (((c % 8) ^ (row % 8)) * 16)) = v;
-          }
-        }
-      }
+      stage_tile<C>(sm.epi, acc, cw, warp, lane, [](int, float x, float y) {
+        return kF16 ? f16x2_bits(x, y) : bf16x2_bits(x, y);
+      });
       fence_proxy_async_shared();
-      mbar_arrive(epi_full);
+      mbar_arrive(sm.epi_full);
     }
   }
 }
 
-// The CTAs of ``kern`` the current device holds at once (clusters whole),
-// cached per device; cudaErrorNotSupported without cooperative launches.
-template <class C>
-int co_resident_ctas(const void* kern, int& ctas) {
-  static int cached[64] = {};  // per instantiation and device; 0: unknown
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && dev < 64 && cached[dev] > 0) {
-    ctas = cached[dev];
-    return 0;
-  }
+// The CTAs of the chain's kernel that the current device holds at once
+// (clusters whole), its shared-memory limit raised first; cached per
+// instantiation and device. cudaErrorNotSupported without cooperative
+// launches.
+template <class C, bool kF16>
+int co_resident_ctas(int& ctas) {
+  auto kern = mm_resident_tma<C, kF16>;
+  static unsigned long long attr_devices = 0;
+  static int cached[64] = {};
+  cudaError_t e = smem_limit_per_device(kern, C::SMEM_BYTES, attr_devices);
+  int dev = 0, coop = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if constexpr (C::kCluster > 1) {
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C::kCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(C::kCluster * sms);
-    cfg.blockDim = dim3(C::THREADS);
-    cfg.dynamicSmemBytes = C::SMEM_BYTES;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-    ctas = clusters * C::kCluster;
-  } else {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      C::THREADS,
-                                                      C::SMEM_BYTES);
-    ctas = per_sm * sms;
-  }
-  if (e == cudaSuccess && dev < 64) cached[dev] = ctas;
-  return static_cast<int>(e);
+  return gemm_sm90_ctas<C>(reinterpret_cast<const void*>(kern), ctas, cached);
 }
 
 template <class C, bool kF16>
 int launch_tma(const void* a, const void* b, void* o, void* scratch,
                int* done, int M, int N, int reps, int grid,
                cudaStream_t st) {
-  auto kern = mm_resident_tma<C, kF16>;
-  static unsigned long long attr_devices = 0;  // per instantiation
-  cudaError_t e = smem_limit_per_device(kern, C::SMEM_BYTES, attr_devices);
-  if (e != cudaSuccess) return static_cast<int>(e);
   int ctas = 0;
-  if (int err = co_resident_ctas<C>(reinterpret_cast<const void*>(kern), ctas))
-    return err;
+  if (int err = co_resident_ctas<C, kF16>(ctas)) return err;
   if (grid < C::kCluster || grid % C::kCluster || grid > ctas)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   Maps maps;
@@ -428,8 +261,8 @@ int launch_tma(const void* a, const void* b, void* o, void* scratch,
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = na;
-  e = cudaLaunchKernelEx(&cfg, kern, maps, static_cast<uint16_t*>(o),
-                         static_cast<uint16_t*>(scratch), done, M, N, reps);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, mm_resident_tma<C, kF16>,
+                                           maps, done, M, N, reps);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -492,12 +325,7 @@ extern "C" int lc_matmul_resident_info(int* info) {
   info[2] = Res::BK;
   info[3] = Res::kStages;
   info[4] = Res::kCluster;
-  auto kern = mm_resident_tma<Res, false>;
-  static unsigned long long attr_devices = 0;
-  const cudaError_t e = smem_limit_per_device(kern, Res::SMEM_BYTES,
-                                              attr_devices);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return co_resident_ctas<Res>(reinterpret_cast<const void*>(kern), info[5]);
+  return co_resident_ctas<Res, false>(info[5]);
 }
 
 // The f32 chain on the CUDA cores: the same contract, cdiv(M, 64) CTAs, any

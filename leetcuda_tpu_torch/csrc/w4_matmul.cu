@@ -239,53 +239,10 @@ w4_mm_kernel(const __grid_constant__ Maps maps, const float* __restrict__ scales
     }
   }
 
-  // thread holds acc[4 q + 2 h + e] = out[m0 + 8 q + 2 t + e][n + h]
-  if (splits == 1) {
-#pragma unroll
-    for (int q = 0; q < BM / 8; ++q)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int m = m0 + 8 * q + 2 * t + e;
-        if (m < M && n < N)
-          *reinterpret_cast<uint32_t*>(o + (size_t)m * N + n) =
-              pack_bf16x2(acc[4 * q + e], acc[4 * q + 2 + e]);
-      }
-    return;
-  }
-#pragma unroll
-  for (int q = 0; q < BM / 8; ++q)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int m = m0 + 8 * q + 2 * t + e;
-      if (m < M && n < N)
-        *reinterpret_cast<float2*>(ws + ((size_t)sp * M + m) * N + n) =
-            make_float2(acc[4 * q + e], acc[4 * q + 2 + e]);
-    }
-  __threadfence();
-  __syncthreads();
-  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) *last_flag = atomicAdd(counter, 1) == splits - 1;
-  __syncthreads();
-  if (!*last_flag) return;
-  __threadfence();  // the other splits' partials before reading them
-#pragma unroll
-  for (int q = 0; q < BM / 8; ++q)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int m = m0 + 8 * q + 2 * t + e;
-      if (m >= M || n >= N) continue;
-      const float* p = ws + (size_t)m * N + n;
-      float2 sum = __ldcg(reinterpret_cast<const float2*>(p));
-      for (int s = 1; s < splits; ++s) {
-        const float2 v =
-            __ldcg(reinterpret_cast<const float2*>(p + (size_t)s * M * N));
-        sum.x += v.x;
-        sum.y += v.y;
-      }
-      *reinterpret_cast<uint32_t*>(o + (size_t)m * N + n) =
-          pack_bf16x2(sum.x, sum.y);
-    }
-  if (threadIdx.x == 0) *counter = 0;  // zero again for the next launch
+  // the scale was folded at each group's end
+  store_split_k<BM>(acc, make_float2(1.f, 1.f), o, ws,
+                    counters + blockIdx.y * gridDim.x + blockIdx.x, last_flag,
+                    M, N, m0, n, t, sp, splits);
 }
 
 template <int BM>

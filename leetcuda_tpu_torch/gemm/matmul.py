@@ -8,12 +8,16 @@ x (M, K) @ y (N, K)^T, summed in f32 and rounded once to ``out_dtype``
 On CUDA tensors it launches ``csrc/matmul.cu``; on CPU tensors it runs the
 plain version, ``(x.float() @ y.float()).to(out)``. ``block`` selects one of
 the instantiations the source compiles (``BLOCKS``): CUDA-core tiles, which
-take every dtype, and tensor-core tiles (mma.sync), which take f16 and bf16.
+take every dtype, and tensor-core tiles, which take f16 and bf16: one
+persistent, warp-specialised TMA + wgmma kernel (``csrc/gemm_sm90.cuh``) in
+three tiles (``TC_TILES``; ``hgemm_plan`` gives the tile, the zero padding
+of K and N to multiples of 8 and the grid of one launch).
 The JAX package's blocks are TPU VMEM tiles (up to 2048 x 2048 x 512) and do
 not carry over; each of the 12 registered rungs is an instantiation of the
 port's own choosing, under the JAX name, family, tags and tolerance.
 ``swizzle_group`` walks the output tiles ``group`` tile-columns at a time,
-as the JAX ``_swizzled_ij`` does (L2 reuse of the B panels on the GPU).
+as the JAX ``_swizzled_ij`` does (L2 reuse of the B panels on the GPU); the
+persistent kernel's CTAs take their tiles in that order (``tile_ij``).
 ``vmem_limit_mb`` is TPU-only and not taken.
 
 ``make_matmul_resident`` is the chain A <- cast(A @ B), ``reps`` times in
@@ -37,8 +41,10 @@ from leetcuda_tpu_torch.core.runtime import LaunchCounter, cdiv, check_launch
 
 MATMUL = LaunchCounter("matmul")
 MATMUL_RESIDENT = LaunchCounter("matmul_resident")
-# lc_matmul(x, y, out, M, N, K, dtype, odt, tn, config, group, stream)
-_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+# lc_matmul(x, y, out, M, N, K, dtype, odt, tn, config, group, grid,
+#           stream); lc_matmul_info(config, int info[6])
+_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+_INFO_ARGS = (ctypes.c_int, ctypes.c_void_p)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # lc_matmul_resident(a, b, out, scratch, done, M, N, reps, dtype, grid,
@@ -59,7 +65,8 @@ RESIDENT_TILE = {"block_m": 128, "block_n": 256, "block_k": 64, "stages": 3,
 # (BM, BN, BK) -> (the source's config id, datapath). CUDA cores: one thread
 # per output with BK 1 (naive), or shared-memory tiles with a register block
 # per thread (32^2 x 32: 2x2; 128^2 x 8: 8x8; 128^2 x 16: 8x8 double-
-# buffered). Tensor cores: mma.sync m16n8k16 over 32-deep cp.async stages.
+# buffered). Tensor cores: the keys name the wgmma kernel's three tiles
+# (TC_TILES), which all run 64-deep TMA stages.
 BLOCKS = {
     (16, 16, 1): (0, "cuda-core"),
     (32, 32, 32): (1, "cuda-core"),
@@ -69,14 +76,58 @@ BLOCKS = {
     (128, 128, 32): (5, "tensor-core"),
     (128, 256, 32): (6, "tensor-core"),
 }
-# The fastest f32 and f16 / bf16 instantiations of chip_smoke.py path (j)
-# on an H100 80GB HBM3 (700 W; PERF.md): the double-buffered 8x8 tile
-# at 2048^3 f32, the 128 x 128 tensor-core tile at every bf16 shape whose
-# grid fills the card (see pick_matmul_config).
-F32_DEFAULT, HALF_DEFAULT = (128, 128, 16), (128, 128, 32)
-# pick_matmul_config walks the 128 x 128 tiles in groups of this many tile
+# The tensor-core keys' tiles in csrc/matmul.cu (Tc64, Tc128, Tc256): output
+# tiles of block_m x block_n over 64-deep stages, CTAs in clusters of
+# ``cluster`` along M (a pair multicasts its B tile), ``per_sm`` CTAs an SM.
+TC_TILES = {
+    (64, 64, 32): {"block_m": 64, "block_n": 64, "block_k": 64, "stages": 4,
+                   "cluster": 1, "per_sm": 3},
+    (128, 128, 32): {"block_m": 128, "block_n": 128, "block_k": 64,
+                     "stages": 6, "cluster": 2, "per_sm": 1},
+    (128, 256, 32): {"block_m": 128, "block_n": 256, "block_k": 64,
+                     "stages": 3, "cluster": 2, "per_sm": 1},
+}
+# The fastest f32 and f16 / bf16 instantiations (PERF.md rows 15; NVIDIA
+# H100 80GB HBM3, 700 W): the double-buffered 8x8 tile at 2048^3 f32
+# (chip_smoke.py path (j)), the 128 x 256 tensor-core tile at every bf16
+# shape whose grid fills the card (bench/gemm_bench.py --hgemm; see
+# pick_matmul_config).
+F32_DEFAULT, HALF_DEFAULT = (128, 128, 16), (128, 256, 32)
+# pick_matmul_config walks the 128 x 256 tiles in groups of this many tile
 # columns when there are at least GROUP_MIN_COLS of them.
-HALF_GROUP, GROUP_MIN_COLS = 8, 128
+HALF_GROUP, GROUP_MIN_COLS = 8, 32
+
+
+def tile_ij(t: int, ni: int, nj: int, group: int | None):
+    """The persistent walk's unit t -> (i, j) on an ni x nj grid: row-major,
+    or ``group`` columns at a time (csrc/gemm_sm90.cuh ``tile_ij``, the JAX
+    ``_swizzled_ij``)."""
+    if not group:
+        return t // nj, t % nj
+    per = ni * group
+    g, r = divmod(t, per)
+    cur = min(group, nj - g * group)
+    return r // cur, g * group + r % cur
+
+
+def hgemm_plan(M: int, N: int, K: int, block=HALF_DEFAULT,
+               ctas: int | None = None) -> dict:
+    """One tensor-core launch of csrc/matmul.cu for (M, K) @ (K, N): K and N
+    padded with zeros to ``k_pad`` / ``n_pad`` (multiples of 8: a tensor
+    map's rows are multiples of 16 bytes), the tile, the ``units`` (pairs of
+    row blocks by column blocks when CTAs pair up) and the ``grid`` (at most
+    ``ctas``, the co-resident count: by default ``per_sm`` an SM of the
+    H100's 132, in whole clusters, none without a unit)."""
+    t = dict(TC_TILES[tuple(block)])
+    k_pad, n_pad = cdiv(K, 8) * 8, cdiv(N, 8) * 8
+    row_blocks, col_blocks = cdiv(M, t["block_m"]), cdiv(n_pad, t["block_n"])
+    units = cdiv(row_blocks, t["cluster"]) * col_blocks
+    if ctas is None:
+        ctas = t["per_sm"] * SM_COUNT
+    return {**t, "k_pad": k_pad, "n_pad": n_pad,
+            "pad": (k_pad, n_pad) != (K, N), "row_blocks": row_blocks,
+            "col_blocks": col_blocks, "units": units,
+            "grid": min(ctas // t["cluster"], units) * t["cluster"]}
 
 
 def matmul_plain(x, y, layout="nn", out_dtype=None):
@@ -99,19 +150,70 @@ def _mm_flops(x, y):
     return float(2 * M * N * K)
 
 
-def _launch(x, y, M, N, K, odt, layout, block, group):
-    """Launch csrc/matmul.cu on the current stream, on checked operands."""
-    from leetcuda_tpu_torch.build import kernel
+def pad_operands(x, y, layout, plan):
+    """x (M, K) and y ((K, N) for "nn", (N, K) for "tn") with zero columns
+    and rows up to ``plan``'s k_pad and n_pad (themselves where no padding
+    is due): the extra products are 0 * 0, so the sums are exact."""
+    if not plan["pad"]:
+        return x, y
+    (M, K), N = x.shape, y.shape[1] if layout == "nn" else y.shape[0]
+    dk, dn = plan["k_pad"] - K, plan["n_pad"] - N
+    pad = torch.nn.functional.pad
+    return pad(x, (0, dk)), (pad(y, (0, dn, 0, dk)) if layout == "nn"
+                             else pad(y, (0, dk, 0, dn)))
 
-    out = torch.empty((M, N), dtype=odt, device=x.device)
-    fn = kernel("matmul", "lc_matmul", _ARGS)
-    err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+
+_TC_INFO: dict = {}
+
+
+def tc_build_info(block, device, lib="matmul"):
+    """(tile, co-resident CTAs) of the tensor-core ``block`` in ``lib`` (a
+    source name or a variant build) on ``device``, read once from
+    csrc/matmul.cu's ``lc_matmul_info``; the package's tile must be
+    TC_TILES'."""
+    key = (tuple(block), device.index, lib if isinstance(lib, str)
+           else id(lib))
+    got = _TC_INFO.get(key)
+    if got is None:
+        from leetcuda_tpu_torch.build import entry
+
+        info = (ctypes.c_int * 6)()
+        with torch.cuda.device(device):
+            check_launch(entry(lib, "lc_matmul_info", _INFO_ARGS)(
+                BLOCKS[tuple(block)][0], ctypes.addressof(info)), MATMUL.name)
+        tile = dict(zip(("block_m", "block_n", "block_k", "stages",
+                         "cluster"), info[:5]))
+        want = {k: v for k, v in TC_TILES[tuple(block)].items()
+                if k != "per_sm"}
+        if lib == "matmul" and tile != want:
+            raise RuntimeError(f"csrc/matmul.cu was built with {tile} for "
+                               f"{block}, the wrapper plans {want}")
+        got = _TC_INFO[key] = (tile, info[5])
+    return got
+
+
+def _launch(x, y, M, N, K, odt, layout, block, group, lib="matmul"):
+    """Launch csrc/matmul.cu (or the variant build ``lib``) on the current
+    stream, on checked operands. A tensor-core block pads K and N with zeros
+    to multiples of 8 where they are not (exact: the extra products are
+    0 * 0) and slices the result."""
+    from leetcuda_tpu_torch.build import entry
+
+    grid, n_out = 0, N
+    if BLOCKS[block][1] == "tensor-core":
+        plan = hgemm_plan(M, N, K, block,
+                          tc_build_info(block, x.device, lib)[1])
+        grid, K, n_out = plan["grid"], plan["k_pad"], plan["n_pad"]
+        x, y = pad_operands(x, y, layout, plan)
+    out = torch.empty((M, n_out), dtype=odt, device=x.device)
+    fn = entry(lib, "lc_matmul", _ARGS)
+    err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, n_out, K,
              _DTYPES[x.dtype], _DTYPES[odt], int(layout == "tn"),
-             BLOCKS[block][0], group or 0,
+             BLOCKS[block][0], group or 0, grid,
              torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, MATMUL.name)
     MATMUL.add()
-    return out
+    return out if n_out == N else out[:, :N].contiguous()
 
 
 def make_matmul(*, block=None, layout: str = "nn", out_dtype=None,
@@ -169,7 +271,7 @@ def make_matmul(*, block=None, layout: str = "nn", out_dtype=None,
 # naive     one thread per output        (sgemm.cu naive analog)
 # sliced_k  shared-memory k slices       (sgemm.cu sliced_k analog)
 # t_8x8     8x8 register block a thread, double-buffered for the dbuf rung
-# mma       tensor cores, cp.async stages (hgemm_mma_stage analog)
+# mma       tensor cores: the TMA + wgmma kernel (hgemm_mma_stage analog)
 # The block-swizzled rungs carry the JAX package's group (4).
 VARIANTS = [
     # (name, block, layout, swizzle_group)
@@ -240,18 +342,6 @@ def resident_plan(M: int, N: int, reps: int, ctas: int = 132,
 _RES_INFO: dict = {}
 
 
-def _entry(lib, symbol, argtypes):
-    """``symbol`` of the chain's library: ``lib`` a source name (built and
-    bound by ``build.kernel``) or a loaded library (a variant build)."""
-    if isinstance(lib, str):
-        from leetcuda_tpu_torch.build import kernel
-
-        return kernel(lib, symbol, argtypes)
-    fn = getattr(lib, symbol)
-    fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
-    return fn
-
-
 def resident_build_info(device, lib="matmul_resident"):
     """(tile, co-resident CTAs) of the chain's build ``lib`` (a source name,
     or a loaded variant library) on ``device``, read once from the
@@ -259,7 +349,9 @@ def resident_build_info(device, lib="matmul_resident"):
     key = (lib if isinstance(lib, str) else id(lib), device.index)
     got = _RES_INFO.get(key)
     if got is None:
-        fn = _entry(lib, "lc_matmul_resident_info", _RES_INFO_ARGS)
+        from leetcuda_tpu_torch.build import entry
+
+        fn = entry(lib, "lc_matmul_resident_info", _RES_INFO_ARGS)
         info = (ctypes.c_int * 6)()
         with torch.cuda.device(device):
             check_launch(fn(ctypes.addressof(info)), MATMUL_RESIDENT.name)
@@ -274,6 +366,8 @@ def _launch_resident(a, b, reps, lib="matmul_resident"):
     b zero-padded to ``n_pad`` columns where N is not a multiple of 8 (B's
     extra rows and columns are 0, so A's extra columns stay 0 every rep:
     exact), one launch, the counters zeroed on the stream."""
+    from leetcuda_tpu_torch.build import entry
+
     M, N = a.shape
     tile, ctas = resident_build_info(a.device, lib)
     if lib == "matmul_resident" and tile != RESIDENT_TILE:
@@ -287,7 +381,7 @@ def _launch_resident(a, b, reps, lib="matmul_resident"):
     out = torch.empty((M, n8), dtype=a.dtype, device=a.device)
     scratch = torch.empty_like(out) if reps > 1 else out
     done = torch.zeros(plan["counters"], dtype=torch.int32, device=a.device)
-    err = _entry(lib, "lc_matmul_resident", _RES_ARGS)(
+    err = entry(lib, "lc_matmul_resident", _RES_ARGS)(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         done.data_ptr(), M, n8, reps, _DTYPES[a.dtype], plan["grid"],
         torch.cuda.current_stream(a.device).cuda_stream)
@@ -297,10 +391,12 @@ def _launch_resident(a, b, reps, lib="matmul_resident"):
 
 
 def _launch_resident_f32(a, b, reps):
+    from leetcuda_tpu_torch.build import kernel
+
     M, N = a.shape
     out = torch.empty_like(a)
     scratch = torch.empty_like(a) if reps > 1 else out
-    err = _entry("matmul_resident", "lc_matmul_resident_f32", _RES_F32_ARGS)(
+    err = kernel("matmul_resident", "lc_matmul_resident_f32", _RES_F32_ARGS)(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), M, N,
         reps, torch.cuda.current_stream(a.device).cuda_stream)
     check_launch(err, MATMUL_RESIDENT.name)
@@ -362,30 +458,32 @@ def pick_matmul_config(M: int, N: int, K: int, dtype=torch.bfloat16,
                        layout: str = "nn") -> dict:
     """Choose (block, swizzle_group) from the problem shape, among the
     instantiations of ``csrc/matmul.cu``. Rules measured by the tile A/B of
-    chip_smoke.py path (j) (``ms_by_config``: every tensor-core tile, with
-    and without a group of 8, taken in turn, at the 8192^3 headline,
-    training's five projections and the skewed shapes; the GEMM rows of
-    PERF.md, a run that a later one repeats but at 8192^3, where the group
-    read -1.6%; NVIDIA H100 80GB HBM3, 700 W):
+    bench/gemm_bench.py --hgemm (every tensor-core tile of the persistent
+    TMA + wgmma kernel, with and without a group of 8, taken in turn, at
+    the 8192^3 headline, training's five projections at 16384 rows and the
+    skewed shapes; PERF.md row 15, on an NVIDIA H100 80GB HBM3, 700 W),
+    which chip_smoke.py path (j)'s ``ms_by_config`` repeats:
 
-    - f16 / bf16 whose 128 x 128 tiles fill the card's 132 SMs: the
-      128 x 128 tile (two CTAs an SM), fastest at all ten such shapes,
-      7.6-19.8% ahead of 128 x 256 (one CTA an SM), 28.9-42.1% ahead of
-      64 x 64;
+    - f16 / bf16 whose 128 x 256 tiles fill the card's 132 SMs: the 128 x
+      256 tile, fastest at all ten such shapes, 3-20% ahead of 128 x 128's
+      best (whose loads alone took as long as its whole product at 8192^3)
+      and 2.2-2.8x ahead of 64 x 64's;
     - its tile columns walked ``HALF_GROUP`` at a time only when there are
-      ``GROUP_MIN_COLS`` or more: the group took 4.0% off the
-      (16384, 32000, 2048) output projection (250 columns) and cost 3.2%
-      at N = 11264 (88), 4.0% at N = 14336 (112) and 2.8% at 8192^3 (64);
-      at the other shapes it moved by under 0.6%;
-    - smaller f16 / bf16 grids: the 64 x 64 tile, row-major, which gives
-      more CTAs (at (384, 640, 264): 0.0163 ms against 0.0191);
+      ``GROUP_MIN_COLS`` or more: the group took 19.6% off the (16384,
+      32000, 2048) output projection (125 columns), 12.7% off (4096, 14336,
+      4096) (56), 6.5% off N = 11264 (44) and 1.0-3.5% at the three shapes
+      of 32 columns; below, it cost 0.1-1.0% at the four shapes measured;
+    - smaller f16 / bf16 grids: the 64 x 64 tile (three CTAs an SM),
+      row-major, which gives more CTAs (at (384, 640, 264): 0.0083 ms
+      against 0.0100 at 128 x 128 and 0.0122 at 128 x 256);
     - f32: ``F32_DEFAULT``, the fastest f32 rung (0.566 ms at 2048^3,
       against 0.96-3.41 for the others).
     """
     if dtype == torch.float32:
         return {"block": F32_DEFAULT, "layout": layout, "swizzle_group": None}
-    if cdiv(M, 128) * cdiv(N, 128) >= SM_COUNT:
-        wide = cdiv(N, 128) >= GROUP_MIN_COLS
+    bn = HALF_DEFAULT[1]
+    if cdiv(M, 128) * cdiv(N, bn) >= SM_COUNT:
+        wide = cdiv(N, bn) >= GROUP_MIN_COLS
         return {"block": HALF_DEFAULT, "layout": layout,
                 "swizzle_group": HALF_GROUP if wide else None}
     return {"block": (64, 64, 32), "layout": layout, "swizzle_group": None}

@@ -14,9 +14,11 @@ two packages unchanged:
 
 On CUDA tensors ``matmul_w8a16`` and ``matmul_w4a16`` launch the kernels in
 ``csrc/wq_matmul.cu`` and ``csrc/w4_matmul.cu`` (bf16 activations) and
-raise on what those do not take. The w4a16 kernel (TMA + wgmma) takes one of
-two routes by row count (``w4_plan``): decode rows split K over the card and
-sum the splits in the same launch, prefill rows take 128-row CTA tiles. On CPU tensors they run the plain versions
+raise on what those do not take. Both are TMA + wgmma kernels with two
+routes by row count (``w8_plan``, ``w4_plan``): decode rows split K over the
+card and sum the splits in the same launch; prefill rows take 128-row CTA
+tiles (w8a16: the weight converted to bf16 in a pass of its own, then the
+dense matmul's persistent kernel). On CPU tensors they run the plain versions
 below, which follow the kernels' order of rounding: f32 products of the
 exact weight values, the scale applied in f32 (once per column for w8a16,
 once per group for w4a16), one rounding to the activation dtype.
@@ -38,13 +40,20 @@ import functools
 import torch
 
 from leetcuda_tpu_torch.core.registry import register_op
-from leetcuda_tpu_torch.core.runtime import LaunchCounter, check_launch
+from leetcuda_tpu_torch.core.runtime import LaunchCounter, cdiv, check_launch
+from leetcuda_tpu_torch.gemm.matmul import GROUP_MIN_COLS, HALF_GROUP
 
 W8A16 = LaunchCounter("matmul_w8a16")
+W8_TO_BF16 = LaunchCounter("w8_to_bf16")  # the prefill route's first pass
 W4A16 = LaunchCounter("matmul_w4a16")
 I8I8I32 = LaunchCounter("matmul_i8i8i32")
-# lc_wq_matmul_bf16(x, w, s, out, M, N, K, fp8, decode_tile, stream)
-_W8A16_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+# lc_wq_matmul_bf16(x, w, s, out, ws, counters, M, N, K, fp8, route, bm,
+#                   splits, group, grid, stream); lc_wq_matmul_info(info);
+# lc_w8_to_bf16(w, wb, n, fp8, stream)
+_W8A16_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+_W8_INFO_ARGS = (ctypes.c_void_p,)
+_W8_CONVERT_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_longlong, ctypes.c_int,
+                                             ctypes.c_void_p)
 # lc_w4_matmul_bf16(x, packed, scales, out, ws, counters, M, N, K, bm,
 #                   splits, stream); lc_w4_matmul_info(info)
 _W4A16_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
@@ -52,15 +61,31 @@ _W4_INFO_ARGS = (ctypes.c_void_p,)
 # lc_i8_matmul(x, w, out, M, N, K, stream)
 _I8_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
-# The w8a16 kernel has two tilings: a decode tiling (16-row CTA tiles,
-# 128-deep k steps: many CTAs for a few rows) and a prefill tiling (64-row
-# tiles, 32-deep steps: each staged tile reused over more rows). The wrapper
-# takes the decode tiling up to this many rows. chip_smoke.py times both at
-# every matmul shape of its main paths and at 16-128 rows; on an H100 80GB
-# HBM3 (700 W) the decode tiling won every shape up to 64 rows and a layer's
-# matmuls in sum at 128, the prefill tiling a layer's sum at 384 rows and
-# every shape at 1024 and 12288 (PERF.md).
-DECODE_TILE_MAX_ROWS = 128
+# The w8a16 kernel's routes (csrc/wq_matmul.cu): up to W8_DECODE_MAX_ROWS
+# rows, CTAs of 128 columns by the fewest rows of (8, 16, 32, 64) that hold
+# them, K split into whole 64-row stages until about W8_SPLIT_CTAS CTAs run
+# (two an SM of an H100), the splits summed in the launch; above, a pass
+# that converts the weight into a bf16 scratch, then the dense matmul's
+# persistent kernel (W8_PREFILL_TILE, its tile columns grouped as
+# pick_matmul_config groups them) with the scale in its epilogue. The
+# threshold is the A/B of both routes in bench/gemm_bench.py --w8 (PERF.md
+# row 10; on an NVIDIA H100 80GB HBM3, 700 W): the decode route won at
+# paths (a) and (b)'s four weight shapes at every row count to 128, in fp8
+# and int8, but one (wo at 64 rows in fp8, by 1.7%), and at 192 and 256
+# rows on every one by 2.6-43.6%; at 384 it won w_gate_up and w_down by
+# 14-22% and lost wqkv and wo by 3-8% (a layer's four products 0.022-0.031
+# ms faster in sum); at 12288 it took 2.4-2.8x the prefill route. No row
+# count between 384 and 12288 was timed: the cut lies at or above 384, and
+# no path gives rows between 384 and 1024. chip_smoke.py phase 3 times
+# both routes at every row count of the paths.
+W8_DECODE_MAX_ROWS = 384
+W8_SPLIT_CTAS = 264
+W8_COLS = 128  # output columns of a decode CTA
+# the source's defaults (LC_W8_STAGES, the Prefill tile), checked against
+# the library's lc_wq_matmul_info
+W8_STAGES = 4
+W8_PREFILL_TILE = {"block_m": 128, "block_n": 256, "block_k": 64,
+                   "stages": 3, "cluster": 2}
 
 # The w4a16 kernel's routes (csrc/w4_matmul.cu): up to W4_DECODE_MAX_ROWS
 # rows, CTAs of the fewest rows of (8, 16, 32, 64) that hold them, K split
@@ -156,6 +181,82 @@ def matmul_w4a16_plain(x, packed, scales, group: int = 128):
     return acc.to(x.dtype)
 
 
+# --- the w8a16 kernel's plan -------------------------------------------------
+
+@functools.lru_cache(maxsize=1024)
+def w8_plan(M, N, K, decode=None, stages=W8_STAGES, ctas=None):
+    """What csrc/wq_matmul.cu runs for x (M, K) and a (K, N) pack: the
+    route (``decode``: None picks it by M); on the decode route the CTA's
+    rows ``bm``, the K splits (whole 64-row stages, none empty), the grid,
+    shared-memory bytes, and the workspace (f32 partials) and counters the
+    split sum needs; on the prefill route the bf16 copy of the weight
+    (``wbuf`` elements) that the conversion pass writes, and the persistent
+    kernel's tile and grid (at most ``ctas`` CTAs, the co-resident count;
+    default one an SM of 132). N is padded to 16 first, as the wrapper pads
+    it. Cached: a decode step asks for the same plans every time (read it,
+    do not change it)."""
+    if decode is None:
+        decode = M <= W8_DECODE_MAX_ROWS
+    N16, nk = cdiv(N, 16) * 16, cdiv(K, 64)
+    if not decode:
+        t = W8_PREFILL_TILE
+        units = (cdiv(cdiv(M, t["block_m"]), t["cluster"])
+                 * cdiv(N16, t["block_n"]))
+        ctas = 132 if ctas is None else ctas
+        return {"route": "prefill", **t,
+                "grid": min(ctas // t["cluster"], units) * t["cluster"],
+                "units": units, "threads": 384,
+                "group": (HALF_GROUP if cdiv(N16, t["block_n"])
+                          >= GROUP_MIN_COLS else 0),
+                "smem": 1024 + t["stages"] * (t["block_m"] + t["block_n"])
+                * 128 + t["block_m"] * t["block_n"] * 2
+                + 8 * (2 * t["stages"] + 2),
+                "wbuf": K * N16,
+                "splits": 1, "workspace": 0, "counters": 0}
+    bm = next(b for b in (8, 16, 32, 64) if b >= min(M, 64))
+    n_tiles, m_tiles = cdiv(N16, W8_COLS), cdiv(M, bm)
+    want = min(nk, cdiv(W8_SPLIT_CTAS, n_tiles * m_tiles))
+    splits = cdiv(nk, cdiv(nk, want))
+    sps = cdiv(nk, splits)
+    return {"route": "decode", "bm": bm, "splits": splits,
+            "split_stages": [(s * sps, min(nk, (s + 1) * sps))
+                             for s in range(splits)],
+            "grid": (n_tiles, m_tiles, splits), "threads": 256,
+            "stages": stages,
+            "smem": 1024 + stages * (64 * W8_COLS + bm * 128)
+            + 16 * stages + 16,
+            "wbuf": 0,
+            "workspace": splits * M * N16 if splits > 1 else 0,
+            "counters": n_tiles * m_tiles if splits > 1 else 0}
+
+
+_W8_INFO: dict = {}
+
+
+def w8_build_info(device, lib="wq_matmul"):
+    """(decode stages, co-resident CTAs of the prefill kernel) of ``lib`` (a
+    source name or a variant build) on ``device``; the build's prefill tile
+    must be W8_PREFILL_TILE, and the package's build must have W8_STAGES."""
+    from leetcuda_tpu_torch.build import entry
+
+    key = (lib if isinstance(lib, str) else id(lib), device.index)
+    got = _W8_INFO.get(key)
+    if got is None:
+        info = (ctypes.c_int * 7)()
+        with torch.cuda.device(device):
+            check_launch(entry(lib, "lc_wq_matmul_info", _W8_INFO_ARGS)(
+                ctypes.addressof(info)), W8A16.name)
+        tile = dict(zip(("block_m", "block_n", "block_k", "stages",
+                         "cluster"), info[1:6]))
+        got = _W8_INFO[key] = (info[0], info[6])
+        if tile != W8_PREFILL_TILE or (lib == "wq_matmul"
+                                       and info[0] != W8_STAGES):
+            raise RuntimeError(f"a w8a16 build has {info[0]} decode stages "
+                               f"and the prefill tile {tile}; the wrapper "
+                               f"plans {W8_STAGES} and {W8_PREFILL_TILE}")
+    return got
+
+
 # --- the w4a16 kernel's plan -----------------------------------------------------
 
 @functools.lru_cache(maxsize=1024)
@@ -194,25 +295,27 @@ def w4_plan(M, N, K, decode=None, prefill_rows=W4_PREFILL_ROWS,
             "counters": n_tiles * m_tiles if splits > 1 else 0}
 
 
-# One (workspace, counters) pair per (device, stream), grown on demand: the
-# last CTA of an output tile zeroes its counter again, so the counters are
-# zero between launches and two streams never share them.
-_W4_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# One (workspace, counters) pair per (device, stream), grown on demand,
+# shared by the two split-K routes (w8a16, w4a16): the last CTA of an
+# output tile zeroes its counter again, so the counters are zero between
+# launches, and two streams never share them.
+_SPLIT_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _w4_scratch(device, stream: int, workspace: int, counters: int):
+def _split_scratch(device, stream: int, workspace: int, counters: int):
     key = (device.index, stream)
-    ws, cnt = _W4_SCRATCH.get(key, (None, None))
+    ws, cnt = _SPLIT_SCRATCH.get(key, (None, None))
     if ws is None or ws.numel() < workspace or cnt.numel() < counters:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("w4a16 kernel: this stream has no split "
+            raise RuntimeError("split-K matmul: this stream has no split "
                                "workspace of that size yet; launch the call "
                                "once on it before capturing a graph")
         ws = torch.empty(max(workspace, 0 if ws is None else ws.numel()),
                          dtype=torch.float32, device=device)
-        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32,
-                          device=device)
-        _W4_SCRATCH[key] = (ws, cnt)
+        cnt = torch.zeros(max(counters, 1024,
+                              0 if cnt is None else cnt.numel()),
+                          dtype=torch.int32, device=device)
+        _SPLIT_SCRATCH[key] = (ws, cnt)
     return ws, cnt
 
 
@@ -257,19 +360,53 @@ def _check_kernel_operands(what, x, **tensors):
                              "16-byte aligned")
 
 
-def _launch_w8a16(x, q, s, decode_tile: bool):
-    """Launch csrc/wq_matmul.cu on the current stream, in the decode or the
-    prefill tiling, on operands the wrapper has checked."""
-    from leetcuda_tpu_torch.build import kernel
+def _launch_w8a16(x, q, s, decode: bool, lib="wq_matmul"):
+    """Launch csrc/wq_matmul.cu (or the variant build ``lib``) on the current
+    stream, on the decode or the prefill route (``w8_plan``), on operands the
+    wrapper has checked. N is padded to a multiple of 16 with zero columns
+    where it is not one (TMA reads rows of 16-byte multiples)."""
+    from leetcuda_tpu_torch.build import entry
 
+    stages, ctas = w8_build_info(x.device, lib)
     M, (K, N) = x.shape[0], q.shape
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    fn = kernel("wq_matmul", "lc_wq_matmul_bf16", _W8A16_ARGS)
-    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, N,
-             K, int(q.dtype == _E4M3), int(decode_tile),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    plan = w8_plan(M, N, K, decode, stages, ctas)
+    N16 = -(-N // 16) * 16
+    qb = q.view(torch.uint8)
+    if N16 != N:
+        qb = torch.nn.functional.pad(qb, (0, N16 - N))
+        s = torch.nn.functional.pad(s, (0, N16 - N))
+    out = torch.empty((M, N16), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fp8 = q.dtype == _E4M3
+    ws = cnt = None
+    if plan["splits"] > 1:
+        ws, cnt = _split_scratch(x.device, stream, plan["workspace"],
+                                 plan["counters"])
+    prefill = plan["route"] == "prefill"
+    w = _launch_w8_to_bf16(qb, fp8, lib) if prefill else qb
+    fn = entry(lib, "lc_wq_matmul_bf16", _W8A16_ARGS)
+    err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(),
+             None if cnt is None else cnt.data_ptr(), M, N16, K, int(fp8),
+             int(prefill), plan.get("bm", 0), plan["splits"],
+             plan.get("group", 0), plan["grid"] if prefill else 0, stream)
     check_launch(err, W8A16.name)
     W8A16.add()
+    return out if N16 == N else out[:, :N].contiguous()
+
+
+def _launch_w8_to_bf16(qb, fp8: bool, lib="wq_matmul"):
+    """The prefill route's first pass, csrc/wq_matmul.cu w8_to_bf16, on the
+    current stream: weight bytes qb (K, N) uint8 (int8, or e4m3 with
+    ``fp8``; K * N a multiple of 16) -> (K, N) bf16, exactly."""
+    from leetcuda_tpu_torch.build import entry
+
+    out = torch.empty(qb.shape, dtype=torch.bfloat16, device=qb.device)
+    err = entry(lib, "lc_w8_to_bf16", _W8_CONVERT_ARGS)(
+        qb.data_ptr(), out.data_ptr(), qb.numel(), int(fp8),
+        torch.cuda.current_stream(qb.device).cuda_stream)
+    check_launch(err, W8_TO_BF16.name)
+    W8_TO_BF16.add()
     return out
 
 
@@ -291,8 +428,8 @@ def _launch_w4a16(x, packed, scales, decode: bool, lib="w4_matmul"):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ws = cnt = None
     if plan["splits"] > 1:
-        ws, cnt = _w4_scratch(x.device, stream, plan["workspace"],
-                              plan["counters"])
+        ws, cnt = _split_scratch(x.device, stream, plan["workspace"],
+                                 plan["counters"])
     fn = entry(lib, "lc_w4_matmul_bf16", _W4A16_ARGS)
     err = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
              out.data_ptr(), None if ws is None else ws.data_ptr(),
@@ -320,11 +457,11 @@ def matmul_w8a16(x, q, s):
 
     if s.dtype != torch.float32:
         raise ValueError(f"w8a16 kernel takes f32 scales, got {s.dtype}")
-    if K % 32 or N % 8:
-        raise ValueError(f"w8a16 kernel needs K % 32 == 0 and N % 8 == 0, "
-                         f"got K={K}, N={N}")
+    if K % 8:
+        raise ValueError(f"w8a16 kernel needs K % 8 == 0 (16-byte rows of "
+                         f"x), got K={K}")
     _check_kernel_operands("w8a16", x, q=q, s=s)
-    return _launch_w8a16(x, q, s, x.shape[0] <= DECODE_TILE_MAX_ROWS)
+    return _launch_w8a16(x, q, s, x.shape[0] <= W8_DECODE_MAX_ROWS)
 
 
 def matmul_w4a16(x, packed, scales, group: int = 128):

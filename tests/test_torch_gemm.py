@@ -11,6 +11,7 @@ products summed in another order, bf16 outputs rounded once on each side;
 the int8 matmul is exact.
 """
 
+import json
 import subprocess
 import sys
 
@@ -178,6 +179,22 @@ AUTO_SHAPES = [(1024, 1024, 1024), (8192, 1024, 8192), (1024, 8192, 8192),
                (8192, 8192, 1024)]
 
 
+# pick_matmul_config's rules (its docstring cites the A/B): the 128 x 256
+# tile where its tiles fill the card's 132 SMs, walked 8 tile columns at a
+# time from 32 columns; the 64 x 64 tile below; f32 on the CUDA cores
+AUTO_WANT = {(1024, 1024, 1024): ((64, 64, 32), None),
+             (8192, 1024, 8192): ((128, 256, 32), None),
+             (1024, 8192, 8192): ((128, 256, 32), 8),
+             (4096, 14336, 4096): ((128, 256, 32), 8),
+             (16384, 16384, 16384): ((128, 256, 32), 8),
+             (384, 640, 264): ((64, 64, 32), None),
+             (8192, 8192, 1024): ((128, 256, 32), 8),
+             (16384, 3072, 2048): ((128, 256, 32), None),
+             (16384, 32000, 2048): ((128, 256, 32), 8),
+             (1152, 4096, 64): ((128, 256, 32), None),
+             (1024, 4000, 64): ((64, 64, 32), None)}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_pick_matmul_config(dtype):
     for M, N, K in AUTO_SHAPES:
@@ -189,6 +206,14 @@ def test_pick_matmul_config(dtype):
         assert cfg["layout"] == "nn"
         assert cfg["swizzle_group"] is None or cfg["swizzle_group"] >= 1
         tmm.make_matmul(**cfg)  # an instantiated config
+    for (M, N, K), (block, group) in AUTO_WANT.items():
+        cfg = tmm.pick_matmul_config(M, N, K, dtype)
+        if dtype == torch.float32:
+            assert (cfg["block"], cfg["swizzle_group"]) == (
+                tmm.F32_DEFAULT, None)
+        else:
+            assert (cfg["block"], cfg["swizzle_group"]) == (block, group), (
+                M, N, K)
 
 
 def test_matmul_auto(rng):
@@ -297,7 +322,7 @@ def test_refusals():
         tq.matmul_i8i8i32(f32, f32)
 
 
-def test_gemm_bench_cli():
+def test_gemm_bench_cli(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "leetcuda_tpu_torch.bench.gemm_bench",
          "--device", "cpu", "--mnk", "256", "--variants", "sgemm_naive_f32",
@@ -308,3 +333,21 @@ def test_gemm_bench_cli():
     assert "sgemm_naive_f32 256x256x256" in r.stdout
     assert "torch.matmul 256x256x256" in r.stdout
     assert "max|diff|" in r.stdout
+    # the A/Bs of the w8a16 kernel and of the dense tensor-core kernel: on
+    # the CPU only the plain versions run, a check of the CLI
+    for flags, rows in (
+            (["--w8", "--w8-kn", "256", "512", "--m", "1", "40"],
+             [(1, "fp8"), (40, "fp8"), (1, "int8"), (40, "int8")]),
+            (["--hgemm", "--m", "200", "--n", "130", "--k", "261"],
+             [(200, None)])):
+        out = tmp_path / "rows.json"
+        r = subprocess.run(
+            [sys.executable, "-m", "leetcuda_tpu_torch.bench.gemm_bench",
+             *flags, "--device", "cpu", "--iters", "1", "--json", str(out)],
+            capture_output=True, text=True, timeout=300,
+            env={"PATH": "/usr/bin:/bin", "PYTHONPATH": "."})
+        assert r.returncode == 0, r.stderr[-2000:]
+        got = json.loads(out.read_text())["rows"]
+        assert [(row["M"], row.get("fmt")) for row in got] == rows
+        assert all(row["variant"] == "plain" and row["max_abs_err"] == 0
+                   for row in got)

@@ -77,14 +77,18 @@ def test_resident_tile_is_the_sources_default():
     import re
     from pathlib import Path
 
-    src = (Path(tmm.__file__).parent.parent / "csrc"
-           / "matmul_resident.cu").read_text()
+    csrc = Path(tmm.__file__).parent.parent / "csrc"
+    src = (csrc / "matmul_resident.cu").read_text()
     macro = {k: int(v) for k, v in
              re.findall(r"#define (LC_RES_\w+) (\d+)", src)}
     t = tmm.RESIDENT_TILE
     assert macro == {"LC_RES_BN": t["block_n"], "LC_RES_STAGES": t["stages"],
                      "LC_RES_CLUSTER": t["cluster"], "LC_RES_PROBE": 0}
-    assert "BM = 128, BN = BN_, BK = 64" in src
+    # the chain's tile is the dense kernel's plan (gemm_sm90.cuh) at BM 128
+    assert ("GemmPlan<128, LC_RES_BN, LC_RES_STAGES, LC_RES_CLUSTER, 1, kBkn>"
+            in src)
+    plan = (csrc / "gemm_sm90.cuh").read_text()
+    assert "BM = BM_, BN = BN_, BK = 64" in plan
     assert (t["block_m"], t["block_k"]) == (128, 64)
 
 
