@@ -139,11 +139,13 @@ Phases; any failure raises and the script exits non-zero:
           ``rms_norm`` with layer 0's attn_norm in bf16 at training's 16384
           rows and a decode step's 8, every rms-norm rung at 16384 rows in
           its dtype and at (4096, 2050) (a scalar tail, misaligned rows);
-          ``layer_norm``, its backward kernel (twice, bit for bit) and
+          ``layer_norm``, its backward (the rows route twice, bit for
+          bit, and in turn with the block route) and
           ``layer_norm_trainable``'s gradients against autograd through
-          the plain forward, at (16384, 2048) in bf16 and f32 with random
-          gamma and beta; every layer-norm rung; rows offset by 1e3 against
-          float64; the three softmax forms in f32 at (2048, 32000) and (8,
+          the plain forward, at (16384, 2048) in bf16, f32 and f16 with
+          random gamma and beta; the backward's block route at (4096, 2050)
+          (twice, bit for bit); every layer-norm rung; rows offset by 1e3
+          against float64; the three softmax forms in f32 at (2048, 32000) and (8,
           32000), every softmax rung at 16384 rows, and rows that overflow
           the naive form (NaN as its plain version); then
           ``flash_attention_splitkv`` in bf16 at decode (q (8, 16, 1, 128)
@@ -214,12 +216,15 @@ Phases; any failure raises and the script exits non-zero:
           its published width and depth, random bf16 weights built on the
           card from a seed (60.5 GB), dropless experts through the grouped
           matmul. Phase 3's gmm checks on its layer 0 (``check_gmm``: the
-          decode and prefill products, one expert, empty experts, ragged N,
-          f32 and f16, beside torch._grouped_mm); then the contiguous-cache
+          decode and prefill products, each route's in turn, one expert,
+          empty experts, ragged N, f32 and f16, beside torch._grouped_mm;
+          NaN rows and K, N past 64s on both routes; the wgmma kernels'
+          SASS); then the contiguous-cache
           Engine serves 8 requests with prompts of 16-1000 tokens admitted
           in one ragged batch and a lone 100-token request, then
           ``generate`` at B=8, S=128, 32 new tokens each: exactly 3 gmm
-          launches per layer per forward, ragged forward and decode step;
+          launches per layer per forward, ragged forward and decode step,
+          every one on the wgmma route (``gmm``, none on ``gmm_tile``);
           its phase 5 (every served token against a solo B=1 replay) and
           phase 6 (one B=8 decode step at context 1024, the gmm's share).
    (o)    Gemma-2-27B, run second (after (n), on the card emptied again):
@@ -360,9 +365,14 @@ Phases; any failure raises and the script exits non-zero:
    main paths' decode steps replay as CUDA graphs of ``decode_step``
    (``StepGraphs``: the same kernels in the same order, without the host's
    launches); the first stream of each params set and cache type replays
-   eagerly too and must give the same gaps bit for bit. Paths (d), (e) and (f) replay over a CONTIGUOUS cache
-   with UNFUSED math, so the replay shares neither the paged, the fused nor
-   the chunk kernel with them; (g) replays token by token through
+   eagerly too and must give the same gaps bit for bit. Then
+   ``graph_scratch_check``: a B=1 step of (b)'s int8 packs over an int8
+   cache, captured, replays bit for bit as the eager step after eager
+   calls on its stream grew the split-K workspace and the split-KV
+   counters (the superseded buffers still held at the graph's addresses).
+   Paths (d), (e) and (f) replay over a CONTIGUOUS cache with UNFUSED math,
+   so the replay shares neither the paged, the fused nor the chunk kernel
+   with them; (g) replays token by token through
    ``decode_step`` over a contiguous e4m3 cache (the shared prefix once),
    as its whole prompt went through the chunk kernel over quantized pools.
    Printed, not asserted: each quantized model's top-1 agreement and max
@@ -474,7 +484,8 @@ PATH_KERNELS.update({
 # merge (the flash forward with its lse, once per split).
 PATH_KERNELS.update({
     "k1": ("rms_norm", "layer_norm", "softmax", "merge_attn_states"),
-    "k2": ("rms_norm", "layer_norm", "layer_norm_bwd", "softmax"),
+    "k2": ("rms_norm", "layer_norm", "layer_norm_bwd", "layer_norm_bwd_block",
+           "softmax"),
     "k3": ("flash_attention_lse", "merge_attn_states")})
 # Path (l), the op corpus's transpose, embedding gathers, RoPE and resident
 # matmul chain, in three parts: the registry sweep of the four families, the
@@ -533,7 +544,8 @@ GEMM_KERNELS = PATH_KERNELS["j3"]
 # The row ops' kernels: no serving, training or GEMM path launches them (the
 # model leaves its norms and softmax to eager PyTorch, as the JAX model left
 # them to XLA).
-ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_bwd",)
+ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_bwd",
+                                     "layer_norm_bwd_block")
 # The op corpus's kernels of path (l): no other path launches them (the
 # model's embedding is an indexing op and its RoPE the half rotation, as the
 # JAX model's are; nothing calls the resident chain).
@@ -544,7 +556,7 @@ CORPUS_KERNELS = PATH_KERNELS["l1"]
 FLAT_KERNELS = PATH_KERNELS["m2"]
 # The grouped matmul: no path but (n) launches it (no other model has
 # experts).
-MOE_KERNELS = ("gmm",)
+MOE_KERNELS = ("gmm", "gmm_tile")
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
@@ -563,12 +575,13 @@ PATH_FORBIDDEN = {
     "h": ("paged_attention", "paged_attention_quantized",
           "paged_chunk_attention", "paged_chunk_attention_quantized"),
     # bf16 weights over a contiguous bf16 cache; the q/k norms keep the
-    # fused entry block away (and an MoE layer has nothing to fuse)
+    # fused entry block away (and an MoE layer has nothing to fuse); every
+    # gmm launch takes the wgmma route
     "n": ("decode_attention_quantized", "paged_attention",
           "paged_attention_quantized", "chunk_attention",
           "chunk_attention_quantized", "paged_chunk_attention",
           "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
-          "fused_norm_qkv_rope"),
+          "fused_norm_qkv_rope", "gmm_tile"),
     # bf16 weights (unfused) over bf16 caches and pools; chunked prefill
     # over pools only
     "o": ("decode_attention_quantized", "paged_attention_quantized",
@@ -1940,6 +1953,93 @@ class StepGraphs:
         return g
 
 
+GRAPH_SCRATCH_LEN, GRAPH_SCRATCH_STEPS = 1024, 8
+
+
+def graph_scratch_check(params, cfg, kv_quant, n=GRAPH_SCRATCH_LEN,
+                        steps=GRAPH_SCRATCH_STEPS):
+    """The card check of the per-stream scratch buffers (gemm/quant.py
+    ``_split_scratch``, attention/decode.py ``_stream_counters``): a B=1
+    ``decode_step`` of ``params`` over a ``kv_quant`` cache of ``n``
+    positions is captured as a CUDA graph (StepGraphs), so that the w8a16
+    split-K route and the split-KV decode kernel both launch from the graph
+    into that stream's buffers. Then eager calls on the same stream grow
+    both: a B=8 decode_step (the split-K workspace) and a decode attention
+    of more rows than the stream's counter buffer holds. The superseded
+    buffers must still be allocated, held by the package at the addresses
+    the graph launches into; and the graph, replayed for ``steps`` tokens
+    from position n / 2 (every decode row over two or more splits, so the
+    counters count), must give an eager B=1 decode_step's logits bit for
+    bit. Returns the buffers' sizes before and after and the steps
+    compared."""
+    from leetcuda_tpu_torch.attention import decode as da
+    from leetcuda_tpu_torch.gemm import quant as gq
+    from leetcuda_tpu_torch.models.llama import decode_step, init_kv_caches
+
+    graphs = StepGraphs(params, cfg, kv_quant)
+    dev = graphs.dev
+    key = (dev.index, graphs.stream.cuda_stream)
+    graphs.caches(n)  # warms the stream, then captures
+
+    def buffers():
+        return [(t.data_ptr(), t.numel() * t.element_size()) for t in (
+            *gq._SPLIT_SCRATCH[key], da._STREAM_COUNTERS[key])]
+
+    before = buffers()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    with torch.cuda.stream(graphs.stream):
+        caches = init_kv_caches(cfg, 8, n, quant=kv_quant, device=dev)
+        decode_step(params, torch.randint(
+            0, cfg.vocab_size, (8,), generator=gen, device=dev,
+            dtype=torch.int32), caches,
+            torch.full((8,), n // 2, dtype=torch.int32, device=dev), cfg)
+        del caches
+        D, Hkv = cfg.head_dim, cfg.n_kv_heads
+        S = 2 * da.SPLIT_KEYS[D]
+        B = (da._STREAM_COUNTERS[key].numel()
+             // (Hkv * da.split_plan(1, cfg.n_heads, Hkv, D, S).head_blocks)
+             + 1)
+        k = torch.zeros((B, Hkv, S, D), dtype=torch.bfloat16, device=dev)
+        da.decode_attention(
+            torch.zeros((B, cfg.n_heads, D), dtype=torch.bfloat16,
+                        device=dev), k, k,
+            torch.full((B,), S, dtype=torch.int32, device=dev))
+        del k
+    graphs.stream.synchronize()
+    after = buffers()
+    if after[0][1] <= before[0][1] or after[2][1] <= before[2][1]:
+        raise AssertionError(f"graph scratch: the eager calls grew nothing "
+                             f"({before} -> {after})")
+    held = {t.data_ptr() for t in gq._SPLIT_RETIRED + da._RETIRED_COUNTERS}
+    held |= {p for p, _ in after}  # a buffer that did not grow stays live
+    lost = [p for p, _ in before if p not in held]
+    if lost:
+        raise AssertionError(f"graph scratch: growth let go of buffers the "
+                             f"graph launches into (at {lost})")
+    toks = torch.randint(0, cfg.vocab_size, (steps,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    graphs.caches(n)
+    got = torch.stack([graphs.step(n, toks[t:t + 1], n // 2 + t)[0].clone()
+                       for t in range(steps)])
+    caches = init_kv_caches(cfg, 1, n, quant=kv_quant, device=dev)
+    lengths = torch.full((1,), n // 2, dtype=torch.int32, device=dev)
+    want = []
+    for t in range(steps):
+        logits, caches = decode_step(params, toks[t:t + 1], caches, lengths,
+                                     cfg)
+        want.append(logits[0])
+        lengths += 1
+    want = torch.stack(want)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"graph scratch: after the stream's buffers grew, the graphed "
+            f"B=1 step differs from the eager one (max abs "
+            f"{float((got.float() - want.float()).abs().max()):.3g})")
+    return {"bytes_before": [b for _, b in before],
+            "bytes_after": [b for _, b in after], "steps": steps,
+            "from_position": n // 2, "bit_equal": True}
+
+
 def held_gap(graphs, gaps):
     """The largest of ``gaps(graphs)`` (per-token gaps of one stream); the
     first stream of a StepGraphs is also replayed eagerly (``gaps(None)``),
@@ -2832,6 +2932,8 @@ ROW_SRC = {
                    "leetcuda_tpu/ops/layer_norm.py:50"),
     "layer_norm_bwd": ("leetcuda_tpu_torch/csrc/row_ops.cu",
                        "leetcuda_tpu/ops/layer_norm.py:174"),
+    "layer_norm_bwd_block": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                             "leetcuda_tpu/ops/layer_norm.py:174"),
     "softmax": ("leetcuda_tpu_torch/csrc/row_ops.cu",
                 "leetcuda_tpu/ops/softmax.py:83"),
     "merge_attn_states": ("leetcuda_tpu_torch/csrc/merge_attn.cu",
@@ -2939,21 +3041,25 @@ def _rms_cases(run, layer):
 
 
 def _layer_norm_cases(run):
-    """layer_norm and its backward at training's rows in bf16 and f32 with
-    random gamma and beta (the backward twice, bit for bit), the trainable
-    form's gradients against autograd through the plain forward, every
-    rung, and rows offset by 1e3 against float64."""
+    """layer_norm and its backward at training's rows in bf16, f32 and f16
+    with random gamma and beta (the backward on its rows route, twice, bit
+    for bit, and in turn with the block route, the earlier kernel), the
+    trainable form's gradients against autograd through the plain forward,
+    the rows route at K 1024 and 4096 in bf16 and f32 (twice, bit for bit),
+    the backward's block route at (4096, 2050) (a K the rows route does not
+    take), every rung, and rows offset by 1e3 against float64."""
     import torch.nn.functional as F
     from leetcuda_tpu_torch.core.registry import OPS
     from leetcuda_tpu_torch.ops import layer_norm as ln
 
     K = ROW_DIM
-    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"),
+                    (torch.float16, "f16")):
         x = run.rand(TRAIN_ROWS, K, dtype=dt)
         g = run.rand(K, dtype=dt, scale=0.3, offset=1.0)
         b = run.rand(K, dtype=dt, scale=0.3)
         dy = run.rand(TRAIN_ROWS, K, dtype=dt)
-        tol = KERNEL_TOL if dt == torch.bfloat16 else F32_TOL
+        tol = F32_TOL if dt == torch.float32 else KERNEL_TOL
         isz = x.element_size()
         run.case(f"layer_norm/{tag} ({TRAIN_ROWS}, {K})", "layer_norm",
                  lambda: ln.layer_norm(x, g, b),
@@ -2972,12 +3078,25 @@ def _layer_norm_cases(run):
             lambda: torch.autograd.grad(y_lib, lib_leaves, dy,
                                         retain_graph=True),
             3.0 * x.numel() * isz + 3 * K * isz, (x, g, dy), tol=tol,
-            flops=12.0 * x.numel(), S=TRAIN_ROWS, K=K, dtype=tag)
+            flops=12.0 * x.numel(), S=TRAIN_ROWS, K=K, dtype=tag,
+            plan=ln.ln_bwd_plan(TRAIN_ROWS, K, isz))
         first, second = (ln.layer_norm_bwd(x, g, dy) for _ in range(2))
         row["bitwise_repeat"] = all(torch.equal(p, q)
                                     for p, q in zip(first, second))
         if not row["bitwise_repeat"]:
             raise AssertionError(f"layer_norm_bwd {tag}: two runs differ")
+        block = ln.ln_bwd_plan(TRAIN_ROWS, K, isz, aligned=False)
+
+        def by_block():
+            return ln._launch_bwd(x, g, dy, torch.empty_like(x), block)
+
+        with uncounted():
+            row["block_route_max_abs_err"] = max(
+                hold(p, q, tol) for p, q in zip(
+                    by_block(), ln.layer_norm_bwd_plain(x, g, dy)))
+        row["routes_ms"] = interleaved_ms({
+            "rows": lambda: ln.layer_norm_bwd(x, g, dy),
+            "block": by_block}, run.flush)
 
         def grads(fn, dy=dy, inputs=(x, g, b)):
             leaves = [t.detach().clone().requires_grad_(True)
@@ -2989,6 +3108,27 @@ def _layer_norm_cases(run):
                  "layer_norm_bwd", lambda: grads(ln.layer_norm_trainable),
                  lambda: grads(ln.layer_norm_plain), None, 0.0,
                  (x, g, b, dy), tol=tol, timed=False)
+    # the rows route's other two widths: K 1024 (1 vector a thread) and
+    # 4096 (4 vectors, 1 CTA an SM), each twice, bit for bit
+    for k_ in (1024, 4096):
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = run.rand(TAIL_ROWS, k_, dtype=dt)
+            g = run.rand(k_, dtype=dt, scale=0.3, offset=1.0)
+            dy = run.rand(TAIL_ROWS, k_, dtype=dt)
+            plan = ln.ln_bwd_plan(TAIL_ROWS, k_, x.element_size())
+            if plan["route"] != "rows" or plan["nv"] != k_ // 1024:
+                raise AssertionError(f"layer_norm_bwd ({TAIL_ROWS}, {k_}): "
+                                     f"planned {plan}")
+            check = (f"layer_norm_bwd/{tag} ({TAIL_ROWS}, {k_}), "
+                     f"{plan['nv']} vectors a thread")
+            run.case(check, "layer_norm_bwd",
+                     lambda: ln.layer_norm_bwd(x, g, dy),
+                     lambda: ln.layer_norm_bwd_plain(x, g, dy), None, 0.0,
+                     (x, g, dy), tol=F32_TOL if dt == torch.float32
+                     else KERNEL_TOL, timed=False)
+            if not all(torch.equal(p, q) for p, q in zip(
+                    ln.layer_norm_bwd(x, g, dy), ln.layer_norm_bwd(x, g, dy))):
+                raise AssertionError(f"{check}: two runs differ")
     for name, spec in OPS.items():
         if spec.family != "layer-norm":
             continue
@@ -3004,6 +3144,19 @@ def _layer_norm_cases(run):
                  2.0 * x.numel() * isz + 2 * K * isz, (x, g, b),
                  tol=dict(atol=spec.atol, rtol=spec.rtol),
                  flops=8.0 * x.numel(), rung=name, S=TRAIN_ROWS, K=K)
+    x = run.rand(TAIL_ROWS, TAIL_DIM, dtype=torch.bfloat16)
+    g = run.rand(TAIL_DIM, dtype=torch.bfloat16, scale=0.3, offset=1.0)
+    dy = run.rand(TAIL_ROWS, TAIL_DIM, dtype=torch.bfloat16)
+    row = run.case(
+        f"layer_norm_bwd/bf16 ({TAIL_ROWS}, {TAIL_DIM}), the block route",
+        "layer_norm_bwd_block", lambda: ln.layer_norm_bwd(x, g, dy),
+        lambda: ln.layer_norm_bwd_plain(x, g, dy), None,
+        6.0 * x.numel() + 6 * TAIL_DIM, (x, g, dy), flops=12.0 * x.numel(),
+        S=TAIL_ROWS, K=TAIL_DIM, dtype="bf16",
+        plan=ln.ln_bwd_plan(TAIL_ROWS, TAIL_DIM))
+    if not all(torch.equal(p, q) for p, q in zip(
+            ln.layer_norm_bwd(x, g, dy), ln.layer_norm_bwd(x, g, dy))):
+        raise AssertionError("layer_norm_bwd block route: two runs differ")
     x = run.rand(TAIL_ROWS, K, offset=1e3)
     g, b = run.rand(K, scale=0.3, offset=1.0), run.rand(K, scale=0.3)
     run.case(f"layer_norm/f32 rows offset by 1e3 ({TAIL_ROWS}, {K})",
@@ -3183,6 +3336,10 @@ def print_row_ops(rows, res):
                else f"library {r['library_ms']:.4f} ms")
         rep = ("" if "bitwise_repeat" not in r
                else f"; repeat bit for bit {r['bitwise_repeat']}")
+        if "routes_ms" in r:
+            rep += (f"; in turn: rows route {r['routes_ms']['rows']:.4f} ms, "
+                    f"block route {r['routes_ms']['block']:.4f} ms (max abs "
+                    f"{r['block_route_max_abs_err']:.3g})")
         print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
               f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
               f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
@@ -3518,11 +3675,12 @@ def ptxas_entries(log, needle):
     return out
 
 
-def resident_sass(name="matmul_resident"):
+def resident_sass(name="matmul_resident", function=None):
     """Counts of wgmma (HGMMA), mma.sync (HMMA) and TMA load (UTMALDG)
     instructions in the SASS of ``csrc/<name>.cu``'s library (the resident
     chain's, the flash kernels', the quantized matmuls', the matmul
-    library's): it must run on wgmma fed by TMA and keep no mma.sync
+    library's, the grouped matmul's), or of its functions whose names hold
+    ``function``: they must run on wgmma fed by TMA and keep no mma.sync
     route."""
     from leetcuda_tpu_torch.build import _lib_path, _nvcc
 
@@ -3530,11 +3688,15 @@ def resident_sass(name="matmul_resident"):
     sass = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
+    if function is not None:
+        sass = "".join(part for part in sass.split("Function : ")[1:]
+                       if function in part.split("\n", 1)[0])
     counts = {op: len(re.findall(rf"\b{op}\b", sass))
               for op in ("HGMMA", "HMMA", "UTMALDG")}
     if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0 or counts["HMMA"]:
-        raise AssertionError(f"{name}'s SASS: {counts}; its kernels must "
-                             "be wgmma fed by TMA, with no mma.sync")
+        raise AssertionError(f"{name}'s SASS ({function or 'every kernel'}):"
+                             f" {counts}; it must be wgmma fed by TMA, with "
+                             "no mma.sync")
     return counts
 
 
@@ -4146,12 +4308,19 @@ def check_gmm(rec, flush, moe, cfg):
     0's experts (``moe``): the gate and down products of a decode step
     (B=8 tokens routed by layer 0's router, unit-rms hidden states) and of
     an 8 x 1024 prefill; every copy to one expert; 24 experts of 128
-    non-empty; ragged N (1000: a partial tile, 203: element loads); f32
-    and f16. Then, untimed: row tiles of 64 and 256 rows, and an expert
-    id past either end (NaN rows, as the plain version). Each row's bound
-    counts the operations of the live rows (the routed copies) and the
-    bytes of lhs, out and each distinct expert panel once; the bound of
-    all rows beside it. Returns the untimed checks' errors."""
+    non-empty; ragged N (1000: a partial tile, 203: the tile route); f32
+    (the tile route) and f16. Each case runs the route that
+    gemm/grouped.py ``gmm_route`` picks and is recorded under that route's
+    counter (``gmm``: the TMA + wgmma kernel; ``gmm_tile``: the old tiles);
+    at (n)'s four shapes the two routes are also timed in turn
+    (``interleaved_ms``). Then, untimed, on both routes: row tiles of 64
+    and 256 rows with an expert id past either end (NaN rows, as the plain
+    version), and K and N that are not multiples of 64 (TMA's zero fill
+    inside one expert's panel). Each row's bound counts the operations of
+    the live rows (the routed copies) and the bytes of lhs, out and each
+    distinct expert panel once; the bound of all rows beside it. The
+    wgmma kernels' SASS must hold HGMMA and UTMALDG and no HMMA. Returns
+    the untimed checks' errors."""
     import torch.nn.functional as F
 
     from leetcuda_tpu_torch.gemm import grouped as gg
@@ -4160,9 +4329,11 @@ def check_gmm(rec, flush, moe, cfg):
     bm, D, Fm = 128, cfg.dim, cfg.moe.ffn_dim
     gmm = gg.make_gmm(block=(bm, 2048, 2048))
 
-    def case(check, lhs, rhs, tile_group, live_rows, tiles_live=None):
+    def case(check, lhs, rhs, tile_group, live_rows, tiles_live=None,
+             routes=False):
         T, K = lhs.shape
         G, _, N = rhs.shape
+        plan = gg.gmm_plan(T, K, N, bm, lhs.dtype)
         got = gmm(lhs, rhs, tile_group)
         want = gg.gmm_plain(lhs, rhs, tile_group, bm)
         lib, why = gmm_library(lhs, rhs, tile_group, bm)
@@ -4170,7 +4341,8 @@ def check_gmm(rec, flush, moe, cfg):
         nbytes = (lhs.element_size() * (T * K + T * N + panels * K * N)
                   + 4.0 * tile_group.numel())
         rate = PEAK_RATE[lhs.dtype]
-        rec.record(f"gmm/{check}", "gmm", GMM_SRC, GMM_REPLACES, got, want,
+        name = "gmm" if plan["route"] == "wgmma" else "gmm_tile"
+        rec.record(f"gmm/{check}", name, GMM_SRC, GMM_REPLACES, got, want,
                    time_ms(lambda: gmm(lhs, rhs, tile_group), flush),
                    time_ms(lambda: gg.gmm_plain(lhs, rhs, tile_group, bm),
                            flush, iters=5),
@@ -4182,11 +4354,19 @@ def check_gmm(rec, flush, moe, cfg):
                    tiles=T // bm, tiles_live=tiles_live,
                    dtype=str(lhs.dtype).split(".")[-1],
                    bound_all_rows_ms=every[0] * 1e3,
-                   bound_all_rows_by=every[1],
+                   bound_all_rows_by=every[1], plan=plan,
                    library="torch._grouped_mm" if lib else why)
         if lib is not None:
             row["library_max_abs_err"] = float(
                 (lib().float() - want.float()).abs().max())
+        if routes:  # the wgmma route beside the tile route, in turn
+            with uncounted():
+                old = gg._launch(lhs, rhs, tile_group, bm, route="tile")
+            row["tile_route_max_abs_err"] = hold(old, want, GMM_TOL)
+            row["routes_ms"] = interleaved_ms({
+                "wgmma": lambda: gmm(lhs, rhs, tile_group),
+                "tile": lambda: gg._launch(lhs, rhs, tile_group, bm,
+                                           route="tile")}, flush)
         return got
 
     def by_sizes(sizes):
@@ -4199,11 +4379,11 @@ def check_gmm(rec, flush, moe, cfg):
         live = T * cfg.moe.topk
         n_live = int(torch.unique(pos // bm).numel())
         gate = case(f"{label} gate K={D} N={Fm}", buf, moe["w_gate"], tiles,
-                    live, n_live)
+                    live, n_live, routes=True)
         up = gmm(buf, moe["w_up"], tiles)
         h = (F.silu(gate.float()) * up.float()).to(torch.bfloat16)
         case(f"{label} down K={Fm} N={D}", h, moe["w_down"], tiles, live,
-             n_live)
+             n_live, routes=True)
     case(f"every copy to expert 7, 8192 rows, K={D} N={Fm}",
          rec.randn(8192, D), moe["w_gate"],
          torch.full((64,), 7, dtype=torch.int32, device=rec.dev), 8192)
@@ -4223,18 +4403,27 @@ def check_gmm(rec, flush, moe, cfg):
              by_sizes([256, 128, 384]), 768)
 
     untimed = {}
-    lhs, rhs = rec.randn(512, 256), rec.randn(4, 256, 256, scale=1 / 16)
-    for rows, tiles in ((64, [0, 3, 4, 1, -1, 2, 2, 3]), (256, [3, 1])):
-        tiles = torch.tensor(tiles, dtype=torch.int32, device=rec.dev)
-        got = gg.make_gmm(block=(rows, 128, 128))(lhs, rhs, tiles)
-        want = gg.gmm_plain(lhs, rhs, tiles, rows)
-        bad = ((tiles < 0) | (tiles >= 4)).repeat_interleave(rows)
-        if not (torch.isnan(got).all(dim=1) == bad).all() or bool(
-                torch.isnan(got[~bad]).any()):
-            raise AssertionError(f"gmm, row tiles of {rows}: NaN rows are "
-                                 "not those of the out-of-range experts")
-        untimed[f"row tiles of {rows}"] = hold(got[~bad], want[~bad],
-                                               GMM_TOL)
+    for K, N in ((256, 256), (776, 264)):  # 776 and 264: 8 past 64s
+        lhs = rec.randn(512, K)
+        rhs = rec.randn(4, K, N, scale=K ** -0.5)
+        for rows, tiles in ((64, [0, 3, 4, 1, -1, 2, 2, 3]), (256, [3, 1]),
+                            (128, [2, 0, 5, 3])):
+            tiles = torch.tensor(tiles, dtype=torch.int32, device=rec.dev)
+            want = gg.gmm_plain(lhs, rhs, tiles, rows)
+            bad = ((tiles < 0) | (tiles >= 4)).repeat_interleave(rows)
+            for route in ("wgmma", "tile"):
+                with uncounted():
+                    got = gg._launch(lhs, rhs, tiles, rows, route=route)
+                if not (torch.isnan(got).all(dim=1) == bad).all() or bool(
+                        torch.isnan(got[~bad]).any()):
+                    raise AssertionError(
+                        f"gmm {route} route, row tiles of {rows}, K={K} "
+                        f"N={N}: NaN rows are not those of the out-of-range "
+                        "experts")
+                untimed[f"{route}: row tiles of {rows}, K={K} N={N}"] = hold(
+                    got[~bad], want[~bad], GMM_TOL)
+    rec.rows[next(k for k in rec.rows if k.startswith("gmm/"))]["sass"] = (
+        resident_sass("gmm", "gmm_sm90"))
     return untimed
 
 
@@ -4326,10 +4515,12 @@ def moe_path(dev="cuda"):
                peak_extra_bytes=peak,
                peak_bytes=torch.cuda.max_memory_allocated())
     want = 3 * cfg.n_layers * sum(calls.values())
-    if counts.get("gmm", 0) != want:
+    if counts.get("gmm", 0) != want or counts.get("gmm_tile", 0):
         raise AssertionError(f"path n: {counts.get('gmm', 0)} gmm launches "
-                             f"for {calls}, not 3 per layer per call "
-                             f"({want})")
+                             f"on the wgmma route and "
+                             f"{counts.get('gmm_tile', 0)} on the tile route "
+                             f"for {calls}, not 3 per layer per call, all "
+                             f"wgmma ({want})")
     for what in ("engine_tok_s", "generate_tok_s"):
         if res[what] > res["tok_s_ceiling"]:
             raise AssertionError(f"path n: {what} {res[what]:.0f} exceeds "
@@ -4354,7 +4545,8 @@ def moe_path(dev="cuda"):
 
     # phase 6: one B=8 decode step at context 1024
     res["profile"] = profile_decode(params, cfg, batch=8, context=1024,
-                                    classes={"gmm": ("gmm_kernel",)})
+                                    classes={"gmm": ("gmm_sm90",
+                                                     "gmm_kernel")})
     return rec.rows, res
 
 
@@ -4367,13 +4559,23 @@ def print_moe(rows, res):
                f"library none ({r['library']})")
         live = ("" if r["tiles_live"] is None else
                 f", {r['tiles_live']} of {r['tiles']} tiles live")
-        print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms {lib} "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{r['live_rows']} live rows; all {r['T']} rows "
-              f"{r['bound_all_rows_ms']:.4f} ms, {r['bound_all_rows_by']})"
-              f"{live}", flush=True)
+        p = r["plan"]
+        route = (f"{p['route']} route"
+                 + (f" {p['block_m']} x {p['block_n']}, {p['grid']} CTAs "
+                    f"over {p['units']} tiles" if p["route"] == "wgmma"
+                    else ""))
+        if "routes_ms" in r:
+            route += (f"; in turn: wgmma {r['routes_ms']['wgmma']:.4f} ms, "
+                      f"tile {r['routes_ms']['tile']:.4f} ms (max abs "
+                      f"{r['tile_route_max_abs_err']:.3g})")
+        print(f"kernel {r['check']} [{route}]: max_abs_err "
+              f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['live_rows']} live rows; all {r['T']} "
+              f"rows {r['bound_all_rows_ms']:.4f} ms, "
+              f"{r['bound_all_rows_by']}){live}", flush=True)
     print(f"  gmm untimed: {res['gmm_untimed']}")
+    print(f"  gmm wgmma SASS: {next(iter(rows.values()))['sass']}")
     print(f"path (n) {res['model']} ({c['n_layers']} layers, "
           f"{c['n_experts']} experts, top-{c['expert_topk']}, dropless, "
           f"bf16, random weights built in {res['init_s']:.1f} s): engine 8 "
@@ -7285,7 +7487,9 @@ def main() -> int:
                               ("flash_fwd_ptxas", "flash_fwd", "flash_fwd"),
                               ("w4_ptxas", "w4_matmul", "w4_mm"),
                               ("w8_ptxas", "wq_matmul", ""),
-                              ("hgemm_ptxas", "matmul", "gemm_sm90")):
+                              ("hgemm_ptxas", "matmul", "gemm_sm90"),
+                              ("gmm_ptxas", "gmm", "gmm_sm90"),
+                              ("ln_bwd_ptxas", "row_ops", "ln_bwd_rows")):
         report[key] = ptxas_entries(reports.get(name, ""), needle)
         for e in report[key]:
             print(f"  {name} {e['kernel']}: {e.get('registers')} "
@@ -7677,6 +7881,12 @@ def main() -> int:
                                           g_tails)):
         gaps[f"g/{i}"] = gap
     graphs.clear()
+    # a graph replays into its stream's scratch after the stream grew it:
+    # (b)'s int8 packs over an int8 cache (split-K w8a16, split-KV decode)
+    report["graph_scratch"] = graph_scratch_check(
+        qparams["b"], cfg, QUANT_PATHS["b"][2])
+    print(f"graph scratch: a captured B=1 step replayed bit for bit after "
+          f"its stream's buffers grew {report['graph_scratch']}", flush=True)
     worst = {p: max(g for k, g in gaps.items()
                     if k.split("/")[0] in ((p,) if p != "bf16"
                                            else ("engine", "generate")))

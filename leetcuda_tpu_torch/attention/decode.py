@@ -331,15 +331,24 @@ def attend_split_plain(q, k_cache, v_cache, lengths, *, sm_scale=None,
 
 # One zeroed int32 counter buffer per (device, stream): the kernel's last
 # split of a block zeroes its counter again, so the buffer is zero between
-# launches and two streams never share a counter.
+# launches and two streams never share a counter. A buffer that growth
+# replaces stays alive in _RETIRED_COUNTERS for the life of the process: a
+# CUDA graph captured on the stream before the growth still launches into
+# it. Growth at least doubles the buffer, so what is retired holds less
+# than the live buffer, and few growths happen.
 _STREAM_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+_RETIRED_COUNTERS: list[torch.Tensor] = []
 _MIN_COUNTERS = 4096
 
 
 def _stream_counters(device, stream: int, n: int) -> torch.Tensor:
     """The counter buffer of ``stream`` on ``device``, at least ``n`` long,
-    made (zeroed, on the stream) at its first use. Inside a graph capture
-    it must exist already: launch once on the stream before capturing."""
+    made (zeroed, on the stream) at its first use and grown by a new buffer
+    at least twice as long; the old one is kept, never freed. Inside a
+    graph capture it must exist already: launch once on the stream before
+    capturing. A graph captured on the stream holds the buffer of its
+    capture: its replays must not overlap each other on two streams, since
+    the kernel expects its counters at zero between launches."""
     key = (device.index, stream)
     buf = _STREAM_COUNTERS.get(key)
     if buf is None or buf.numel() < n:
@@ -347,8 +356,11 @@ def _stream_counters(device, stream: int, n: int) -> torch.Tensor:
             raise RuntimeError("decode kernel: this stream has no split "
                                "counters of that size yet; launch the call "
                                "once on it before capturing a graph")
-        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
-                          device=device)
+        if buf is not None:
+            _RETIRED_COUNTERS.append(buf)
+        buf = torch.zeros(max(n, _MIN_COUNTERS,
+                              0 if buf is None else 2 * buf.numel()),
+                          dtype=torch.int32, device=device)
         _STREAM_COUNTERS[key] = buf
     return buf
 

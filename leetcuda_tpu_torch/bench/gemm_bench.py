@@ -11,6 +11,8 @@ same dtype.
     python -m leetcuda_tpu_torch.bench.gemm_bench --w4 --json w4_bench.json
     python -m leetcuda_tpu_torch.bench.gemm_bench --w8 --json w8_bench.json
     python -m leetcuda_tpu_torch.bench.gemm_bench --hgemm --repeats 3
+    python -m leetcuda_tpu_torch.bench.gemm_bench --gmm --repeats 5
+    python -m leetcuda_tpu_torch.bench.gemm_bench --ln-bwd --repeats 5
 
 ``--w4`` is the A/B of the w4a16 kernel (``csrc/w4_matmul.cu``): the
 package's build and variant builds of its macros (prefill CTAs of 64 rows,
@@ -39,6 +41,24 @@ on ``gemm_sm90.cuh``): each tensor-core tile with and without a group of 8
 tile's stage count and a probe without products (LC_GEMM_PROBE 1), beside
 ``torch.matmul``, taken in turn, at path (j)'s shapes or ``--m`` / ``--n``
 / ``--k``.
+
+``--gmm`` is the A/B of the grouped matmul (``csrc/gmm.cu``): its wgmma
+route in the package's build (128 x 256 tiles, the units walked N fastest
+within a row tile) and in variant builds of its macros (128 x 128 tiles of
+6 stages; one tile column at a time, group 1), each printing its ptxas
+registers and spills, the tile route (the earlier mma.sync kernel) and
+``torch._grouped_mm``,
+taken in turn at path (n)'s four products (Qwen3-30B-A3B: gate K 2048 / N
+768 and down K 768 / N 2048 over the dropless buffer of a B=8 decode step,
+16512 rows, and of an 8 x 1024 prefill, 81920 rows; 8 of 128 experts a
+token, routed at random from ``--seed``), each held against ``gmm_plain``
+(atol / rtol 2e-2).
+
+``--ln-bwd`` is the A/B of the layer-norm backward (``csrc/row_ops.cu``):
+its rows route at 1 and 2 CTAs an SM (the persistent grid), the block
+route (the earlier kernel) and ``F.layer_norm``'s autograd backward, taken
+in turn at (16384, 2048) in bf16, f32 and f16, each held against
+``layer_norm_bwd_plain`` (atol / rtol 1e-2; f32 1e-3).
 
 ``--resident`` is the A/B of the resident chain's build
 (``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
@@ -509,6 +529,170 @@ def bench_hgemm(shapes, dtype, dev, iters, rounds, flush):
     return rows
 
 
+# path (n)'s products: (label, tokens, K, N), 8 of 128 experts a token
+GMM_CASES = (("decode gate", 8, 2048, 768), ("decode down", 8, 768, 2048),
+             ("prefill gate", 8192, 2048, 768),
+             ("prefill down", 8192, 768, 2048))
+GMM_EXPERTS, GMM_TOPK, GMM_BM = 128, 8, 128
+# the grouped matmul's variant builds: the 128-row tile 128 wide, the walk
+# a tile column at a time
+GMM_VARIANTS = [{"LC_GMM_BN": 128, "LC_GMM_STAGES": 6}, {"LC_GMM_GROUP": 1}]
+
+
+def _gmm_label(v):
+    if "LC_GMM_GROUP" in v:
+        return f"128 x 256, group {v['LC_GMM_GROUP']}"
+    return f"128 x {v['LC_GMM_BN']}, {v['LC_GMM_STAGES']} stages, group 0"
+
+
+def _in_turn(fns, dev, iters, rounds, flush):
+    """{name: [time of each round]}, the functions taken in turn within
+    each round, so that a drift of the card's clock falls on all alike."""
+    times = {n: [] for n in fns}
+    for _ in range(rounds):
+        for n, fn in fns.items():
+            times[n].append(time_ms(fn, dev, iters, flush))
+    return times
+
+
+def _dropless_tiles(rng, tokens, experts, topk, bm, dev):
+    """The expert of each row tile of models/moe.py's dropless buffer for
+    ``tokens`` tokens routed at random: each expert's copies padded to bm,
+    the tiles past the last group E - 1."""
+    from leetcuda_tpu_torch.gemm import grouped as gg
+
+    counts = np.bincount(rng.choice(experts, tokens * topk),
+                         minlength=experts)
+    padded = torch.from_numpy(-(-counts // bm) * bm).to(dev)
+    rows = -(-tokens * topk // bm) * bm + experts * bm
+    return rows, gg.tile_groups_from_sizes(padded, bm, rows // bm).clamp_(
+        max=experts - 1)
+
+
+def bench_gmm(dev, iters, rounds, flush, seed=0):
+    """The wgmma route of the package's build and of the variant builds, the
+    tile route and torch._grouped_mm in turn at path (n)'s four products (on
+    the CPU the plain version at a cut size: a check of the CLI). Returns
+    the rows."""
+    from leetcuda_tpu_torch.gemm import grouped as gg
+
+    builds = (_builds("gmm", GMM_VARIANTS, _gmm_label)
+              if dev.type == "cuda" else [])
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cut = dev.type != "cuda"
+    experts = 4 if cut else GMM_EXPERTS
+    rows_out = []
+    for label, tokens, K, N in GMM_CASES:
+        if cut:
+            tokens, K, N = tokens // 64 or 1, K // 16, N // 16
+        T, tiles = _dropless_tiles(rng, tokens, experts, min(GMM_TOPK,
+                                                             experts),
+                                   GMM_BM, dev)
+        lhs = torch.randn((T, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        rhs = (torch.randn((experts, K, N), generator=gen, device=dev)
+               * K ** -0.5).to(torch.bfloat16)
+        want = gg.gmm_plain(lhs, rhs, tiles, GMM_BM)
+        fns = {}
+        if not cut:
+            fns["wgmma 128 x 256, 3 stages, group 0 (package)"] = (
+                lambda: gg._launch(lhs, rhs, tiles, GMM_BM, "wgmma"))
+            for v, lib in builds:
+                fns[f"wgmma {_gmm_label(v)}"] = (
+                    lambda lib=lib: gg._launch(lhs, rhs, tiles, GMM_BM,
+                                               "wgmma", lib))
+            fns["tile route"] = lambda: gg._launch(lhs, rhs, tiles, GMM_BM,
+                                                   "tile")
+            offs = (torch.cumsum(torch.bincount(tiles.long(),
+                                                minlength=experts), 0)
+                    * GMM_BM).to(torch.int32)
+            if hasattr(torch, "_grouped_mm"):
+                fns["torch._grouped_mm"] = lambda: torch._grouped_mm(
+                    lhs, rhs, offs=offs)
+        else:
+            fns["plain"] = lambda: gg.gmm_plain(lhs, rhs, tiles, GMM_BM)
+        errs = {}
+        for n, fn in list(fns.items()):
+            try:
+                got = fn()
+            except RuntimeError as e:  # torch._grouped_mm may refuse
+                print(f"  {label}: {n} refused: {str(e)[:120]}")
+                del fns[n]
+                continue
+            errs[n] = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+        times = _in_turn(fns, dev, iters, rounds, flush)
+        flops = 2.0 * T * K * N
+        nbytes = 2.0 * (T * K + T * N + experts * K * N)
+        bound = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+        print(f"--- gmm {label}: T={T} K={K} N={N} (all rows' bound "
+              f"{bound:.4f} ms) ---")
+        for n in fns:
+            ms = float(np.median(times[n]))
+            rows_out.append({"case": label, "T": T, "K": K, "N": N,
+                             "variant": n, "ms": ms, "rounds": times[n],
+                             "bound_ms": bound, "max_abs_err": errs[n]})
+            print(f"  {n}: {ms:.4f} ms; max abs {errs[n]:.3g}", flush=True)
+    return rows_out
+
+
+def bench_ln_bwd(dev, iters, rounds, flush, S=16384, K=2048):
+    """The layer-norm backward's rows route at 1 and 2 CTAs an SM, the
+    block route and autograd's backward in turn at (S, K) in bf16, f32 and
+    f16 (on the CPU the plain version at a cut size). Returns the rows."""
+    import torch.nn.functional as F
+
+    from leetcuda_tpu_torch.ops import layer_norm as ln
+
+    if dev.type != "cuda":
+        S, K = 64, 256
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32, torch.float16):
+        x = torch.randn((S, K), generator=gen, device=dev).to(dt)
+        g = (torch.randn(K, generator=gen, device=dev) * 0.3 + 1).to(dt)
+        dy = torch.randn((S, K), generator=gen, device=dev).to(dt)
+        want = ln.layer_norm_bwd_plain(x, g, dy)
+        fns = {}
+        if dev.type == "cuda":
+            for per_sm in (2, 1):
+                plan = ln.ln_bwd_plan(S, K, x.element_size(), per_sm=per_sm)
+                fns[f"rows route, {per_sm} CTAs an SM ({plan['grid']})"] = (
+                    lambda plan=plan: ln._launch_bwd(
+                        x, g, dy, torch.empty_like(x), plan))
+            block = ln.ln_bwd_plan(S, K, x.element_size(), aligned=False)
+            fns["block route"] = lambda: ln._launch_bwd(
+                x, g, dy, torch.empty_like(x), block)
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (x, g, torch.zeros_like(g))]
+            y = F.layer_norm(leaves[0], (K,), *leaves[1:], eps=ln.EPS)
+            fns["autograd"] = lambda: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True)
+        else:
+            fns["plain"] = lambda: ln.layer_norm_bwd_plain(x, g, dy)
+        tol = 1e-3 if dt == torch.float32 else 1e-2
+        errs = {}
+        for n, fn in fns.items():
+            errs[n] = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(fn(), want))
+            for a, b in zip(fn(), want):
+                torch.testing.assert_close(a.float(), b.float(), atol=tol,
+                                           rtol=tol)
+        times = _in_turn(fns, dev, iters, rounds, flush)
+        bound = 3.0 * S * K * x.element_size() / 3.35e12 * 1e3
+        print(f"--- layer_norm_bwd {str(dt)[6:]} ({S}, {K}) (bound "
+              f"{bound:.4f} ms) ---")
+        for n in fns:
+            ms = float(np.median(times[n]))
+            rows.append({"dtype": str(dt)[6:], "S": S, "K": K, "variant": n,
+                         "ms": ms, "rounds": times[n], "bound_ms": bound,
+                         "max_abs_err": errs[n]})
+            print(f"  {n}: {ms:.4f} ms; max abs {errs[n]:.3g}", flush=True)
+    return rows
+
+
 def _write_rows(path, dev, rows):
     import json
     from pathlib import Path
@@ -561,8 +745,14 @@ def main(argv=None):
                     help="the A/B of the tensor-core tiles, groups and "
                          "variant builds at path (j)'s shapes (or --m / "
                          "--n / --k)")
-    ap.add_argument("--json", help="--resident, --w4, --w8, --hgemm: write "
-                                   "the rows here")
+    ap.add_argument("--gmm", action="store_true",
+                    help="the A/B of the grouped matmul's tiles, walks and "
+                         "routes at path (n)'s four products")
+    ap.add_argument("--ln-bwd", action="store_true",
+                    help="the A/B of the layer-norm backward's grid and "
+                         "routes at (16384, 2048)")
+    ap.add_argument("--json", help="--resident, --w4, --w8, --hgemm, --gmm, "
+                                   "--ln-bwd: write the rows here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -587,7 +777,11 @@ def main(argv=None):
         print(f"device {dev} (host clock: a check of the CLI, no device "
               f"metric), {args.dtype}")
     rows = None
-    if args.w4:
+    if args.gmm:
+        rows = bench_gmm(dev, args.iters, args.repeats, flush)
+    elif args.ln_bwd:
+        rows = bench_ln_bwd(dev, args.iters, args.repeats, flush)
+    elif args.w4:
         rows = bench_w4(args.w4_kn or W4_KN, args.m or W4_ROWS, dev,
                         args.iters, args.repeats, flush)
     elif args.w8:

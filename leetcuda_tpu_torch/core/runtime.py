@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+SM_COUNT = 132  # the H100 SXM's SMs: the persistent kernels' grids
+
 
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""

@@ -859,10 +859,10 @@ flash_bwd_dkv_split_kernel(const __grid_constant__ Maps maps,
 int make_maps(Maps& m, const void* q, const void* k, const void* v,
               const void* dout, int BH, int BHkv, int Nq, int Nk, int D,
               int q_rows, int kv_rows) {
-  int err = map_3d_bf16(&m.q, q, BH, Nq, D, q_rows, 64);
-  if (!err) err = map_3d_bf16(&m.dout, dout, BH, Nq, D, q_rows, 64);
-  if (!err) err = map_3d_bf16(&m.k, k, BHkv, Nk, D, kv_rows, 64);
-  if (!err) err = map_3d_bf16(&m.v, v, BHkv, Nk, D, kv_rows, 64);
+  int err = map_3d(&m.q, q, false, BH, Nq, D, q_rows, 64);
+  if (!err) err = map_3d(&m.dout, dout, false, BH, Nq, D, q_rows, 64);
+  if (!err) err = map_3d(&m.k, k, false, BHkv, Nk, D, kv_rows, 64);
+  if (!err) err = map_3d(&m.v, v, false, BHkv, Nk, D, kv_rows, 64);
   return err;
 }
 

@@ -435,9 +435,9 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
           smem_limit_per_device(kern, T::SMEM_BYTES, attr_devices[cap]))
     return static_cast<int>(e);
   Maps maps;
-  int err = map_3d_bf16(&maps.q, q, B * H, Nq, D, T::kRows, 64);
-  if (!err) err = map_3d_bf16(&maps.k, k, B * Hkv, Nk, D, T::kKeys, 64);
-  if (!err) err = map_3d_bf16(&maps.v, v, B * Hkv, Nk, D, T::kKeys, 64);
+  int err = map_3d(&maps.q, q, false, B * H, Nq, D, T::kRows, 64);
+  if (!err) err = map_3d(&maps.k, k, false, B * Hkv, Nk, D, T::kKeys, 64);
+  if (!err) err = map_3d(&maps.v, v, false, B * Hkv, Nk, D, T::kKeys, 64);
   if (err) return err;
   const dim3 grid(cdiv(Nq, T::kRows), B * H);
   kern<<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(

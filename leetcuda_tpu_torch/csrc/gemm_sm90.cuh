@@ -74,8 +74,10 @@ __host__ __device__ constexpr int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// What B is: 16-bit values (K, N) (kBkn) or (N, K) (kBnk).
-enum BKind { kBkn = 0, kBnk = 1 };
+// What B is: 16-bit values (K, N) (kBkn) or (N, K) (kBnk), or a stack of
+// (K, N) panels (G, K, N) read through a 3-D map, one panel a tile
+// (kBgkn: the grouped matmul, gmm.cu).
+enum BKind { kBkn = 0, kBnk = 1, kBgkn = 2 };
 
 template <int BM_, int BN_, int kStages_, int kCluster_, int kMinCtas_, int kB>
 struct GemmPlan {
@@ -101,6 +103,7 @@ struct GemmPlan {
   static_assert(kCluster == 1 || kCluster == 2 || kCluster == 4,
                 "clusters of 1, 2 or 4 CTAs");
   static_assert(kBoxes % kCluster == 0, "B boxes split over the cluster");
+  static_assert(kB != kBgkn || kCluster == 1, "a panel stack: no pairs");
   static_assert(SMEM_BYTES <= 232448, "stages exceed the shared memory");
 };
 
@@ -166,13 +169,13 @@ struct RingPos {
 
 // The producer's loads of k block ``kb`` of tile (i, j) into stage ``s``,
 // once the stage is free: x's box from ``a``, this CTA's share of B's
-// boxes from ``b`` (multicast to the pair).
+// boxes from ``b`` (multicast to the pair; of panel ``g`` for kBgkn).
 template <class P>
 __device__ __forceinline__ void load_stage(const GemmSmem<P>& sm,
                                            RingPos<P::kStages>& pos,
                                            const CUtensorMap* a,
                                            const CUtensorMap* b, int kb, int i,
-                                           int j, uint32_t rank) {
+                                           int j, uint32_t rank, int g = 0) {
   uint64_t* bar = &sm.full[pos.s];
   mbar_wait(&sm.empty[pos.s], pos.ph ^ 1);
   mbar_expect_tx(bar, P::STAGE_BYTES);
@@ -191,6 +194,8 @@ __device__ __forceinline__ void load_stage(const GemmSmem<P>& sm,
     uint8_t* dst = st + P::A_BYTES + box * P::BOX_BYTES;
     if constexpr (P::kKind == kBnk)
       load_b(dst, kb * P::BK, j * P::BN + box * 64);
+    else if constexpr (P::kKind == kBgkn)
+      tma_load_3d(dst, b, bar, j * P::BN + box * 64, kb * P::BK, g);
     else
       load_b(dst, j * P::BN + box * 64, kb * P::BK);
   }

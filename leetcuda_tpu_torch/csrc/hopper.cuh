@@ -569,12 +569,13 @@ inline int map_2d_u8(CUtensorMap* map, const void* ptr, int rows, int cols,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A stack of ``depth`` row-major (rows, cols) matrices of bf16, contiguous
-// ((depth, rows, cols), cols a multiple of 8), read in boxes of box_rows x
-// box_cols (box_cols * 2 <= 128 bytes) of one matrix with the 128-byte
-// swizzle; out-of-range elements read 0. Returns a CUDA error code.
-inline int map_3d_bf16(CUtensorMap* map, const void* ptr, int depth,
-                       int rows, int cols, int box_rows, int box_cols) {
+// A stack of ``depth`` row-major (rows, cols) matrices of bf16 (f16 with
+// ``f16``), contiguous ((depth, rows, cols), cols a multiple of 8), read in
+// boxes of box_rows x box_cols (box_cols * 2 <= 128 bytes) of one matrix
+// with the 128-byte swizzle; out-of-range elements read 0. Returns a CUDA
+// error code.
+inline int map_3d(CUtensorMap* map, const void* ptr, bool f16, int depth,
+                  int rows, int cols, int box_rows, int box_cols) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -586,10 +587,11 @@ inline int map_3d_bf16(CUtensorMap* map, const void* ptr, int depth,
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      fn(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+         3, const_cast<void*>(ptr), dims, strides, box, unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

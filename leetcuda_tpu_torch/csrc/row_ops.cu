@@ -25,12 +25,29 @@
 // their output, which XLA undoes by copying when x is still live).
 //
 // The backward of layer-norm recomputes each row's statistics from x, as the
-// TPU kernel does. A CTA owns a block of rows; each thread owns a fixed set
-// of columns, so it sums dgamma = sum dy * xhat and dbeta = sum dy of its
-// columns over the block's rows into the CTA's row of an f32 partial buffer
-// (nb, K), with no other thread touching them. ln_bwd_finish sums the nb
-// partials of each column in order: no float atomics, so two runs agree bit
-// for bit.
+// TPU kernel does: dx = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd
+// with dxhat = dy g, and dgamma = sum dy xhat, dbeta = sum dy over the rows.
+// Its bound is bytes: x and dy read once, dx written once ((16384, 2048)
+// bf16: 201 MB, 0.060 ms at 3.35 TB/s). Two routes (ops/layer_norm.py
+// ln_bwd_plan picks one):
+// - "rows" (ln_bwd_rows), K a multiple of 8 up to 4096 and 16-byte aligned
+//   rows: a group of 4 warps owns a row at a time, two groups a CTA, a
+//   persistent grid of 2 CTAs an SM (1 above K = 2048) taking rows slot,
+//   slot + 2 grid, ... Each thread holds its 8-column vectors of the row's
+//   x and dy in registers as loaded (16-byte loads, x and dy read from
+//   memory once), issues the next row's loads before it reduces this one,
+//   and reduces the row by warp shuffles and the group's 4 warps through
+//   shared memory behind one named barrier a reduction (the mean, the
+//   two-pass variance, then m1 = mean(dxhat) and m2 = mean(dxhat xhat) in
+//   one paired reduction). Its dgamma and dbeta partials stay in registers
+//   over all the CTA's rows; the CTA writes one row of each (group 0's plus
+//   group 1's) once.
+// - "block" (ln_bwd_kernel), every other K: a CTA owns a block of rows and
+//   walks each row four times, one element a load; each thread adds its
+//   columns' dy xhat and dy into the CTA's row of the partial buffers after
+//   every row.
+// Either way the partials (nb, K) are summed by ln_bwd_finish in a fixed
+// order: no float atomics, so two runs agree bit for bit.
 #include <type_traits>
 
 #include "common.cuh"
@@ -369,20 +386,303 @@ ln_bwd_kernel(const T* __restrict__ x, const void* __restrict__ g, int gdt,
   }
 }
 
-// grid (ceil(K / 256),): dgamma[c] = sum over i of pg[i][c], in order of i,
-// the same for dbeta; written in dtype odt.
-__global__ void ln_bwd_finish(const float* __restrict__ pg,
-                              const float* __restrict__ pb, void* dg, void* db,
-                              int nb, int K, int odt) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= K) return;
+// grid (ceil(K / 32),), block (32, 8): column c = 32 blockIdx.x + x; warp y
+// sums the partial rows y, y + 8, ... of pg and pb in order, then row 0 of
+// the block adds the eight sums in order of y. dgamma and dbeta are
+// written in dtype odt.
+__global__ void __launch_bounds__(256)
+ln_bwd_finish(const float* __restrict__ pg, const float* __restrict__ pb,
+              void* dg, void* db, int nb, int K, int odt) {
+  __shared__ float red[2][8][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
   float sg = 0.f, sb = 0.f;
-  for (int i = 0; i < nb; ++i) {
-    sg += pg[static_cast<size_t>(i) * K + c];
-    sb += pb[static_cast<size_t>(i) * K + c];
+  if (c < K) {
+    for (int i = threadIdx.y; i < nb; i += 8) {
+      sg += pg[static_cast<size_t>(i) * K + c];
+      sb += pb[static_cast<size_t>(i) * K + c];
+    }
+  }
+  red[0][threadIdx.y][threadIdx.x] = sg;
+  red[1][threadIdx.y][threadIdx.x] = sb;
+  __syncthreads();
+  if (threadIdx.y != 0 || c >= K) return;
+  sg = 0.f;
+  sb = 0.f;
+  for (int w = 0; w < 8; ++w) {
+    sg += red[0][w][threadIdx.x];
+    sb += red[1][w][threadIdx.x];
   }
   store_any(dg, odt, c, sg);
   store_any(db, odt, c, sb);
+}
+
+int launch_finish(const float* pg, const float* pb, void* dg, void* db,
+                  int nb, int K, int odt, cudaStream_t st) {
+  ln_bwd_finish<<<(K + 31) / 32, dim3(32, 8), 0, st>>>(pg, pb, dg, db, nb, K,
+                                                      odt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------- the layer-norm backward's rows route
+
+constexpr int kRowGroup = 128;  // threads that own a row: 4 warps
+constexpr int kRowsCta = 256;   // two groups
+
+// 8 elements of T as loaded: 16 bytes (f16 / bf16) or 32 (f32).
+template <class T>
+struct Raw8 {
+  static constexpr int W = static_cast<int>(sizeof(T)) / 2;
+  uint4 w[W];
+};
+
+template <class T>
+__device__ __forceinline__ void load8(Raw8<T>& r, const T* p) {
+#pragma unroll
+  for (int i = 0; i < Raw8<T>::W; ++i)
+    r.w[i] = __ldcs(reinterpret_cast<const uint4*>(p) + i);
+}
+
+// 32-bit word k (0-3) of a 16-byte word; k is a constant once unrolled, so
+// the raw values stay in registers.
+__device__ __forceinline__ uint32_t word(const uint4& u, int k) {
+  return k == 0 ? u.x : k == 1 ? u.y : k == 2 ? u.z : u.w;
+}
+__device__ __forceinline__ void set_word(uint4& u, int k, uint32_t v) {
+  if (k == 0) u.x = v;
+  else if (k == 1) u.y = v;
+  else if (k == 2) u.z = v;
+  else u.w = v;
+}
+
+// Element e (0-7) of a raw vector, as f32.
+template <class T>
+__device__ __forceinline__ float elem(const Raw8<T>& r, int e) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(word(r.w[e / 4], e % 4));
+  } else {
+    const uint32_t w = word(r.w[0], e / 2);
+    const unsigned short h =
+        static_cast<unsigned short>(e % 2 ? w >> 16 : w & 0xffffu);
+    if constexpr (std::is_same_v<T, __half>)
+      return __half2float(__ushort_as_half(h));
+    else
+      return __uint_as_float(static_cast<uint32_t>(h) << 16);
+  }
+}
+
+// Eight f32 values rounded once to T and stored as 16-byte words.
+template <class T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+  Raw8<T> r;
+#pragma unroll
+  for (int k = 0; k < 2 * static_cast<int>(sizeof(T)); ++k) {  // words
+    uint32_t bits;
+    if constexpr (sizeof(T) == 4) {
+      bits = __float_as_uint(v[k]);
+      set_word(r.w[k / 4], k % 4, bits);
+    } else {
+      if constexpr (std::is_same_v<T, __half>) {
+        const __half2 h = __floats2half2_rn(v[2 * k], v[2 * k + 1]);
+        bits = *reinterpret_cast<const uint32_t*>(&h);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        bits = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      set_word(r.w[0], k, bits);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Raw8<T>::W; ++i) reinterpret_cast<uint4*>(p)[i] = r.w[i];
+}
+
+__device__ __forceinline__ void group_barrier(int grp) {
+  asm volatile("bar.sync %0, %1;" :: "r"(1 + grp), "n"(kRowGroup) : "memory");
+}
+
+// The sums of v[] over the group's 128 threads, in every thread of the
+// group: warp shuffles, then the four warps' sums in warp order, through
+// ``red`` (NVAL x 4 floats of this reduction's slot), behind one barrier of
+// the group. A slot is written again only three reductions later, after
+// two more barriers that every reader of it has passed.
+template <int NVAL>
+__device__ __forceinline__ void group_sum(float (&v)[NVAL], float* red,
+                                          int grp, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < NVAL; ++i) v[i] = warp_sum(v[i]);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < NVAL; ++i) red[i * 4 + warp] = v[i];
+  }
+  group_barrier(grp);
+#pragma unroll
+  for (int i = 0; i < NVAL; ++i)
+    v[i] = ((red[i * 4] + red[i * 4 + 1]) + red[i * 4 + 2]) + red[i * 4 + 3];
+}
+
+// grid (nb,) of 256 threads, 2 K floats of dynamic shared memory. Group
+// grp of CTA b takes rows slot, slot + 2 nb, ... with slot = 2 b + grp;
+// thread t of a group owns the vectors of columns (v 128 + t) 8 + [0, 8),
+// v < NV, those below K. Writes row b of pg and pb.
+template <class T, int NV>
+__global__ void __launch_bounds__(kRowsCta, NV <= 2 ? 2 : 1)
+ln_bwd_rows(const T* __restrict__ x, const void* __restrict__ g, int gdt,
+            const T* __restrict__ dy, T* __restrict__ dx,
+            float* __restrict__ pg, float* __restrict__ pb, int S, int K,
+            float eps) {
+  extern __shared__ float4 smem4[];
+  float* gam = reinterpret_cast<float*>(smem4);  // [0, K) gamma
+  __shared__ float red[2][3][8];
+  const int grp = threadIdx.x / kRowGroup, t = threadIdx.x % kRowGroup;
+  const int warp = t / 32, lane = threadIdx.x % 32;
+  for (int c = threadIdx.x; c < K; c += kRowsCta) gam[c] = load_any(g, gdt, c);
+  __syncthreads();
+
+  int col[NV];
+  bool live[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    col[v] = (v * kRowGroup + t) * 8;
+    live[v] = col[v] < K;
+  }
+  float ag[NV][8], ab[NV][8];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ag[v][e] = ab[v][e] = 0.f;
+  auto load_row = [&](int r, Raw8<T> (&rx)[NV], Raw8<T> (&rdy)[NV]) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (live[v]) {
+        load8(rx[v], x + static_cast<size_t>(r) * K + col[v]);
+        load8(rdy[v], dy + static_cast<size_t>(r) * K + col[v]);
+      }
+    }
+  };
+  auto gamma8 = [&](int v, float (&gv)[8]) {
+    const float4 a = reinterpret_cast<const float4*>(gam + col[v])[0];
+    const float4 b = reinterpret_cast<const float4*>(gam + col[v])[1];
+    gv[0] = a.x; gv[1] = a.y; gv[2] = a.z; gv[3] = a.w;
+    gv[4] = b.x; gv[5] = b.y; gv[6] = b.z; gv[7] = b.w;
+  };
+
+  const float fk = static_cast<float>(K);
+  const int slots = 2 * gridDim.x;
+  Raw8<T> cx[NV], cdy[NV];
+  int r = 2 * blockIdx.x + grp;
+  if (r < S) load_row(r, cx, cdy);
+  for (; r < S; r += slots) {
+    Raw8<T> nx[NV], ndy[NV];
+    if (r + slots < S) load_row(r + slots, nx, ndy);  // in flight meanwhile
+    float s[1] = {0.f};
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (live[v])
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[0] += elem(cx[v], e);
+    group_sum(s, red[grp][0], grp, warp, lane);
+    const float mean = s[0] / fk;
+    float q[1] = {0.f};
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (live[v])
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = elem(cx[v], e) - mean;
+          q[0] = fmaf(d, d, q[0]);
+        }
+    group_sum(q, red[grp][1], grp, warp, lane);
+    const float rstd = rsqrtf(q[0] / fk + eps);
+    float m[2] = {0.f, 0.f};
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (!live[v]) continue;
+      float gv[8];
+      gamma8(v, gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xh = (elem(cx[v], e) - mean) * rstd;
+        const float dxh = elem(cdy[v], e) * gv[e];
+        m[0] += dxh;
+        m[1] = fmaf(dxh, xh, m[1]);
+      }
+    }
+    group_sum(m, red[grp][2], grp, warp, lane);
+    const float m1 = m[0] / fk, m2 = m[1] / fk;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (!live[v]) continue;
+      float gv[8], o[8];
+      gamma8(v, gv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xh = (elem(cx[v], e) - mean) * rstd;
+        const float dyv = elem(cdy[v], e);
+        o[e] = (dyv * gv[e] - m1 - xh * m2) * rstd;
+        ag[v][e] = fmaf(dyv, xh, ag[v][e]);
+        ab[v][e] += dyv;
+      }
+      store8(dx + static_cast<size_t>(r) * K + col[v], o);
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      cx[v] = nx[v];
+      cdy[v] = ndy[v];
+    }
+  }
+
+  // the CTA's partials, group 0's plus group 1's, written once
+  __syncthreads();  // gamma is read no more: its room takes group 1's
+  float* ex = gam;  // [0, K) dgamma, [K, 2K) dbeta
+  if (grp == 1) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (live[v])
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          ex[col[v] + e] = ag[v][e];
+          ex[K + col[v] + e] = ab[v][e];
+        }
+  }
+  __syncthreads();
+  if (grp != 0) return;
+  float* pgr = pg + static_cast<size_t>(blockIdx.x) * K;
+  float* pbr = pb + static_cast<size_t>(blockIdx.x) * K;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    if (!live[v]) continue;
+    float og[8], ob[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      og[e] = ag[v][e] + ex[col[v] + e];
+      ob[e] = ab[v][e] + ex[K + col[v] + e];
+    }
+    float4* dg4 = reinterpret_cast<float4*>(pgr + col[v]);
+    float4* db4 = reinterpret_cast<float4*>(pbr + col[v]);
+    dg4[0] = make_float4(og[0], og[1], og[2], og[3]);
+    dg4[1] = make_float4(og[4], og[5], og[6], og[7]);
+    db4[0] = make_float4(ob[0], ob[1], ob[2], ob[3]);
+    db4[1] = make_float4(ob[4], ob[5], ob[6], ob[7]);
+  }
+}
+
+template <class T>
+int launch_rows(const void* x, const void* g, int gdt, const void* dy,
+                void* dx, float* pg, float* pb, int S, int K, int grid,
+                float eps, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  const size_t smem = 2 * static_cast<size_t>(K) * sizeof(float);
+  if (K <= 1024)
+    ln_bwd_rows<T, 1><<<grid, kRowsCta, smem, st>>>(xt, g, gdt, dyt, dxt, pg,
+                                                    pb, S, K, eps);
+  else if (K <= 2048)
+    ln_bwd_rows<T, 2><<<grid, kRowsCta, smem, st>>>(xt, g, gdt, dyt, dxt, pg,
+                                                    pb, S, K, eps);
+  else
+    ln_bwd_rows<T, 4><<<grid, kRowsCta, smem, st>>>(xt, g, gdt, dyt, dxt, pg,
+                                                    pb, S, K, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 enum Op { kRms = 0, kLayerNorm = 1, kSoftmax = 2 };
@@ -479,9 +779,10 @@ extern "C" int lc_softmax(const void* x, void* o, int S, int K, int dtype,
                 0.f, mode, threads, stream);
 }
 
-// x, dy, dx (S, K) of dtype ``dtype``; g (K,) of dtype gdt; dg, db (K,) of
-// dtype odt; pg, pb f32 scratch of nb x K with nb = ceil(S / rows). Two
-// launches: ln_bwd_kernel over nb CTAs, then ln_bwd_finish.
+// The block route: x, dy, dx (S, K) of dtype ``dtype``; g (K,) of dtype gdt;
+// dg, db (K,) of dtype odt; pg, pb f32 scratch of nb x K with nb =
+// ceil(S / rows). Two launches: ln_bwd_kernel over nb CTAs, then
+// ln_bwd_finish.
 extern "C" int lc_layer_norm_bwd(const void* x, const void* g, int gdt,
                                  const void* dy, void* dx, void* pg, void* pb,
                                  void* dg, void* db, int S, int K, int dtype,
@@ -512,7 +813,38 @@ extern "C" int lc_layer_norm_bwd(const void* x, const void* g, int gdt,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  ln_bwd_finish<<<(K + 255) / 256, 256, 0, st>>>(pgf, pbf, dg, db, nb, K,
-                                                 odt);
-  return static_cast<int>(cudaGetLastError());
+  return launch_finish(pgf, pbf, dg, db, nb, K, odt, st);
+}
+
+// The rows route: the same operands, K a multiple of 8 up to 4096, x, dy
+// and dx 16-byte aligned; ``grid`` CTAs (nb = grid partial rows of pg and
+// pb, at most 2 an SM: 1 above K = 2048). Two launches: ln_bwd_rows, then
+// ln_bwd_finish.
+extern "C" int lc_layer_norm_bwd_rows(const void* x, const void* g, int gdt,
+                                      const void* dy, void* dx, void* pg,
+                                      void* pb, void* dg, void* db, int S,
+                                      int K, int dtype, int odt, int grid,
+                                      float eps, void* stream) {
+  if (S <= 0 || K <= 0 || K % 8 || K > 4096 || grid <= 0 || gdt < 0 ||
+      gdt > 2 || odt < 0 || odt > 2 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+       reinterpret_cast<uintptr_t>(dx)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pgf = static_cast<float*>(pg);
+  float* pbf = static_cast<float*>(pb);
+  int err;
+  if (dtype == kF32)
+    err = launch_rows<float>(x, g, gdt, dy, dx, pgf, pbf, S, K, grid, eps,
+                             st);
+  else if (dtype == kF16)
+    err = launch_rows<__half>(x, g, gdt, dy, dx, pgf, pbf, S, K, grid, eps,
+                              st);
+  else if (dtype == kBF16)
+    err = launch_rows<__nv_bfloat16>(x, g, gdt, dy, dx, pgf, pbf, S, K, grid,
+                                     eps, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err) return err;
+  return launch_finish(pgf, pbf, dg, db, grid, K, odt, st);
 }

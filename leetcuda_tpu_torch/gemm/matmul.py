@@ -37,7 +37,8 @@ import functools
 import torch
 
 from leetcuda_tpu_torch.core.registry import register_op
-from leetcuda_tpu_torch.core.runtime import LaunchCounter, cdiv, check_launch
+from leetcuda_tpu_torch.core.runtime import (SM_COUNT, LaunchCounter, cdiv,
+                                             check_launch)
 
 MATMUL = LaunchCounter("matmul")
 MATMUL_RESIDENT = LaunchCounter("matmul_resident")
@@ -450,8 +451,6 @@ register_op(
 
 
 # --- shape-adaptive config selection -----------------------------------------
-
-SM_COUNT = 132  # H100 SXM
 
 
 def pick_matmul_config(M: int, N: int, K: int, dtype=torch.bfloat16,

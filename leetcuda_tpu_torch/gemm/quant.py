@@ -298,11 +298,23 @@ def w4_plan(M, N, K, decode=None, prefill_rows=W4_PREFILL_ROWS,
 # One (workspace, counters) pair per (device, stream), grown on demand,
 # shared by the two split-K routes (w8a16, w4a16): the last CTA of an
 # output tile zeroes its counter again, so the counters are zero between
-# launches, and two streams never share them.
+# launches, and two streams never share them. A buffer that growth
+# replaces stays alive in _SPLIT_RETIRED for the life of the process: a CUDA
+# graph captured on the stream before the growth still launches into it.
+# Growth at least doubles a buffer, so what is retired of it holds less than
+# the live one, and few growths happen.
 _SPLIT_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+_SPLIT_RETIRED: list[torch.Tensor] = []
 
 
 def _split_scratch(device, stream: int, workspace: int, counters: int):
+    """The (workspace, counters) pair of ``stream`` on ``device``, at least
+    ``workspace`` floats and ``counters`` ints, made at its first use; a
+    buffer too small is replaced (never inside a capture: launch once on
+    the stream first) by one at least twice as large, and the old one is
+    kept, never freed. A graph captured on the stream holds the buffers of
+    its capture: its replays must not overlap each other on two streams,
+    since the kernels expect their counters at zero between launches."""
     key = (device.index, stream)
     ws, cnt = _SPLIT_SCRATCH.get(key, (None, None))
     if ws is None or ws.numel() < workspace or cnt.numel() < counters:
@@ -310,11 +322,18 @@ def _split_scratch(device, stream: int, workspace: int, counters: int):
             raise RuntimeError("split-K matmul: this stream has no split "
                                "workspace of that size yet; launch the call "
                                "once on it before capturing a graph")
-        ws = torch.empty(max(workspace, 0 if ws is None else ws.numel()),
-                         dtype=torch.float32, device=device)
-        cnt = torch.zeros(max(counters, 1024,
-                              0 if cnt is None else cnt.numel()),
-                          dtype=torch.int32, device=device)
+        if ws is None or ws.numel() < workspace:
+            if ws is not None:
+                _SPLIT_RETIRED.append(ws)
+            ws = torch.empty(max(workspace,
+                                 0 if ws is None else 2 * ws.numel()),
+                             dtype=torch.float32, device=device)
+        if cnt is None or cnt.numel() < counters:
+            if cnt is not None:
+                _SPLIT_RETIRED.append(cnt)
+            cnt = torch.zeros(max(counters, 1024,
+                                  0 if cnt is None else 2 * cnt.numel()),
+                              dtype=torch.int32, device=device)
         _SPLIT_SCRATCH[key] = (ws, cnt)
     return ws, cnt
 

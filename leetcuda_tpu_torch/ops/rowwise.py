@@ -89,3 +89,4 @@ RMS_ARGS = (P, P, I, P, I, I, I, I, I, F, I, P)
 LN_FWD_ARGS = (P, P, I, P, I, P, I, I, I, I, I, F, I, P)
 SOFTMAX_ARGS = (P, P, I, I, I, I, I, I, I, P)
 LN_BWD_ARGS = (P, P, I, P, P, P, P, P, P, I, I, I, I, I, F, I, P)
+LN_BWD_ROWS_ARGS = (P, P, I, P, P, P, P, P, P, I, I, I, I, I, F, P)
