@@ -25,8 +25,14 @@ Phases; any failure raises and the script exits non-zero:
    back and a CUDA-graph capture replayed, each bit for bit, and path
    (t)'s cp-decode shape (a group of 8, lengths to 32768) timed beside
    SDPA. The chunk kernel's four entry points run at the
-   verify shape (B = 8, T = 4) and at admission shapes (B = 1, T = 256 and
-   1024), NaN in every position at or past base + T. The flash forward's
+   verify shape (B = 8, T = 4; pages of 128 and 16, windows across route
+   A's split edges, bases at the capacity), at the routes' edge (T = 16,
+   64 and 128), at GPT-OSS's verify (G = 8, head dim 64) and at admission
+   shapes (B = 1, T = 256 and 1024), NaN in every position at or past
+   base + T, each on the route ``chunk_plan`` names (``check_chunk``);
+   route B's library must hold wgmma and TMA loads and no mma.sync, and a
+   row of a route-A verify alone must equal its row in the batch, bit for
+   bit. The flash forward's
    lse (causal and ragged), then the FA-2 backward's dQ and dK/dV kernels
    at training's shape (8, 16, 2048, 128), 4 KV heads: causal, non-causal,
    head dim 64, with an lse cotangent, and with Gemma 2's options (a window
@@ -369,7 +375,10 @@ Phases; any failure raises and the script exits non-zero:
    ``graph_scratch_check``: a B=1 step of (b)'s int8 packs over an int8
    cache, captured, replays bit for bit as the eager step after eager
    calls on its stream grew the split-K workspace and the split-KV
-   counters (the superseded buffers still held at the graph's addresses).
+   counters (the superseded buffers still held at the graph's addresses),
+   and a captured T = 4 verify (the chunk kernel's route A) replays bit
+   for bit after a larger eager verify grew its stream's split workspace
+   and counters (``chunk_graph_scratch``).
    Paths (d), (e) and (f) replay over a CONTIGUOUS cache with UNFUSED math,
    so the replay shares neither the paged, the fused nor the chunk kernel
    with them; (g) replays token by token through
@@ -463,11 +472,13 @@ PATH_KERNELS = {
     "e": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
           "w8_to_bf16", "paged_attention_quantized"),
     "f": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
-          "decode_attention", "paged_chunk_attention"),
+          "decode_attention", "paged_chunk_attention",
+          "chunk_attention_split"),
     "g": ("matmul_w8a16", "paged_attention_quantized",
-          "paged_chunk_attention_quantized"),
+          "paged_chunk_attention_quantized", "chunk_attention_tma"),
     "h": ("flash_attention", "flash_attention_ragged", "matmul_w8a16",
-          "decode_attention", "chunk_attention", "chunk_attention_quantized"),
+          "decode_attention", "chunk_attention", "chunk_attention_quantized",
+          "chunk_attention_split"),
     "i": ("flash_attention_lse", "flash_attention_bwd_dq",
           "flash_attention_bwd_dkv"),
 }
@@ -512,7 +523,7 @@ PATH_KERNELS["n"] = ("flash_attention", "flash_attention_ragged",
 # admission over a contiguous cache, and generate.
 PATH_KERNELS["o"] = ("flash_attention", "flash_attention_ragged",
                      "decode_attention", "paged_attention",
-                     "paged_chunk_attention")
+                     "paged_chunk_attention", "chunk_attention_tma")
 # Path (p), GPT-OSS-20B: every attention call carries the lse (sinks): the
 # paged Engine with chunked prefill, a ragged admission over a contiguous
 # cache, generate over bf16 and int8 caches.
@@ -520,11 +531,13 @@ PATH_KERNELS["p"] = ("flash_attention_lse", "decode_attention_lse",
                      "decode_attention_quantized_lse", "paged_attention_lse",
                      "paged_attention_quantized_lse",
                      "paged_chunk_attention_lse",
-                     "paged_chunk_attention_quantized_lse")
+                     "paged_chunk_attention_quantized_lse",
+                     "chunk_attention_tma")
 # ... and its speculative part: speculative_generate over a bf16 cache and
 # the speculative Engine over an int8 one, a 2-layer draft of the same model
 PATH_KERNELS["p2"] = ("flash_attention_lse", "decode_attention_lse",
-                      "chunk_attention_lse", "chunk_attention_quantized_lse")
+                      "chunk_attention_lse", "chunk_attention_quantized_lse",
+                      "chunk_attention_split")
 # Path (q), DeepSeek-V2-Lite: the shared-KV decode and paged kernels over
 # bf16, int8 and e4m3 latent caches and bf16 and int8 latent pools.
 PATH_KERNELS["q"] = ("decode_attention_shared",
@@ -560,7 +573,9 @@ MOE_KERNELS = ("gmm", "gmm_tile")
 # The kernels a path must NOT launch: a paged path never reads a contiguous
 # cache, and a quantized pack is no dense ``wqkv`` for the fused block. A
 # speculative target takes no decode step, a chunk-prefilled prompt no flash
-# kernel, and each chunk path only its own cache layout's entry point.
+# kernel, and each chunk path only its own cache layout's entry point. A
+# verify (T = 4) takes route A of the chunk kernel (chunk_plan), a chunked
+# prefill of 256 or 512 tokens route B.
 PATH_FORBIDDEN = {
     "d": ("decode_attention", "decode_attention_quantized",
           "paged_attention_quantized"),
@@ -568,12 +583,14 @@ PATH_FORBIDDEN = {
           "paged_attention", "fused_norm_qkv_rope"),
     "f": ("paged_attention", "paged_attention_quantized",
           "decode_attention_quantized", "chunk_attention",
-          "chunk_attention_quantized", "paged_chunk_attention_quantized"),
+          "chunk_attention_quantized", "paged_chunk_attention_quantized",
+          "chunk_attention_tma"),
     "g": ("flash_attention", "flash_attention_ragged", "decode_attention",
           "decode_attention_quantized", "paged_attention", "chunk_attention",
           "chunk_attention_quantized", "paged_chunk_attention"),
     "h": ("paged_attention", "paged_attention_quantized",
-          "paged_chunk_attention", "paged_chunk_attention_quantized"),
+          "paged_chunk_attention", "paged_chunk_attention_quantized",
+          "chunk_attention_tma"),
     # bf16 weights over a contiguous bf16 cache; the q/k norms keep the
     # fused entry block away (and an MoE layer has nothing to fuse); every
     # gmm launch takes the wgmma route
@@ -587,11 +604,12 @@ PATH_FORBIDDEN = {
     "o": ("decode_attention_quantized", "paged_attention_quantized",
           "chunk_attention", "chunk_attention_quantized",
           "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
-          "fused_norm_qkv_rope"),
+          "fused_norm_qkv_rope", "chunk_attention_split"),
     # the same with the Engine over dense fused bf16 params
     "r": ("decode_attention_quantized", "paged_attention_quantized",
           "chunk_attention", "chunk_attention_quantized",
-          "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16"),
+          "paged_chunk_attention_quantized", "matmul_w8a16", "matmul_w4a16",
+          "chunk_attention_split"),
     # attention sinks: no attention launch without the lse; bf16 weights;
     # chunked prefill over pools only
     "p": ("flash_attention", "flash_attention_ragged", "decode_attention",
@@ -600,7 +618,7 @@ PATH_FORBIDDEN = {
           "chunk_attention_quantized", "paged_chunk_attention",
           "paged_chunk_attention_quantized", "chunk_attention_lse",
           "chunk_attention_quantized_lse", "matmul_w8a16", "matmul_w4a16",
-          "fused_norm_qkv_rope"),
+          "fused_norm_qkv_rope", "chunk_attention_split"),
     # contiguous caches only
     "p2": ("flash_attention", "flash_attention_ragged", "decode_attention",
            "decode_attention_quantized", "paged_attention",
@@ -609,7 +627,7 @@ PATH_FORBIDDEN = {
            "paged_chunk_attention_quantized", "paged_attention_lse",
            "paged_attention_quantized_lse", "paged_chunk_attention_lse",
            "paged_chunk_attention_quantized_lse", "matmul_w8a16",
-           "matmul_w4a16", "fused_norm_qkv_rope"),
+           "matmul_w4a16", "fused_norm_qkv_rope", "chunk_attention_tma"),
     # MLA: the prefill is the expanded einsum form (no flash kernel), the
     # experts JAX's dense combine (no gmm, which drive forbids anyway), no
     # fused entry block, and every attention launch a shared one
@@ -1074,26 +1092,94 @@ def check_decode_split(rec, flush):
 # The chunk checks' verify batch: B = 8, T = 4 (k = 3) over a capacity of
 # 2048 positions, bases spread from 0 to 2044 (the last chunk ends at 2048).
 CHUNK_BASES = np.array([0, 100, 517, 1024, 1200, 1400, 1950, 2044], np.int32)
-CHUNK_SRC = "leetcuda_tpu_torch/csrc/chunk_attn.cu"
+# ... and bases on route A's split edges (256 keys at head dim 128) and at
+# the capacity (2046: the chunk runs past it and is clamped; 2048: full)
+CHUNK_EDGE_BASES = np.array([0, 255, 256, 300, 1000, 2045, 2046, 2048],
+                            np.int32)
+# GPT-OSS's verify (64 / 8 heads of 64, G = 8) over a capacity of 1024
+CHUNK_G8_BASES = np.array([0, 100, 255, 256, 500, 900, 1020, 1024], np.int32)
+# the two routes (attention/chunk.py chunk_plan) and their sources
+CHUNK_SRCS = {"split": "leetcuda_tpu_torch/csrc/chunk_attn.cu",
+              "tma": "leetcuda_tpu_torch/csrc/chunk_tma.cu"}
+CHUNK_ROUTES = {"split": "chunk_attention_split",
+                "tma": "chunk_attention_tma"}
+CHUNK_COUNTERS = ("chunk_attention", "chunk_attention_quantized",
+                  "paged_chunk_attention", "paged_chunk_attention_quantized",
+                  "chunk_attention_lse", "chunk_attention_quantized_lse",
+                  "paged_chunk_attention_lse",
+                  "paged_chunk_attention_quantized_lse")
+
+
+def chunk_route(args, paged, window):
+    """The route ``chunk_plan`` names for a chunk call's arguments (q, the
+    caches or pools, [their scales,] [the table,] base) and window."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+
+    q, k = args[0], args[1]
+    B, H, T, D = q.shape
+    page = k.shape[2] if paged else 0
+    S = args[-2].shape[1] * page if paged else k.shape[2]
+    return ck.chunk_plan(B, H, k.shape[1], T, D, S, window, page,
+                         k.dtype != torch.bfloat16).route
+
+
+def on_route(route, fn):
+    """``fn()``, which must launch the chunk kernel once on ``route``."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+
+    counter = ck.ROUTE_COUNTERS[route]
+    before = counter.launches
+    out = fn()
+    if counter.launches != before + 1:
+        raise AssertionError(f"a chunk call the plan gives route {route} "
+                             f"launched {counter.launches - before} times "
+                             "on it")
+    return out
+
+
+def route_tag(row):
+    """The route of a chunk check's row as a tag for its printed line
+    (" [route A: ...]", " [route B: ...]"); "" for any other row."""
+    return {"split": " [route A: split-KV]",
+            "tma": " [route B: TMA + wgmma]"}.get(row.get("chunk_route"), "")
 
 
 def check_chunk(rec, flush):
     """The chunk kernel's four entry points at the verify shape (B = 8,
-    T = 4: contiguous bf16 / int8 / e4m3, paged bf16 / e4m3, one window
-    case) and at admission shapes (B = 1: T = 256 at base 1024 over paged
-    e4m3 pools; T = 1024 at base 0 and at base 1024 over a contiguous bf16
-    cache). Every position at or past base + T holds NaN values and NaN
-    scales (e4m3: the NaN bytes 0x7F / 0xFF); paged, the pages of 128 are
-    shuffled, and page 0, every unowned page and the tail of each last page
-    hold NaN too. Library yardstick: SDPA with an explicit mask over the
-    cache gathered and dequantized beforehand."""
-    cases = (  # label, T, bases, format, paged, window
+    T = 4: contiguous bf16 / int8 / e4m3, paged bf16 / e4m3 over pages of
+    128 and bf16 / int8 over pages of 16, a window of 256, a window of 300
+    across route A's split edges with bases at the capacity), at the routes'
+    edge (T = 16, 64 and 128 at G = 4, route B's paged int8 feed over pages
+    of 16), at GPT-OSS's verify (G = 8, head dim 64) and at admission shapes
+    (B = 1: T = 256 at base 1024 over paged e4m3 pools; T = 1024 at base 0
+    and at base 1024 over a contiguous bf16 cache). Every position at or
+    past base + T holds NaN values and NaN scales (e4m3: the NaN bytes 0x7F
+    / 0xFF); paged, the pages are shuffled, and page 0, every unowned page
+    and the tail of each last page hold NaN too. Each case runs the route
+    ``chunk_plan`` names and is recorded under it. Library yardstick: SDPA
+    with an explicit mask over the cache gathered and dequantized
+    beforehand. Then route B's library must be wgmma fed by TMA, and route
+    A batch-invariant (``chunk_row_alone``)."""
+    def near_end(T):
+        return np.minimum(CHUNK_BASES, 2048 - T).astype(np.int32)
+
+    cases = (  # label, T, bases, format, paged (True: PAGE), window
         ("verify", 4, CHUNK_BASES, None, False, None),
         ("verify", 4, CHUNK_BASES, "int8", False, None),
         ("verify", 4, CHUNK_BASES, "fp8", False, None),
         ("verify", 4, CHUNK_BASES, None, True, None),
         ("verify", 4, CHUNK_BASES, "fp8", True, None),
+        ("verify", 4, CHUNK_BASES, None, 16, None),
+        ("verify", 4, CHUNK_BASES, "int8", 16, None),
         ("verify window 256", 4, CHUNK_BASES, None, False, 256),
+        ("verify window 300, split edges", 4, CHUNK_EDGE_BASES, None, False,
+         300),
+        ("verify window 300, split edges", 4, CHUNK_EDGE_BASES, "fp8", 16,
+         300),
+        ("T=16", 16, near_end(16), None, False, None),
+        ("T=64", 64, near_end(64), "int8", False, None),
+        ("T=128", 128, near_end(128), None, True, None),
+        ("T=128 window 300", 128, near_end(128), "int8", 16, 300),
         ("admit T=256 base 1024", 256, np.array([1024], np.int32), "fp8",
          True, None),
         ("admit T=1024 base 0", 1024, np.array([0], np.int32), None, False,
@@ -1101,6 +1187,56 @@ def check_chunk(rec, flush):
         ("admit T=1024 base 1024", 1024, np.array([1024], np.int32), None,
          False, None))
     chunk_cases(rec, flush, cases, 16, 4, 2048)
+    chunk_cases(rec, flush, (
+        ("GPT-OSS verify window 128", 4, CHUNK_G8_BASES, None, False, 128),
+        ("GPT-OSS verify", 4, CHUNK_G8_BASES, "int8", True, None)),
+        64, 8, 1024, D=64, prefix="(G=8) ")
+    tma = next(k for k, r in rec.rows.items() if r.get("chunk_route") == "tma")
+    rec.rows[tma]["sass"] = resident_sass("chunk_tma")
+    rec.rows["chunk_attention/verify bf16"]["row_alone_bit_equal"] = (
+        chunk_row_alone(rec))
+
+
+def chunk_row_alone(rec):
+    """Route A's rows are batch-invariant: each row of a B = 8 verify (a
+    bf16 cache; e4m3 pools of 16 with a window of 300 across the split
+    edges) equals the same row served alone, output and lse bit for bit.
+    Returns the rows compared."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+    from leetcuda_tpu_torch.core.runtime import as_bytes
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    dev, B, H, Hkv, S, D, T = rec.dev, 8, 16, 4, 2048, 128, 4
+    base = torch.from_numpy(CHUNK_EDGE_BASES).to(dev)
+    q = rec.randn(B, H, T, D)
+    kc, vc = rec.randn(B, Hkv, S, D), rec.randn(B, Hkv, S, D)
+    end = torch.clamp(base + T, max=S)
+    past = (torch.arange(S, device=dev)[None, :] >= end[:, None])[:, None]
+    past = past.expand(B, Hkv, S)
+    kq, ks = _quantize_token_kv(kc, torch.float8_e4m3fn)
+    vq, vs = _quantize_token_kv(vc, torch.float8_e4m3fn)
+    kc[past], vc[past] = float("nan"), float("nan")
+    ks[past], vs[past] = float("nan"), float("nan")
+    as_bytes(kq)[past], as_bytes(vq)[past] = 0x7F, 0xFF
+    n_pages = -(-np.minimum(CHUNK_EDGE_BASES + T, S) // 16)
+    table, owned = shuffled_table(rec.rng, n_pages, S // 16, dev)
+    pools = [to_pool(t, 16, table, owned, f) for t, f in
+             ((kq, 0x7F), (vq, 0xFF), (ks, float("nan")),
+              (vs, float("nan")))]
+    runs = (
+        lambda sl: ck.chunk_attention(q[sl], kc[sl], vc[sl], base[sl],
+                                      with_lse=True),
+        lambda sl: ck.paged_chunk_attention_quantized(
+            q[sl], *pools, table[sl], base[sl], window=300, with_lse=True))
+    for run in runs:
+        out, lse = on_route("split", lambda: run(slice(0, B)))
+        for b in range(B):
+            o1, l1 = run(slice(b, b + 1))
+            if not (torch.equal(o1, out[b:b + 1])
+                    and torch.equal(l1, lse[b:b + 1])):
+                raise AssertionError(f"chunk route A: row {b} alone differs "
+                                     "from its row in the batch")
+    return 2 * B
 
 
 def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
@@ -1108,8 +1244,8 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
     """The chunk kernel's cases (label, T, bases, format, paged, window) at
     H / Hkv heads of D over a capacity of S, with ``softcap`` (then q at
     CAP_Q_SCALE, and the cap's controls, with ``wrong_scale`` also the
-    scale's); each check's name starts with ``prefix``. See
-    ``check_chunk``."""
+    scale's); ``paged`` is False, True (pages of PAGE) or a page size; each
+    check's name starts with ``prefix``. See ``check_chunk``."""
     from leetcuda_tpu_torch.attention import chunk as ck
     from leetcuda_tpu_torch.core.runtime import as_bytes
     from leetcuda_tpu_torch.models.llama import _quantize_token_kv
@@ -1117,6 +1253,7 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
     dev, bf = rec.dev, torch.bfloat16
     qdts = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
     for label, T, bases_np, fmt, paged, window in cases:
+        page = PAGE if paged is True else int(paged)
         B = len(bases_np)
         base = torch.from_numpy(bases_np).to(dev)
         end_np = np.minimum(bases_np + T, S)
@@ -1140,10 +1277,10 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
             tensors = [kq, vq, ks, vs]
             fills = [kbyte, vbyte, float("nan"), float("nan")]
         tbl_bytes = 0.0
-        if paged:
-            n_pages = -(-end_np // PAGE)
-            table, owned = shuffled_table(rec.rng, n_pages, S // PAGE, dev)
-            tensors = [to_pool(t, PAGE, table, owned, f)
+        if page:
+            n_pages = -(-end_np // page)
+            table, owned = shuffled_table(rec.rng, n_pages, S // page, dev)
+            tensors = [to_pool(t, page, table, owned, f)
                        for t, f in zip(tensors, fills)] + [table]
             tbl_bytes = 4.0 * int(n_pages.sum())
         args = (q, *tensors, base)
@@ -1160,11 +1297,12 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
                             ck.paged_chunk_attention_plain),
             (True, True): (ck.paged_chunk_attention_quantized,
                            ck.paged_chunk_attention_quantized_plain),
-        }[(fmt is not None, paged)]
-        got = wrapper(*args, **kw)
+        }[(fmt is not None, bool(page))]
+        route = chunk_route(args, page, window)
+        got = on_route(route, lambda: wrapper(*args, **kw))
         if not torch.isfinite(got).all():
-            raise AssertionError(f"chunk kernel ({label}, {fmt}, paged="
-                                 f"{paged}) read a position no row owns")
+            raise AssertionError(f"chunk kernel ({label}, {fmt}, page "
+                                 f"{page}) read a position no row owns")
         # what this case's data needs: the (row, column) pairs each row
         # attends and the positions any row reads
         limit = np.minimum(bases_np[:, None] + np.arange(T)[None, :] + 1, S)
@@ -1185,9 +1323,9 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
         kd, vd = torch.nan_to_num(kd), torch.nan_to_num(vd)
         name = wrapper.__name__
         check = (f"{prefix}{name}/{label} {fmt or 'bf16'}"
-                 + (f" page{PAGE}" if paged else ""))
+                 + (f" page{page}" if page else ""))
         want = plain(*args, **kw)
-        rec.record(check, name, CHUNK_SRC,
+        rec.record(check, name, CHUNK_SRCS[route],
                    "leetcuda_tpu/attention/chunk.py:"
                    + ("287" if paged else "207"), got, want,
                    time_ms(lambda: wrapper(*args, **kw), flush),
@@ -1196,7 +1334,8 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
                                         scale=kw.get("sm_scale")), flush),
                    4.0 * H * D * pairs, nbytes)
         rec.rows[check].update(T=T, mean_base=float(bases_np.mean()),
-                               window=window, softcap=softcap)
+                               window=window, softcap=softcap,
+                               chunk_route=route, page=page)
         if softcap:
             rec.cap_controls(check, lambda c, s=kw.get("sm_scale"): wrapper(
                 *args, **{**kw, "softcap": c, "sm_scale": s}), want, softcap,
@@ -2037,7 +2176,67 @@ def graph_scratch_check(params, cfg, kv_quant, n=GRAPH_SCRATCH_LEN,
             f"{float((got.float() - want.float()).abs().max()):.3g})")
     return {"bytes_before": [b for _, b in before],
             "bytes_after": [b for _, b in after], "steps": steps,
-            "from_position": n // 2, "bit_equal": True}
+            "from_position": n // 2, "bit_equal": True,
+            "chunk_verify": chunk_graph_scratch(dev)}
+
+
+def chunk_graph_scratch(dev):
+    """The same for the chunk kernel's route A: a B = 8, T = 4 verify over a
+    bf16 cache of 2048 positions (bases CHUNK_BASES, every row over two or
+    more splits but the first) is captured as a CUDA graph on a stream of
+    its own, so that it launches into that stream's split workspace and
+    counters (gemm/quant.py ``_split_scratch``); an eager verify at B = 264
+    on the stream grows both; the superseded buffers must still be held and
+    the graph, replayed, must give the eager verify's output and lse bit for
+    bit. Returns the buffers' sizes before and after."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+    from leetcuda_tpu_torch.gemm import quant as gq
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    B, H, Hkv, T, S, D = 8, 16, 4, 4, 2048, 128
+
+    def inputs(b):
+        q = torch.randn((b, H, T, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, Hkv, S, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        base = torch.from_numpy(np.resize(CHUNK_BASES, b)).to(dev)
+        return q, k, v, base
+
+    stream = torch.cuda.Stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    args = inputs(B)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):  # the scratch, made outside the capture
+        want = on_route("split", lambda: ck.chunk_attention(
+            *args, with_lse=True))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = ck.chunk_attention(*args, with_lse=True)
+    before = [(t.data_ptr(), t.numel() * t.element_size())
+              for t in gq._SPLIT_SCRATCH[key]]
+    with torch.cuda.stream(stream):  # more row blocks than 1024 counters
+        big = inputs(33 * B)
+        ck.chunk_attention(*big, with_lse=True)
+        del big
+    stream.synchronize()
+    after = [(t.data_ptr(), t.numel() * t.element_size())
+             for t in gq._SPLIT_SCRATCH[key]]
+    if after[0][1] <= before[0][1] or after[1][1] <= before[1][1]:
+        raise AssertionError(f"chunk graph scratch: the eager verify grew "
+                             f"nothing ({before} -> {after})")
+    held = {t.data_ptr() for t in gq._SPLIT_RETIRED}
+    if any(p not in held for p, _ in before):
+        raise AssertionError("chunk graph scratch: growth let go of the "
+                             "buffers the graph launches into")
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("chunk graph scratch: the graphed verify "
+                             "differs from the eager one after its stream's "
+                             "buffers grew")
+    return {"bytes_before": [b for _, b in before],
+            "bytes_after": [b for _, b in after], "bit_equal": True}
 
 
 def held_gap(graphs, gaps):
@@ -5323,9 +5522,10 @@ def print_gemma(rows, res):
     for r in rows.values():
         lib = (f"library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "library none")
-        print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms {lib} "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        print(f"kernel {r['check']}{route_tag(r)}: max_abs_err "
+              f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
     bs, tag = res["band_skip"], res["tag"]
     print(f"band skip (1, {bs['H']}, {bs['N']}, {bs['D']}): window "
           f"{bs['window']} "
@@ -5550,13 +5750,15 @@ def lse_controls(rec, check, want_lse, run, window):
 
 
 def lse_case(rec, flush, check, name, src, replaces, fn, plain, args, kw,
-             flops, nbytes, lse_bytes, lib):
+             flops, nbytes, lse_bytes, lib, route=None):
     """One ``with_lse`` check: the kernel's (out, lse) against its plain
     version's (the out at KERNEL_TOL too; NaN padding must not reach it),
     timed with and without the lse beside the plain version (with the lse)
     and ``lib``, one library call of the same attention without the lse;
-    the lse's controls (``lse_controls``)."""
-    got, got_lse = fn(*args, with_lse=True, **kw)
+    the lse's controls (``lse_controls``). A chunk check gives the
+    ``route`` its launch must take (``on_route``)."""
+    got, got_lse = (on_route(route, lambda: fn(*args, with_lse=True, **kw))
+                    if route else fn(*args, with_lse=True, **kw))
     if not torch.isfinite(got).all():
         raise AssertionError(f"{check}: NaN padding reached the output")
     want, want_lse = plain(*args, with_lse=True, **kw)
@@ -5571,6 +5773,8 @@ def lse_case(rec, flush, check, name, src, replaces, fn, plain, args, kw,
     rec.rows[check].update(out_max_abs_err=out_err, ms_without_lse=ms_without,
                            bound_without_lse_ms=b_s * 1e3,
                            library="SDPA, output only", **kw)
+    if route:
+        rec.rows[check]["chunk_route"] = route
     lse_controls(rec, check, want_lse, lambda w: fn(
         *args, with_lse=True, **{**kw, "window": w})[1], kw.get("window"))
 
@@ -5736,12 +5940,13 @@ def check_lse(rec, flush, cfg):
                 check = (f"(p) {name}/T={T} {fmt or 'bf16'} {layer}"
                          + (f" page{PAGE}" if paged else ""))
                 kd0, vd0 = torch.nan_to_num(kd), torch.nan_to_num(vd)
-                lse_case(rec, flush, check, name, CHUNK_SRC,
+                route = chunk_route(args, paged, w)
+                lse_case(rec, flush, check, name, CHUNK_SRCS[route],
                          "leetcuda_tpu/attention/chunk.py:"
                          + ("287" if paged else "207"), fn, plain, args, kw,
                          4.0 * H * D * pairs, nbytes, 4.0 * B * H * T,
                          lambda kd0=kd0, vd0=vd0, mask=mask: sdpa(
-                             q, kd0, vd0, attn_mask=mask))
+                             q, kd0, vd0, attn_mask=mask), route=route)
                 rec.rows[check].update(T=T, bases=bases_np.tolist())
         del lay, kc, vc, q
 
@@ -6100,8 +6305,9 @@ def gptoss_path(dev="cuda"):
 def print_gptoss(rows, res):
     c = res["config"]
     for r in rows.values():
-        print(f"kernel {r['check']}: lse max_abs_err {r['max_abs_err']:.3g} "
-              f"out {r['out_max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
+        print(f"kernel {r['check']}{route_tag(r)}: lse max_abs_err "
+              f"{r['max_abs_err']:.3g} out {r['out_max_abs_err']:.3g} kernel "
+              f"{r['ms']:.4f} ms "
               f"(without the lse {r['ms_without_lse']:.4f}) plain "
               f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); controls "
@@ -7225,6 +7431,12 @@ def drive(path, fn):
              if counts.get(n, 0) and n not in PATH_KERNELS[path]]
     if stray:
         raise AssertionError(f"path {path}: launched {stray}")
+    # every chunk launch took the route its plan named, counted on it too
+    chunk = sum(counts.get(n, 0) for n in CHUNK_COUNTERS)
+    routed = sum(counts.get(n, 0) for n in CHUNK_ROUTES.values())
+    if chunk != routed:
+        raise AssertionError(f"path {path}: {chunk} chunk launches, "
+                             f"{routed} on a route")
     return out, counts, peak
 
 
@@ -7417,7 +7629,8 @@ def profile_verify_tick(target, draft, cfg, batch, context, k, ticks=4):
         sync(dev)
 
     return {"batch": batch, "context": context, "kv_quant": None,
-            "paged": True, "spec_k": k, **profile_run(run, ticks)}
+            "paged": True, "spec_k": k, **profile_run(
+                run, ticks, {"chunk": ("chunk_split", "chunk_tma")})}
 
 
 def print_profile(label, prof, what="decode step"):
@@ -7489,7 +7702,10 @@ def main() -> int:
                               ("w8_ptxas", "wq_matmul", ""),
                               ("hgemm_ptxas", "matmul", "gemm_sm90"),
                               ("gmm_ptxas", "gmm", "gmm_sm90"),
-                              ("ln_bwd_ptxas", "row_ops", "ln_bwd_rows")):
+                              ("ln_bwd_ptxas", "row_ops", "ln_bwd_rows"),
+                              ("chunk_split_ptxas", "chunk_attn",
+                               "chunk_split"),
+                              ("chunk_tma_ptxas", "chunk_tma", "chunk_tma")):
         report[key] = ptxas_entries(reports.get(name, ""), needle)
         for e in report[key]:
             print(f"  {name} {e['kernel']}: {e.get('registers')} "
@@ -7596,10 +7812,10 @@ def main() -> int:
             if r.get("cap_controls_rel_l2"):
                 lib += (f" the cap's controls (relative L2, must fail "
                         f"{BWD_REL_L2}): {r['cap_controls_rel_l2']};")
-        print(f"kernel {r['check']}: max_abs_err {r['max_abs_err']:.3g} "
-              f"kernel {r['ms']:.4f} ms{tiles} plain {r['plain_ms']:.4f} ms "
-              f"{lib} bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+        print(f"kernel {r['check']}{route_tag(r)}: max_abs_err "
+              f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms{tiles} plain "
+              f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
     checks.update(nrows)
     checks.update(orows)
     checks.update(prows)
@@ -7938,6 +8154,8 @@ def main() -> int:
     print_profile(f"(f) {SPEC_K} fp8 draft steps + catch-up + T={SPEC_K + 1} "
                   "verify over paged bf16 pools", report["profile"]["f_tick"],
                   what="speculative tick")
+    print(f"  device ms by class (chunk: the verify's attention): "
+          f"{report['profile']['f_tick']['device_ms_by_class']}")
     report["profile"]["i_step"] = {
         "batch": TRAIN_B, "context": TRAIN_S, **profile_run(
             lambda: (train_step(tparams, opt, last_batch), sync(tparams[
@@ -7953,6 +8171,10 @@ def main() -> int:
     for r in checks.values():  # first check of a kernel is its row
         row = kernels.setdefault(r["name"], dict(r))
         row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+    for route, name in CHUNK_ROUTES.items():  # the chunk kernel's routes
+        rows_ = [r for r in checks.values() if r.get("chunk_route") == route]
+        kernels[name] = dict(rows_[0], name=name, max_abs_err=max(
+            r["max_abs_err"] for r in rows_))
     for name, row in kernels.items():
         row["launches"] = sum(p["launches"].get(name, 0)
                               for p in report["paths"].values())

@@ -2,6 +2,7 @@
 
     python -m leetcuda_tpu_torch.bench.attn_bench --bwd --json bwd_bench.json
     python -m leetcuda_tpu_torch.bench.attn_bench --fwd --json fwd_bench.json
+    python -m leetcuda_tpu_torch.bench.attn_bench --chunk --json chunk.json
 
 ``--fwd`` builds ``csrc/flash_fwd.cu`` once per variant of ``FWD_VARIANTS``
 (its ``LC_FWD_*`` macros: the next tile's S issued behind P V or not, the
@@ -30,6 +31,26 @@ Every other variant is held against ``flash_attention_bwd_plain``
 (relative L2 <= 1e-2); at the cap case also at cap 2 over unit q, where the
 kernel run uncapped or at cap / log2(e) must miss that bar (chip_smoke.py's
 BWD_CAP controls).
+
+``--chunk`` times the chunk attention's two routes (attention/chunk.py):
+first route A (split-KV, ``csrc/chunk_attn.cu``) and route B (TMA +
+wgmma, ``csrc/chunk_tma.cu``) in turn over T in ``--chunk-t`` (4, 8, 16,
+32, 64, 128) and G in ``--chunk-g`` (2, 4, 8) at B=8, 4 KV heads of 128
+and a cache of ``--chunk-s`` (2048) positions, bf16 and int8
+(``--chunk-fmt``), bases spread from 0 to the capacity: the A/B that sets
+``TMA_MIN_ROWS``, the crossover in rows a KV head (G * T). Then route A's
+split length (64, 128, 256, 512 keys) and its stage bound
+(``LC_CHUNK_SPLIT_STAGES`` 2, 3, 4 beside the default build) at verify
+(G=4, T=4), and route B's keys and stages
+(``LC_CHUNK_KEYS`` 64, ``LC_CHUNK_STAGES`` 3 beside the default) at
+Gemma-2-27B's chunk (B=2, 32 heads over 16, T=512, cap 50, window 4096,
+bases 3700 / 5000, pages of 128) and at an admission of T=256 (B=1, 16
+over 4 heads, base 1024). Each route and build is held against
+``chunk_attention_plain`` (KERNEL_TOL, 1e-2). Last, the wrappers at the
+main paths' shapes (ModelConfig's verify, GPT-OSS's with the lse, Gemma's
+chunk) timed three ways: one call after an L2 flush, as chip_smoke.py
+times kernels; 200 calls back to back (the host's enqueue where that is
+the longer); and the device alone, 50 calls replayed from one CUDA graph.
 
 Each build's ptxas registers and spills are printed. On a GPU each time
 is the median over ``--rounds`` rounds of the median of
@@ -406,12 +427,255 @@ def bench_bwd(dev, iters, rounds, flush, cases=None):
     return rows
 
 
+# --chunk: the crossover A/B and the routes' variant builds
+CHUNK_SPLIT_VARIANTS = [{}, {"LC_CHUNK_SPLIT_STAGES": 2},
+                        {"LC_CHUNK_SPLIT_STAGES": 3},
+                        {"LC_CHUNK_SPLIT_STAGES": 4}]
+CHUNK_TMA_VARIANTS = [{}, {"LC_CHUNK_KEYS": 64}, {"LC_CHUNK_STAGES": 3}]
+CHUNK_SPLITS = (64, 128, 256, 512)
+
+
+def _chunk_inputs(dev, B, H, Hkv, T, D, S, bases, page=0, q_scale=1.0,
+                  fmt="bf16"):
+    """Seeded q (B, H, T, D) and a cache of S positions, bf16 or int8 with
+    its f32 scales (pools of ``page`` behind a table in order when
+    ``page``), the bases: (q, k, v, k_scale, v_scale, table, base)."""
+    from leetcuda_tpu_torch.models.llama import _quantize_token_kv
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(s, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    q = rnd(B, H, T, D, scale=q_scale)
+    k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    ks = vs = None
+    if fmt == "int8":
+        (k, ks), (v, vs) = (_quantize_token_kv(x, torch.int8) for x in (k, v))
+    base = torch.tensor(bases, dtype=torch.int32, device=dev)
+    if not page:
+        return q, k, v, ks, vs, None, base
+    P = S // page
+    table = torch.arange(1, B * P + 1, dtype=torch.int32,
+                         device=dev).reshape(B, P)
+
+    def pool(c):
+        tail = c.shape[3:]
+        out = torch.zeros((B * P + 1, Hkv, page, *tail), dtype=c.dtype,
+                          device=dev)
+        out[1:] = c.reshape(B, Hkv, P, page, *tail).transpose(1, 2).reshape(
+            B * P, Hkv, page, *tail)
+        return out
+    return (q, pool(k), pool(v), None if ks is None else pool(ks),
+            None if vs is None else pool(vs), table, base)
+
+
+def _chunk_case(dev, label, inputs, kw, variants, iters, rounds, flush,
+                extra):
+    """Times each (label, route, lib, split) of ``variants`` in turn over
+    ``inputs`` (q, k, v, k_scale, v_scale, table, base), held against the
+    plain version. Returns the rows."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+    from leetcuda_tpu_torch.attention.decode import _outputs
+
+    q, k, v, ks, vs, table, base = inputs
+    kg, vg, ksg, vsg = ((ck._gather(t, table) if t is not None else None
+                         for t in (k, v, ks, vs)) if table is not None
+                        else (k, v, ks, vs))
+    kw = dict(kw, k_scale=ksg, v_scale=vsg)
+    want = ck.chunk_attention_plain(q, kg, vg, base, **kw)
+    scale = q.shape[-1] ** -0.5
+    fns = []
+    for name, route, lib, split in variants:
+        if dev.type != "cuda":
+            fns.append((name, lambda: ck.chunk_attention_plain(
+                q, kg, vg, base, **kw)))
+            continue
+
+        def run(route=route, lib=lib, split=split):
+            out, _ = _outputs(q, False)
+            _, err = ck.launch(q, k, v, ks, vs, table, base, out, None,
+                               scale=scale, window=kw.get("window") or 0,
+                               softcap=kw.get("softcap") or 0.0, route=route,
+                               split_keys=split, lib=lib)
+            if err:
+                raise RuntimeError(f"chunk {name}: CUDA error {err}")
+            return out
+        fns.append((name, run))
+    rows = []
+    for name, fn in fns:
+        got = fn()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=1e-2,
+                              rtol=1e-2):  # chip_smoke.py's KERNEL_TOL
+            raise AssertionError(f"chunk {name} at {label}: max abs {err}")
+        rows.append({"case": label, **extra, "variant": name,
+                     "max_abs_err": err, "rounds": []})
+    for _ in range(rounds):
+        for row, (_, fn) in zip(rows, fns):
+            row["rounds"].append(time_ms(fn, dev, iters, flush))
+    print(f"--- chunk {label} ---")
+    for row in rows:
+        row["ms"] = float(np.median(row["rounds"]))
+        print(f"  {row['variant']}: {row['ms']:.4f} ms; max abs "
+              f"{row['max_abs_err']:.3g}", flush=True)
+    return rows
+
+
+def bench_chunk(dev, iters, rounds, flush, Ts, Gs, S, fmts):
+    """The routes' A/B across T and G over a bf16 and an int8 cache (the
+    crossover), then each route's variants (route A's split length and
+    stages, route B's keys and stages; on the GPU only). Returns the
+    rows."""
+    rows = []
+    B, Hkv, D = 8, 4, 128
+    cuda = dev.type == "cuda"
+    routes = ([("route A (split)", "split", None, None),
+               ("route B (tma)", "tma", None, None)] if cuda
+              else [("plain", None, None, None)])
+    for fmt in fmts:
+        for G in Gs:
+            for T in Ts:
+                bases = np.linspace(0, S - T, B).astype(int).tolist()
+                inputs = _chunk_inputs(dev, B, G * Hkv, Hkv, T, D, S, bases,
+                                       fmt=fmt)
+                rows += _chunk_case(
+                    dev, f"{fmt} G={G} T={T} (rows {G * T})", inputs, {},
+                    routes, iters, rounds, flush,
+                    {"T": T, "G": G, "rows": G * T, "fmt": fmt})
+    if not cuda:
+        return rows
+    from leetcuda_tpu_torch.build import build_variants
+
+    split_libs = build_variants("chunk_attn", CHUNK_SPLIT_VARIANTS)
+    tma_libs = build_variants("chunk_tma", CHUNK_TMA_VARIANTS)
+    for (lib, log), v in zip(split_libs + tma_libs,
+                             CHUNK_SPLIT_VARIANTS + CHUNK_TMA_VARIANTS):
+        print(f"  built {v or 'default'}: "
+              f"{ptxas_summary(log) if log else 'cached'}", flush=True)
+    verify = _chunk_inputs(dev, B, 16, Hkv, 4, D, S,
+                           np.linspace(0, S - 4, B).astype(int).tolist())
+    variants = [(f"split {n} keys", "split", None, n) for n in CHUNK_SPLITS]
+    variants += [(f"stages <= {v['LC_CHUNK_SPLIT_STAGES']}", "split", lib,
+                  None) for (lib, _), v in zip(split_libs[1:],
+                                               CHUNK_SPLIT_VARIANTS[1:])]
+    rows += _chunk_case(dev, "route A at verify, G=4 T=4", verify, {},
+                        variants, iters, rounds, flush, {"T": 4, "G": 4})
+    tma_vars = [(_fwd_label({k.replace("CHUNK_", "FWD_"): x
+                             for k, x in v.items()}), "tma", lib, None)
+                for (lib, _), v in zip(tma_libs, CHUNK_TMA_VARIANTS)]
+    gemma = _chunk_inputs(dev, 2, 32, 16, 512, D, 6144, [3700, 5000],
+                          page=128, q_scale=10.0)
+    rows += _chunk_case(dev, "route B, Gemma-2-27B T=512, cap 50, W 4096",
+                        gemma, {"softcap": 50.0, "window": 4096}, tma_vars,
+                        iters, rounds, flush, {"T": 512, "G": 2})
+    admit = _chunk_inputs(dev, 1, 16, Hkv, 256, D, S, [1024])
+    rows += _chunk_case(dev, "route B, admission T=256 base 1024", admit, {},
+                        tma_vars, iters, rounds, flush, {"T": 256, "G": 4})
+    return rows + chunk_host_device(dev, iters, flush)
+
+
+def graph_ms(fn, dev, flush, reps=50, rounds=10):
+    """Device ms a call of ``fn``: ``reps`` calls captured in one CUDA graph
+    (its scratch made by one call outside the capture), replayed after an L2
+    flush (so the first call reads cold, the others warm), the median over
+    ``rounds``. The host's enqueue of each call is out of it."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(rounds):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def chunk_host_device(dev, iters, flush):
+    """The chunk wrappers at the main paths' shapes three ways: CUDA events
+    around one call after an L2 flush (``time_ms``, as chip_smoke.py times
+    kernels), the mean of 200 calls back to back (the host's enqueue when it
+    is the longer), and the device alone (``graph_ms``). Returns the
+    rows."""
+    from leetcuda_tpu_torch.attention import chunk as ck
+
+    S, bases4 = 2048, [0, 100, 517, 1024, 1200, 1400, 1950, 2044]
+    lse_bases = [0, 100, 124, 125, 517, 1024, 1500, 2044]
+    cases = [  # label, inputs, wrapper options
+        ("ModelConfig verify bf16", _chunk_inputs(
+            dev, 8, 16, 4, 4, 128, S, bases4), {}),
+        ("ModelConfig verify int8", _chunk_inputs(
+            dev, 8, 16, 4, 4, 128, S, bases4, fmt="int8"), {}),
+        ("ModelConfig verify bf16, pages of 128", _chunk_inputs(
+            dev, 8, 16, 4, 4, 128, S, bases4, page=128), {}),
+        ("GPT-OSS verify, W 128, lse", _chunk_inputs(
+            dev, 8, 64, 8, 4, 64, S, lse_bases),
+         {"window": 128, "with_lse": True}),
+        ("GPT-OSS verify, global, lse", _chunk_inputs(
+            dev, 8, 64, 8, 4, 64, S, lse_bases), {"with_lse": True}),
+        ("Gemma-2-27B T=512, W 4096, cap 50, pages of 128", _chunk_inputs(
+            dev, 2, 32, 16, 512, 128, 6144, [3700, 5000], page=128,
+            q_scale=10.0), {"window": 4096, "softcap": 50.0})]
+    rows = []
+    print("--- chunk wrappers: event time, back to back, device alone ---")
+    for label, (q, k, v, ks, vs, table, base), kw in cases:
+        if table is not None:
+            def fn(q=q, k=k, v=v, table=table, base=base, kw=kw):
+                return ck.paged_chunk_attention(q, k, v, table, base, **kw)
+        elif ks is not None:
+            def fn(q=q, k=k, v=v, ks=ks, vs=vs, base=base, kw=kw):
+                return ck.chunk_attention_quantized(q, k, v, ks, vs, base,
+                                                    **kw)
+        else:
+            def fn(q=q, k=k, v=v, base=base, kw=kw):
+                return ck.chunk_attention(q, k, v, base, **kw)
+        ms = time_ms(fn, dev, iters, flush)
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(200):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        row = {"case": label, "variant": "wrapper", "ms": ms,
+               "back_to_back_ms": start.elapsed_time(end) / 200,
+               "device_ms": graph_ms(fn, dev, flush)}
+        rows.append(row)
+        print(f"  {label}: {ms:.4f} ms after a flush; "
+              f"{row['back_to_back_ms']:.4f} back to back; device alone "
+              f"{row['device_ms']:.4f}", flush=True)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bwd", action="store_true",
                     help="the A/B of the flash backward's builds")
     ap.add_argument("--fwd", action="store_true",
                     help="the A/B of the flash forward's builds")
+    ap.add_argument("--chunk", action="store_true",
+                    help="the chunk attention's routes and builds")
+    ap.add_argument("--chunk-t", type=int, nargs="*",
+                    default=[4, 8, 16, 32, 64, 128])
+    ap.add_argument("--chunk-g", type=int, nargs="*", default=[2, 4, 8])
+    ap.add_argument("--chunk-s", type=int, default=2048)
+    ap.add_argument("--chunk-fmt", nargs="*", choices=("bf16", "int8"),
+                    default=["bf16", "int8"])
     ap.add_argument("--cases", nargs="*", choices=sorted(CASES),
                     default=None, help="--bwd: the cases to run")
     ap.add_argument("--fwd-cases", nargs="*", choices=sorted(FWD_CASES),
@@ -425,8 +689,8 @@ def main(argv=None):
                          "CLI on the CPU)")
     ap.add_argument("--json", help="write the rows here")
     args = ap.parse_args(argv)
-    if args.bwd == args.fwd:
-        ap.error("pass one of --bwd and --fwd")
+    if args.bwd + args.fwd + args.chunk != 1:
+        ap.error("pass one of --bwd, --fwd and --chunk")
     CASE_FILTER[:] = args.fwd_cases
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -444,8 +708,13 @@ def main(argv=None):
     else:
         print(f"device {dev} (host clock: a check of the CLI, no device "
               f"metric)")
-    rows = (bench_bwd(dev, args.iters, args.rounds, flush, args.cases)
-            if args.bwd else bench_fwd(dev, args.iters, args.rounds, flush))
+    if args.chunk:
+        rows = bench_chunk(dev, args.iters, args.rounds, flush, args.chunk_t,
+                           args.chunk_g, args.chunk_s, args.chunk_fmt)
+    elif args.bwd:
+        rows = bench_bwd(dev, args.iters, args.rounds, flush, args.cases)
+    else:
+        rows = bench_fwd(dev, args.iters, args.rounds, flush)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(

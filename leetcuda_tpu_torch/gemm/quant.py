@@ -296,8 +296,9 @@ def w4_plan(M, N, K, decode=None, prefill_rows=W4_PREFILL_ROWS,
 
 
 # One (workspace, counters) pair per (device, stream), grown on demand,
-# shared by the two split-K routes (w8a16, w4a16): the last CTA of an
-# output tile zeroes its counter again, so the counters are zero between
+# shared by the two split-K routes (w8a16, w4a16) and the split-KV route of
+# the chunk attention (attention/chunk.py): the last CTA of an output tile
+# or row block zeroes its counter again, so the counters are zero between
 # launches, and two streams never share them. A buffer that growth
 # replaces stays alive in _SPLIT_RETIRED for the life of the process: a CUDA
 # graph captured on the stream before the growth still launches into it.
@@ -319,7 +320,7 @@ def _split_scratch(device, stream: int, workspace: int, counters: int):
     ws, cnt = _SPLIT_SCRATCH.get(key, (None, None))
     if ws is None or ws.numel() < workspace or cnt.numel() < counters:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("split-K matmul: this stream has no split "
+            raise RuntimeError("split kernels: this stream has no split "
                                "workspace of that size yet; launch the call "
                                "once on it before capturing a graph")
         if ws is None or ws.numel() < workspace:

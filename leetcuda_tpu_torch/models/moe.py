@@ -18,8 +18,10 @@ Counterpart of ``leetcuda_tpu/models/moe.py``. Parameters are a dict
 Top-k takes the lower expert id first among equal probabilities, as
 ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` promises
 no order on CUDA). The dropless combine sums each token's k weighted copies
-with ``index_add_`` in f32; on CUDA its order among the k copies is not
-fixed, so results agree with JAX's to f32 rounding, not bit for bit.
+in f32 in a fixed order (its copies gathered by a stable sort, then one
+sum over k), so a call gives the same bits every time; JAX's scatter-add
+sums them in another order, so results agree with JAX's to f32 rounding,
+not bit for bit.
 
 Expert parallelism (``moe_shardings``, ``shard_moe_params``) needs the
 sharded runtime over a mesh (``parallel/mesh.py`` has the mesh), which the
@@ -200,8 +202,11 @@ def moe_ffn_dropless(x, params, cfg: MoEConfig, block_m: int = 128):
     up = gmm(buf, params["w_up"], tile_group).float()
     down = gmm((gate * up).to(x.dtype), params["w_down"], tile_group)
     contrib = down[pos].float() * w_sorted[:, None]
-    out = torch.zeros((xf.shape[0], D), dtype=torch.float32,
-                      device=x.device).index_add_(0, src, contrib)
+    # every token has k copies: grouped by token (a stable sort keeps them
+    # in expert order) and summed over k in a fixed order, where index_add_
+    # would sum them with float atomics, in another order on every call
+    by_token = torch.argsort(src, stable=True)
+    out = contrib[by_token].view(xf.shape[0], cfg.topk, D).sum(dim=1)
     return out.to(x.dtype).reshape(*lead, D)
 
 
