@@ -134,7 +134,11 @@ Phases; any failure raises and the script exits non-zero:
           launch counts left as they were (``uncounted``); at the headline
           and the matmul_auto shapes every tensor-core tile is timed with
           and without a grouped walk (the A/B behind pick_matmul_config),
-          and at the gemv shapes each ``k_lanes``. The f16 / bf16 tiles are
+          and at the gemv shapes each ``k_lanes``; every gemv and
+          rms_norm_gemv call must be one launch that allocates nothing
+          past its output and repeats bit for bit, and at ``wqkv`` both and
+          their library calls are timed on the device alone
+          (torch.profiler's kernel times). The f16 / bf16 tiles are
           one persistent TMA + wgmma kernel: the library's SASS holds
           wgmma and TMA loads and no mma.sync.
    (k)    the row ops and split-KV attention (after path (j)), in three
@@ -152,8 +156,10 @@ Phases; any failure raises and the script exits non-zero:
           random gamma and beta; the backward's block route at (4096, 2050)
           (twice, bit for bit); every layer-norm rung; rows offset by 1e3
           against float64; the three softmax forms in f32 at (2048, 32000) and (8,
-          32000), every softmax rung at 16384 rows, and rows that overflow
-          the naive form (NaN as its plain version); then
+          32000) (twice, bit for bit; at 8 rows also on the device alone
+          beside torch.softmax), every softmax rung at 16384 rows, a row of
+          140000 on the stream route (counted on ``softmax_stream``), and
+          rows that overflow the naive form (NaN as its plain version); then
           ``flash_attention_splitkv`` in bf16 at decode (q (8, 16, 1, 128)
           over 2048 keys, 4 KV heads, num_splits 2, 4, 8) and prefill (q (1,
           16, 2048, 128), num_splits 2, 4) against the plain attention and
@@ -496,7 +502,7 @@ PATH_KERNELS.update({
 PATH_KERNELS.update({
     "k1": ("rms_norm", "layer_norm", "softmax", "merge_attn_states"),
     "k2": ("rms_norm", "layer_norm", "layer_norm_bwd", "layer_norm_bwd_block",
-           "softmax"),
+           "softmax", "softmax_stream"),
     "k3": ("flash_attention_lse", "merge_attn_states")})
 # Path (l), the op corpus's transpose, embedding gathers, RoPE and resident
 # matmul chain, in three parts: the registry sweep of the four families, the
@@ -558,7 +564,7 @@ GEMM_KERNELS = PATH_KERNELS["j3"]
 # model leaves its norms and softmax to eager PyTorch, as the JAX model left
 # them to XLA).
 ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_bwd",
-                                     "layer_norm_bwd_block")
+                                     "layer_norm_bwd_block", "softmax_stream")
 # The op corpus's kernels of path (l): no other path launches them (the
 # model's embedding is an indexing op and its RoPE the half rotation, as the
 # JAX model's are; nothing calls the resident chain).
@@ -3015,10 +3021,18 @@ def gemm_model_shapes(run, layer, embed):
                        lambda: torch.matmul(x.reshape(1, -1), w), 2.0 * K * N,
                        float((K + K * N + N) * isz), w.dtype,
                        tol=F32_TOL if w.dtype == torch.float32 else KERNEL_TOL,
-                       K=K, N=N)
+                       K=K, N=N, plan=gv.device_plan(K, N, w.dtype,
+                                                     gv.DEFAULT_K_LANES,
+                                                     False, x.device))
+        row.update(one_call(f"gemv {key}", lambda: fn(x, w), "gemv"))
         row["ms_by_k_lanes"] = interleaved_ms(  # behind DEFAULT_K_LANES
             {kl: lambda f=gv.make_gemv(k_lanes=kl): f(x, w)
              for kl in gv.K_LANES}, run.flush)
+        if name == "gemv" and key == "wqkv":
+            row["device_alone_ms"] = device_alone_ms(lambda: fn(x, w),
+                                                     run.flush)
+            row["library_device_alone_ms"] = device_alone_ms(
+                lambda: torch.matmul(x.reshape(1, -1), w), run.flush)
     w = weights["w_gate_up"]
     x = run.rand(w.shape[0])
     silu = gv.make_gemv(epilogue=F.silu)
@@ -3044,9 +3058,19 @@ def gemm_model_shapes(run, layer, embed):
                        lambda: gv.rms_norm_gemv_plain(x, norm, w, eps), None,
                        2.0 * K * N + 4.0 * K, float((2 * K + K * N + N) * 2),
                        bf, K=K, N=N)
+        row.update(one_call(f"rms_norm_gemv {key}",
+                            lambda: gv.rms_norm_gemv(x, norm, w),
+                            "rms_norm_gemv"))
         with uncounted():
             row["eager_unfused_ms"] = time_ms(eager, run.flush)
             row["matmul_ms"] = time_ms(
+                lambda: torch.matmul(x.reshape(1, -1), w), run.flush)
+        if key == "wqkv":
+            row["device_alone_ms"] = device_alone_ms(
+                lambda: gv.rms_norm_gemv(x, norm, w), run.flush)
+            row["eager_unfused_device_alone_ms"] = device_alone_ms(
+                eager, run.flush)
+            row["matmul_device_alone_ms"] = device_alone_ms(
                 lambda: torch.matmul(x.reshape(1, -1), w), run.flush)
 
     n = HEADLINE_MNK
@@ -3061,6 +3085,31 @@ def gemm_model_shapes(run, layer, embed):
                  lambda: gq.matmul_i8i8i32_plain(x, w), _int_mm(x, w),
                  2.0 * M * N * K, float(M * K + K * N + 4 * M * N),
                  torch.int8, tol=EXACT, M=M, N=N, K=K)
+
+
+def one_call(what, call, counter):
+    """A call's launches and its device memory: exactly one launch, on
+    ``counter``, and nothing allocated past its (1, N) output (no partial
+    buffer); twice, bit for bit. Returns what it saw."""
+    from leetcuda_tpu_torch.core.runtime import launch_counts
+
+    torch.cuda.synchronize()
+    before, base = launch_counts(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    moved = {n: c - before.get(n, 0) for n, c in launch_counts().items()
+             if c != before.get(n, 0)}
+    if moved != {counter: 1}:
+        raise AssertionError(f"{what}: one call launched {moved}")
+    if peak > -(-out.numel() * out.element_size() // 512) * 512:
+        raise AssertionError(f"{what}: {peak} bytes allocated for a "
+                             f"{tuple(out.shape)} output")
+    if not torch.equal(out, call()):
+        raise AssertionError(f"{what}: two calls differ")
+    return {"launches_a_call": moved, "peak_bytes": peak,
+            "bitwise_repeat": True}
 
 
 def gemm_library(layer, embed, card):
@@ -3118,6 +3167,18 @@ def print_gemm(rows, res):
             if key in r:
                 print("    " + ", ".join(f"{k}: {v:.4f}"
                                          for k, v in r[key].items()))
+        if "launches_a_call" in r:
+            plan = r.get("plan") or {}
+            print(f"    one launch a call {r['launches_a_call']}, "
+                  f"{r['peak_bytes']} bytes allocated, repeat bit for bit; "
+                  f"cluster {plan.get('cluster')}, grid {plan.get('grid')}"
+                  f" in {plan.get('waves')} waves of {plan.get('wave')}")
+        if "device_alone_ms" in r:
+            lib = r.get("library_device_alone_ms",
+                        r.get("eager_unfused_device_alone_ms"))
+            print(f"    device alone {r['device_alone_ms']} ms; library "
+                  f"(eager pair for the fused form) {lib} ms; torch.matmul "
+                  f"alone {r.get('matmul_device_alone_ms')} ms")
     print(f"  matmul SASS: {res['sass']}")
     print(f"  launches: {res['launches']}")
 
@@ -3135,6 +3196,8 @@ ROW_SRC = {
                              "leetcuda_tpu/ops/layer_norm.py:174"),
     "softmax": ("leetcuda_tpu_torch/csrc/row_ops.cu",
                 "leetcuda_tpu/ops/softmax.py:83"),
+    "softmax_stream": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                       "leetcuda_tpu/ops/softmax.py:83"),
     "merge_attn_states": ("leetcuda_tpu_torch/csrc/merge_attn.cu",
                           "leetcuda_tpu/ops/merge_attn_states.py:70"),
 }
@@ -3144,6 +3207,9 @@ ROW_FAMILIES = ("softmax", "layer-norm", "rms-norm", "attention-utils")
 # and start most rows off a 16-byte boundary (a scalar head).
 ROW_DIM, TAIL_DIM, TAIL_ROWS = 2048, 2050, 4096
 VOCAB_ROWS = 2048  # softmax over 2048 rows of 32000 logits
+# a row past what 16 CTAs of the cluster route hold (128K f32): the stream
+# route
+STREAM_ROW = (4, 140000)
 SPLITS_DECODE, SPLITS_PREFILL = (2, 4, 8), (2, 4)
 # 1e3-offset rows against float64: each f32 mean carries ~1e-4 of rounding
 # at 1e3, where E[x^2] - mean^2 would be off by ~0.06 in a variance of 1
@@ -3365,12 +3431,45 @@ def _layer_norm_cases(run):
              None, 0.0, (x, g, b), tol=OFFSET_TOL, timed=False)
 
 
+def device_alone_ms(fn, flush, iters=20, tries=3):
+    """The device time of ``fn``'s kernels a call (torch.profiler's kernel
+    times, the L2 flushed before each call; the flush's fill left out), or
+    None where none of ``tries`` profiles is whole: on the card a profile
+    taken right after another one came back empty or with only some of
+    its launches now and then, so a profile counts only when every kernel
+    it holds ran a whole multiple of ``iters`` times. Launches uncounted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with uncounted():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if "FillFunctor" not in e.key and getattr(
+                       e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))]
+        if kernels and all(e.count % iters == 0 for e in kernels):
+            return sum(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+                       for e in kernels) / iters / 1e3
+    return None
+
+
 def _softmax_cases(run):
     """The three softmax forms in f32 at 2048 rows of logits and at a
-    decode step's 8, every registered rung at training's rows in its dtype,
-    and rows that overflow the naive form (NaN where exp overflows, as in
-    its plain version; none in the other two forms)."""
+    decode step's 8 (each twice, bit for bit, with its plan; at 8 rows the
+    device alone beside torch.softmax's), every registered rung at
+    training's rows in its dtype, a row past what a cluster holds (the
+    stream route, twice bit for bit), and rows that overflow the naive form
+    (NaN where exp overflows, as in its plain version; none in the other two
+    forms)."""
     from leetcuda_tpu_torch.core.registry import OPS
+    from leetcuda_tpu_torch.ops import rowwise as rw
     from leetcuda_tpu_torch.ops import softmax as sm
 
     forms = {"safe": sm.softmax, "online": sm.online_softmax,
@@ -3381,12 +3480,23 @@ def _softmax_cases(run):
     V = 32000
     for S in (VOCAB_ROWS, 8):  # the kernels line's row first
         x = run.rand(S, V, scale=2.0)
+        plan = sm.device_plan(x, rw.load_bytes(8, True, 4))
         for form, fn in forms.items():
-            run.case(f"softmax/{form} f32 ({S}, {V})", "softmax",
-                     lambda: fn(x), lambda: sm.PLAIN[fn.mode](x),
-                     lambda: torch.softmax(x, dim=-1), 8.0 * x.numel(), (x,),
-                     tol=tols[form], flops=5.0 * x.numel(), form=form, S=S,
-                     K=V)
+            row = run.case(f"softmax/{form} f32 ({S}, {V})", "softmax",
+                           lambda: fn(x), lambda: sm.PLAIN[fn.mode](x),
+                           lambda: torch.softmax(x, dim=-1),
+                           8.0 * x.numel(), (x,), tol=tols[form],
+                           flops=5.0 * x.numel(), form=form, S=S, K=V,
+                           plan=plan)
+            row["bitwise_repeat"] = torch.equal(fn(x), fn(x))
+            if not row["bitwise_repeat"]:
+                raise AssertionError(f"softmax {form} ({S}, {V}): two runs "
+                                     "differ")
+            if S == 8:
+                row["device_alone_ms"] = device_alone_ms(lambda: fn(x),
+                                                         run.flush)
+                row["library_device_alone_ms"] = device_alone_ms(
+                    lambda: torch.softmax(x, dim=-1), run.flush)
     for name, spec in OPS.items():
         if spec.family != "softmax":
             continue
@@ -3397,6 +3507,18 @@ def _softmax_cases(run):
                  2.0 * x.numel() * x.element_size(), (x,),
                  tol=dict(atol=spec.atol, rtol=spec.rtol),
                  flops=5.0 * x.numel(), rung=name, S=TRAIN_ROWS, K=ROW_DIM)
+    x = run.rand(*STREAM_ROW, scale=2.0)
+    if sm.device_plan(x, rw.load_bytes(8, True, 4))["route"] != "stream":
+        raise AssertionError(f"softmax {STREAM_ROW}: not the stream route")
+    row = run.case(f"softmax/safe f32 {STREAM_ROW}, the stream route",
+                   "softmax_stream", lambda: sm.softmax(x),
+                   lambda: sm.safe_softmax_plain(x),
+                   lambda: torch.softmax(x, dim=-1), 8.0 * x.numel(), (x,),
+                   tol=tols["safe"], flops=5.0 * x.numel(), form="safe",
+                   S=STREAM_ROW[0], K=STREAM_ROW[1])
+    row["bitwise_repeat"] = torch.equal(sm.softmax(x), sm.softmax(x))
+    if not row["bitwise_repeat"]:
+        raise AssertionError("softmax stream route: two runs differ")
     x = run.rand(64, 4001)
     x[1, 7], x[2, :3] = 100.0, 95.0
     before = [x.clone()]
@@ -3539,6 +3661,12 @@ def print_row_ops(rows, res):
             rep += (f"; in turn: rows route {r['routes_ms']['rows']:.4f} ms, "
                     f"block route {r['routes_ms']['block']:.4f} ms (max abs "
                     f"{r['block_route_max_abs_err']:.3g})")
+        if "plan" in r and r["name"] == "softmax":
+            rep += (f"; clusters of {r['plan']['cluster']}, "
+                    f"{r['plan']['clusters']} of them")
+        if "device_alone_ms" in r:
+            rep += (f"; device alone {r['device_alone_ms']} ms, library "
+                    f"{r['library_device_alone_ms']} ms")
         print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
               f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
               f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "

@@ -13,6 +13,8 @@ same dtype.
     python -m leetcuda_tpu_torch.bench.gemm_bench --hgemm --repeats 3
     python -m leetcuda_tpu_torch.bench.gemm_bench --gmm --repeats 5
     python -m leetcuda_tpu_torch.bench.gemm_bench --ln-bwd --repeats 5
+    python -m leetcuda_tpu_torch.bench.gemm_bench --softmax --repeats 5
+    python -m leetcuda_tpu_torch.bench.gemm_bench --gemv --repeats 5
 
 ``--w4`` is the A/B of the w4a16 kernel (``csrc/w4_matmul.cu``): the
 package's build and variant builds of its macros (prefill CTAs of 64 rows,
@@ -59,6 +61,28 @@ its rows route at 1 and 2 CTAs an SM (the persistent grid), the block
 route (the earlier kernel) and ``F.layer_norm``'s autograd backward, taken
 in turn at (16384, 2048) in bf16, f32 and f16, each held against
 ``layer_norm_bwd_plain`` (atol / rtol 1e-2; f32 1e-3).
+
+``--softmax`` is the A/B of the row softmax (``csrc/row_ops.cu``): the
+cluster route at the plan's cluster size and at the others that hold the
+row (8 and 16 CTAs a row of 32000 f32), variant builds whose CTAs take
+their slice by one bulk copy into shared memory (LC_SOFTMAX_SMEM 1) or are
+128 threads (LC_SOFTMAX_THREADS), and two probes whose results are wrong
+(LC_SOFTMAX_PROBE 1: no arithmetic, the loads and stores alone; 2: no
+cluster exchange), against the package's 256-thread CTAs holding their
+slice in registers, the stream route (the earlier kernel) and
+``torch.softmax``, taken in turn at (2048, 32000) and (8, 32000) f32 in the
+safe form, each held against ``safe_softmax_plain`` (atol / rtol 1e-5).
+
+``--gemv`` is the A/B of the gemv (``csrc/gemv.cu``): the package's build
+(unrolled 16-byte loads, 4 a batch, each thread's next batch issued before
+it sums the current one) at each ``k_lanes`` and at one CTA a panel,
+variant builds of 8 loads a batch and of the TMA ring (2-D boxes of
+64 rows into 4 or 8 shared-memory stages, LC_GEMV_TMA 1), and
+``torch.matmul``, taken in turn at path (j)'s bf16 shapes of one decode row
+(``wqkv``, ``w_gate_up``, ``w_down``, the output projection), each held
+against ``gemv_plain`` (atol / rtol 1e-2); then ``rms_norm_gemv`` over
+``wqkv`` in both feeds beside the eager pair (the norm, then
+``torch.matmul``).
 
 ``--resident`` is the A/B of the resident chain's build
 (``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
@@ -693,6 +717,203 @@ def bench_ln_bwd(dev, iters, rounds, flush, S=16384, K=2048):
     return rows
 
 
+SOFTMAX_CASES = ((2048, 32000), (8, 32000))
+SOFTMAX_VARIANTS = [{"LC_SOFTMAX_SMEM": 1}, {"LC_SOFTMAX_THREADS": 128},
+                    {"LC_SOFTMAX_PROBE": 1}, {"LC_SOFTMAX_PROBE": 2}]
+
+
+def _softmax_label(v):
+    if v.get("LC_SOFTMAX_PROBE"):
+        return ("probe: no arithmetic" if v["LC_SOFTMAX_PROBE"] == 1
+                else "probe: no cluster exchange")
+    if v.get("LC_SOFTMAX_SMEM"):
+        return "shared-memory slice"
+    return f"CTAs of {v['LC_SOFTMAX_THREADS']} threads"
+
+
+def bench_softmax(dev, iters, rounds, flush):
+    """The safe softmax's cluster route at each cluster size that holds the
+    row, its shared-memory-slice build, the stream route and torch.softmax
+    in turn at SOFTMAX_CASES f32 (on the CPU the plain version at a cut
+    size). Returns the rows."""
+    import ctypes
+
+    from leetcuda_tpu_torch.build import entry
+    from leetcuda_tpu_torch.ops import rowwise as rw
+    from leetcuda_tpu_torch.ops import softmax as sm
+
+    builds = (_builds("row_ops", SOFTMAX_VARIANTS, _softmax_label)
+              if dev.type == "cuda" else [])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for S, K in SOFTMAX_CASES:
+        if dev.type != "cuda":
+            S, K = S // 64 or 1, K // 64
+        x = torch.randn((S, K), generator=gen, device=dev) * 2.0
+        want = sm.safe_softmax_plain(x)
+        lb = rw.load_bytes(8, True, 4)
+        plan = (sm.device_plan(x, lb) if dev.type == "cuda"
+                else sm.softmax_plan(S, K, 4, lb))
+        fns = {}
+        if dev.type == "cuda":
+            for C in (4, 8, 16):
+                try:
+                    p = sm.device_plan(x, lb, cluster=C)
+                except ValueError:
+                    continue  # C CTAs cannot hold the row
+                tag = " (plan)" if C == plan.get("cluster") else ""
+                fns[f"cluster {C}, {p['nb']} B a thread ({p['clusters']} "
+                    f"clusters){tag}"] = (
+                    lambda p=p: sm._run(x, torch.empty_like(x), sm.SAFE, 8,
+                                        lb, p))
+            for v, lib in builds:
+                # the variant's own threads and occupancy set its plan
+                def active(C, nb, lib=lib):
+                    n = ctypes.c_int(0)
+                    entry(lib, "lc_softmax_clusters",
+                          rw.SOFTMAX_CLUSTERS_ARGS)(rw.DTYPES[x.dtype], lb,
+                                                    nb, C, ctypes.byref(n))
+                    return n.value
+
+                vplan = sm.softmax_plan(
+                    S, K, 4, lb, active=active,
+                    threads=v.get("LC_SOFTMAX_THREADS", sm.SM_THREADS))
+                fns[f"cluster {vplan['cluster']}, {_softmax_label(v)}, "
+                    f"{vplan['nb']} B a thread ({vplan['clusters']} "
+                    f"clusters)"] = (
+                    lambda lib=lib, vplan=vplan: sm._run(
+                        x, torch.empty_like(x), sm.SAFE, 8, lb, vplan, lib))
+            fns["stream route"] = lambda: sm._run(
+                x, torch.empty_like(x), sm.SAFE, 8, lb, {"route": "stream"})
+            fns["torch.softmax"] = lambda: torch.softmax(x, dim=-1)
+        else:
+            fns["plain"] = lambda: sm.safe_softmax_plain(x)
+        errs = {}
+        for n, fn in fns.items():
+            got = fn()
+            errs[n] = float((got - want).abs().max())
+            if "probe" not in n:  # a probe's results are wrong by design
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        times = _in_turn(fns, dev, iters, rounds, flush)
+        bound = 2.0 * S * K * 4 / 3.35e12 * 1e3
+        print(f"--- safe softmax f32 ({S}, {K}) (bound {bound:.4f} ms; plan "
+              f"{plan}) ---")
+        for n in fns:
+            ms = float(np.median(times[n]))
+            rows.append({"S": S, "K": K, "variant": n, "ms": ms,
+                         "rounds": times[n], "bound_ms": bound,
+                         "max_abs_err": errs[n]})
+            print(f"  {n}: {ms:.4f} ms ({bound / ms:.3f} of the bound); max "
+                  f"abs {errs[n]:.3g}", flush=True)
+    return rows
+
+
+# path (j)'s weights of one decode row: ModelConfig()'s layer-0 projections
+# and the output projection, (K, N) bf16
+GEMV_KN = (("wqkv", 2048, 3072), ("w_gate_up", 2048, 11264),
+           ("w_down", 5632, 2048), ("lm_out", 2048, 32000))
+GEMV_VARIANTS = [{"LC_GEMV_UNROLL": 8},
+                 {"LC_GEMV_TMA": 1, "LC_GEMV_STAGES": 4},
+                 {"LC_GEMV_TMA": 1, "LC_GEMV_STAGES": 8}]
+
+
+def _gemv_label(v):
+    if v.get("LC_GEMV_TMA"):
+        return f"TMA ring, {v['LC_GEMV_STAGES']} stages of 64 rows"
+    return f"unrolled loads, {v['LC_GEMV_UNROLL']} a batch"
+
+
+def bench_gemv(dev, iters, rounds, flush):
+    """The gemv's builds, k_lanes and cluster sizes and torch.matmul in turn
+    at GEMV_KN, then rms_norm_gemv over wqkv in both feeds beside the eager
+    pair (on the CPU the plain versions at a cut size). Returns the rows."""
+    from leetcuda_tpu_torch.gemm import gemv as gv
+
+    cuda = dev.type == "cuda"
+    builds = _builds("gemv", GEMV_VARIANTS, _gemv_label) if cuda else []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    rows = []
+
+    def report(label, K, N, fns, want, nbytes):
+        errs = {}
+        for n, fn in fns.items():
+            got = fn()
+            errs[n] = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                       rtol=1e-2)
+        times = _in_turn(fns, dev, iters, rounds, flush)
+        bound = nbytes / 3.35e12 * 1e3
+        print(f"--- {label} (K={K}, N={N}; bound {bound:.4f} ms) ---")
+        for n in fns:
+            ms = float(np.median(times[n]))
+            rows.append({"case": label, "K": K, "N": N, "variant": n,
+                         "ms": ms, "rounds": times[n], "bound_ms": bound,
+                         "max_abs_err": errs[n]})
+            print(f"  {n}: {ms:.4f} ms ({bound / ms:.3f} of the bound); "
+                  f"max abs {errs[n]:.3g}", flush=True)
+
+    for key, K, N in GEMV_KN:
+        if not cuda:
+            K, N = K // 16, N // 16
+        w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(bf)
+        x = torch.randn(K, generator=gen, device=dev).to(bf)
+        want = gv.gemv_plain(x, w)
+        fns = {}
+        if cuda:
+            for kl in gv.K_LANES:
+                plan = gv.device_plan(K, N, bf, kl, False, x.device)
+                tag = " (default)" if kl == gv.DEFAULT_K_LANES else ""
+                fns[f"loads, 4 a batch, k_lanes {kl}, cluster "
+                    f"{plan['cluster']}{tag}"] = (
+                    lambda kl=kl, plan=plan: gv._launch(
+                        gv.GEMV, x, w, None, kl, 0.0, bf, plan))
+            one = gv.gemv_plan(K, N, 2, cluster=1)
+            fns["loads, 4 a batch, one CTA a panel"] = lambda: gv._launch(
+                gv.GEMV, x, w, None, gv.DEFAULT_K_LANES, 0.0, bf, one)
+            plan = gv.device_plan(K, N, bf, gv.DEFAULT_K_LANES, False,
+                                  x.device)
+            for v, lib in builds:
+                fns[_gemv_label(v)] = (
+                    lambda lib=lib: gv._launch(gv.GEMV, x, w, None,
+                                               gv.DEFAULT_K_LANES, 0.0, bf,
+                                               plan, lib))
+            fns["torch.matmul"] = lambda: torch.matmul(x.reshape(1, -1), w)
+        else:
+            fns["plain"] = lambda: gv.gemv_plain(x, w)
+        report(f"gemv {key}", K, N, fns, want, 2.0 * (K * N + K + N))
+
+    key, K, N = GEMV_KN[0]
+    if not cuda:
+        K, N = K // 16, N // 16
+    w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(bf)
+    x = torch.randn(K, generator=gen, device=dev).to(bf)
+    nw = (torch.randn(K, generator=gen, device=dev) * 0.3 + 1).to(bf)
+    want = gv.rms_norm_gemv_plain(x, nw, w)
+    fns = {}
+    if cuda:
+        plan = gv.device_plan(K, N, bf, gv.DEFAULT_K_LANES, True, x.device)
+        fns["rms_norm_gemv, loads (package)"] = lambda: gv.rms_norm_gemv(
+            x, nw, w)
+        for v, lib in builds:
+            if v.get("LC_GEMV_TMA"):
+                fns[f"rms_norm_gemv, {_gemv_label(v)}"] = (
+                    lambda lib=lib: gv._launch(gv.RMS_NORM_GEMV, x, w, nw,
+                                               gv.DEFAULT_K_LANES, 1e-5, bf,
+                                               plan, lib))
+
+        def eager():
+            xf = x.float()
+            xn = xf * torch.rsqrt(xf.square().mean() + 1e-5) * nw.float()
+            return torch.matmul(xn.to(bf).reshape(1, -1), w)
+
+        fns["eager pair (norm, torch.matmul)"] = eager
+    else:
+        fns["plain"] = lambda: gv.rms_norm_gemv_plain(x, nw, w)
+    report(f"rms_norm_gemv {key}", K, N, fns, want, 2.0 * (K * N + 2 * K + N))
+    return rows
+
+
 def _write_rows(path, dev, rows):
     import json
     from pathlib import Path
@@ -751,8 +972,15 @@ def main(argv=None):
     ap.add_argument("--ln-bwd", action="store_true",
                     help="the A/B of the layer-norm backward's grid and "
                          "routes at (16384, 2048)")
+    ap.add_argument("--softmax", action="store_true",
+                    help="the A/B of the row softmax's cluster sizes, slices "
+                         "and routes at (2048, 32000) and (8, 32000) f32")
+    ap.add_argument("--gemv", action="store_true",
+                    help="the A/B of the gemv's feeds, batches, k_lanes and "
+                         "cluster sizes at path (j)'s decode-row shapes")
     ap.add_argument("--json", help="--resident, --w4, --w8, --hgemm, --gmm, "
-                                   "--ln-bwd: write the rows here")
+                                   "--ln-bwd, --softmax, --gemv: write the "
+                                   "rows here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -781,6 +1009,10 @@ def main(argv=None):
         rows = bench_gmm(dev, args.iters, args.repeats, flush)
     elif args.ln_bwd:
         rows = bench_ln_bwd(dev, args.iters, args.repeats, flush)
+    elif args.softmax:
+        rows = bench_softmax(dev, args.iters, args.repeats, flush)
+    elif args.gemv:
+        rows = bench_gemv(dev, args.iters, args.repeats, flush)
     elif args.w4:
         rows = bench_w4(args.w4_kn or W4_KN, args.m or W4_ROWS, dev,
                         args.iters, args.repeats, flush)

@@ -11,67 +11,152 @@
 // normalised activation never goes to device memory.
 //
 // Bound on an H100 SXM: bytes. Every element of W is read once (2048 x
-// 11264 bf16: 46 MB, 13.8 us at 3.35 TB/s); x and y are small. Design: a CTA
-// of 256 threads owns a panel of columns and a range of K. Its threads are
-// K_LANES rows by 256 / K_LANES column chunks; each loads 16 bytes of a W
-// row a step (consecutive threads on consecutive addresses) and keeps the
-// 16 / sizeof(T) column sums in registers; a shared-memory reduction over
-// the K lanes ends it. A decode row gives few panels (N = 2048 is 32 panels
-// of 64 bf16 columns at K_LANES 32), so the wrapper splits K over enough
-// CTAs to give the 132 SMs two each, and a second pass sums the splits'
-// f32 partials in a fixed order (deterministic, no atomics).
+// 11264 bf16: 46 MB, 13.8 us at 3.35 TB/s); x and y are small. Design: one
+// launch a call. A CTA of 256 threads is KL rows (threads along K, the
+// ladder's k_lanes) by 256 / KL column chunks of 16 bytes; a cluster of C
+// CTAs shares one panel of (256 / KL) (16 / size) columns, CTA rank r
+// taking rows [r kc, min(K, (r + 1) kc)). gemm/gemv.py gemv_plan picks C:
+// 1 where the panels alone give every SM a CTA, else the most that one wave
+// of the card holds (cudaOccupancyMaxActiveClusters), so the grid never
+// spills into a ragged second wave. Each thread streams its rows' 16-byte
+// words of W in two batches of kUnroll (4) independent loads, the second in
+// flight while the first is summed and each reissued two batches ahead once
+// summed (4-8 loads in flight a thread), both issued before the CTA stages
+// x: x goes to shared memory once a CTA, as f32, normalised there in the
+// fused form (its sum of squares over all of x in a fixed order). The CTA
+// sums its KL lanes in order through shared memory; then every rank but 0
+// stores its panel sums into rank 0's shared memory (distributed shared
+// memory) and arrives on rank 0's mbarrier, and rank 0 adds them in rank
+// order and writes, inside the launch: no partial buffer, no second
+// launch, and two calls agree bit for bit. LC_GEMV_TMA = 1 builds the
+// bench's other feed: a ring of LC_GEMV_STAGES shared-memory stages of
+// LC_GEMV_ROWS rows of the panel, filled by 2-D TMA boxes that thread 0
+// issues on mbarriers.
 #include <cuda_fp16.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "dtype.cuh"
+#include "hopper.cuh"
+
+#ifndef LC_GEMV_UNROLL
+#define LC_GEMV_UNROLL 4  // loads a thread has in flight in each batch
+#endif
+#ifndef LC_GEMV_TMA
+#define LC_GEMV_TMA 0  // 1: the bench's TMA-ring variant
+#endif
+#ifndef LC_GEMV_ROWS
+#define LC_GEMV_ROWS 64  // the TMA variant's rows a stage
+#endif
+#ifndef LC_GEMV_STAGES
+#define LC_GEMV_STAGES 4  // the TMA variant's stages
+#endif
 
 namespace {
 
-enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
+using namespace lc;  // dtype codes and conversions (dtype.cuh)
+
 constexpr int kThreads = 256;
+constexpr int kUnroll = LC_GEMV_UNROLL;
+constexpr int kMaxCluster = 8;
+// x's rows in shared memory at most (f32): the plan's kc stays below it
+constexpr int kMaxRows = 40960;
+constexpr int kMaxSmem = 200 * 1024;  // the dynamic limit set once a device
+constexpr int kRingRows = LC_GEMV_ROWS, kStages = LC_GEMV_STAGES;
 
 template <class T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__half>(__half v) {
-  return __half2float(v);
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ float elem(const uint4& u, int e) {
+  return to_f32(reinterpret_cast<const T*>(&u)[e]);
 }
 
-__device__ __forceinline__ void store_out(void* o, int i, float v, int odt) {
-  if (odt == kF32)
-    static_cast<float*>(o)[i] = v;
-  else if (odt == kF16)
-    static_cast<__half*>(o)[i] = __float2half_rn(v);
-  else
-    static_cast<__nv_bfloat16*>(o)[i] = __float2bfloat16_rn(v);
-}
+struct RingMap {
+  CUtensorMap map;  // W (K, N) in boxes of kRingRows x panel (TMA variant)
+};
 
-// grid (panels, splits). With one split the CTA writes y in ``odt``; with
-// more, its f32 partial sums go to part[split][N] for gemv_finish.
+// grid (panels C,) in clusters of C = %cluster_nctarank along x: cluster p
+// owns columns [p P, (p + 1) P), P = CC VEC, and its rank r the rows [k0,
+// k1) = [r kc, min(K, (r + 1) kc)). Thread t = kl CC + cc sums the 16-byte
+// word of columns p P + cc VEC + [0, VEC) over rows k0 + kl, k0 + kl + KL,
+// ... in order (f32 fma, x's value as staged). Dynamic shared memory: kc
+// floats of x (then, in the TMA variant, the ring). Writes y in ``odt``.
 template <class T, int KL, bool kRms>
-__global__ void __launch_bounds__(kThreads)
-gemv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-            const T* __restrict__ nw, float* __restrict__ part, void* o,
-            int K, int N, int kchunk, float eps, int odt) {
-  constexpr int VEC = 16 / sizeof(T), CC = kThreads / KL, PANEL = CC * VEC;
-  __shared__ float red[KL][PANEL + 1];
+__global__ void __launch_bounds__(kThreads, 2)
+gemv_cluster(const T* __restrict__ x, const T* __restrict__ w,
+             const T* __restrict__ nw, void* __restrict__ o, int K, int N,
+             int kc, float eps, int odt, const __grid_constant__ RingMap rm) {
+  constexpr int VEC = 16 / sizeof(T), CC = kThreads / KL, P = CC * VEC;
+  extern __shared__ float4 dyn[];
+  float* xs = reinterpret_cast<float*>(dyn);
+  __shared__ float red[KL][P];
+  __shared__ float gather[kMaxCluster][P];  // rank 0: every rank's sums
+  __shared__ uint64_t gathered;             // rank 0: the ranks' arrivals
   __shared__ float warp_part[kThreads / 32];
+  const int C = static_cast<int>(sm90::cluster_nctarank());
+  const int rank = C > 1 ? static_cast<int>(sm90::cluster_ctarank()) : 0;
   const int tid = threadIdx.x, cc = tid % CC, kl = tid / CC;
-  const int n = blockIdx.x * PANEL + cc * VEC;
+  const int p0 = static_cast<int>(blockIdx.x) / C * P;
+  const int n = p0 + cc * VEC;
+  const int k0 = min(K, rank * kc), k1 = min(K, k0 + kc);
+  float acc[VEC] = {};
+  if (C > 1) {  // rank 0's barrier, ready before any peer arrives on it
+    if (rank == 0 && tid == 0) {
+      sm90::mbar_init(&gathered, C - 1);
+      sm90::fence_mbar_init();
+    }
+    sm90::cluster_arrive();  // waited on before the first remote arrival
+  }
 
+#if LC_GEMV_TMA
+  // the ring: kStages stages of kRingRows x P elements after x's kc
+  // floats, from the next 128-byte boundary (a TMA destination's)
+  T* ring = reinterpret_cast<T*>(
+      (reinterpret_cast<uintptr_t>(xs + kc) + 127) & ~uintptr_t{127});
+  __shared__ uint64_t full[kStages];
+  const int nst = (k1 - k0 + kRingRows - 1) / kRingRows;
+  constexpr uint32_t kStageBytes = kRingRows * P * sizeof(T);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(&full[s], 1);
+    sm90::fence_mbar_init();
+    sm90::prefetch_map(&rm.map);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < min(kStages, nst); ++i) {
+      sm90::mbar_expect_tx(&full[i], kStageBytes);
+      sm90::tma_load_2d(ring + i * kRingRows * P, &rm.map, &full[i], p0,
+                        k0 + i * kRingRows);
+    }
+  }
+#else
+  // this thread's rows k0 + kl + j KL, j < nr; W's word of row k at wp + j
+  // KL N; two batches, a and b, issued before x is staged
+  const int nr = n < N && k1 > k0 + kl ? (k1 - k0 - kl + KL - 1) / KL : 0;
+  const T* wp = w + static_cast<size_t>(k0 + kl) * N + n;
+  const size_t step = static_cast<size_t>(KL) * N;
+  auto issue = [&](uint4 (&buf)[kUnroll], int j0) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (j0 + u < nr)
+        buf[u] = __ldcs(reinterpret_cast<const uint4*>(wp + (j0 + u) * step));
+  };
+  uint4 a[kUnroll] = {}, b[kUnroll] = {};
+  issue(a, 0);
+  issue(b, kUnroll);
+#endif
+
+  // x's rows [k0, k1) to shared memory as f32; in the fused form times
+  // rsqrt(mean(x^2) + eps) (the sum of squares over all of x: thread tid's
+  // elements tid, tid + 256, ... in order, each warp's xor tree, the warps
+  // in order) and norm_w
   float inv = 1.f;
-  if constexpr (kRms) {  // rsqrt(mean(x^2) + eps) over all of x
+  if constexpr (kRms) {
     float ss = 0.f;
     for (int k = tid; k < K; k += kThreads) {
       const float v = to_f32(x[k]);
       ss = fmaf(v, v, ss);
     }
-    ss = lc::warp_sum(ss);
+    ss = warp_sum(ss);
     if ((tid & 31) == 0) warp_part[tid >> 5] = ss;
     __syncthreads();
     float tot = 0.f;
@@ -79,111 +164,232 @@ gemv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < kThreads / 32; ++i) tot += warp_part[i];
     inv = rsqrtf(tot / static_cast<float>(K) + eps);
   }
+  for (int k = k0 + tid; k < k1; k += kThreads) {
+    float v = to_f32(x[k]);
+    if constexpr (kRms) v = v * inv * to_f32(nw[k]);
+    xs[k - k0] = v;
+  }
+  __syncthreads();
 
-  float acc[VEC] = {};
-  const int split = static_cast<int>(blockIdx.y);
-  const int k_end = min(K, (split + 1) * kchunk);
-  if (n < N) {  // N % VEC == 0: the chunk is all in or all out
-    for (int k = split * kchunk + kl; k < k_end; k += KL) {
-      float xv = to_f32(x[k]);
-      if constexpr (kRms) xv = xv * inv * to_f32(nw[k]);
-      const uint4 u = *reinterpret_cast<const uint4*>(w + (size_t)k * N + n);
-      const T* e = reinterpret_cast<const T*>(&u);
+#if LC_GEMV_TMA
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % kStages;
+    sm90::mbar_wait(&full[s], (i / kStages) & 1);
+    const T* st = ring + s * kRingRows * P;
+#pragma unroll 4
+    for (int r = kl; r < kRingRows; r += KL) {
+      const int k = k0 + i * kRingRows + r;
+      if (k < k1 && n < N) {
+        const float xv = xs[k - k0];
+        const uint4 u = *reinterpret_cast<const uint4*>(st + r * P + cc * VEC);
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[v] = fmaf(xv, to_f32(e[v]), acc[v]);
+        for (int v = 0; v < VEC; ++v) acc[v] = fmaf(xv, elem<T>(u, v), acc[v]);
+      }
+    }
+    __syncthreads();  // stage s read by every thread
+    if (tid == 0 && i + kStages < nst) {
+      sm90::fence_proxy_async_shared();
+      sm90::mbar_expect_tx(&full[s], kStageBytes);
+      sm90::tma_load_2d(ring + s * kRingRows * P, &rm.map, &full[s], p0,
+                        k0 + (i + kStages) * kRingRows);
     }
   }
+#else
+  // sum a batch's rows in order, then reuse its registers for the batch
+  // two ahead: one batch in flight while the other is summed
+  auto consume = [&](const uint4 (&buf)[kUnroll], int j0) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (j0 + u < nr) {
+        const float xv = xs[kl + (j0 + u) * KL];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[v] = fmaf(xv, elem<T>(buf[u], v), acc[v]);
+      }
+    }
+  };
+  for (int j0 = 0; j0 < nr; j0 += 2 * kUnroll) {
+    consume(a, j0);
+    issue(a, j0 + 2 * kUnroll);
+    consume(b, j0 + kUnroll);
+    issue(b, j0 + 3 * kUnroll);
+  }
+#endif
+
+  // the KL lanes' sums of each column in lane order; then every rank but
+  // 0 stores its sums into rank 0's shared memory and arrives on rank 0's
+  // barrier (release at cluster scope), and rank 0 adds the ranks' sums in
+  // rank order and writes the panel
 #pragma unroll
   for (int v = 0; v < VEC; ++v) red[kl][cc * VEC + v] = acc[v];
   __syncthreads();
-  for (int c = tid; c < PANEL; c += kThreads) {
-    const int col = blockIdx.x * PANEL + c;
-    if (col >= N) continue;
-    float s = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < KL; ++r) s += red[r][c];
-    if (gridDim.y == 1)
-      store_out(o, col, s, odt);
-    else
-      part[(size_t)split * N + col] = s;
-  }
-}
-
-__global__ void gemv_finish(const float* __restrict__ part, void* o, int N,
-                            int splits, int odt) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
   float s = 0.f;
-  for (int i = 0; i < splits; ++i) s += part[(size_t)i * N + n];
-  store_out(o, n, s, odt);
+  if (tid < P) {
+#pragma unroll 8
+    for (int r = 0; r < KL; ++r) s += red[r][tid];
+  }
+  if (C > 1) {
+    sm90::cluster_wait();  // rank 0's barrier initialised
+    if (rank != 0) {
+      if (tid < P) {
+        sm90::st_cluster_f32(&gather[rank][tid], 0, s);
+        sm90::fence_cluster();
+      }
+      __syncthreads();
+      if (tid == 0) sm90::mbar_arrive_release_cluster(&gathered, 0);
+      return;
+    }
+    sm90::mbar_wait_acquire_cluster(&gathered, 0);
+    if (tid < P)
+      for (int r = 1; r < C; ++r) s += gather[r][tid];
+  }
+  if (tid < P && p0 + tid < N) store_any(o, odt, p0 + tid, s);
 }
 
+// The dynamic shared memory of a CTA over kc rows: x's kc floats (then the
+// TMA variant's ring).
 template <class T, int KL>
-int launch(const void* x, const void* w, const void* nw, float* part, void* o,
-           int K, int N, int splits, int kchunk, float eps, int odt,
-           cudaStream_t st) {
-  constexpr int PANEL = (kThreads / KL) * (16 / sizeof(T));
-  const dim3 grid((N + PANEL - 1) / PANEL, splits);
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  if (nw)
-    gemv_kernel<T, KL, true><<<grid, kThreads, 0, st>>>(
-        xt, wt, static_cast<const T*>(nw), part, o, K, N, kchunk, eps, odt);
-  else
-    gemv_kernel<T, KL, false><<<grid, kThreads, 0, st>>>(
-        xt, wt, nullptr, part, o, K, N, kchunk, eps, odt);
-  if (splits > 1)
-    gemv_finish<<<(N + 255) / 256, 256, 0, st>>>(part, o, N, splits, odt);
+int gemv_smem(int kc) {
+  constexpr int P = (kThreads / KL) * (16 / sizeof(T));
+  int bytes = kc * 4;
+  if (LC_GEMV_TMA) bytes += 128 + kStages * kRingRows * P * sizeof(T);
+  return bytes;
+}
+
+template <class T, int KL, bool kRms>
+int launch(const void* x, const void* w, const void* nw, void* o, int K,
+           int N, int cluster, int kc, float eps, int odt, cudaStream_t st,
+           int* clusters) {
+  constexpr int P = (kThreads / KL) * (16 / sizeof(T));
+  auto kern = gemv_cluster<T, KL, kRms>;
+  static unsigned long long attr_devices = 0;
+  const int smem = gemv_smem<T, KL>(kc);
+  cudaError_t e = smem_limit_per_device(kern, kMaxSmem, attr_devices);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  const int panels = (N + P - 1) / P;
+  cfg.gridDim = dim3(panels * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters) {  // the occupancy query, no launch
+    cfg.gridDim = dim3(cluster * 132);
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(clusters, kern, &cfg));
+  }
+  RingMap rm = {};
+#if LC_GEMV_TMA
+  {
+    const sm90::EncodeTiledFn fn = sm90::encode_tiled();
+    if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                                static_cast<cuuint64_t>(K)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * sizeof(T)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(P),
+                               static_cast<cuuint32_t>(kRingRows)};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUtensorMapDataType dt =
+        sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+        : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const CUresult r =
+        fn(&rm.map, dt, 2, const_cast<void*>(w), dims, strides, box, unit,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+#endif
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x),
+                         static_cast<const T*>(w), static_cast<const T*>(nw),
+                         o, K, N, kc, eps, odt, rm);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T>
+template <class T, bool kRms>
 int launch_kl(int k_lanes, const void* x, const void* w, const void* nw,
-              float* part, void* o, int K, int N, int splits, int kchunk,
-              float eps, int odt, cudaStream_t st) {
+              void* o, int K, int N, int cluster, int kc, float eps, int odt,
+              cudaStream_t st, int* clusters) {
   switch (k_lanes) {
     case 16:
-      return launch<T, 16>(x, w, nw, part, o, K, N, splits, kchunk, eps, odt,
-                           st);
+      return launch<T, 16, kRms>(x, w, nw, o, K, N, cluster, kc, eps, odt, st,
+                                 clusters);
     case 32:
-      return launch<T, 32>(x, w, nw, part, o, K, N, splits, kchunk, eps, odt,
-                           st);
+      return launch<T, 32, kRms>(x, w, nw, o, K, N, cluster, kc, eps, odt, st,
+                                 clusters);
     case 128:
-      return launch<T, 128>(x, w, nw, part, o, K, N, splits, kchunk, eps, odt,
-                            st);
+      return launch<T, 128, kRms>(x, w, nw, o, K, N, cluster, kc, eps, odt,
+                                  st, clusters);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <class T>
+int launch_t(bool rms, int k_lanes, const void* x, const void* w,
+             const void* nw, void* o, int K, int N, int cluster, int kc,
+             float eps, int odt, cudaStream_t st, int* clusters) {
+  if (rms)
+    return launch_kl<T, true>(k_lanes, x, w, nw, o, K, N, cluster, kc, eps,
+                              odt, st, clusters);
+  return launch_kl<T, false>(k_lanes, x, w, nw, o, K, N, cluster, kc, eps,
+                             odt, st, clusters);
+}
+
+int gemv_call(bool rms, const void* x, const void* w, const void* nw,
+              void* o, int K, int N, int dtype, int odt, int k_lanes,
+              int cluster, int kc, float eps, cudaStream_t st,
+              int* clusters) {
+  if (dtype == kF32)
+    return launch_t<float>(rms, k_lanes, x, w, nw, o, K, N, cluster, kc, eps,
+                           odt, st, clusters);
+  if (dtype == kF16)
+    return launch_t<__half>(rms, k_lanes, x, w, nw, o, K, N, cluster, kc, eps,
+                            odt, st, clusters);
+  if (dtype == kBF16)
+    return launch_t<__nv_bfloat16>(rms, k_lanes, x, w, nw, o, K, N, cluster,
+                                   kc, eps, odt, st, clusters);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch(es) (0 = launched). ``nw``
+// Returns cudaGetLastError() after the one launch (0 = launched). ``nw``
 // null: gemv; else rms_norm_gemv with norm weights nw (K,) and ``eps``.
 // ``dtype`` is x's, W's and nw's (0 f32, 1 f16, 2 bf16), ``odt`` the
-// output's; ``k_lanes`` 16, 32 or 128 threads along K; ``splits`` CTAs
-// along K, each over ``kchunk`` rows (splits > 1 needs ``part``, splits x N
-// f32). Needs N % (16 / element size) == 0 and 16-byte aligned operands.
+// output's; ``k_lanes`` 16, 32 or 128 threads along K; ``cluster`` CTAs (1-8)
+// a column panel, each over ``kc`` rows (cluster x kc >= K, kc <= 40960).
+// Needs N % (16 / element size) == 0 and 16-byte aligned operands.
 // Launches on ``stream``; does not synchronise and allocates nothing.
-extern "C" int lc_gemv(const void* x, const void* w, const void* nw,
-                       void* part, void* o, int K, int N, int dtype, int odt,
-                       int k_lanes, int splits, int kchunk, float eps,
-                       void* stream) {
+extern "C" int lc_gemv(const void* x, const void* w, const void* nw, void* o,
+                       int K, int N, int dtype, int odt, int k_lanes,
+                       int cluster, int kc, float eps, void* stream) {
   const int vec = dtype == kF32 ? 4 : 8;
-  if (K <= 0 || N <= 0 || N % vec || odt < 0 || odt > 2 || splits < 1 ||
-      splits > 65535 || kchunk <= 0 || (long long)splits * kchunk < K ||
-      (splits > 1 && part == nullptr))
+  if (K <= 0 || N <= 0 || N % vec || odt < 0 || odt > 2 || cluster < 1 ||
+      cluster > kMaxCluster || kc <= 0 || kc > kMaxRows ||
+      static_cast<long long>(cluster) * kc < K)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  if (dtype == kF32)
-    return launch_kl<float>(k_lanes, x, w, nw, p, o, K, N, splits, kchunk, eps,
-                            odt, st);
-  if (dtype == kF16)
-    return launch_kl<__half>(k_lanes, x, w, nw, p, o, K, N, splits, kchunk,
-                             eps, odt, st);
-  if (dtype == kBF16)
-    return launch_kl<__nv_bfloat16>(k_lanes, x, w, nw, p, o, K, N, splits,
-                                    kchunk, eps, odt, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return gemv_call(nw != nullptr, x, w, nw, o, K, N, dtype, odt, k_lanes,
+                   cluster, kc, eps, static_cast<cudaStream_t>(stream),
+                   nullptr);
+}
+
+// The clusters of ``cluster`` CTAs over ``kc`` rows that the current device
+// holds at once (cudaOccupancyMaxActiveClusters) for one instantiation
+// (``rms`` 1: the fused form's), into *out.
+extern "C" int lc_gemv_clusters(int dtype, int k_lanes, int rms, int cluster,
+                                int kc, int* out) {
+  if (cluster < 1 || cluster > kMaxCluster || kc <= 0 || kc > kMaxRows ||
+      out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return gemv_call(rms != 0, nullptr, nullptr, nullptr, nullptr, kc, 8, dtype,
+                   0, k_lanes, cluster, kc, 0.f, nullptr, out);
 }

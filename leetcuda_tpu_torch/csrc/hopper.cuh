@@ -10,7 +10,10 @@
 // (w4_matmul.cu) share its ring of stages, descriptors and approximations,
 // and the w4a16 matmul adds wgmma at N = 8 and 16 and byte-tile maps. The
 // dense matmul's kernel (gemm_sm90.cuh, which the resident chain now runs
-// on) adds f16 inputs to the SS wgmma.
+// on) adds f16 inputs to the SS wgmma. The row softmax and the gemv
+// (row_ops.cu, gemv.cu) add the cluster barrier's two halves, stores into a
+// peer CTA's shared memory, and arrivals and waits that release and acquire
+// at cluster scope.
 //
 // Conventions:
 // - A tile that TMA writes with the 128-byte swizzle is a stack of rows of
@@ -466,11 +469,81 @@ __device__ __forceinline__ uint32_t cluster_ctarank() {
   return r;
 }
 
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
 // Every thread of every CTA of the cluster.
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n\t"
       "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// cluster_sync's two halves, so that work goes between them: the arrival
+// (this thread's shared-memory accesses before it released to the
+// cluster) and the wait for every thread's arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Stores ``v`` at ``p``'s offset in the shared memory of CTA ``cta``.
+__device__ __forceinline__ void st_cluster_f32(float* p, uint32_t cta,
+                                               float v) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "st.shared::cluster.f32 [ra], %2;\n\t}"
+      :: "r"(smem_u32(p)), "r"(cta), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f32x2(float2* p, uint32_t cta,
+                                                 float2 v) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "st.shared::cluster.v2.f32 [ra], {%2, %3};\n\t}"
+      :: "r"(smem_u32(p)), "r"(cta), "f"(v.x), "f"(v.y) : "memory");
+}
+
+// One arrival on the barrier at ``bar``'s offset in CTA ``cta`` that
+// releases this thread's earlier writes at cluster scope (peers' stores
+// into that CTA's shared memory), and the matching wait there.
+__device__ __forceinline__ void mbar_arrive_release_cluster(uint64_t* bar,
+                                                            uint32_t cta) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n\t}"
+      :: "r"(smem_u32(bar)), "r"(cta) : "memory");
+}
+__device__ __forceinline__ void mbar_wait_acquire_cluster(uint64_t* bar,
+                                                          uint32_t parity) {
+  auto ready = [&] {
+    uint32_t ok;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    return ok != 0;
+  };
+  if (ready()) return;
+  const unsigned long long t0 = global_ns();
+  while (!ready())
+    if (global_ns() - t0 > kSpinNs) __trap();
+}
+
+// Orders this thread's earlier memory accesses before its later ones for
+// every observer in the cluster.
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;" ::: "memory");
 }
 
 __device__ __forceinline__ int ld_acquire_gpu(const int* p) {

@@ -48,10 +48,32 @@
 //   every row.
 // Either way the partials (nb, K) are summed by ln_bwd_finish in a fixed
 // order: no float atomics, so two runs agree bit for bit.
+//
+// The softmax has two routes (ops/softmax.py softmax_plan picks one from
+// the shape): "cluster" (softmax_cluster) reads each row from device memory
+// once into the registers of a cluster of 1-16 CTAs, reduces each CTA's
+// slice to (max, sum of exp), pushes the CTAs' pairs to each other through
+// distributed shared memory, merges them in rank order and writes from the
+// registers: one read and one write of x, where the walks below read a row
+// two or three times; a row of 32000 f32 spans 4 CTAs, and 16 at 8 rows so
+// that a decode step's logits fill the card. "stream" (softmax_kernel) keeps
+// the walks for rows longer than 16 CTAs hold (32 KB a CTA: 256 threads x
+// 128 bytes; 128K f32).
 #include <type_traits>
 
 #include "common.cuh"
 #include "dtype.cuh"
+#include "hopper.cuh"
+
+#ifndef LC_SOFTMAX_SMEM
+#define LC_SOFTMAX_SMEM 0  // 1: the bench's shared-memory slice variant
+#endif
+#ifndef LC_SOFTMAX_THREADS
+#define LC_SOFTMAX_THREADS 256  // the cluster route's CTA
+#endif
+#ifndef LC_SOFTMAX_PROBE
+#define LC_SOFTMAX_PROBE 0  // bench probes (wrong results): 1 no arithmetic,
+#endif                      // 2 no cluster exchange
 
 namespace {
 
@@ -257,10 +279,12 @@ layer_norm_kernel(const T* __restrict__ x, const void* __restrict__ g,
   });
 }
 
-// grid (S,): row softmax in f32. kNaive: exp(x) / sum exp(x), no max taken
-// (it overflows to inf / NaN where x > 88, by design); kSafe: the row max
-// subtracted first; kOnline: one pass of running (max, denominator) pairs,
-// merged across threads, then the write pass exp(x - m) * (1 / d).
+// The stream route of the softmax, for rows longer than a cluster of
+// kSmMaxCluster CTAs holds (lc_softmax_stream). grid (S,): row softmax in
+// f32. kNaive: exp(x) / sum exp(x), no max taken (it overflows to inf / NaN
+// where x > 88, by design); kSafe: the row max subtracted first; kOnline:
+// one pass of running (max, denominator) pairs, merged across threads, then
+// the write pass exp(x - m) * (1 / d).
 template <class T, int VEC, int LB>
 __global__ void __launch_bounds__(kMaxThreads)
 softmax_kernel(const T* __restrict__ x, T* __restrict__ o, int K, int mode) {
@@ -331,6 +355,381 @@ softmax_kernel(const T* __restrict__ x, T* __restrict__ o, int K, int mode) {
       store_n<T, N, LB>(yr + c, v);
     });
   }
+}
+
+// ------------------------------------------- the softmax's cluster route
+
+constexpr int kSmThreads = LC_SOFTMAX_THREADS;  // a CTA of the cluster route
+constexpr int kSmMaxCluster = 16;  // CTAs a row (above 8: non-portable)
+
+// One word of LB bytes as loaded or stored, streamed past L1.
+template <int LB>
+__device__ __forceinline__ typename Word<LB>::type ld_stream(
+    const typename Word<LB>::type* p) {
+  return __ldcs(p);
+}
+template <int LB>
+__device__ __forceinline__ void st_stream(typename Word<LB>::type* p,
+                                          const typename Word<LB>::type& u) {
+  __stcs(p, u);
+}
+
+// exp(v) as 2^(v log2(e)) on the SFU (ex2.approx.ftz: about 2 ulp, and
+// v's product with log2(e) rounded once; results below 2^-126 flush to 0),
+// the cluster route's exp of every element: the caller subtracts the max
+// first, exactly, so the argument's rounding stays relative to |x - m|.
+__device__ __forceinline__ float fast_exp(float v) {
+  return sm90::ex2(v * 1.4426950408889634f);
+}
+
+// q / d rounded to nearest, for the safe softmax's q = exp(x - m) in [0, 1]
+// and its row sum d in [1, K]: y = q r with r = 1 / d rounded to nearest
+// (once a row), corrected once by the exact residual q - d y (an fma):
+// Markstein's step, which rounds the quotient correctly when r is and the
+// quotient stays normal. Three operations where the division's general
+// sequence also tests its operands' ranges.
+__device__ __forceinline__ float div_by_sum(float q, float d, float r) {
+  const float y = q * r;
+  return fmaf(fmaf(-d, y, q), r, y);
+}
+
+// Element e of a raw word of E = LB / sizeof(T) elements, as f32 (e is a
+// constant once unrolled, so the word stays in registers).
+template <class T, int LB>
+__device__ __forceinline__ float word_elem(const typename Word<LB>::type& u,
+                                           int e) {
+  return to_f32(reinterpret_cast<const T*>(&u)[e]);
+}
+
+// A persistent grid of G clusters of C = %cluster_nctarank CTAs along x:
+// cluster g owns rows g, g + G, ..., each read from device memory once and
+// written once. A row is a head of single elements up to the first
+// LB-aligned address, nvec whole words of E = LB / sizeof(T) elements and
+// a tail of fewer than E; rank r takes words [r per, min(nvec, (r + 1)
+// per)), per = ceil(nvec / C), rank 0 also the head and rank C - 1 the
+// tail. Thread t holds word v0 + i kSmThreads + t of its rank's range, i <
+// NL, in registers as loaded, and head / tail element t. The next row's
+// loads are issued before the current row's first reduction, so a CTA keeps
+// a slice in flight while it reduces and writes the one it holds.
+//
+// Each CTA reduces its slice to (m, d): the safe and online forms the max
+// (exact in any order), then the sum of exp(x - m) in f32 (a thread's
+// elements in order, head first and tail last, each warp's xor tree, the
+// warps in order; exp as fast_exp, as in the writes); the naive form m = 0
+// and the plain sum of exp(x). The CTA pushes (m, d) into slot ``rank`` of
+// every peer's shared memory (distributed shared memory) and arrives on
+// that peer's mbarrier, releasing the store at cluster scope; once its own
+// barrier has C arrivals it merges the C pairs in rank order with md_merge
+// (for the naive form, m = 0 throughout, that is the plain sum in rank
+// order), so every CTA holds the same bits, and writes its slice (safe
+// exp(x - m) / d by div_by_sum, online exp(x - m) * (1 / d), naive exp(x) /
+// d). No
+// cluster-wide barrier a row: slots and barriers are double-buffered by
+// row parity, and a peer pushes into a slot again two rows later only after
+// its own barrier saw this CTA's push of the row between, which this CTA
+// makes after it has read the slot. One cluster barrier at the start makes
+// every CTA's barriers ready before the first push. Rows of K < E elements
+// are all head.
+template <class T, int LB, int NL>
+__global__ void __launch_bounds__(kSmThreads)
+softmax_cluster(const T* __restrict__ x, T* __restrict__ o, int S, int K,
+                int mode) {
+  using U = typename Word<LB>::type;
+  constexpr int E = LB / static_cast<int>(sizeof(T));
+  __shared__ float red[2][kSmThreads / 32];
+  __shared__ float2 pairs[2][kSmMaxCluster];  // every rank's (m, d), pushed
+  __shared__ uint64_t pushed[2];              // a row's C pairs landed
+  const int C = static_cast<int>(sm90::cluster_nctarank());
+  const int rank = C > 1 ? static_cast<int>(sm90::cluster_ctarank()) : 0;
+  const int G = static_cast<int>(gridDim.x) / C;
+  const int t = threadIdx.x;
+  // where row r's head ends, the rank's first word and its words
+  struct Cut {
+    int head, tail0, v0, nmine;
+  };
+  auto cut = [&](int r) {
+    const T* xr = x + static_cast<size_t>(r) * K;
+    const int mis =
+        static_cast<int>((reinterpret_cast<uintptr_t>(xr) / sizeof(T)) % E);
+    Cut c;
+    c.head = min(K, (E - mis) % E);
+    const int nvec = (K - c.head) / E;
+    c.tail0 = c.head + nvec * E;
+    const int per = (nvec + C - 1) / C;
+    c.v0 = min(nvec, rank * per);
+    c.nmine = min(nvec, c.v0 + per) - c.v0;
+    return c;
+  };
+  // LC_SOFTMAX_SMEM (a bench variant, 16-byte words only): each slice by
+  // one bulk copy into a shared-memory buffer (two, by row parity) on an
+  // mbarrier, then into the same registers
+  constexpr bool kBulk = LC_SOFTMAX_SMEM && LB == 16;
+  extern __shared__ uint4 slices[];  // kBulk: two of NL kSmThreads words
+  auto slice = [&](int b) {
+    return reinterpret_cast<U*>(slices) + b * NL * kSmThreads;
+  };
+  __shared__ uint64_t bar[2];
+  if constexpr (kBulk) {
+    if (t == 0) {
+      sm90::mbar_init(&bar[0], 1);
+      sm90::mbar_init(&bar[1], 1);
+      sm90::fence_mbar_init();
+    }
+    __syncthreads();
+  }
+  // issue row r's loads (into ``raw``, or the bulk copy into buffer b),
+  // and its head / tail elements
+  auto issue = [&](int r, int b, U (&raw)[NL], float& hv, float& tv) {
+    const Cut c = cut(r);
+    const T* xr = x + static_cast<size_t>(r) * K;
+    const U* wr = reinterpret_cast<const U*>(xr + c.head) + c.v0;
+    if constexpr (kBulk) {
+      if (t == 0) {
+        sm90::fence_proxy_async_shared();
+        const uint32_t bytes = static_cast<uint32_t>(c.nmine) * LB;
+        sm90::mbar_expect_tx(&bar[b], bytes);
+        if (bytes) sm90::bulk_load(slice(b), wr, bytes, &bar[b]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+        if (i * kSmThreads + t < c.nmine)
+          raw[i] = ld_stream<LB>(wr + i * kSmThreads + t);
+    }
+    hv = rank == 0 && t < c.head ? to_f32(xr[t]) : 0.f;
+    tv = rank == C - 1 && t < K - c.tail0 ? to_f32(xr[c.tail0 + t]) : 0.f;
+  };
+
+  int r = static_cast<int>(blockIdx.x) / C;
+  U cur[NL];
+  float ch = 0.f, ct = 0.f;
+  if (C > 1 && t == 0) {
+    sm90::mbar_init(&pushed[0], C);
+    sm90::mbar_init(&pushed[1], C);
+    sm90::fence_mbar_init();
+  }
+  if (C > 1) sm90::cluster_arrive();  // this CTA's barriers ready
+  if (r < S) issue(r, 0, cur, ch, ct);
+  if (C > 1) sm90::cluster_wait();  // every peer's, before the first push
+  for (int it = 0; r < S; r += G, ++it) {
+    U nxt[NL];
+    float nh = 0.f, nt = 0.f;
+    if (r + G < S) issue(r + G, (it + 1) & 1, nxt, nh, nt);
+    if constexpr (kBulk) {
+      sm90::mbar_wait(&bar[it & 1], (it >> 1) & 1);
+      const Cut c = cut(r);
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+        if (i * kSmThreads + t < c.nmine)
+          cur[i] = slice(it & 1)[i * kSmThreads + t];
+    }
+    const Cut c = cut(r);
+    const bool has_h = rank == 0 && t < c.head;
+    const bool has_t = rank == C - 1 && t < K - c.tail0;
+    float m = 0.f;
+    if (mode != kNaive && LC_SOFTMAX_PROBE != 1) {
+      m = has_h ? ch : -INFINITY;
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+        if (i * kSmThreads + t < c.nmine)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            m = fmaxf(m, word_elem<T, LB>(cur[i], e));
+      if (has_t) m = fmaxf(m, ct);
+      m = block_max(m, red[0]);
+    }
+    float d = has_h ? fast_exp(ch - m) : 0.f;
+#pragma unroll
+    for (int i = 0; i < NL; ++i)
+      if (i * kSmThreads + t < c.nmine)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          d += fast_exp(word_elem<T, LB>(cur[i], e) - m);
+    if (has_t) d += fast_exp(ct - m);
+    if (LC_SOFTMAX_PROBE != 1) d = block_sum(d, red[1]);
+
+    if (C > 1 && LC_SOFTMAX_PROBE == 0) {
+      // thread k pushes this CTA's pair into rank k's slot ``rank`` and
+      // arrives on rank k's barrier; every thread waits on this CTA's
+      const int b = it & 1;
+      if (t < C) {
+        sm90::st_cluster_f32x2(&pairs[b][rank], t, make_float2(m, d));
+        sm90::mbar_arrive_release_cluster(&pushed[b], t);
+      }
+      sm90::mbar_wait_acquire_cluster(&pushed[b], (it >> 1) & 1);
+      m = -INFINITY;
+      d = 0.f;
+      for (int k = 0; k < C; ++k) md_merge(m, d, pairs[b][k].x, pairs[b][k].y);
+    }
+
+    // the writes: one rounding of f32 to T; q = exp(x - m), then q / d
+    // (the safe form by div_by_sum, the naive by the division, whose q and
+    // d may overflow), or q * (1 / d) for the online form (the mode tested
+    // once, outside the loops)
+    T* yr = o + static_cast<size_t>(r) * K;
+    const bool oal = reinterpret_cast<uintptr_t>(yr + c.head) % LB == 0;
+    auto write = [&](auto form) {
+      constexpr int kForm = decltype(form)::value;
+      const float inv = __frcp_rn(d);
+      auto f = [&](float v) {
+        if (LC_SOFTMAX_PROBE == 1) return v;
+        const float q = fast_exp(v - m);
+        return kForm == kOnline ? q * inv
+               : kForm == kSafe ? div_by_sum(q, d, inv)
+                                : q / d;
+      };
+      if (has_h) yr[t] = from_f32<T>(f(ch));
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        if (i * kSmThreads + t >= c.nmine) continue;
+        const int v = c.v0 + i * kSmThreads + t;
+        U u;
+        T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+        for (int k = 0; k < E; ++k)
+          e[k] = from_f32<T>(f(word_elem<T, LB>(cur[i], k)));
+        if (oal) {
+          st_stream<LB>(reinterpret_cast<U*>(yr + c.head) + v, u);
+        } else {
+#pragma unroll
+          for (int k = 0; k < E; ++k) yr[c.head + v * E + k] = e[k];
+        }
+      }
+      if (has_t) yr[c.tail0 + t] = from_f32<T>(f(ct));
+    };
+    if (mode == kOnline)
+      write(std::integral_constant<int, kOnline>{});
+    else if (mode == kSafe)
+      write(std::integral_constant<int, kSafe>{});
+    else
+      write(std::integral_constant<int, kNaive>{});
+#pragma unroll
+    for (int i = 0; i < NL; ++i) cur[i] = nxt[i];
+    ch = nh;
+    ct = nt;
+  }
+}
+
+// The bench's bulk-copy variant's two slices (dynamic shared memory).
+template <class T, int LB, int NL>
+constexpr int softmax_smem() {
+  return LC_SOFTMAX_SMEM && LB == 16 ? 2 * NL * kSmThreads * LB : 0;
+}
+
+// The cluster route's launch: G clusters of C CTAs (1 <= C <= 16; a 16-CTA
+// cluster needs the non-portable size, allowed once per device).
+template <class T, int LB, int NL>
+int launch_softmax_cluster(const void* x, void* o, int S, int K, int mode,
+                           int C, int G, cudaStream_t st) {
+  auto kern = softmax_cluster<T, LB, NL>;
+  constexpr int smem = softmax_smem<T, LB, NL>();
+  static unsigned long long smem_devices = 0;
+  if (smem > 0) {
+    const cudaError_t e = smem_limit_per_device(kern, smem, smem_devices);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  static unsigned long long wide_devices = 0;  // non-portable size allowed
+  if (C > 8) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (e == cudaSuccess && !(wide_devices & bit)) {
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e == cudaSuccess) wide_devices |= bit;
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(G) * C);
+  cfg.blockDim = dim3(kSmThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x),
+                                           static_cast<T*>(o), S, K, mode);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The clusters of C CTAs of one instantiation that the current device
+// holds at once (cudaOccupancyMaxActiveClusters), into *out.
+template <class T, int LB, int NL>
+int softmax_cluster_occupancy(int C, int* out) {
+  auto kern = softmax_cluster<T, LB, NL>;
+  constexpr int smem = softmax_smem<T, LB, NL>();
+  cudaError_t e = cudaSuccess;
+  if (C > 8)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && smem > 0)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C * 132);
+  cfg.blockDim = dim3(kSmThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kern, &cfg));
+}
+
+// A launch of the cluster route, or (out set) the occupancy query.
+struct SmCall {
+  const void* x;
+  void* o;
+  int S, K, mode, C, G;
+  cudaStream_t st;
+  int* out;
+};
+
+template <class T, int LB, int NL>
+int softmax_call(const SmCall& a) {
+  if (a.out) return softmax_cluster_occupancy<T, LB, NL>(a.C, a.out);
+  return launch_softmax_cluster<T, LB, NL>(a.x, a.o, a.S, a.K, a.mode, a.C,
+                                           a.G, a.st);
+}
+
+// The instantiation of (dtype, lb, nb): LB-byte words, nb = 16, 32, 64 or
+// 128 bytes a thread (NL = nb / LB words). cudaErrorInvalidValue for any
+// other.
+int softmax_dispatch(int dtype, int lb, int nb, const SmCall& a) {
+#define LC_SM_NB(T, LB)                                       \
+  if (lb == (LB)) {                                           \
+    if (nb == 16) return softmax_call<T, LB, 16 / (LB)>(a);   \
+    if (nb == 32) return softmax_call<T, LB, 32 / (LB)>(a);   \
+    if (nb == 64) return softmax_call<T, LB, 64 / (LB)>(a);   \
+    if (nb == 128) return softmax_call<T, LB, 128 / (LB)>(a); \
+  }
+  if (dtype == kF32) {
+    LC_SM_NB(float, 4)
+    LC_SM_NB(float, 8)
+    LC_SM_NB(float, 16)
+  } else if (dtype == kF16) {
+    LC_SM_NB(__half, 2)
+    LC_SM_NB(__half, 4)
+    LC_SM_NB(__half, 8)
+    LC_SM_NB(__half, 16)
+  } else if (dtype == kBF16) {
+    LC_SM_NB(__nv_bfloat16, 2)
+    LC_SM_NB(__nv_bfloat16, 4)
+    LC_SM_NB(__nv_bfloat16, 8)
+    LC_SM_NB(__nv_bfloat16, 16)
+  }
+#undef LC_SM_NB
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // grid (nb,): CTA i takes rows [i * rows, min(S, (i + 1) * rows)). Per row:
@@ -769,14 +1168,46 @@ extern "C" int lc_layer_norm_fwd(const void* x, const void* g, int gdt,
                 0, threads, stream);
 }
 
-// ``mode``: 0 naive, 1 safe, 2 online.
-extern "C" int lc_softmax(const void* x, void* o, int S, int K, int dtype,
-                          int vec, int lb, int mode, int threads,
-                          void* stream) {
+// The softmax's stream route (rows longer than a cluster holds): one CTA a
+// row walking it in rung steps. ``mode``: 0 naive, 1 safe, 2 online.
+extern "C" int lc_softmax_stream(const void* x, void* o, int S, int K,
+                                 int dtype, int vec, int lb, int mode,
+                                 int threads, void* stream) {
   if (mode < kNaive || mode > kOnline)
     return static_cast<int>(cudaErrorInvalidValue);
   return row_op(kSoftmax, x, nullptr, 0, nullptr, 0, o, S, K, dtype, vec, lb,
                 0.f, mode, threads, stream);
+}
+
+// The softmax's cluster route: S rows over a persistent grid of ``clusters``
+// clusters (1 to S; at most what the device holds at once) of ``cluster``
+// CTAs (1-16) of kSmThreads (256) threads, each thread holding ``nb`` bytes
+// (16, 32, 64 or 128) of its CTA's slice in words of ``lb`` bytes (2, 4, 8
+// or 16, at least the element size). The caller guarantees
+// ceil(ceil(K / (lb / size)) / cluster) <= kSmThreads nb / lb
+// (ops/softmax.py softmax_plan). ``mode``: 0 naive, 1 safe, 2 online.
+extern "C" int lc_softmax(const void* x, void* o, int S, int K, int dtype,
+                          int lb, int nb, int cluster, int clusters, int mode,
+                          void* stream) {
+  if (S <= 0 || K <= 0 || mode < kNaive || mode > kOnline || cluster < 1 ||
+      cluster > kSmMaxCluster || clusters < 1 || clusters > S ||
+      static_cast<long long>(clusters) * cluster > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return softmax_dispatch(dtype, lb, nb,
+                          {x, o, S, K, mode, cluster, clusters,
+                           static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// The clusters of ``cluster`` CTAs of the cluster route's (dtype, lb, nb)
+// instantiation that the current device holds at once, into *out
+// (cudaOccupancyMaxActiveClusters; 0: such a cluster cannot be scheduled).
+extern "C" int lc_softmax_clusters(int dtype, int lb, int nb, int cluster,
+                                   int* out) {
+  if (cluster < 1 || cluster > kSmMaxCluster || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return softmax_dispatch(dtype, lb, nb,
+                          {nullptr, nullptr, 0, 0, 0, cluster, 0, nullptr,
+                           out});
 }
 
 // The block route: x, dy, dx (S, K) of dtype ``dtype``; g (K,) of dtype gdt;

@@ -9,10 +9,18 @@ rounding to ``out_dtype`` (default x's dtype), as the JAX kernel applies its
 jnp callable inside the kernel: the CUDA kernel writes f32 and the wrapper
 applies the callable and rounds.
 
-On CUDA tensors both launch ``csrc/gemv.cu``; on CPU tensors they run the
-plain versions below. The JAX ladder's rungs (k32, k128, k16: the
-reference's K-tiling strategies) become the kernel's threads along K,
-``k_lanes`` 32, 128 and 16, under the JAX names, tags and tolerances.
+On CUDA tensors both make one launch of ``csrc/gemv.cu`` a call, with no
+scratch: a cluster of C CTAs shares a column panel, each rank takes K / C
+rows, and the ranks add their sums through distributed shared memory in
+rank order inside the launch (``gemv_plan``: one CTA a panel where the
+panels alone give every SM one, else the most a panel that one wave of the
+card holds, as cudaOccupancyMaxActiveClusters counts it). On CPU tensors
+they run the plain versions
+below. The JAX ladder's rungs (k32, k128, k16: the reference's K-tiling
+strategies) keep their names, tags and tolerances and map to the new
+kernel's threads along K, ``k_lanes`` 32, 128 and 16 (a CTA of 256 threads
+is k_lanes rows by 256 / k_lanes chunks of 16 bytes), all counted on
+``gemv``.
 """
 
 from __future__ import annotations
@@ -22,26 +30,26 @@ import ctypes
 import torch
 
 from leetcuda_tpu_torch.core.registry import register_op
-from leetcuda_tpu_torch.core.runtime import LaunchCounter, cdiv, check_launch
+from leetcuda_tpu_torch.core.runtime import (SM_COUNT, LaunchCounter, cdiv,
+                                             check_launch, round_up)
 
 GEMV = LaunchCounter("gemv")
 RMS_NORM_GEMV = LaunchCounter("rms_norm_gemv")
-# lc_gemv(x, w, nw, part, out, K, N, dtype, odt, k_lanes, splits, kchunk,
-#         eps, stream)
-_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
-         + (ctypes.c_float, ctypes.c_void_p))
+P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# lc_gemv(x, w, nw, out, K, N, dtype, odt, k_lanes, cluster, kc, eps,
+#         stream); lc_gemv_clusters(dtype, k_lanes, rms, cluster, kc, out)
+_ARGS = (P_,) * 4 + (I_,) * 7 + (F_, P_)
+_CLUSTERS_ARGS = (I_,) * 5 + (P_,)
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 K_LANES = (16, 32, 128)
-# The threads along K of gemv, hgemv and rms_norm_gemv: in chip_smoke.py
-# path (j)'s interleaved A/B on an H100 80GB HBM3 (700 W; PERF.md),
-# 32 was fastest or within 2% of the fastest at layer 0's wqkv and w_down
-# and at the output projection, and 11% behind 128 at w_gate_up, where its
-# wider panels need a second (split-K) pass and 128's do not.
+# The threads along K of gemv, hgemv and rms_norm_gemv. In the A/B of
+# bench/gemm_bench.py --gemv (NVIDIA H100 80GB HBM3, 700 W; PERF.md row 17)
+# 16 and 32 came within 1-5% of each other at path (j)'s four shapes, each
+# ahead at two, and 128 trailed by 1-70%.
 DEFAULT_K_LANES = 32
-THREADS = 256
-# The wrapper splits K until the grid holds this many CTAs (two per SM of
-# the H100's 132), each split at least 4 rows per K lane.
-TARGET_CTAS = 2 * 132
+# csrc/gemv.cu: kThreads, kMaxCluster, kMaxRows (x's rows a CTA stages) and
+# the launch bound's CTAs an SM (the wave where no device is asked)
+THREADS, MAX_CLUSTER, MAX_ROWS, CTAS_PER_SM = 256, 8, 40960, 2
 
 
 def gemv_plain(x, w, epilogue=None, out_dtype=None):
@@ -64,14 +72,77 @@ def rms_norm_gemv_plain(x, norm_w, w, eps=1e-5, out_dtype=None):
     return (xn @ w.float()).to(out_dtype or x.dtype)
 
 
-def splits_for(K: int, N: int, dtype, k_lanes: int) -> tuple[int, int]:
-    """(splits, rows per split) of K for an N-column product: enough CTAs
-    for ``TARGET_CTAS``, each split a multiple of ``k_lanes`` rows."""
-    panel = (THREADS // k_lanes) * (16 // dtype.itemsize)
-    want = cdiv(TARGET_CTAS, cdiv(N, panel))
-    splits = max(1, min(want, K // (4 * k_lanes)))
-    kchunk = cdiv(cdiv(K, splits), k_lanes) * k_lanes
-    return cdiv(K, kchunk), kchunk
+def default_wave(C: int, kc: int) -> int:
+    """CTAs of one wave in clusters of C where no device is asked:
+    CTAS_PER_SM an SM, whole clusters."""
+    return CTAS_PER_SM * SM_COUNT // C * C
+
+
+def gemv_plan(K: int, N: int, itemsize: int, k_lanes: int = DEFAULT_K_LANES,
+              wave=default_wave, cluster: int | None = None) -> dict:
+    """The launch of an (K, N) gemv of ``itemsize``-byte elements: column
+    panels of ``panel`` = (256 / k_lanes) (16 / itemsize) columns, each
+    owned by a cluster of C CTAs, rank r over rows [r kc, min(K, (r + 1)
+    kc)) (kc a multiple of k_lanes, no rank empty). C (``cluster`` forces
+    it) is 1 where the panels alone give every SM a CTA, else the largest
+    up to 8 whose grid fits one wave, ``wave(C, kc)`` CTAs (the device's
+    cudaOccupancyMaxActiveClusters x C), so the grid never spills into a
+    ragged second wave. bench/gemm_bench.py --gemv on an NVIDIA H100 80GB
+    HBM3 (700 W) set the rule: one CTA a panel won at w_gate_up (176
+    panels: 0.0244 ms against 0.0255 at 2 and 0.0308 at 4 a panel) and the
+    output projection (500: 0.0534-0.0559 against 0.0603 at 2); at wqkv
+    and w_down (48 and 32 panels) 8 a panel won (0.0136 and 0.0182 ms
+    against 0.0165 and 0.0332 at 1)."""
+    panel = (THREADS // k_lanes) * (16 // itemsize)
+    panels = cdiv(N, panel)
+    if cluster is not None:
+        sizes = [cluster]
+    elif panels >= SM_COUNT:
+        sizes = [1]
+    else:
+        sizes = range(MAX_CLUSTER, 0, -1)
+    for C in sizes:
+        kc = round_up(cdiv(K, C), k_lanes)
+        if (C > 1 and (C - 1) * kc >= K) or kc > MAX_ROWS:
+            continue
+        w = wave(C, kc)
+        if w < C or (cluster is None and C > 1 and panels * C > w):
+            continue  # no cluster of C fits, or the grid outgrows a wave
+        return {"panel": panel, "panels": panels, "cluster": C, "kc": kc,
+                "grid": panels * C, "wave": w,
+                "waves": cdiv(panels * C, w)}
+    raise ValueError(f"gemv: no cluster of up to {MAX_CLUSTER} CTAs takes "
+                     f"K={K} (at most {MAX_ROWS} rows a CTA)")
+
+
+def rank_rows(plan: dict, K: int) -> list[range]:
+    """The rows of W each rank of a cluster sums."""
+    kc = plan["kc"]
+    return [range(min(K, r * kc), min(K, (r + 1) * kc))
+            for r in range(plan["cluster"])]
+
+
+_PLANS: dict = {}  # (device, K, N, dtype, k_lanes, rms) -> plan
+
+
+def device_plan(K, N, dtype, k_lanes, rms, device) -> dict:
+    """``gemv_plan`` with the device's waves (``lc_gemv_clusters``), once
+    per device and shape."""
+    key = (device.index, K, N, dtype, k_lanes, rms)
+    plan = _PLANS.get(key)
+    if plan is None:
+        from leetcuda_tpu_torch.build import kernel
+
+        fn = kernel("gemv", "lc_gemv_clusters", _CLUSTERS_ARGS)
+
+        def wave(C, kc):
+            n = ctypes.c_int(0)
+            check_launch(fn(_DTYPES[dtype], k_lanes, int(rms), C, kc,
+                            ctypes.byref(n)), "gemv")
+            return n.value * C
+
+        plan = _PLANS[key] = gemv_plan(K, N, dtype.itemsize, k_lanes, wave)
+    return plan
 
 
 def _check(what, x, w, *more):
@@ -85,10 +156,10 @@ def _check(what, x, w, *more):
         raise ValueError(f"{what}: operands must lie on one device")
 
 
-def _launch(counter, x, w, nw, k_lanes, eps, odt):
-    """Launch csrc/gemv.cu on the current stream, on checked operands:
-    (1, N) in ``odt``."""
-    from leetcuda_tpu_torch.build import kernel
+def _launch(counter, x, w, nw, k_lanes, eps, odt, plan=None, lib="gemv"):
+    """Launch csrc/gemv.cu (or a variant build ``lib``) once on the current
+    stream, on checked operands: (1, N) in ``odt``."""
+    from leetcuda_tpu_torch.build import entry
 
     K, N = w.shape
     vec = 16 // w.element_size()
@@ -99,14 +170,13 @@ def _launch(counter, x, w, nw, k_lanes, eps, odt):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{counter.name} kernel: {name} must be "
                              "contiguous and 16-byte aligned")
-    splits, kchunk = splits_for(K, N, w.dtype, k_lanes)
+    if plan is None:
+        plan = device_plan(K, N, w.dtype, k_lanes, nw is not None, x.device)
     out = torch.empty((1, N), dtype=odt, device=x.device)
-    part = (torch.empty((splits, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
-    fn = kernel("gemv", "lc_gemv", _ARGS)
+    fn = entry(lib, "lc_gemv", _ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), 0 if nw is None else nw.data_ptr(),
-             0 if part is None else part.data_ptr(), out.data_ptr(), K, N,
-             _DTYPES[w.dtype], _DTYPES[odt], k_lanes, splits, kchunk, eps,
+             out.data_ptr(), K, N, _DTYPES[w.dtype], _DTYPES[odt], k_lanes,
+             plan["cluster"], plan["kc"], eps,
              torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, counter.name)
     counter.add()

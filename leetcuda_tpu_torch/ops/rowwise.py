@@ -72,21 +72,25 @@ def check_kernel_operands(what: str, x, *others, dtypes=DTYPES):
 
 
 def launch(counter, symbol: str, argtypes: tuple, device, *args,
-           source: str = "row_ops"):
-    """Call ``symbol`` of csrc/<source>.cu with ``args`` and the current
-    stream of ``device``, raise on a launch error and count the launch."""
-    from leetcuda_tpu_torch.build import kernel
+           source="row_ops"):
+    """Call ``symbol`` of csrc/<source>.cu (or of a loaded variant build)
+    with ``args`` and the current stream of ``device``, raise on a launch
+    error and count the launch."""
+    from leetcuda_tpu_torch.build import entry
 
-    fn = kernel(source, symbol, argtypes)
+    fn = entry(source, symbol, argtypes)
     err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     check_launch(err, counter.name)
     counter.add()
 
 
-# lc_rms_norm / lc_layer_norm_fwd / lc_softmax argtypes, the stream last
+# lc_rms_norm / lc_layer_norm_fwd / lc_softmax / lc_softmax_stream
+# argtypes, the stream last; lc_softmax_clusters'
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 RMS_ARGS = (P, P, I, P, I, I, I, I, I, F, I, P)
 LN_FWD_ARGS = (P, P, I, P, I, P, I, I, I, I, I, F, I, P)
-SOFTMAX_ARGS = (P, P, I, I, I, I, I, I, I, P)
+SOFTMAX_ARGS = (P, P) + (I,) * 8 + (P,)
+SOFTMAX_STREAM_ARGS = (P, P) + (I,) * 7 + (P,)
+SOFTMAX_CLUSTERS_ARGS = (I, I, I, I, P)
 LN_BWD_ARGS = (P, P, I, P, P, P, P, P, P, I, I, I, I, I, F, I, P)
 LN_BWD_ROWS_ARGS = (P, P, I, P, P, P, P, P, P, I, I, I, I, I, F, P)
