@@ -149,13 +149,17 @@ Phases; any failure raises and the script exits non-zero:
           ``rms_norm`` with layer 0's attn_norm in bf16 at training's 16384
           rows and a decode step's 8, every rms-norm rung at 16384 rows in
           its dtype and at (4096, 2050) (a scalar tail, misaligned rows);
-          ``layer_norm``, its backward (the rows route twice, bit for
-          bit, and in turn with the block route) and
+          ``layer_norm`` (its rows route twice, bit for bit, and in turn
+          with the block route and F.layer_norm), its backward (the rows
+          route twice, bit for bit, and in turn with the block route) and
           ``layer_norm_trainable``'s gradients against autograd through
           the plain forward, at (16384, 2048) in bf16, f32 and f16 with
-          random gamma and beta; the backward's block route at (4096, 2050)
-          (twice, bit for bit); every layer-norm rung; rows offset by 1e3
-          against float64; the three softmax forms in f32 at (2048, 32000) and (8,
+          random gamma and beta; both rows routes at K 1024 and 4096 (twice,
+          bit for bit); the forward's block route (counted on
+          ``layer_norm_block``) at (4096, 2050) and on rows one element off
+          a 16-byte boundary, the backward's at (4096, 2050) (each twice,
+          bit for bit); every layer-norm rung; rows offset by 1e3 against
+          float64; the three softmax forms in f32 at (2048, 32000) and (8,
           32000) (twice, bit for bit; at 8 rows also on the device alone
           beside torch.softmax), every softmax rung at 16384 rows, a row of
           140000 on the stream route (counted on ``softmax_stream``), and
@@ -501,8 +505,8 @@ PATH_KERNELS.update({
 # merge (the flash forward with its lse, once per split).
 PATH_KERNELS.update({
     "k1": ("rms_norm", "layer_norm", "softmax", "merge_attn_states"),
-    "k2": ("rms_norm", "layer_norm", "layer_norm_bwd", "layer_norm_bwd_block",
-           "softmax", "softmax_stream"),
+    "k2": ("rms_norm", "layer_norm", "layer_norm_block", "layer_norm_bwd",
+           "layer_norm_bwd_block", "softmax", "softmax_stream"),
     "k3": ("flash_attention_lse", "merge_attn_states")})
 # Path (l), the op corpus's transpose, embedding gathers, RoPE and resident
 # matmul chain, in three parts: the registry sweep of the four families, the
@@ -563,7 +567,7 @@ GEMM_KERNELS = PATH_KERNELS["j3"]
 # The row ops' kernels: no serving, training or GEMM path launches them (the
 # model leaves its norms and softmax to eager PyTorch, as the JAX model left
 # them to XLA).
-ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_bwd",
+ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_block", "layer_norm_bwd",
                                      "layer_norm_bwd_block", "softmax_stream")
 # The op corpus's kernels of path (l): no other path launches them (the
 # model's embedding is an indexing op and its RoPE the half rotation, as the
@@ -3190,6 +3194,8 @@ ROW_SRC = {
                  "leetcuda_tpu/ops/rms_norm.py:43"),
     "layer_norm": ("leetcuda_tpu_torch/csrc/row_ops.cu",
                    "leetcuda_tpu/ops/layer_norm.py:50"),
+    "layer_norm_block": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                         "leetcuda_tpu/ops/layer_norm.py:50"),
     "layer_norm_bwd": ("leetcuda_tpu_torch/csrc/row_ops.cu",
                        "leetcuda_tpu/ops/layer_norm.py:174"),
     "layer_norm_bwd_block": ("leetcuda_tpu_torch/csrc/row_ops.cu",
@@ -3307,12 +3313,14 @@ def _rms_cases(run, layer):
 
 def _layer_norm_cases(run):
     """layer_norm and its backward at training's rows in bf16, f32 and f16
-    with random gamma and beta (the backward on its rows route, twice, bit
-    for bit, and in turn with the block route, the earlier kernel), the
-    trainable form's gradients against autograd through the plain forward,
-    the rows route at K 1024 and 4096 in bf16 and f32 (twice, bit for bit),
-    the backward's block route at (4096, 2050) (a K the rows route does not
-    take), every rung, and rows offset by 1e3 against float64."""
+    with random gamma and beta (each on its rows route, twice, bit for bit,
+    and in turn with its block route, the earlier kernel; the forward also
+    with F.layer_norm), the trainable form's gradients against autograd
+    through the plain forward, both rows routes at K 1024 and 4096 in bf16
+    and f32 (twice, bit for bit), the block routes at (4096, 2050) (a K the
+    rows routes do not take) and the forward's on rows one element off a
+    16-byte boundary, every rung, and rows offset by 1e3 against
+    float64."""
     import torch.nn.functional as F
     from leetcuda_tpu_torch.core.registry import OPS
     from leetcuda_tpu_torch.ops import layer_norm as ln
@@ -3326,12 +3334,32 @@ def _layer_norm_cases(run):
         dy = run.rand(TRAIN_ROWS, K, dtype=dt)
         tol = F32_TOL if dt == torch.float32 else KERNEL_TOL
         isz = x.element_size()
-        run.case(f"layer_norm/{tag} ({TRAIN_ROWS}, {K})", "layer_norm",
-                 lambda: ln.layer_norm(x, g, b),
-                 lambda: ln.layer_norm_plain(x, g, b),
-                 lambda: F.layer_norm(x, (K,), g, b, eps=ln.EPS),
-                 2.0 * x.numel() * isz + 2 * K * isz, (x, g, b), tol=tol,
-                 flops=8.0 * x.numel(), S=TRAIN_ROWS, K=K, dtype=tag)
+        plan = ln.ln_fwd_plan(TRAIN_ROWS, K, isz)
+        if plan["route"] != "rows":
+            raise AssertionError(f"layer_norm ({TRAIN_ROWS}, {K}): {plan}")
+        row = run.case(f"layer_norm/{tag} ({TRAIN_ROWS}, {K})", "layer_norm",
+                       lambda: ln.layer_norm(x, g, b),
+                       lambda: ln.layer_norm_plain(x, g, b),
+                       lambda: F.layer_norm(x, (K,), g, b, eps=ln.EPS),
+                       2.0 * x.numel() * isz + 2 * K * isz, (x, g, b),
+                       tol=tol, flops=8.0 * x.numel(), S=TRAIN_ROWS, K=K,
+                       dtype=tag, plan=plan)
+        row["bitwise_repeat"] = torch.equal(ln.layer_norm(x, g, b),
+                                            ln.layer_norm(x, g, b))
+        if not row["bitwise_repeat"]:
+            raise AssertionError(f"layer_norm {tag}: two runs differ")
+
+        def fwd_block():
+            return ln._run_fwd(x, g, b, torch.empty_like(x), 8, True,
+                               {"route": "block"})
+
+        with uncounted():
+            row["block_route_max_abs_err"] = hold(
+                fwd_block(), ln.layer_norm_plain(x, g, b), tol)
+        row["routes_ms"] = interleaved_ms({
+            "rows": lambda: ln.layer_norm(x, g, b), "block": fwd_block,
+            "F.layer_norm": lambda: F.layer_norm(x, (K,), g, b, eps=ln.EPS)},
+            run.flush)
         lib_leaves = [t.detach().clone().requires_grad_(True)
                       for t in (x, g, b)]
         y_lib = F.layer_norm(lib_leaves[0], (K,), *lib_leaves[1:],
@@ -3373,13 +3401,29 @@ def _layer_norm_cases(run):
                  "layer_norm_bwd", lambda: grads(ln.layer_norm_trainable),
                  lambda: grads(ln.layer_norm_plain), None, 0.0,
                  (x, g, b, dy), tol=tol, timed=False)
-    # the rows route's other two widths: K 1024 (1 vector a thread) and
-    # 4096 (4 vectors, 1 CTA an SM), each twice, bit for bit
+    # the rows routes' other widths: K 1024 (the backward's 1 vector a
+    # thread, the forward's groups of 4 warps) and 4096 (the backward's 4
+    # vectors, 1 CTA an SM; the forward's 2 vectors a thread), each twice,
+    # bit for bit
     for k_ in (1024, 4096):
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             x = run.rand(TAIL_ROWS, k_, dtype=dt)
             g = run.rand(k_, dtype=dt, scale=0.3, offset=1.0)
+            b = run.rand(k_, dtype=dt, scale=0.3)
             dy = run.rand(TAIL_ROWS, k_, dtype=dt)
+            fplan = ln.ln_fwd_plan(TAIL_ROWS, k_, x.element_size())
+            if fplan["route"] != "rows":
+                raise AssertionError(f"layer_norm ({TAIL_ROWS}, {k_}): "
+                                     f"planned {fplan}")
+            check = (f"layer_norm/{tag} ({TAIL_ROWS}, {k_}), groups of "
+                     f"{fplan['group']}, {fplan['nv']} vectors a thread")
+            run.case(check, "layer_norm", lambda: ln.layer_norm(x, g, b),
+                     lambda: ln.layer_norm_plain(x, g, b), None, 0.0,
+                     (x, g, b), tol=F32_TOL if dt == torch.float32
+                     else KERNEL_TOL, timed=False)
+            if not torch.equal(ln.layer_norm(x, g, b),
+                               ln.layer_norm(x, g, b)):
+                raise AssertionError(f"{check}: two runs differ")
             plan = ln.ln_bwd_plan(TAIL_ROWS, k_, x.element_size())
             if plan["route"] != "rows" or plan["nv"] != k_ // 1024:
                 raise AssertionError(f"layer_norm_bwd ({TAIL_ROWS}, {k_}): "
@@ -3411,7 +3455,34 @@ def _layer_norm_cases(run):
                  flops=8.0 * x.numel(), rung=name, S=TRAIN_ROWS, K=K)
     x = run.rand(TAIL_ROWS, TAIL_DIM, dtype=torch.bfloat16)
     g = run.rand(TAIL_DIM, dtype=torch.bfloat16, scale=0.3, offset=1.0)
+    b = run.rand(TAIL_DIM, dtype=torch.bfloat16, scale=0.3)
     dy = run.rand(TAIL_ROWS, TAIL_DIM, dtype=torch.bfloat16)
+    plan = ln.ln_fwd_plan(TAIL_ROWS, TAIL_DIM, 2)
+    if plan["route"] != "block":
+        raise AssertionError(f"layer_norm ({TAIL_ROWS}, {TAIL_DIM}): {plan}")
+    row = run.case(
+        f"layer_norm/bf16 ({TAIL_ROWS}, {TAIL_DIM}), the block route",
+        "layer_norm_block", lambda: ln.layer_norm(x, g, b),
+        lambda: ln.layer_norm_plain(x, g, b),
+        lambda: F.layer_norm(x, (TAIL_DIM,), g, b, eps=ln.EPS),
+        4.0 * x.numel() + 4 * TAIL_DIM, (x, g, b), flops=8.0 * x.numel(),
+        S=TAIL_ROWS, K=TAIL_DIM, dtype="bf16", plan=plan)
+    row["bitwise_repeat"] = torch.equal(ln.layer_norm(x, g, b),
+                                        ln.layer_norm(x, g, b))
+    if not row["bitwise_repeat"]:
+        raise AssertionError("layer_norm block route: two runs differ")
+    # rows one element past a 16-byte boundary: the block route
+    buf = run.rand(TAIL_ROWS * ROW_DIM + 1, dtype=torch.bfloat16)
+    xm = buf[1:].view(TAIL_ROWS, ROW_DIM)
+    gm = run.rand(ROW_DIM, dtype=torch.bfloat16, scale=0.3, offset=1.0)
+    bm = run.rand(ROW_DIM, dtype=torch.bfloat16, scale=0.3)
+    run.case(f"layer_norm/bf16 ({TAIL_ROWS}, {ROW_DIM}) one element off "
+             "16 bytes, the block route", "layer_norm_block",
+             lambda: ln.layer_norm(xm, gm, bm),
+             lambda: ln.layer_norm_plain(xm, gm, bm), None, 0.0,
+             (xm, gm, bm), timed=False)
+    if not torch.equal(ln.layer_norm(xm, gm, bm), ln.layer_norm(xm, gm, bm)):
+        raise AssertionError("layer_norm misaligned rows: two runs differ")
     row = run.case(
         f"layer_norm_bwd/bf16 ({TAIL_ROWS}, {TAIL_DIM}), the block route",
         "layer_norm_bwd_block", lambda: ln.layer_norm_bwd(x, g, dy),
@@ -3658,12 +3729,15 @@ def print_row_ops(rows, res):
         rep = ("" if "bitwise_repeat" not in r
                else f"; repeat bit for bit {r['bitwise_repeat']}")
         if "routes_ms" in r:
-            rep += (f"; in turn: rows route {r['routes_ms']['rows']:.4f} ms, "
-                    f"block route {r['routes_ms']['block']:.4f} ms (max abs "
-                    f"{r['block_route_max_abs_err']:.3g})")
+            rep += ("; in turn: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in r["routes_ms"].items())
+                + f" (block route max abs {r['block_route_max_abs_err']:.3g})")
         if "plan" in r and r["name"] == "softmax":
             rep += (f"; clusters of {r['plan']['cluster']}, "
                     f"{r['plan']['clusters']} of them")
+        if "plan" in r and r["name"] == "layer_norm":
+            rep += (f"; groups of {r['plan']['group']}, {r['plan']['nv']} "
+                    f"vectors a thread, grid {r['plan']['grid']}")
         if "device_alone_ms" in r:
             rep += (f"; device alone {r['device_alone_ms']} ms, library "
                     f"{r['library_device_alone_ms']} ms")
@@ -7830,6 +7904,7 @@ def main() -> int:
                               ("w8_ptxas", "wq_matmul", ""),
                               ("hgemm_ptxas", "matmul", "gemm_sm90"),
                               ("gmm_ptxas", "gmm", "gmm_sm90"),
+                              ("ln_fwd_ptxas", "row_ops", "ln_fwd_rows"),
                               ("ln_bwd_ptxas", "row_ops", "ln_bwd_rows"),
                               ("chunk_split_ptxas", "chunk_attn",
                                "chunk_split"),

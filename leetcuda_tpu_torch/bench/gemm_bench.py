@@ -15,6 +15,8 @@ same dtype.
     python -m leetcuda_tpu_torch.bench.gemm_bench --ln-bwd --repeats 5
     python -m leetcuda_tpu_torch.bench.gemm_bench --softmax --repeats 5
     python -m leetcuda_tpu_torch.bench.gemm_bench --gemv --repeats 5
+    python -m leetcuda_tpu_torch.bench.gemm_bench --ln-fwd --repeats 5
+    python -m leetcuda_tpu_torch.bench.gemm_bench --map --repeats 5
 
 ``--w4`` is the A/B of the w4a16 kernel (``csrc/w4_matmul.cu``): the
 package's build and variant builds of its macros (prefill CTAs of 64 rows,
@@ -84,6 +86,30 @@ against ``gemv_plain`` (atol / rtol 1e-2); then ``rms_norm_gemv`` over
 ``wqkv`` in both feeds beside the eager pair (the norm, then
 ``torch.matmul``).
 
+``--ln-fwd`` is the A/B of the layer-norm forward (``csrc/row_ops.cu``):
+its rows route at the plan's group (8 warps a row at K = 2048, one vector a
+thread; 8 warps in 2 vectors at 4096) and at groups of 4 warps (2 vectors
+a thread at 2048), at 2 and 3 CTAs an SM as well as the plan's, variant
+builds that allow half and twice the registers a thread
+(LC_LN_THREAD_BYTES: 2 CTAs an SM at one vector a thread; 4 at two) and up
+to 6 CTAs an SM (LC_LN_MAX_CTAS), each printed with its ptxas registers
+and spills beside a build of the package's constants, the block route
+(the earlier kernel) and ``F.layer_norm``, taken in turn at (16384, 2048)
+and (16384, 4096) in bf16, f32 and f16, each held against
+``layer_norm_plain`` (atol / rtol 1e-2; f32 1e-3).
+
+``--map`` is the A/B of the elementwise map (``csrc/elementwise.cu``):
+the package's build (4 loads in flight a thread, the SFU math for f16 /
+bf16 outputs, one pass over exactly the vectors), variant builds of 1, 2
+and 8 loads a step (LC_MAP_LOADS), of IEEE math for every output (LC_MAP_FAST 0) and of
+streamed loads and stores (LC_MAP_CS 1), and the
+library call (``F.silu``, ``F.gelu(approximate="tanh")``, ``torch.add``),
+taken in turn at swish and gelu over (16384, 5632) and the add over
+(16384, 2048) in bf16, each held against its plain version (the add bit for
+bit, the activations at the registry's atol 2e-2 / rtol 1e-2); then the
+SASS of each build's bf16 ``x8_pack`` kernels (``cuobjdump -sass``:
+instructions, SFU operations, 16-byte loads and stores).
+
 ``--resident`` is the A/B of the resident chain's build
 (``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
 shared memory, the 128 x 256 tile against 128 x 128 (two consumer
@@ -107,6 +133,7 @@ with TF32 off, so ``torch.matmul`` is the f32 product too.
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 import numpy as np
@@ -808,6 +835,234 @@ def bench_softmax(dev, iters, rounds, flush):
     return rows
 
 
+# the layer-norm forward's variant builds: the package's constants (a
+# control, built here to print its ptxas report), and other registers a
+# thread's state may take (LC_LN_THREAD_BYTES over its bytes: at one
+# vector a thread 2 CTAs an SM at 256, else 4; at two vectors of a 2-byte
+# type 2, 3, 4 CTAs at 512, 640, 768 and up; f32 2, 2, 3, 4 at 512, 640,
+# 768, 1024) and up to 6 CTAs an SM (LC_LN_MAX_CTAS)
+LN_FWD_VARIANTS = [{"LC_LN_THREAD_BYTES": 640}, {"LC_LN_THREAD_BYTES": 256},
+                   {"LC_LN_THREAD_BYTES": 512}, {"LC_LN_THREAD_BYTES": 768},
+                   {"LC_LN_THREAD_BYTES": 1024},
+                   {"LC_LN_THREAD_BYTES": 1024, "LC_LN_MAX_CTAS": 6}]
+LN_FWD_K = (2048, 4096)  # the model's width, and the route's widest
+
+
+def _ln_fwd_label(v):
+    from leetcuda_tpu_torch.ops.layer_norm import FWD_THREAD_BYTES
+
+    tb = v["LC_LN_THREAD_BYTES"]
+    if "LC_LN_MAX_CTAS" in v:
+        return f"{tb} bytes a thread, up to {v['LC_LN_MAX_CTAS']} CTAs an SM"
+    return f"{tb} bytes a thread" + (" (the package's)"
+                                     if tb == FWD_THREAD_BYTES else "")
+
+
+def bench_ln_fwd(dev, iters, rounds, flush, S=16384):
+    """The layer-norm forward's rows route at each group size and grid, its
+    variant builds, the block route and F.layer_norm in turn at (S, K) for
+    each K of LN_FWD_K in bf16, f32 and f16 (on the CPU the plain version
+    at a cut size). Returns the rows."""
+    import torch.nn.functional as F
+
+    from leetcuda_tpu_torch.ops import layer_norm as ln
+
+    builds = (_builds("row_ops", LN_FWD_VARIANTS, _ln_fwd_label)
+              if dev.type == "cuda" else [])
+    shapes = ([(S, K) for K in LN_FWD_K] if dev.type == "cuda"
+              else [(64, 256)])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for (S, K), dt in itertools.product(
+            shapes, (torch.bfloat16, torch.float32, torch.float16)):
+        x = torch.randn((S, K), generator=gen, device=dev).to(dt)
+        g = (torch.randn(K, generator=gen, device=dev) * 0.3 + 1).to(dt)
+        b = (torch.randn(K, generator=gen, device=dev) * 0.3).to(dt)
+        want = ln.layer_norm_plain(x, g, b)
+        isz = x.element_size()
+        plan = ln.ln_fwd_plan(S, K, isz)
+        fns = {}
+        if dev.type == "cuda":
+            def rows_route(p, lib="row_ops"):
+                return lambda: ln._run_fwd(x, g, b, torch.empty_like(x), 8,
+                                           True, p, lib)
+
+            per_sm = ln.fwd_ctas(plan["nv"], isz)
+            cands = [(plan["group"], n)
+                     for n in dict.fromkeys((per_sm, 2, 3)) if n <= per_sm]
+            cands += [(gr, ln.fwd_ctas(-(-K // (8 * gr)), isz))
+                      for gr in ln.FWD_GROUPS
+                      if gr != plan["group"] and gr * 16 >= K]
+            for gr, n in cands:
+                p = ln.ln_fwd_rows_plan(S, K, gr, n)
+                tag = " (plan)" if p == plan else ""
+                fns[f"rows, group {gr}, {p['nv']} vectors a thread, grid "
+                    f"{p['grid']}{tag}"] = rows_route(p)
+            for v, lib in builds:
+                n = ln.fwd_ctas(plan["nv"], isz, v["LC_LN_THREAD_BYTES"],
+                                v.get("LC_LN_MAX_CTAS", ln.FWD_MAX_CTAS))
+                p = ln.ln_fwd_rows_plan(S, K, plan["group"], n)
+                fns[f"rows, group {p['group']}, grid {p['grid']}, "
+                    f"{_ln_fwd_label(v)}"] = rows_route(p, lib)
+            fns["block route"] = lambda: ln._run_fwd(
+                x, g, b, torch.empty_like(x), 8, True, {"route": "block"})
+            fns["F.layer_norm"] = lambda: F.layer_norm(x, (K,), g, b,
+                                                       eps=ln.EPS)
+        else:
+            fns["plain"] = lambda: ln.layer_norm_plain(x, g, b)
+        tol = 1e-3 if dt == torch.float32 else 1e-2
+        errs = {}
+        for n, fn in fns.items():
+            got = fn()
+            errs[n] = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+        times = _in_turn(fns, dev, iters, rounds, flush)
+        bound = 2.0 * S * K * isz / 3.35e12 * 1e3
+        print(f"--- layer_norm {str(dt)[6:]} ({S}, {K}) (bound {bound:.4f} "
+              f"ms; plan {plan}) ---")
+        for n in fns:
+            ms = float(np.median(times[n]))
+            rows.append({"dtype": str(dt)[6:], "S": S, "K": K, "variant": n,
+                         "ms": ms, "rounds": times[n], "bound_ms": bound,
+                         "max_abs_err": errs[n]})
+            print(f"  {n}: {ms:.4f} ms ({bound / ms:.3f} of the bound); max "
+                  f"abs {errs[n]:.3g}", flush=True)
+    return rows
+
+
+# the map's variant builds: vectors a step, IEEE math for half outputs
+MAP_VARIANTS = [{"LC_MAP_LOADS": 1}, {"LC_MAP_LOADS": 2},
+                {"LC_MAP_LOADS": 8}, {"LC_MAP_FAST": 0}, {"LC_MAP_CS": 1}]
+# (what, op code, columns): swish and gelu over the FFN hidden, the add over
+# the residual stream, 16384 rows of bf16
+MAP_CASES = (("swish", 4, 5632), ("gelu", 3, 5632), ("add", 0, 2048))
+
+
+def _map_label(v):
+    if "LC_MAP_FAST" in v:
+        return "IEEE math"
+    if "LC_MAP_CS" in v:
+        return "streamed words"
+    return f"{v['LC_MAP_LOADS']} loads a step"
+
+
+def map_sass(lib_path, op):
+    """Instruction counts of the bf16 x8_pack map kernel of ``op`` in a
+    build (cuobjdump -sass): every instruction, the SFU's (MUFU), the
+    16-byte loads and stores."""
+    import re
+    import subprocess
+    from collections import Counter
+    from pathlib import Path
+
+    from leetcuda_tpu_torch.build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    tag = f"map_kernelI13__nv_bfloat16Li{op}ELi8ELi16E"
+    part = next(p for p in sass.split("Function : ")[1:]
+                if tag in p.split("\n", 1)[0])
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", part)
+    c = Counter(o.split(".")[0] for o in ops)
+    return {"instructions": len(ops), "MUFU": c["MUFU"],
+            "LDG.128": sum(o.startswith("LDG") and ".128" in o for o in ops),
+            "STG.128": sum(o.startswith("STG") and ".128" in o for o in ops)}
+
+
+def map_grid(x, vec, pack, loads=None):
+    """``ew.map_plan`` for x with a build's loads a step (``loads``)."""
+    from leetcuda_tpu_torch.ops import elementwise as ew
+    from leetcuda_tpu_torch.ops import flat
+
+    vec, lb = flat.rung_bytes(vec, pack, x.element_size())
+    return ew.map_plan(x.numel(), x.element_size(), vec, lb, x.data_ptr(),
+                       loads or ew.MAP_LOADS)
+
+
+def bench_map(dev, iters, rounds, flush):
+    """The map's builds and grids and the library call in turn at
+    MAP_CASES, then each build's SASS (on the CPU the plain versions at a
+    cut size). Returns the rows."""
+    import torch.nn.functional as F
+
+    from leetcuda_tpu_torch.build import _lib_path
+    from leetcuda_tpu_torch.ops import activations as act
+    from leetcuda_tpu_torch.ops import elementwise as ew
+
+    builds = (_builds("elementwise", MAP_VARIANTS, _map_label)
+              if dev.type == "cuda" else [])
+    lib_calls = {"swish": F.silu,
+                 "gelu": lambda t: F.gelu(t, approximate="tanh")}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for what, op, K in MAP_CASES:
+        S = 16384 if dev.type == "cuda" else 16
+        if dev.type != "cuda":
+            K //= 64
+        x = torch.randn((S, K), generator=gen, device=dev).to(torch.bfloat16)
+        y = (torch.randn((S, K), generator=gen, device=dev).to(torch.bfloat16)
+             if op == ew.ADD else None)
+        counter = ew.ELEMENTWISE_ADD if op == ew.ADD else act.ACTIVATION
+        if op == ew.ADD:
+            want = ew.add_plain(x, y)
+        else:
+            want = act.activation_plain(act.ACTIVATIONS[what], x)
+        fns = {}
+        if dev.type == "cuda":
+            def run(lib="elementwise", loads=None):
+                plan = map_grid(x, 8, True, loads)
+                return lambda: ew.launch_map(counter, x, y, op, 8, True,
+                                             plan=plan, lib=lib)
+
+            fns[f"{ew.MAP_LOADS} loads a step (package)"] = run()
+            for v, lib in builds:
+                fns[_map_label(v)] = run(lib, v.get("LC_MAP_LOADS"))
+            fns["library"] = ((lambda: torch.add(x, y)) if op == ew.ADD
+                              else (lambda: lib_calls[what](x)))
+        else:
+            fns["plain"] = ((lambda: ew.add_plain(x, y)) if op == ew.ADD
+                            else (lambda: act.activation_plain(
+                                act.ACTIVATIONS[what], x)))
+        errs = {}
+        for n, fn in fns.items():
+            got = fn()
+            errs[n] = float((got.float() - want.float()).abs().max())
+            if op == ew.ADD and n != "library":
+                assert torch.equal(got, want), f"add {n}: not bit for bit"
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=2e-2, rtol=1e-2)
+        times = _in_turn(fns, dev, iters, rounds, flush)
+        nbytes = (3 if op == ew.ADD else 2) * x.numel() * 2
+        bound = nbytes / 3.35e12 * 1e3
+        print(f"--- {what} bf16 ({S}, {K}) (bound {bound:.4f} ms) ---")
+        for n in fns:
+            ms = float(np.median(times[n]))
+            rows.append({"case": what, "S": S, "K": K, "variant": n,
+                         "ms": ms, "rounds": times[n], "bound_ms": bound,
+                         "max_abs_err": errs[n]})
+            print(f"  {n}: {ms:.4f} ms ({bound / ms:.3f} of the bound); max "
+                  f"abs {errs[n]:.3g}", flush=True)
+    if dev.type == "cuda":
+        from leetcuda_tpu_torch.build import BUILD_DIR
+
+        paths = {"package": _lib_path("elementwise")}
+        for v in MAP_VARIANTS:
+            paths[_map_label(v)] = _lib_path("elementwise", tuple(
+                f"-D{k}={x}" for k, x in sorted(v.items())))
+        for label, path in paths.items():
+            if path.parent == BUILD_DIR and path.exists():
+                for what, op, _ in MAP_CASES:
+                    c = map_sass(path, op)
+                    rows.append({"sass": label, "case": what, **c})
+                    print(f"  SASS {label}, {what} bf16 x8_pack: {c}")
+    return rows
+
+
 # path (j)'s weights of one decode row: ModelConfig()'s layer-0 projections
 # and the output projection, (K, N) bf16
 GEMV_KN = (("wqkv", 2048, 3072), ("w_gate_up", 2048, 11264),
@@ -975,12 +1230,18 @@ def main(argv=None):
     ap.add_argument("--softmax", action="store_true",
                     help="the A/B of the row softmax's cluster sizes, slices "
                          "and routes at (2048, 32000) and (8, 32000) f32")
+    ap.add_argument("--ln-fwd", action="store_true",
+                    help="the A/B of the layer-norm forward's groups, grid "
+                         "and routes at (16384, 2048) and (16384, 4096)")
+    ap.add_argument("--map", action="store_true",
+                    help="the A/B of the elementwise map's loads a step "
+                         "and math at the model's swish, gelu and add")
     ap.add_argument("--gemv", action="store_true",
                     help="the A/B of the gemv's feeds, batches, k_lanes and "
                          "cluster sizes at path (j)'s decode-row shapes")
     ap.add_argument("--json", help="--resident, --w4, --w8, --hgemm, --gmm, "
-                                   "--ln-bwd, --softmax, --gemv: write the "
-                                   "rows here")
+                                   "--ln-bwd, --ln-fwd, --map, --softmax, "
+                                   "--gemv: write the rows here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -1009,6 +1270,10 @@ def main(argv=None):
         rows = bench_gmm(dev, args.iters, args.repeats, flush)
     elif args.ln_bwd:
         rows = bench_ln_bwd(dev, args.iters, args.repeats, flush)
+    elif args.ln_fwd:
+        rows = bench_ln_fwd(dev, args.iters, args.repeats, flush)
+    elif args.map:
+        rows = bench_map(dev, args.iters, args.repeats, flush)
     elif args.softmax:
         rows = bench_softmax(dev, args.iters, args.repeats, flush)
     elif args.gemv:

@@ -24,6 +24,19 @@
 // Outputs are new buffers: x is never written (the TPU kernels alias x to
 // their output, which XLA undoes by copying when x is still live).
 //
+// The layer-norm forward has two routes (ops/layer_norm.py ln_fwd_plan
+// picks one from the shape): "rows" (ln_fwd_rows), K a multiple of 8 up to
+// 4096 and 16-byte aligned rows, reads each row from device memory once: a
+// group of 1-8 warps owns a row at a time (8 at K = 2048), the CTA's 256
+// threads several groups, a persistent grid of 2-4 CTAs an SM taking
+// rows slot, slot + slots, ...; each thread keeps its columns of gamma and beta
+// in registers as f32 for all its rows, holds its 8-column vectors of the
+// row as loaded (in the rung's load width), keeps the next row's loads in
+// flight while it reduces this one, and reduces by warp shuffles and the
+// group's warps behind one named barrier (the mean, then the two-pass
+// variance from the registers); y goes out in 16-byte stores. "block"
+// (layer_norm_kernel) is the walk above, for every other K or alignment.
+//
 // The backward of layer-norm recomputes each row's statistics from x, as the
 // TPU kernel does: dx = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd
 // with dxhat = dy g, and dgamma = sum dy xhat, dbeta = sum dy over the rows.
@@ -70,6 +83,14 @@
 #endif
 #ifndef LC_SOFTMAX_THREADS
 #define LC_SOFTMAX_THREADS 256  // the cluster route's CTA
+#endif
+// The layer-norm forward's rows route's CTAs an SM (ln_fwd_ctas); the
+// bench's variant builds set them otherwise
+#ifndef LC_LN_THREAD_BYTES
+#define LC_LN_THREAD_BYTES 640
+#endif
+#ifndef LC_LN_MAX_CTAS
+#define LC_LN_MAX_CTAS 4
 #endif
 #ifndef LC_SOFTMAX_PROBE
 #define LC_SOFTMAX_PROBE 0  // bench probes (wrong results): 1 no arithmetic,
@@ -1084,6 +1105,186 @@ int launch_rows(const void* x, const void* g, int gdt, const void* dy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------------------- the layer-norm forward's rows route
+
+constexpr int kLnCta = 256;  // threads of a CTA of the rows route
+
+// CTAs an SM that ln_fwd_rows is built to hold at once (its launch bounds),
+// 1 to LC_LN_MAX_CTAS: LC_LN_THREAD_BYTES over the bytes of a thread's
+// state of a row, two rows of its NV vectors of 8 elements of x as loaded
+// (the one it reduces and the next, in flight) and its columns of gamma
+// and beta as f32. At c CTAs a thread has 1024 / c bytes of registers. So
+// 4 CTAs at one vector a thread, 3 at two of a 2-byte type, 2 at two of
+// f32: the bench's A/B (--ln-fwd, at 512, 640, 768 and 1024) found 2 CTAs
+// starving the 2-byte rows and 4 spilling, 3 spilling f32's.
+template <class T, int NV>
+constexpr int ln_fwd_ctas() {
+  constexpr int bytes = NV * 8 * (2 * static_cast<int>(sizeof(T)) + 8);
+  constexpr int c = LC_LN_THREAD_BYTES / bytes;
+  return c < 1 ? 1 : (c > LC_LN_MAX_CTAS ? LC_LN_MAX_CTAS : c);
+}
+
+// Eight elements of T at p into ``r``, in words of LB bytes (the rung's load
+// width); 16-byte words stream past L1, narrower ones stay there, since the
+// warp's next word of the same vectors reads the same sectors.
+template <class T, int LB>
+__device__ __forceinline__ void load8_lb(Raw8<T>& r, const T* p) {
+  using U = typename Word<LB>::type;
+  constexpr int N = 8 * static_cast<int>(sizeof(T)) / LB;
+  U* d = reinterpret_cast<U*>(r.w);
+  const U* s = reinterpret_cast<const U*>(p);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (LB == 16)
+      d[i] = __ldcs(s + i);
+    else
+      d[i] = s[i];
+  }
+}
+
+// The sum of v over a group of nw warps (warps w0 .. w0 + nw - 1 of the
+// CTA), in every thread of the group: each warp's xor tree, then the warps'
+// sums in warp order through ``red`` (this reduction's kLnCta / 32 floats)
+// behind the group's named barrier (barrier 1 + grp, ``group`` threads).
+// One warp needs no barrier. A reduction's ``red`` is written again two
+// reductions later, after the barrier of the one between, which every
+// reader of it has reached.
+__device__ __forceinline__ float ln_group_sum(float v, float* red, int grp,
+                                              int group, int w0, int nw) {
+  v = warp_sum(v);
+  if (nw == 1) return v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(group) : "memory");
+  float s = 0.f;
+  for (int w = 0; w < nw; ++w) s += red[w0 + w];
+  return s;
+}
+
+// grid (grid,) of kLnCta threads in groups of ``group`` (32, 64, 128 or
+// 256). Group grp of CTA c takes rows slot, slot + slots, ... with slot =
+// c groups + grp and slots = groups grid; its thread t owns the 8-column
+// vectors (v group + t) 8 + [0, 8), v < NV, those below K. A thread loads
+// its columns of gamma and beta once, as f32, and keeps them in registers
+// for every row; it holds its vectors of a row as loaded (words of LB
+// bytes) and keeps the next row's loads in flight while it reduces this
+// one. A row's mean, then the mean of squared deviations from it (two
+// passes over the registers), each a thread's elements in order, then
+// ln_group_sum; y = (x - mean) rstd g + b, rounded once and stored as
+// 16-byte words.
+template <class T, int LB, int NV>
+__global__ void __launch_bounds__(kLnCta, ln_fwd_ctas<T, NV>())
+ln_fwd_rows(const T* __restrict__ x, const void* __restrict__ g, int gdt,
+            const void* __restrict__ b, int bdt, T* __restrict__ o, int S,
+            int K, int group, float eps) {
+  __shared__ float red[2][kLnCta / 32];
+  const int grp = threadIdx.x / group, t = threadIdx.x % group;
+  const int groups = kLnCta / group, nw = group / 32, w0 = grp * nw;
+  int col[NV];
+  bool live[NV];
+  float gv[NV][8], bv[NV][8];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    col[v] = (v * group + t) * 8;
+    live[v] = col[v] < K;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gv[v][e] = live[v] ? load_any(g, gdt, col[v] + e) : 0.f;
+      bv[v][e] = live[v] ? load_any(b, bdt, col[v] + e) : 0.f;
+    }
+  }
+  auto load_row = [&](int r, Raw8<T>(&rx)[NV]) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (live[v])
+        load8_lb<T, LB>(rx[v], x + static_cast<size_t>(r) * K + col[v]);
+  };
+  const float fk = static_cast<float>(K);
+  auto norm_row = [&](const Raw8<T>(&cx)[NV], int r) {
+    float m = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (live[v])
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m += elem(cx[v], e);
+    m = ln_group_sum(m, red[0], grp, group, w0, nw) / fk;
+    float q = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (live[v])
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = elem(cx[v], e) - m;
+          q = fmaf(d, d, q);
+        }
+    q = ln_group_sum(q, red[1], grp, group, w0, nw);
+    const float rstd = rsqrtf(q / fk + eps);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (!live[v]) continue;
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        y[e] = (elem(cx[v], e) - m) * rstd * gv[v][e] + bv[v][e];
+      store8<T>(o + static_cast<size_t>(r) * K + col[v], y);
+    }
+  };
+
+  // two buffers of a row, the loop two rows a pass, so that each keeps its
+  // registers (a copy would wait on the loads in flight)
+  const int slots = groups * static_cast<int>(gridDim.x);
+  int r = static_cast<int>(blockIdx.x) * groups + grp;
+  Raw8<T> ra[NV], rb[NV];
+  if (r < S) load_row(r, ra);
+  for (; r < S; r += 2 * slots) {
+    if (r + slots < S) load_row(r + slots, rb);
+    norm_row(ra, r);
+    if (r + slots >= S) break;
+    if (r + 2 * slots < S) load_row(r + 2 * slots, ra);
+    norm_row(rb, r + slots);
+  }
+}
+
+template <class T, int LB>
+int launch_ln_rows(const void* x, const void* g, int gdt, const void* b,
+                   int bdt, void* o, int S, int K, int group, int grid,
+                   float eps, cudaStream_t st) {
+  const int nv = (K / 8 + group - 1) / group;
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(o);
+  if (nv == 1)
+    ln_fwd_rows<T, LB, 1><<<grid, kLnCta, 0, st>>>(xt, g, gdt, b, bdt, ot, S,
+                                                   K, group, eps);
+  else if (nv == 2)
+    ln_fwd_rows<T, LB, 2><<<grid, kLnCta, 0, st>>>(xt, g, gdt, b, bdt, ot, S,
+                                                   K, group, eps);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rung's load width of element type T: 4, 8 or 16 bytes for f32; 2, 4,
+// 8 or 16 for f16 and bf16.
+template <class T>
+int ln_rows_by_lb(int lb, const void* x, const void* g, int gdt,
+                  const void* b, int bdt, void* o, int S, int K, int group,
+                  int grid, float eps, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {
+    if (lb == 2)
+      return launch_ln_rows<T, 2>(x, g, gdt, b, bdt, o, S, K, group, grid,
+                                  eps, st);
+  }
+  if (lb == 4)
+    return launch_ln_rows<T, 4>(x, g, gdt, b, bdt, o, S, K, group, grid, eps,
+                                st);
+  if (lb == 8)
+    return launch_ln_rows<T, 8>(x, g, gdt, b, bdt, o, S, K, group, grid, eps,
+                                st);
+  if (lb == 16)
+    return launch_ln_rows<T, 16>(x, g, gdt, b, bdt, o, S, K, group, grid,
+                                 eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 enum Op { kRms = 0, kLayerNorm = 1, kSoftmax = 2 };
 
 template <class T, int VEC, int LB>
@@ -1166,6 +1367,35 @@ extern "C" int lc_layer_norm_fwd(const void* x, const void* g, int gdt,
                                  int threads, void* stream) {
   return row_op(kLayerNorm, x, g, gdt, b, bdt, o, S, K, dtype, vec, lb, eps,
                 0, threads, stream);
+}
+
+// The layer-norm forward's rows route: the same operands as
+// lc_layer_norm_fwd, K a multiple of 8 with at most 2 vectors of 8 a thread
+// of a group (K <= 16 group), x and o 16-byte aligned; ``group`` threads a
+// row (32, 64, 128 or 256), ``grid`` CTAs of 256 threads, loads of ``lb``
+// bytes (4, 8 or 16; 2 for f16 and bf16 too). ops/layer_norm.py
+// ln_fwd_plan picks them.
+extern "C" int lc_layer_norm_rows(const void* x, const void* g, int gdt,
+                                  const void* b, int bdt, void* o, int S,
+                                  int K, int dtype, int lb, int group,
+                                  int grid, float eps, void* stream) {
+  if (S <= 0 || K <= 0 || K % 8 || grid <= 0 || gdt < 0 || gdt > 2 ||
+      bdt < 0 || bdt > 2 ||
+      (group != 32 && group != 64 && group != 128 && group != 256) ||
+      K > 16 * group ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return ln_rows_by_lb<float>(lb, x, g, gdt, b, bdt, o, S, K, group, grid,
+                                eps, st);
+  if (dtype == kF16)
+    return ln_rows_by_lb<__half>(lb, x, g, gdt, b, bdt, o, S, K, group, grid,
+                                 eps, st);
+  if (dtype == kBF16)
+    return ln_rows_by_lb<__nv_bfloat16>(lb, x, g, gdt, b, bdt, o, S, K, group,
+                                        grid, eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The softmax's stream route (rows longer than a cluster holds): one CTA a

@@ -4,18 +4,25 @@ backward.
 
 Counterpart of ``leetcuda_tpu/ops/layer_norm.py`` (factories,
 registrations, ``_ln_ref``, ``make_layer_norm_trainable``). On CUDA tensors
-the forward launches ``lc_layer_norm_fwd`` of ``csrc/row_ops.cu`` and the
-backward one of its two routes (``ln_bwd_plan``): ``rows``
-(``lc_layer_norm_bwd_rows``: a group of 4 warps a row, the row read once
-into registers, K a multiple of 8 up to 4096; counted on
-``layer_norm_bwd``) or ``block`` (``lc_layer_norm_bwd``: every other K;
-counted on ``layer_norm_bwd_block``), returning new tensors; on CPU tensors
-they run ``layer_norm_plain`` and ``layer_norm_bwd_plain``. The JAX
-``custom_vjp`` becomes a ``torch.autograd.Function`` whose backward is the
-kernel: dx from statistics recomputed from x, in x's dtype; dgamma and dbeta
-summed in f32 over per-CTA partials in a fixed order (two runs agree bit for
-bit), in gamma's dtype. ``rows_per_step`` is the TPU's tiling and is
-accepted and ignored.
+the forward launches one of two routes of ``csrc/row_ops.cu``
+(``ln_fwd_plan``): ``rows`` (``lc_layer_norm_rows``: a group of 1-8 warps
+a row, gamma and beta in registers, the row read once into registers, K a
+multiple of 8 up to 4096 and 16-byte aligned rows; counted on
+``layer_norm``) or ``block`` (``lc_layer_norm_fwd``: every other K or
+alignment; counted on ``layer_norm_block``); the backward one of its two
+(``ln_bwd_plan``): ``rows`` (``lc_layer_norm_bwd_rows``: a group of 4 warps
+a row, the row read once into registers, K a multiple of 8 up to 4096;
+counted on ``layer_norm_bwd``) or ``block`` (``lc_layer_norm_bwd``: every
+other K; counted on ``layer_norm_bwd_block``), returning new tensors; on
+CPU tensors they run ``layer_norm_plain`` and ``layer_norm_bwd_plain``. A
+rung's ``vec`` and ``pack`` set the width of the rows route's loads
+(``rowwise.load_bytes``), as the reference's ladder varies them; the block
+route walks in ``vec`` steps. The JAX ``custom_vjp`` becomes a
+``torch.autograd.Function`` whose backward is the kernel: dx from
+statistics recomputed from x, in x's dtype; dgamma and dbeta summed in f32
+over per-CTA partials in a fixed order (two runs agree bit for bit), in
+gamma's dtype. ``rows_per_step`` is the TPU's tiling and is accepted and
+ignored.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from leetcuda_tpu_torch.core.runtime import SM_COUNT, LaunchCounter, cdiv
 from leetcuda_tpu_torch.ops import rowwise as rw
 
 EPS = 1e-5
-LAYER_NORM = LaunchCounter("layer_norm")
+LAYER_NORM = LaunchCounter("layer_norm")  # the forward's rows route
+LAYER_NORM_BLOCK = LaunchCounter("layer_norm_block")  # its block route
 LAYER_NORM_BWD = LaunchCounter("layer_norm_bwd")  # the rows route
 LAYER_NORM_BWD_BLOCK = LaunchCounter("layer_norm_bwd_block")  # the block one
 # The block route's CTAs: four per SM, each over a block of consecutive
@@ -43,6 +51,63 @@ BWD_CTAS = 4 * SM_COUNT
 # 8 KB (1 won) pin the threshold: any from 4096 to 8191 bytes fits them.
 ROWS_MAX_K, ROWS_GROUPS, ROWS_GROUP_THREADS = 4096, 2, 128
 ROWS_2CTA_BYTES = 4096
+
+
+# The forward's rows route (csrc/row_ops.cu kLnCta, ln_fwd_ctas): CTAs of
+# FWD_CTA threads in groups of FWD_GROUPS threads, a group a row, the next
+# row's loads in flight while it reduces one; a thread holds 1 or 2
+# 8-column vectors of a row. A group is the fewest threads that hold a row
+# in one vector each (8 warps at K = 2048), or 256 in 2 vectors past 2048
+# columns, up to FWD_MAX_K. The persistent grid: fwd_ctas CTAs an SM. Bench
+# --ln-fwd's A/B chose these (NVIDIA H100 80GB HBM3, 700 W): at (16384,
+# 2048) 8 warps a row beat 4, 4 CTAs an SM beat 2, 3 and 6; at (16384,
+# 4096) 3 CTAs an SM beat 2 and 4 in f16 / bf16, 2 beat 3 and 4 in f32.
+FWD_CTA, FWD_GROUPS, FWD_MAX_K = 256, (32, 64, 128, 256), 4096
+FWD_THREAD_BYTES, FWD_MAX_CTAS = 640, 4
+
+
+def fwd_ctas(nv: int, itemsize: int, thread_bytes: int = FWD_THREAD_BYTES,
+             max_ctas: int = FWD_MAX_CTAS) -> int:
+    """CTAs an SM that the rows route's build holds (ln_fwd_ctas, with
+    LC_LN_THREAD_BYTES and LC_LN_MAX_CTAS): ``thread_bytes`` over a
+    thread's state of a row (two rows of its ``nv`` vectors of x, gamma and
+    beta as f32), 1 to ``max_ctas``."""
+    return min(max_ctas, max(1, thread_bytes // (nv * 8 * (2 * itemsize
+                                                            + 8))))
+
+
+def ln_fwd_rows_plan(S: int, K: int, group: int, per_sm: int) -> dict:
+    """The rows route over S rows of K columns in groups of ``group``
+    threads on a persistent grid of at most ``per_sm`` CTAs an SM: the
+    fewest CTAs whose slots take the rows in as many turns as that many
+    would, so that no last turn runs on a few slots; the groups a CTA
+    (``groups``), the 8-column vectors a thread holds (``nv``) and the row
+    ``slots`` (groups x grid: slot c groups + g is group g of CTA c)."""
+    nv = cdiv(K // 8, group)
+    if group not in FWD_GROUPS or nv > 2:
+        raise ValueError(f"layer_norm: no rows route for K {K} in groups "
+                         f"of {group}")
+    groups = FWD_CTA // group
+    rows = cdiv(S, per_sm * SM_COUNT * groups)  # a slot's, at most
+    grid = cdiv(cdiv(S, rows), groups)
+    return {"route": "rows", "grid": grid, "group": group, "groups": groups,
+            "nv": nv, "slots": groups * grid}
+
+
+def ln_fwd_plan(S: int, K: int, itemsize: int = 2,
+                aligned: bool = True) -> dict:
+    """What csrc/row_ops.cu runs for the forward of an (S, K) layer norm of
+    ``itemsize``-byte elements: the ``rows`` route (ln_fwd_rows_plan) where
+    K is a multiple of 8 up to FWD_MAX_K and x and the output are 16-byte
+    aligned (``aligned``), in groups of the fewest of FWD_GROUPS threads
+    that hold the row in one vector each, else the most, at fwd_ctas CTAs
+    an SM; else the ``block`` route, a CTA a row."""
+    if K % 8 == 0 and 0 < K <= FWD_MAX_K and aligned:
+        group = next(gr for gr in FWD_GROUPS
+                     if K // 8 <= gr or gr == FWD_GROUPS[-1])
+        return ln_fwd_rows_plan(
+            S, K, group, fwd_ctas(cdiv(K // 8, group), itemsize))
+    return {"route": "block", "grid": S}
 
 
 def ln_bwd_plan(S: int, K: int, itemsize: int = 2, aligned: bool = True,
@@ -67,9 +132,10 @@ def ln_bwd_plan(S: int, K: int, itemsize: int = 2, aligned: bool = True,
     return {"route": "block", "rows": rows, "nb": cdiv(S, rows)}
 
 
-def ln_bwd_slot_rows(plan: dict, S: int) -> list[list[int]]:
-    """The rows route's rows of each slot (slot 2 b + g: group g of CTA b),
-    in the order the group takes them."""
+def slot_rows(plan: dict, S: int) -> list[list[int]]:
+    """A rows route's rows of each slot (the forward's and the backward's:
+    slot c groups + g is group g of CTA c), in the order the group takes
+    them."""
     return [list(range(slot, S, plan["slots"]))
             for slot in range(plan["slots"])]
 
@@ -104,15 +170,31 @@ def layer_norm_bwd_plain(x, gamma, dy):
 
 def _launch(x, gamma, beta, vec, pack):
     rw.check_kernel_operands("layer_norm", x, gamma, beta)
-    S, K = x.shape
     out = torch.empty_like(x)
     if x.numel():
-        rw.launch(LAYER_NORM, "lc_layer_norm_fwd", rw.LN_FWD_ARGS, x.device,
-                  x.data_ptr(), gamma.data_ptr(), rw.DTYPES[gamma.dtype],
-                  beta.data_ptr(), rw.DTYPES[beta.dtype], out.data_ptr(), S,
-                  K, rw.DTYPES[x.dtype], vec,
-                  rw.load_bytes(vec, pack, x.element_size()), EPS,
-                  rw.threads_for(K, vec))
+        aligned = (x.data_ptr() | out.data_ptr()) % 16 == 0
+        _run_fwd(x, gamma, beta, out, vec, pack, ln_fwd_plan(
+            x.shape[0], x.shape[1], x.element_size(), aligned))
+    return out
+
+
+def _run_fwd(x, gamma, beta, out, vec, pack, plan, lib="row_ops"):
+    """Launch ``plan``'s route of the forward into ``out`` (checked,
+    non-empty operands; ``lib``: a variant build for the bench) and count
+    it."""
+    S, K = x.shape
+    ptrs = (x.data_ptr(), gamma.data_ptr(), rw.DTYPES[gamma.dtype],
+            beta.data_ptr(), rw.DTYPES[beta.dtype], out.data_ptr(), S, K,
+            rw.DTYPES[x.dtype])
+    lb = rw.load_bytes(vec, pack, x.element_size())
+    if plan["route"] == "rows":
+        rw.launch(LAYER_NORM, "lc_layer_norm_rows", rw.LN_ROWS_ARGS,
+                  x.device, *ptrs, lb, plan["group"], plan["grid"], EPS,
+                  source=lib)
+    else:
+        rw.launch(LAYER_NORM_BLOCK, "lc_layer_norm_fwd", rw.LN_FWD_ARGS,
+                  x.device, *ptrs, vec, lb, EPS, rw.threads_for(K, vec),
+                  source=lib)
     return out
 
 

@@ -76,7 +76,7 @@ def test_plan_is_the_sources():
                                          (4096, 2)])
 def test_rows_cover_every_row_once(S, K, itemsize):
     plan = tln.ln_bwd_plan(S, K, itemsize)
-    slots = tln.ln_bwd_slot_rows(plan, S)
+    slots = tln.slot_rows(plan, S)
     assert len(slots) == plan["slots"] == 2 * plan["grid"] == 2 * plan["nb"]
     assert plan["grid"] <= (2 if K <= 2048 else 1) * tln.SM_COUNT
     assert sorted(r for rows in slots for r in rows) == list(range(S))
@@ -168,7 +168,7 @@ def ln_bwd_mirror(x, g, dy, out_dt, plan):
 
     # per-CTA partial rows of dgamma and dbeta
     if plan["route"] == "rows":
-        slots = tln.ln_bwd_slot_rows(plan, S)
+        slots = tln.slot_rows(plan, S)
         acc_g = np.zeros((len(slots), K), F32)
         acc_b = np.zeros((len(slots), K), F32)
         for s, rows in enumerate(slots):
