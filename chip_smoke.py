@@ -17,10 +17,12 @@ Phases; any failure raises and the script exits non-zero:
    and timed. Paged attention
    runs over shuffled pools full of NaN wherever no row owns a position;
    the fused norm->QKV->RoPE and norm->matmul kernels run on layer 0 of
-   path (d)'s params, beside the eager unfused sequence and the bare
-   ``torch.matmul``. The split-KV decode kernel's own checks
-   (``check_decode_split``): lengths on both sides of its split edges with
-   NaN past them (and their lse), a window over e4m3 pools of 16, every
+   path (d)'s params at 1-17 rows, each call one launch and twice bit for
+   bit, beside the eager unfused sequence and the bare ``torch.matmul``
+   (at 8 rows also on the device alone, in turn). The split-KV decode
+   kernel's own checks (``check_decode_split``): lengths on both sides of
+   its split edges with NaN past them (and their lse), a window over e4m3
+   pools of 16, every
    row launched alone against its row in the batch, two launches back to
    back and a CUDA-graph capture replayed, each bit for bit, and path
    (t)'s cp-decode shape (a group of 8, lengths to 32768) timed beside
@@ -147,8 +149,14 @@ Phases; any failure raises and the script exits non-zero:
           their ``make_args`` inputs against their registry oracles at
           their registry tolerances; then the full-width model's shapes:
           ``rms_norm`` with layer 0's attn_norm in bf16 at training's 16384
-          rows and a decode step's 8, every rms-norm rung at 16384 rows in
-          its dtype and at (4096, 2050) (a scalar tail, misaligned rows);
+          rows and a decode step's 8 and with a random weight in bf16, f32
+          and f16 at 16384 rows (its rows route twice, bit for bit, and in
+          turn with the block route and F.rms_norm, on the device alone
+          too), the rows route at K 4096, every rms-norm rung at 16384 rows
+          in its dtype (the rows route) and at (4096, 2050) (a scalar tail,
+          misaligned rows: the block route, counted on ``rms_norm_block``),
+          the block route timed at (4096, 2050) and on rows one element off
+          a 16-byte boundary;
           ``layer_norm`` (its rows route twice, bit for bit, and in turn
           with the block route and F.layer_norm), its backward (the rows
           route twice, bit for bit, and in turn with the block route) and
@@ -505,8 +513,9 @@ PATH_KERNELS.update({
 # merge (the flash forward with its lse, once per split).
 PATH_KERNELS.update({
     "k1": ("rms_norm", "layer_norm", "softmax", "merge_attn_states"),
-    "k2": ("rms_norm", "layer_norm", "layer_norm_block", "layer_norm_bwd",
-           "layer_norm_bwd_block", "softmax", "softmax_stream"),
+    "k2": ("rms_norm", "rms_norm_block", "layer_norm", "layer_norm_block",
+           "layer_norm_bwd", "layer_norm_bwd_block", "softmax",
+           "softmax_stream"),
     "k3": ("flash_attention_lse", "merge_attn_states")})
 # Path (l), the op corpus's transpose, embedding gathers, RoPE and resident
 # matmul chain, in three parts: the registry sweep of the four families, the
@@ -567,8 +576,9 @@ GEMM_KERNELS = PATH_KERNELS["j3"]
 # The row ops' kernels: no serving, training or GEMM path launches them (the
 # model leaves its norms and softmax to eager PyTorch, as the JAX model left
 # them to XLA).
-ROW_KERNELS = PATH_KERNELS["k1"] + ("layer_norm_block", "layer_norm_bwd",
-                                     "layer_norm_bwd_block", "softmax_stream")
+ROW_KERNELS = PATH_KERNELS["k1"] + ("rms_norm_block", "layer_norm_block",
+                                     "layer_norm_bwd", "layer_norm_bwd_block",
+                                     "softmax_stream")
 # The op corpus's kernels of path (l): no other path launches them (the
 # model's embedding is an indexing op and its RoPE the half rotation, as the
 # JAX model's are; nothing calls the resident chain).
@@ -1352,14 +1362,38 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
                 wrong_scale)
 
 
+def alone_in_turn(fns, flush, rounds=3):
+    """{name: median over ``rounds`` of each function's device time alone
+    (``device_alone_ms``)}, the functions taken in turn within each round;
+    None where no profile of it was whole. Launches uncounted."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t = device_alone_ms(fn, flush)
+            if t is not None:
+                times[name].append(t)
+    return {name: float(np.median(t)) if t else None
+            for name, t in times.items()}
+
+
+# The fused block's row counts: the decode batch (B = 8, timed first: the
+# kernels line's row), one row, half a tile, two tiles and a row past them;
+# the seed of the inputs past the first three cases
+FUSED_ROWS = (8, 1, 4, 16, 17)
+FUSED_SEED = 25
+
+
 def check_fused(rec, flush, layer, cfg):
     """The fused norm->QKV->RoPE kernel on ``layer``'s dense ``wqkv`` and
-    ``attn_norm`` (B = 8 with positions that differ per row, one of them 0,
-    up to 2047; B = 1; and B = 8 with a random norm weight and the (1 + w)
-    offset), and the fused norm->matmul kernel on its ``w_gate_up`` and
-    ``mlp_norm``. No single PyTorch call computes either: beside each are
+    ``attn_norm`` at FUSED_ROWS rows (positions that differ per row, one of
+    them 0, up to 2047) and at B = 8 with a random norm weight and the
+    (1 + w) offset, and the fused norm->matmul kernel on its ``w_gate_up``
+    and ``mlp_norm`` at B = 8, 1 and 17: each call one launch with nothing
+    allocated past its output, twice bit for bit (``one_call``), with the
+    plan it ran. No single PyTorch call computes either: beside each are
     the eager unfused sequence the model would run and the bare
-    ``torch.matmul`` on the same (B, D) x (D, X)."""
+    ``torch.matmul`` on the same (B, D) x (D, X); at B = 8 the kernel and
+    ``torch.matmul`` alone are also timed on the device alone, in turn."""
     from leetcuda_tpu_torch.gemm import fused_decode as fd
     from leetcuda_tpu_torch.models import llama as tl
 
@@ -1367,55 +1401,85 @@ def check_fused(rec, flush, layer, cfg):
     D, X = layer["wqkv"].shape
     heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                  head_dim=cfg.head_dim)
-    pos8 = torch.tensor([0, 5, 100, 517, 1024, 1500, 2000, 2047],
-                        dtype=torch.int32, device=dev)
+    pos17 = torch.tensor([0, 5, 100, 517, 1024, 1500, 2000, 2047, 3, 64,
+                          255, 700, 1023, 1300, 1777, 1999, 42],
+                         dtype=torch.int32, device=dev)
     rand_nw = rec.randn(D, scale=0.2)
-    cases = (("B=8", pos8, layer["attn_norm"], False),
-             ("B=1", pos8[-1:], layer["attn_norm"], False),
-             ("B=8 random norm weight, offset", pos8, rand_nw, True))
-    for label, pos, nw, offset in cases:
+    # the cases past the first three draw from a generator of their own, so
+    # that the checks after this one keep their inputs
+    extra = Recorder(dev)
+    extra.rng = np.random.default_rng(FUSED_SEED)
+    cases = [(f"B={B}", pos17[:B], layer["attn_norm"], False)
+             for B in FUSED_ROWS]
+    cases.insert(2, ("B=8 random norm weight, offset", pos17[:8], rand_nw,
+                     True))
+    for i, (label, pos, nw, offset) in enumerate(cases):
         B = pos.shape[0]
-        x = rec.randn(B, D)
+        if B == 1:
+            pos = pos17[7:8]
+        x = (rec if i < 3 else extra).randn(B, D)
         kw = dict(eps=cfg.norm_eps, theta=cfg.rope_theta, rms_offset=offset,
                   **heads)
         ocfg = dataclasses.replace(cfg, rms_offset=offset)
         olayer = {"attn_norm": nw, "wqkv": layer["wqkv"]}
         args = (x, nw, layer["wqkv"], pos)
         check = f"fused_norm_qkv_rope/{label} D={D} X={X}"
+
+        def call():
+            return fd.fused_norm_qkv_rope(*args, **kw)
+
         rec.record(check, "fused_norm_qkv_rope",
                    "leetcuda_tpu_torch/csrc/fused_decode.cu",
-                   "leetcuda_tpu/gemm/fused_decode.py:130",
-                   fd.fused_norm_qkv_rope(*args, **kw),
+                   "leetcuda_tpu/gemm/fused_decode.py:130", call(),
                    fd.fused_norm_qkv_rope_plain(*args, **kw),
-                   time_ms(lambda: fd.fused_norm_qkv_rope(*args, **kw),
-                           flush),
+                   time_ms(call, flush),
                    time_ms(lambda: fd.fused_norm_qkv_rope_plain(*args, **kw),
                            flush, iters=5),
                    None, 2.0 * B * D * X,
                    2.0 * (B * D + D + D * X + B * X) + 4 * B)
-        rec.rows[check].update(
-            eager_unfused_ms=time_ms(lambda: tl._attn_in(
-                olayer, x[:, None], pos[:, None], ocfg, 0), flush),
-            matmul_ms=time_ms(lambda: torch.matmul(x, layer["wqkv"]), flush))
+        row = rec.rows[check]
+        row.update(one_call(check, call, "fused_norm_qkv_rope"),
+                   plan=fd.device_plan(B, D, X, True, x.device),
+                   eager_unfused_ms=time_ms(lambda: tl._attn_in(
+                       olayer, x[:, None], pos[:, None], ocfg, 0), flush),
+                   matmul_ms=time_ms(lambda: torch.matmul(x, layer["wqkv"]),
+                                     flush))
+        if label == "B=8":
+            alone = alone_in_turn({
+                "kernel": call,
+                "matmul": lambda: torch.matmul(x, layer["wqkv"])}, flush)
+            row.update(device_alone_ms=alone["kernel"],
+                       matmul_device_alone_ms=alone["matmul"])
 
     w, nw = layer["w_gate_up"], layer["mlp_norm"]
     D, X = w.shape
-    x = rec.randn(8, D)
-    check = f"fused_norm_matmul/B=8 D={D} X={X}"
-    rec.record(check, "fused_norm_matmul",
-               "leetcuda_tpu_torch/csrc/fused_decode.cu",
-               "leetcuda_tpu/gemm/fused_decode.py:176",
-               fd.fused_norm_matmul(x, nw, w, eps=cfg.norm_eps),
-               fd.fused_norm_matmul_plain(x, nw, w, eps=cfg.norm_eps),
-               time_ms(lambda: fd.fused_norm_matmul(x, nw, w,
-                                                    eps=cfg.norm_eps), flush),
-               time_ms(lambda: fd.fused_norm_matmul_plain(
-                   x, nw, w, eps=cfg.norm_eps), flush, iters=5),
-               None, 2.0 * 8 * D * X, 2.0 * (8 * D + D + D * X + 8 * X))
-    rec.rows[check].update(
-        eager_unfused_ms=time_ms(
-            lambda: tl._rms_norm(x, nw, cfg.norm_eps) @ w, flush),
-        matmul_ms=time_ms(lambda: torch.matmul(x, w), flush))
+    for B in (8, 1, 17):
+        x = (rec if B == 8 else extra).randn(B, D)
+        check = f"fused_norm_matmul/B={B} D={D} X={X}"
+
+        def call():
+            return fd.fused_norm_matmul(x, nw, w, eps=cfg.norm_eps)
+
+        rec.record(check, "fused_norm_matmul",
+                   "leetcuda_tpu_torch/csrc/fused_decode.cu",
+                   "leetcuda_tpu/gemm/fused_decode.py:176", call(),
+                   fd.fused_norm_matmul_plain(x, nw, w, eps=cfg.norm_eps),
+                   time_ms(call, flush),
+                   time_ms(lambda: fd.fused_norm_matmul_plain(
+                       x, nw, w, eps=cfg.norm_eps), flush, iters=5),
+                   None, 2.0 * B * D * X, 2.0 * (B * D + D + D * X + B * X))
+        row = rec.rows[check]
+        row.update(one_call(check, call, "fused_norm_matmul"),
+                   plan=fd.device_plan(B, D, X, False, x.device),
+                   eager_unfused_ms=time_ms(
+                       lambda: tl._rms_norm(x, nw, cfg.norm_eps) @ w, flush),
+                   matmul_ms=time_ms(lambda: torch.matmul(x, w), flush))
+        if B == 8:
+            alone = alone_in_turn({"kernel": call,
+                                   "matmul": lambda: torch.matmul(x, w)},
+                                  flush)
+            row.update(device_alone_ms=alone["kernel"],
+                       matmul_device_alone_ms=alone["matmul"])
 
 
 def rel_l2(got, want):
@@ -3192,6 +3256,8 @@ def print_gemm(rows, res):
 ROW_SRC = {
     "rms_norm": ("leetcuda_tpu_torch/csrc/row_ops.cu",
                  "leetcuda_tpu/ops/rms_norm.py:43"),
+    "rms_norm_block": ("leetcuda_tpu_torch/csrc/row_ops.cu",
+                       "leetcuda_tpu/ops/rms_norm.py:43"),
     "layer_norm": ("leetcuda_tpu_torch/csrc/row_ops.cu",
                    "leetcuda_tpu/ops/layer_norm.py:50"),
     "layer_norm_block": ("leetcuda_tpu_torch/csrc/row_ops.cu",
@@ -3213,6 +3279,7 @@ ROW_FAMILIES = ("softmax", "layer-norm", "rms-norm", "attention-utils")
 # and start most rows off a 16-byte boundary (a scalar head).
 ROW_DIM, TAIL_DIM, TAIL_ROWS = 2048, 2050, 4096
 VOCAB_ROWS = 2048  # softmax over 2048 rows of 32000 logits
+RMS_SEED = 21  # the rms-norm cases' own generator
 # a row past what 16 CTAs of the cluster route hold (128K f32): the stream
 # route
 STREAM_ROW = (4, 140000)
@@ -3274,20 +3341,92 @@ class RowRun:
 
 def _rms_cases(run, layer):
     """rms_norm on layer 0's attn_norm in bf16 at training's and a decode
-    step's rows, every rung at training's rows in its dtype, and every rung
-    at (4096, 2050)."""
+    step's rows, then bf16, f32 and f16 with a random weight at training's
+    rows: each on its rows route (counted on ``rms_norm``), twice, bit for
+    bit, and in turn with the block route (the earlier kernel) and
+    F.rms_norm, device alone beside F.rms_norm's and the block route's; the
+    rows route's two vectors a thread at K 4096 in bf16 and f32 (twice, bit
+    for bit); every rung at training's rows in its dtype (the rows route)
+    and at (4096, 2050) (the block route, counted on ``rms_norm_block``);
+    the block route timed at (4096, 2050) in bf16 and on rows one element
+    off a 16-byte boundary."""
     import torch.nn.functional as F
     from leetcuda_tpu_torch.core.registry import OPS
     from leetcuda_tpu_torch.ops import rms_norm as rms
 
+    def route(S, K, x, want):
+        plan = rms.rms_plan(S, K, x.element_size(),
+                            x.data_ptr() % 16 == 0)
+        if plan["route"] != want:
+            raise AssertionError(f"rms_norm ({S}, {K}): planned {plan}")
+        return plan
+
+    def twice(check, fn):
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{check}: two runs differ")
+        return True
+
+    # the cases with a random weight, at K 4096 and on misaligned rows draw
+    # from a generator of their own, so that the cases after these keep
+    # their inputs
+    gen = torch.Generator(device=run.gen.device).manual_seed(RMS_SEED)
+
+    def fresh(*shape, dtype=torch.float32, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale
+                + offset).to(dtype)
+
     K, w = ROW_DIM, layer["attn_norm"]
-    for S in (TRAIN_ROWS, 8):  # the kernels line's row first
-        x = run.rand(S, K, dtype=torch.bfloat16)
-        run.case(f"rms_norm/bf16 ({S}, {K}) attn_norm", "rms_norm",
-                 lambda: rms.rms_norm(x, w), lambda: rms.rms_norm_plain(x, w),
-                 lambda: F.rms_norm(x, (K,), w, eps=rms.EPS),
-                 4.0 * x.numel() + 2 * K, (x, w), flops=4.0 * x.numel(),
-                 S=S, K=K, dtype="bf16")
+    cases = [(S, torch.bfloat16, "bf16", "attn_norm") for S in
+             (TRAIN_ROWS, 8)]  # the kernels line's row first
+    cases += [(TRAIN_ROWS, dt, tag, "random weight") for dt, tag in (
+        (torch.bfloat16, "bf16"), (torch.float32, "f32"),
+        (torch.float16, "f16"))]
+    for S, dt, tag, what in cases:
+        if what == "attn_norm":
+            x, wt = run.rand(S, K, dtype=dt), w
+        else:
+            x = fresh(S, K, dtype=dt)
+            wt = fresh(K, dtype=dt, scale=0.3, offset=1.0)
+        plan = route(S, K, x, "rows")
+        check = f"rms_norm/{tag} ({S}, {K}) {what}"
+        row = run.case(check, "rms_norm", lambda: rms.rms_norm(x, wt),
+                       lambda: rms.rms_norm_plain(x, wt),
+                       lambda: F.rms_norm(x, (K,), wt, eps=rms.EPS),
+                       2.0 * x.numel() * x.element_size()
+                       + K * wt.element_size(), (x, wt),
+                       tol=F32_TOL if dt == torch.float32 else KERNEL_TOL,
+                       flops=4.0 * x.numel(), S=S, K=K, dtype=tag,
+                       plan=plan)
+        row["bitwise_repeat"] = twice(check, lambda: rms.rms_norm(x, wt))
+
+        def block():
+            return rms._run(x, wt, torch.empty_like(x), 8, True,
+                            {"route": "block"})
+
+        with uncounted():
+            row["block_route_max_abs_err"] = hold(
+                block(), rms.rms_norm_plain(x, wt),
+                F32_TOL if dt == torch.float32 else KERNEL_TOL)
+        row["routes_ms"] = interleaved_ms({
+            "rows": lambda: rms.rms_norm(x, wt), "block": block,
+            "F.rms_norm": lambda: F.rms_norm(x, (K,), wt, eps=rms.EPS)},
+            run.flush)
+        row["device_alone_ms"] = device_alone_ms(
+            lambda: rms.rms_norm(x, wt), run.flush)
+        row["library_device_alone_ms"] = device_alone_ms(
+            lambda: F.rms_norm(x, (K,), wt, eps=rms.EPS), run.flush)
+        row["block_device_alone_ms"] = device_alone_ms(block, run.flush)
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = fresh(TAIL_ROWS, 4096, dtype=dt)
+        wt = fresh(4096, dtype=dt, scale=0.3, offset=1.0)
+        plan = route(TAIL_ROWS, 4096, x, "rows")
+        check = (f"rms_norm/{tag} ({TAIL_ROWS}, 4096), {plan['nv']} vectors "
+                 "a thread")
+        run.case(check, "rms_norm", lambda: rms.rms_norm(x, wt),
+                 lambda: rms.rms_norm_plain(x, wt), None, 0.0, (x, wt),
+                 tol=F32_TOL if dt == torch.float32 else KERNEL_TOL,
+                 timed=False)
+        twice(check, lambda: rms.rms_norm(x, wt))
     for S, k_ in ((TRAIN_ROWS, K), (TAIL_ROWS, TAIL_DIM)):
         for name, spec in OPS.items():
             if spec.family != "rms-norm":
@@ -3295,20 +3434,39 @@ def _rms_cases(run, layer):
             dt = half_or_f32(name)
             x, wr = run.rand(S, k_, dtype=dt), run.rand(k_, dtype=dt,
                                                         scale=0.5)
-            run.case(f"rms_norm/{name} ({S}, {k_})", "rms_norm",
+            rows = k_ == K
+            route(S, k_, x, "rows" if rows else "block")
+            check = f"rms_norm/{name} ({S}, {k_})"
+            run.case(check, "rms_norm" if rows else "rms_norm_block",
                      lambda: spec.fn(x, wr),
                      lambda: rms.rms_norm_plain(x, wr),
                      lambda: F.rms_norm(x, (k_,), wr, eps=rms.EPS),
                      2.0 * x.numel() * x.element_size()
                      + k_ * wr.element_size(), (x, wr),
                      tol=dict(atol=spec.atol, rtol=spec.rtol),
-                     timed=k_ == K, flops=4.0 * x.numel(), rung=name, S=S,
+                     timed=rows, flops=4.0 * x.numel(), rung=name, S=S,
                      K=k_)
+            twice(check, lambda: spec.fn(x, wr))
     x = run.rand(TAIL_ROWS, TAIL_DIM, dtype=torch.bfloat16)
     wt = run.rand(TAIL_DIM, dtype=torch.bfloat16, scale=0.3, offset=1.0)
-    run.case(f"rms_norm/bf16 ({TAIL_ROWS}, {TAIL_DIM})", "rms_norm",
-             lambda: rms.rms_norm(x, wt), lambda: rms.rms_norm_plain(x, wt),
-             None, 0.0, (x, wt), timed=False)
+    plan = route(TAIL_ROWS, TAIL_DIM, x, "block")
+    check = f"rms_norm/bf16 ({TAIL_ROWS}, {TAIL_DIM}), the block route"
+    row = run.case(check, "rms_norm_block", lambda: rms.rms_norm(x, wt),
+                   lambda: rms.rms_norm_plain(x, wt),
+                   lambda: F.rms_norm(x, (TAIL_DIM,), wt, eps=rms.EPS),
+                   4.0 * x.numel() + 2 * TAIL_DIM, (x, wt),
+                   flops=4.0 * x.numel(), S=TAIL_ROWS, K=TAIL_DIM,
+                   dtype="bf16", plan=plan)
+    row["bitwise_repeat"] = twice(check, lambda: rms.rms_norm(x, wt))
+    buf = fresh(TAIL_ROWS * ROW_DIM + 1, dtype=torch.bfloat16)
+    xm = buf[1:].view(TAIL_ROWS, ROW_DIM)
+    route(TAIL_ROWS, ROW_DIM, xm, "block")
+    check = (f"rms_norm/bf16 ({TAIL_ROWS}, {ROW_DIM}) one element off 16 "
+             "bytes, the block route")
+    run.case(check, "rms_norm_block", lambda: rms.rms_norm(xm, w),
+             lambda: rms.rms_norm_plain(xm, w), None, 0.0, (xm, w),
+             timed=False)
+    twice(check, lambda: rms.rms_norm(xm, w))
 
 
 def _layer_norm_cases(run):
@@ -3735,12 +3893,14 @@ def print_row_ops(rows, res):
         if "plan" in r and r["name"] == "softmax":
             rep += (f"; clusters of {r['plan']['cluster']}, "
                     f"{r['plan']['clusters']} of them")
-        if "plan" in r and r["name"] == "layer_norm":
+        if "plan" in r and r["name"] in ("layer_norm", "rms_norm"):
             rep += (f"; groups of {r['plan']['group']}, {r['plan']['nv']} "
                     f"vectors a thread, grid {r['plan']['grid']}")
         if "device_alone_ms" in r:
             rep += (f"; device alone {r['device_alone_ms']} ms, library "
                     f"{r['library_device_alone_ms']} ms")
+        if "block_device_alone_ms" in r:
+            rep += f", block route {r['block_device_alone_ms']} ms"
         print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
               f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
               f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
@@ -5724,6 +5884,13 @@ def print_gemma(rows, res):
     for r in rows.values():
         lib = (f"library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "library none")
+        if "matmul_ms" in r:
+            lib += (f" [eager unfused {r['eager_unfused_ms']:.4f} ms, "
+                    f"torch.matmul alone {r['matmul_ms']:.4f} ms; cluster "
+                    f"{r['plan']['cluster']}, grid {r['plan']['grid']}]")
+        if r.get("matmul_device_alone_ms") is not None:
+            lib += (f" [device alone {r['device_alone_ms']} ms, "
+                    f"torch.matmul {r['matmul_device_alone_ms']} ms]")
         print(f"kernel {r['check']}{route_tag(r)}: max_abs_err "
               f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain "
               f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
@@ -7906,6 +8073,8 @@ def main() -> int:
                               ("gmm_ptxas", "gmm", "gmm_sm90"),
                               ("ln_fwd_ptxas", "row_ops", "ln_fwd_rows"),
                               ("ln_bwd_ptxas", "row_ops", "ln_bwd_rows"),
+                              ("fused_ptxas", "fused_decode",
+                               "fused_norm_matmul_kernel"),
                               ("chunk_split_ptxas", "chunk_attn",
                                "chunk_split"),
                               ("chunk_tma_ptxas", "chunk_tma", "chunk_tma")):
@@ -8007,6 +8176,12 @@ def main() -> int:
                if r["library_ms"] is not None else
                f"library none [eager unfused {r['eager_unfused_ms']:.4f} ms, "
                f"torch.matmul alone {r['matmul_ms']:.4f} ms]")
+        if "plan" in r and r["name"].startswith("fused_norm"):
+            lib += (f" [cluster {r['plan']['cluster']}, grid "
+                    f"{r['plan']['grid']}, {r['plan']['kc']} rows a rank]")
+        if r.get("matmul_device_alone_ms") is not None:
+            lib += (f" [device alone {r['device_alone_ms']} ms, "
+                    f"torch.matmul {r['matmul_device_alone_ms']} ms]")
         if "rel_l2" in r:  # the backward: SDPA's backend and the whole
             errs = ", ".join(f"{n} {e:.3g}" for n, e in r["rel_l2"].items())
             lib += (f" ({r['library_kernel']}); relative L2 {errs}; whole "

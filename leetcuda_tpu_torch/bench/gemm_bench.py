@@ -17,6 +17,8 @@ same dtype.
     python -m leetcuda_tpu_torch.bench.gemm_bench --gemv --repeats 5
     python -m leetcuda_tpu_torch.bench.gemm_bench --ln-fwd --repeats 5
     python -m leetcuda_tpu_torch.bench.gemm_bench --map --repeats 5
+    python -m leetcuda_tpu_torch.bench.gemm_bench --fused --repeats 3
+    python -m leetcuda_tpu_torch.bench.gemm_bench --rms --repeats 3
 
 ``--w4`` is the A/B of the w4a16 kernel (``csrc/w4_matmul.cu``): the
 package's build and variant builds of its macros (prefill CTAs of 64 rows,
@@ -109,6 +111,31 @@ taken in turn at swish and gelu over (16384, 5632) and the add over
 bit, the activations at the registry's atol 2e-2 / rtol 1e-2); then the
 SASS of each build's bf16 ``x8_pack`` kernels (``cuobjdump -sass``:
 instructions, SFU operations, 16-byte loads and stores).
+
+``--fused`` is the A/B of the fused decode entry block
+(``csrc/fused_decode.cu``, the cluster split-K): the package's build at
+the plan's cluster size and at 1, 2, 4 and 8 ranks a panel, variant builds
+of panels of 128 columns (LC_FUSED_BOX 64: whole heads at head dim 128),
+3 stages of 128 rows, 4 of 64 and 8 of 32 (LC_FUSED_STAGES,
+LC_FUSED_ROWS) and four probes whose results are wrong (LC_FUSED_PROBE 1:
+no pass over x; 2: no products; 3: no exchange between the ranks; 4: no
+feed, no TMA and no waits), each at its own plan and printed with its
+ptxas registers and spills, and ``torch.matmul`` alone on the same (B, D)
+x (D, X), taken in turn at ModelConfig's ``wqkv`` (B = 8, D 2048, 16 / 4
+heads of 128), Gemma-2-9B's layer 0 (D 3584, 16 / 8 heads of 256) and the
+norm -> matmul form at ``w_gate_up`` (2048 x 11264), each held against its
+plain version (atol / rtol 1e-2) but the probes; each candidate reports its
+CUDA-event time and its device time alone (torch.profiler's kernel times,
+the flush's fill left out).
+
+``--rms`` is the A/B of the rms-norm (``csrc/row_ops.cu``): its rows
+route at the plan's group (8 warps a row at K = 2048) and at 4 warps (2
+vectors a thread), at 2 and 3 CTAs an SM as well as the plan's 4, variant
+builds that raise the rows route's cap to 6 and 8 CTAs an SM
+(LC_LN_MAX_CTAS), each printed with its ptxas registers and spills, the
+block route (the earlier kernel) and ``F.rms_norm``, taken in turn at
+(16384, 2048) and (16384, 4096) in bf16, f32 and f16, each held against
+``rms_norm_plain`` (atol / rtol 1e-2; f32 1e-3).
 
 ``--resident`` is the A/B of the resident chain's build
 (``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
@@ -1169,6 +1196,223 @@ def bench_gemv(dev, iters, rounds, flush):
     return rows
 
 
+def _device_alone(fn, iters, flush):
+    """torch.profiler's kernel time of ``fn`` a call (the flush's fill left
+    out), or None where a profile came back without whole counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+
+    def t(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kernels = [e for e in prof.key_averages()
+               if "FillFunctor" not in e.key and t(e)]
+    if not kernels or any(e.count % iters for e in kernels):
+        return None
+    return sum(t(e) for e in kernels) / iters / 1e3
+
+
+def _report_turns(rows, label, fns, want, dev, iters, rounds, flush, bound,
+                  probes=(), tol=1e-2, **extra):
+    """Hold every candidate but ``probes`` against ``want``, time all in
+    turn (events, and on a GPU the device alone), print and append rows."""
+    errs = {}
+    for n, fn in fns.items():
+        got = fn()
+        errs[n] = float((got.float() - want.float()).abs().max())
+        if n not in probes:
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+    times = _in_turn(fns, dev, iters, rounds, flush)
+    alone = {n: [] for n in fns}
+    if dev.type == "cuda":
+        for _ in range(rounds):
+            for n, fn in fns.items():
+                alone[n].append(_device_alone(fn, iters, flush))
+    print(f"--- {label} (bound {bound:.4f} ms) ---")
+    for n in fns:
+        ms = float(np.median(times[n]))
+        dv = [a for a in alone[n] if a is not None]
+        da = float(np.median(dv)) if dv else None
+        rows.append({"case": label, "variant": n, "ms": ms,
+                     "rounds": times[n], "device_alone_ms": da,
+                     "device_alone_rounds": alone[n], "bound_ms": bound,
+                     "max_abs_err": errs[n], "probe": n in probes, **extra})
+        dtxt = f", device alone {da:.4f} ms" if da is not None else ""
+        print(f"  {n}: {ms:.4f} ms{dtxt} ({bound / (da or ms):.3f} of the "
+              f"bound); max abs {errs[n]:.3g}", flush=True)
+
+
+# the fused block's variant builds and probes
+FUSED_VARIANTS = [{"LC_FUSED_BOX": 64}, {"LC_FUSED_STAGES": 3},
+                  {"LC_FUSED_ROWS": 64, "LC_FUSED_STAGES": 4},
+                  {"LC_FUSED_ROWS": 32, "LC_FUSED_STAGES": 8},
+                  {"LC_FUSED_PROBE": 1}, {"LC_FUSED_PROBE": 2},
+                  {"LC_FUSED_PROBE": 3}, {"LC_FUSED_PROBE": 4}]
+# (label, B, D, H, Hkv, head dim or None for the norm -> matmul form, X)
+FUSED_CASES = (("wqkv, ModelConfig", 8, 2048, 16, 4, 128, None),
+               ("wqkv, Gemma-2-9B layer 0", 8, 3584, 16, 8, 256, None),
+               ("w_gate_up, norm -> matmul", 8, 2048, 0, 0, None, 11264))
+
+
+def _fused_label(v):
+    from leetcuda_tpu_torch.gemm import fused_decode as fd
+
+    if "LC_FUSED_PROBE" in v:
+        return {1: "probe: no pass over x", 2: "probe: no products",
+                3: "probe: no exchange",
+                4: "probe: no feed"}[v["LC_FUSED_PROBE"]]
+    if "LC_FUSED_BOX" in v:
+        return f"panels of {2 * v['LC_FUSED_BOX']} columns"
+    label = (f"{v.get('LC_FUSED_STAGES', fd.STAGES)} stages of "
+             f"{v.get('LC_FUSED_ROWS', fd.STAGE_ROWS)} rows")
+    return label
+
+
+def bench_fused(dev, iters, rounds, flush):
+    """The fused block's cluster sizes, variant builds and probes and
+    torch.matmul alone in turn at FUSED_CASES (on the CPU the plain
+    versions at a cut size). Returns the rows."""
+    from leetcuda_tpu_torch.gemm import fused_decode as fd
+
+    cuda = dev.type == "cuda"
+    builds = _builds("fused_decode", FUSED_VARIANTS, _fused_label) \
+        if cuda else []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    rows = []
+    for label, B, D, H, Hkv, Dh, X in FUSED_CASES:
+        if not cuda:
+            D, H, Hkv = D // 16, max(1, H // 4), max(1, Hkv // 4)
+            X = X // 16 if X else None
+        rope = Dh is not None
+        X = (H + 2 * Hkv) * Dh if rope else X
+        w = (torch.randn((D, X), generator=gen, device=dev)
+             * D ** -0.5).to(bf)
+        x = torch.randn((B, D), generator=gen, device=dev).to(bf)
+        nw = (torch.randn(D, generator=gen, device=dev) * 0.2 + 1).to(bf)
+        pos = torch.arange(B, dtype=torch.int32, device=dev) * 257
+        kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=Dh)
+        if rope:
+            want = fd.fused_norm_qkv_rope_plain(x, nw, w, pos, **kw)
+        else:
+            want = fd.fused_norm_matmul_plain(x, nw, w)
+
+        def launch(plan, lib="fused_decode"):
+            if rope:
+                return lambda: fd._launch_qkv(x, nw, w, pos, H, Hkv, Dh,
+                                              1e-5, 1e4, False, plan, lib)
+            return lambda: fd._launch_nm(x, nw, w, 1e-5, False, plan, lib)
+
+        fns, probes = {}, set()
+        if cuda:
+            plan = fd.device_plan(B, D, X, rope, dev)
+            fns[f"cluster {plan['cluster']} (plan: grid {plan['grid']}, "
+                f"wave {plan['wave']})"] = launch(plan)
+            for C in (1, 2, 4, 8):
+                if C == plan["cluster"]:
+                    continue
+                try:
+                    p = fd.fused_plan(B, D, X, cluster=C)
+                except ValueError:
+                    continue
+                fns[f"cluster {C} (grid {p['grid']})"] = launch(p)
+            for v, lib in builds:
+                box = fd.build_info(lib)[0]
+                if rope and Dh % (2 * box):
+                    continue
+                p = fd.device_plan(B, D, X, rope, dev, lib)
+                name = (f"{_fused_label(v)}, cluster {p['cluster']} (grid "
+                        f"{p['grid']}, wave {p['wave']})")
+                fns[name] = launch(p, lib)
+                if "LC_FUSED_PROBE" in v:
+                    probes.add(name)
+            fns["torch.matmul alone"] = lambda: torch.matmul(x, w)
+            probes.add("torch.matmul alone")
+        elif rope:
+            fns["plain"] = lambda: fd.fused_norm_qkv_rope_plain(
+                x, nw, w, pos, **kw)
+        else:
+            fns["plain"] = lambda: fd.fused_norm_matmul_plain(x, nw, w)
+        nbytes = 2.0 * (B * D + D + D * X + B * X) + (4 * B if rope else 0)
+        _report_turns(rows, label, fns, want, dev, iters, rounds, flush,
+                      nbytes / 3.35e12 * 1e3, probes, B=B, D=D, X=X)
+    return rows
+
+
+RMS_VARIANTS = [{"LC_LN_MAX_CTAS": 6}, {"LC_LN_MAX_CTAS": 8}]
+
+
+def bench_rms(dev, iters, rounds, flush, S=16384):
+    """The rms-norm's rows route at each group and grid, its variant
+    builds, the block route and F.rms_norm in turn at (S, K) for each K of
+    LN_FWD_K in bf16, f32 and f16 (on the CPU the plain version at a cut
+    size). Returns the rows."""
+    import torch.nn.functional as F
+
+    from leetcuda_tpu_torch.ops import layer_norm as ln
+    from leetcuda_tpu_torch.ops import rms_norm as rms
+
+    cuda = dev.type == "cuda"
+    builds = _builds("row_ops", RMS_VARIANTS,
+                     lambda v: f"up to {v['LC_LN_MAX_CTAS']} CTAs an SM") \
+        if cuda else []
+    shapes = [(S, K) for K in LN_FWD_K] if cuda else [(64, 256)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for (S, K), dt in itertools.product(
+            shapes, (torch.bfloat16, torch.float32, torch.float16)):
+        x = torch.randn((S, K), generator=gen, device=dev).to(dt)
+        w = (torch.randn(K, generator=gen, device=dev) * 0.3 + 1).to(dt)
+        want = rms.rms_norm_plain(x, w)
+        isz = x.element_size()
+        plan = rms.rms_plan(S, K, isz)
+        fns = {}
+        if cuda:
+            def rows_route(p, lib="row_ops"):
+                return lambda: rms._run(x, w, torch.empty_like(x), 8, True,
+                                        p, lib)
+
+            def ctas(nv, cap=ln.FWD_MAX_CTAS):
+                return ln.fwd_ctas(nv, isz, max_ctas=cap, weights=1)
+
+            per_sm = ctas(plan["nv"])
+            cands = [(plan["group"], n)
+                     for n in dict.fromkeys((per_sm, 2, 3)) if n <= per_sm]
+            cands += [(gr, ctas(-(-K // (8 * gr))))
+                      for gr in ln.FWD_GROUPS
+                      if gr != plan["group"] and gr * 16 >= K]
+            for gr, n in cands:
+                p = ln.ln_fwd_rows_plan(S, K, gr, n)
+                tag = " (plan)" if p == plan else ""
+                fns[f"rows, group {gr}, {p['nv']} vectors a thread, grid "
+                    f"{p['grid']}{tag}"] = rows_route(p)
+            for v, lib in builds:
+                n = ctas(plan["nv"], v["LC_LN_MAX_CTAS"])
+                p = ln.ln_fwd_rows_plan(S, K, plan["group"], n)
+                fns[f"rows, group {p['group']}, grid {p['grid']}, up to "
+                    f"{v['LC_LN_MAX_CTAS']} CTAs an SM"] = rows_route(p, lib)
+            fns["block route"] = lambda: rms._run(
+                x, w, torch.empty_like(x), 8, True, {"route": "block"})
+            fns["F.rms_norm"] = lambda: F.rms_norm(x, (K,), w, eps=rms.EPS)
+        else:
+            fns["plain"] = lambda: rms.rms_norm_plain(x, w)
+        tol = 1e-3 if dt == torch.float32 else 1e-2
+        _report_turns(rows, f"rms_norm {str(dt)[6:]} ({S}, {K}); plan "
+                      f"{plan}", fns, want, dev, iters, rounds, flush,
+                      2.0 * S * K * isz / 3.35e12 * 1e3, tol=tol,
+                      dtype=str(dt)[6:], S=S, K=K)
+    return rows
+
+
 def _write_rows(path, dev, rows):
     import json
     from pathlib import Path
@@ -1239,9 +1483,17 @@ def main(argv=None):
     ap.add_argument("--gemv", action="store_true",
                     help="the A/B of the gemv's feeds, batches, k_lanes and "
                          "cluster sizes at path (j)'s decode-row shapes")
+    ap.add_argument("--fused", action="store_true",
+                    help="the A/B of the fused decode block's cluster "
+                         "sizes, panels, stages and probes at ModelConfig's "
+                         "and Gemma-2-9B's wqkv and at w_gate_up")
+    ap.add_argument("--rms", action="store_true",
+                    help="the A/B of the rms-norm's groups, grid and routes "
+                         "at (16384, 2048) and (16384, 4096)")
     ap.add_argument("--json", help="--resident, --w4, --w8, --hgemm, --gmm, "
                                    "--ln-bwd, --ln-fwd, --map, --softmax, "
-                                   "--gemv: write the rows here")
+                                   "--gemv, --fused, --rms: write the rows "
+                                   "here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -1278,6 +1530,10 @@ def main(argv=None):
         rows = bench_softmax(dev, args.iters, args.repeats, flush)
     elif args.gemv:
         rows = bench_gemv(dev, args.iters, args.repeats, flush)
+    elif args.fused:
+        rows = bench_fused(dev, args.iters, args.repeats, flush)
+    elif args.rms:
+        rows = bench_rms(dev, args.iters, args.repeats, flush)
     elif args.w4:
         rows = bench_w4(args.w4_kn or W4_KN, args.m or W4_ROWS, dev,
                         args.iters, args.repeats, flush)

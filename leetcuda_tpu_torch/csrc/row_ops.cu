@@ -36,6 +36,11 @@
 // group's warps behind one named barrier (the mean, then the two-pass
 // variance from the registers); y goes out in 16-byte stores. "block"
 // (layer_norm_kernel) is the walk above, for every other K or alignment.
+// The rms-norm has the same two routes (ops/rms_norm.py rms_plan): "rows"
+// is ln_fwd_rows with kRms, which drops the mean and beta: one reduction a
+// row (the sum of squares), so a group of 8 warps pays one named barrier a
+// row, not two, and a thread holds only w as f32 beside its two rows;
+// "block" is rms_norm_kernel, the walk above.
 //
 // The backward of layer-norm recomputes each row's statistics from x, as the
 // TPU kernel does: dx = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd
@@ -1113,13 +1118,16 @@ constexpr int kLnCta = 256;  // threads of a CTA of the rows route
 // 1 to LC_LN_MAX_CTAS: LC_LN_THREAD_BYTES over the bytes of a thread's
 // state of a row, two rows of its NV vectors of 8 elements of x as loaded
 // (the one it reduces and the next, in flight) and its columns of gamma
-// and beta as f32. At c CTAs a thread has 1024 / c bytes of registers. So
-// 4 CTAs at one vector a thread, 3 at two of a 2-byte type, 2 at two of
-// f32: the bench's A/B (--ln-fwd, at 512, 640, 768 and 1024) found 2 CTAs
-// starving the 2-byte rows and 4 spilling, 3 spilling f32's.
-template <class T, int NV>
+// and beta as f32 (the rms-norm, kRms: w alone). At c CTAs a thread has
+// 1024 / c bytes of registers. So the layer norm takes 4 CTAs at one
+// vector a thread, 3 at two of a 2-byte type, 2 at two of f32: the bench's
+// A/B (--ln-fwd, at 512, 640, 768 and 1024) found 2 CTAs starving the
+// 2-byte rows and 4 spilling, 3 spilling f32's. The rms-norm takes 4 but
+// for f32 at two vectors (3); its A/B (--rms) found 6 and 8 slower.
+template <class T, int NV, bool kRms = false>
 constexpr int ln_fwd_ctas() {
-  constexpr int bytes = NV * 8 * (2 * static_cast<int>(sizeof(T)) + 8);
+  constexpr int bytes =
+      NV * 8 * (2 * static_cast<int>(sizeof(T)) + (kRms ? 4 : 8));
   constexpr int c = LC_LN_THREAD_BYTES / bytes;
   return c < 1 ? 1 : (c > LC_LN_MAX_CTAS ? LC_LN_MAX_CTAS : c);
 }
@@ -1170,9 +1178,14 @@ __device__ __forceinline__ float ln_group_sum(float v, float* red, int grp,
 // one. A row's mean, then the mean of squared deviations from it (two
 // passes over the registers), each a thread's elements in order, then
 // ln_group_sum; y = (x - mean) rstd g + b, rounded once and stored as
-// 16-byte words.
-template <class T, int LB, int NV>
-__global__ void __launch_bounds__(kLnCta, ln_fwd_ctas<T, NV>())
+// 16-byte words. With kRms (g is the rms-norm's w, b unused): the sum of
+// x^2 by fmaf, a thread's elements in order, then one ln_group_sum; y = x
+// rstd w with rstd = rsqrt(sum / K + eps), rounded once. Its one reduction
+// a row alternates red[0] and red[1] between the loop's two row buffers,
+// so that a row's ``red`` is written again only past the next row's
+// barrier.
+template <class T, int LB, int NV, bool kRms = false>
+__global__ void __launch_bounds__(kLnCta, ln_fwd_ctas<T, NV, kRms>())
 ln_fwd_rows(const T* __restrict__ x, const void* __restrict__ g, int gdt,
             const void* __restrict__ b, int bdt, T* __restrict__ o, int S,
             int K, int group, float eps) {
@@ -1189,7 +1202,8 @@ ln_fwd_rows(const T* __restrict__ x, const void* __restrict__ g, int gdt,
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       gv[v][e] = live[v] ? load_any(g, gdt, col[v] + e) : 0.f;
-      bv[v][e] = live[v] ? load_any(b, bdt, col[v] + e) : 0.f;
+      if constexpr (!kRms)
+        bv[v][e] = live[v] ? load_any(b, bdt, col[v] + e) : 0.f;
     }
   }
   auto load_row = [&](int r, Raw8<T>(&rx)[NV]) {
@@ -1199,33 +1213,55 @@ ln_fwd_rows(const T* __restrict__ x, const void* __restrict__ g, int gdt,
         load8_lb<T, LB>(rx[v], x + static_cast<size_t>(r) * K + col[v]);
   };
   const float fk = static_cast<float>(K);
-  auto norm_row = [&](const Raw8<T>(&cx)[NV], int r) {
-    float m = 0.f;
+  auto norm_row = [&](const Raw8<T>(&cx)[NV], int r, int buf) {
+    if constexpr (kRms) {
+      float q = 0.f;
 #pragma unroll
-    for (int v = 0; v < NV; ++v)
-      if (live[v])
+      for (int v = 0; v < NV; ++v)
+        if (live[v])
 #pragma unroll
-        for (int e = 0; e < 8; ++e) m += elem(cx[v], e);
-    m = ln_group_sum(m, red[0], grp, group, w0, nw) / fk;
-    float q = 0.f;
+          for (int e = 0; e < 8; ++e) {
+            const float xe = elem(cx[v], e);
+            q = fmaf(xe, xe, q);
+          }
+      q = ln_group_sum(q, red[buf], grp, group, w0, nw);
+      const float rstd = rsqrtf(q / fk + eps);
 #pragma unroll
-    for (int v = 0; v < NV; ++v)
-      if (live[v])
+      for (int v = 0; v < NV; ++v) {
+        if (!live[v]) continue;
+        float y[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float d = elem(cx[v], e) - m;
-          q = fmaf(d, d, q);
-        }
-    q = ln_group_sum(q, red[1], grp, group, w0, nw);
-    const float rstd = rsqrtf(q / fk + eps);
+        for (int e = 0; e < 8; ++e) y[e] = elem(cx[v], e) * rstd * gv[v][e];
+        store8<T>(o + static_cast<size_t>(r) * K + col[v], y);
+      }
+    } else {
+      float m = 0.f;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      if (!live[v]) continue;
-      float y[8];
+      for (int v = 0; v < NV; ++v)
+        if (live[v])
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        y[e] = (elem(cx[v], e) - m) * rstd * gv[v][e] + bv[v][e];
-      store8<T>(o + static_cast<size_t>(r) * K + col[v], y);
+          for (int e = 0; e < 8; ++e) m += elem(cx[v], e);
+      m = ln_group_sum(m, red[0], grp, group, w0, nw) / fk;
+      float q = 0.f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        if (live[v])
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float d = elem(cx[v], e) - m;
+            q = fmaf(d, d, q);
+          }
+      q = ln_group_sum(q, red[1], grp, group, w0, nw);
+      const float rstd = rsqrtf(q / fk + eps);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (!live[v]) continue;
+        float y[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          y[e] = (elem(cx[v], e) - m) * rstd * gv[v][e] + bv[v][e];
+        store8<T>(o + static_cast<size_t>(r) * K + col[v], y);
+      }
     }
   };
 
@@ -1237,14 +1273,14 @@ ln_fwd_rows(const T* __restrict__ x, const void* __restrict__ g, int gdt,
   if (r < S) load_row(r, ra);
   for (; r < S; r += 2 * slots) {
     if (r + slots < S) load_row(r + slots, rb);
-    norm_row(ra, r);
+    norm_row(ra, r, 0);
     if (r + slots >= S) break;
     if (r + 2 * slots < S) load_row(r + 2 * slots, ra);
-    norm_row(rb, r + slots);
+    norm_row(rb, r + slots, 1);
   }
 }
 
-template <class T, int LB>
+template <class T, int LB, bool kRms>
 int launch_ln_rows(const void* x, const void* g, int gdt, const void* b,
                    int bdt, void* o, int S, int K, int group, int grid,
                    float eps, cudaStream_t st) {
@@ -1252,11 +1288,11 @@ int launch_ln_rows(const void* x, const void* g, int gdt, const void* b,
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(o);
   if (nv == 1)
-    ln_fwd_rows<T, LB, 1><<<grid, kLnCta, 0, st>>>(xt, g, gdt, b, bdt, ot, S,
-                                                   K, group, eps);
+    ln_fwd_rows<T, LB, 1, kRms><<<grid, kLnCta, 0, st>>>(
+        xt, g, gdt, b, bdt, ot, S, K, group, eps);
   else if (nv == 2)
-    ln_fwd_rows<T, LB, 2><<<grid, kLnCta, 0, st>>>(xt, g, gdt, b, bdt, ot, S,
-                                                   K, group, eps);
+    ln_fwd_rows<T, LB, 2, kRms><<<grid, kLnCta, 0, st>>>(
+        xt, g, gdt, b, bdt, ot, S, K, group, eps);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -1264,24 +1300,49 @@ int launch_ln_rows(const void* x, const void* g, int gdt, const void* b,
 
 // The rung's load width of element type T: 4, 8 or 16 bytes for f32; 2, 4,
 // 8 or 16 for f16 and bf16.
-template <class T>
+template <class T, bool kRms>
 int ln_rows_by_lb(int lb, const void* x, const void* g, int gdt,
                   const void* b, int bdt, void* o, int S, int K, int group,
                   int grid, float eps, cudaStream_t st) {
   if constexpr (sizeof(T) == 2) {
     if (lb == 2)
-      return launch_ln_rows<T, 2>(x, g, gdt, b, bdt, o, S, K, group, grid,
-                                  eps, st);
+      return launch_ln_rows<T, 2, kRms>(x, g, gdt, b, bdt, o, S, K, group,
+                                        grid, eps, st);
   }
   if (lb == 4)
-    return launch_ln_rows<T, 4>(x, g, gdt, b, bdt, o, S, K, group, grid, eps,
-                                st);
+    return launch_ln_rows<T, 4, kRms>(x, g, gdt, b, bdt, o, S, K, group, grid,
+                                      eps, st);
   if (lb == 8)
-    return launch_ln_rows<T, 8>(x, g, gdt, b, bdt, o, S, K, group, grid, eps,
-                                st);
+    return launch_ln_rows<T, 8, kRms>(x, g, gdt, b, bdt, o, S, K, group, grid,
+                                      eps, st);
   if (lb == 16)
-    return launch_ln_rows<T, 16>(x, g, gdt, b, bdt, o, S, K, group, grid,
-                                 eps, st);
+    return launch_ln_rows<T, 16, kRms>(x, g, gdt, b, bdt, o, S, K, group,
+                                       grid, eps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Both norms' rows route: checks what ln_fwd_rows takes, then its launch
+// by dtype and load width.
+template <bool kRms>
+int rows_route(const void* x, const void* g, int gdt, const void* b, int bdt,
+               void* o, int S, int K, int dtype, int lb, int group, int grid,
+               float eps, void* stream) {
+  if (S <= 0 || K <= 0 || K % 8 || grid <= 0 || gdt < 0 || gdt > 2 ||
+      bdt < 0 || bdt > 2 ||
+      (group != 32 && group != 64 && group != 128 && group != 256) ||
+      K > 16 * group ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return ln_rows_by_lb<float, kRms>(lb, x, g, gdt, b, bdt, o, S, K, group,
+                                      grid, eps, st);
+  if (dtype == kF16)
+    return ln_rows_by_lb<__half, kRms>(lb, x, g, gdt, b, bdt, o, S, K, group,
+                                       grid, eps, st);
+  if (dtype == kBF16)
+    return ln_rows_by_lb<__nv_bfloat16, kRms>(lb, x, g, gdt, b, bdt, o, S, K,
+                                              group, grid, eps, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1379,23 +1440,19 @@ extern "C" int lc_layer_norm_rows(const void* x, const void* g, int gdt,
                                   const void* b, int bdt, void* o, int S,
                                   int K, int dtype, int lb, int group,
                                   int grid, float eps, void* stream) {
-  if (S <= 0 || K <= 0 || K % 8 || grid <= 0 || gdt < 0 || gdt > 2 ||
-      bdt < 0 || bdt > 2 ||
-      (group != 32 && group != 64 && group != 128 && group != 256) ||
-      K > 16 * group ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return ln_rows_by_lb<float>(lb, x, g, gdt, b, bdt, o, S, K, group, grid,
-                                eps, st);
-  if (dtype == kF16)
-    return ln_rows_by_lb<__half>(lb, x, g, gdt, b, bdt, o, S, K, group, grid,
-                                 eps, st);
-  if (dtype == kBF16)
-    return ln_rows_by_lb<__nv_bfloat16>(lb, x, g, gdt, b, bdt, o, S, K, group,
-                                        grid, eps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return rows_route<false>(x, g, gdt, b, bdt, o, S, K, dtype, lb, group, grid,
+                           eps, stream);
+}
+
+// The rms-norm's rows route: lc_rms_norm's operands, and K, the alignment,
+// ``lb``, ``group`` and ``grid`` as lc_layer_norm_rows takes them.
+// ops/rms_norm.py rms_plan picks them.
+extern "C" int lc_rms_norm_rows(const void* x, const void* w, int wdt,
+                                void* o, int S, int K, int dtype, int lb,
+                                int group, int grid, float eps,
+                                void* stream) {
+  return rows_route<true>(x, w, wdt, nullptr, 0, o, S, K, dtype, lb, group,
+                          grid, eps, stream);
 }
 
 // The softmax's stream route (rows longer than a cluster holds): one CTA a

@@ -67,13 +67,14 @@ FWD_THREAD_BYTES, FWD_MAX_CTAS = 640, 4
 
 
 def fwd_ctas(nv: int, itemsize: int, thread_bytes: int = FWD_THREAD_BYTES,
-             max_ctas: int = FWD_MAX_CTAS) -> int:
+             max_ctas: int = FWD_MAX_CTAS, weights: int = 2) -> int:
     """CTAs an SM that the rows route's build holds (ln_fwd_ctas, with
     LC_LN_THREAD_BYTES and LC_LN_MAX_CTAS): ``thread_bytes`` over a
-    thread's state of a row (two rows of its ``nv`` vectors of x, gamma and
-    beta as f32), 1 to ``max_ctas``."""
+    thread's state of a row (two rows of its ``nv`` vectors of x and its
+    ``weights`` vectors as f32: gamma and beta, or the rms-norm's w), 1 to
+    ``max_ctas``."""
     return min(max_ctas, max(1, thread_bytes // (nv * 8 * (2 * itemsize
-                                                            + 8))))
+                                                            + 4 * weights))))
 
 
 def ln_fwd_rows_plan(S: int, K: int, group: int, per_sm: int) -> dict:
@@ -94,19 +95,20 @@ def ln_fwd_rows_plan(S: int, K: int, group: int, per_sm: int) -> dict:
             "nv": nv, "slots": groups * grid}
 
 
-def ln_fwd_plan(S: int, K: int, itemsize: int = 2,
-                aligned: bool = True) -> dict:
+def ln_fwd_plan(S: int, K: int, itemsize: int = 2, aligned: bool = True,
+                weights: int = 2) -> dict:
     """What csrc/row_ops.cu runs for the forward of an (S, K) layer norm of
-    ``itemsize``-byte elements: the ``rows`` route (ln_fwd_rows_plan) where
-    K is a multiple of 8 up to FWD_MAX_K and x and the output are 16-byte
-    aligned (``aligned``), in groups of the fewest of FWD_GROUPS threads
-    that hold the row in one vector each, else the most, at fwd_ctas CTAs
-    an SM; else the ``block`` route, a CTA a row."""
+    ``itemsize``-byte elements (``weights`` 1: the rms-norm's, rms_norm.py
+    ``rms_plan``): the ``rows`` route (ln_fwd_rows_plan) where K is a
+    multiple of 8 up to FWD_MAX_K and x and the output are 16-byte aligned
+    (``aligned``), in groups of the fewest of FWD_GROUPS threads that hold
+    the row in one vector each, else the most, at fwd_ctas CTAs an SM; else
+    the ``block`` route, a CTA a row."""
     if K % 8 == 0 and 0 < K <= FWD_MAX_K and aligned:
         group = next(gr for gr in FWD_GROUPS
                      if K // 8 <= gr or gr == FWD_GROUPS[-1])
-        return ln_fwd_rows_plan(
-            S, K, group, fwd_ctas(cdiv(K // 8, group), itemsize))
+        return ln_fwd_rows_plan(S, K, group, fwd_ctas(
+            cdiv(K // 8, group), itemsize, weights=weights))
     return {"route": "block", "grid": S}
 
 

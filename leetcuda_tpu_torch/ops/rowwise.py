@@ -84,10 +84,12 @@ def launch(counter, symbol: str, argtypes: tuple, device, *args,
     counter.add()
 
 
-# lc_rms_norm / lc_layer_norm_fwd / lc_layer_norm_rows / lc_softmax /
-# lc_softmax_stream argtypes, the stream last; lc_softmax_clusters'
+# lc_rms_norm / lc_rms_norm_rows / lc_layer_norm_fwd / lc_layer_norm_rows /
+# lc_softmax / lc_softmax_stream argtypes, the stream last;
+# lc_softmax_clusters'
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 RMS_ARGS = (P, P, I, P, I, I, I, I, I, F, I, P)
+RMS_ROWS_ARGS = (P, P, I, P, I, I, I, I, I, I, F, P)
 LN_FWD_ARGS = (P, P, I, P, I, P, I, I, I, I, I, F, I, P)
 LN_ROWS_ARGS = (P, P, I, P, I, P, I, I, I, I, I, I, F, P)
 SOFTMAX_ARGS = (P, P) + (I,) * 8 + (P,)

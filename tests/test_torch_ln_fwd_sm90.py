@@ -57,16 +57,17 @@ def test_plan_is_the_sources():
     assert int(re.search(r"#define LC_LN_MAX_CTAS (\d+)", src).group(1)) \
         == tln.FWD_MAX_CTAS
     # ln_fwd_ctas: a thread's state of a row, two rows of x as loaded and
-    # gamma and beta as f32
-    assert ("NV * 8 * (2 * static_cast<int>(sizeof(T)) + 8)" in src
-            and "LC_LN_THREAD_BYTES / bytes" in src)
+    # gamma and beta as f32 (the rms-norm's kRms: w alone)
+    assert ("NV * 8 * (2 * static_cast<int>(sizeof(T)) + (kRms ? 4 : 8))"
+            in src and "LC_LN_THREAD_BYTES / bytes" in src)
     groups = re.search(r"\(group != 32 && group != 64 && group != 128 && "
                        r"group != 256\)", src)
     assert groups and tln.FWD_GROUPS == (32, 64, 128, 256)
     # at most 2 vectors a thread, the two instantiations launch_ln_rows has
     assert "K > 16 * group" in src
     assert tln.FWD_MAX_K == 8 * 2 * tln.FWD_GROUPS[-1]
-    assert re.findall(r"ln_fwd_rows<T, LB, (\d)><<<", src) == ["1", "2"]
+    assert re.findall(r"ln_fwd_rows<T, LB, (\d), kRms><<<", src) == \
+        ["1", "2"]
     # 4 CTAs an SM at one vector a thread; at two, 3 for a 2-byte type and
     # 2 for f32
     assert [tln.fwd_ctas(nv, isz) for nv in (1, 2) for isz in (2, 4)] == \
