@@ -42,7 +42,11 @@ Phases; any failure raises and the script exits non-zero:
    TMA kernels' edges (BWD_EDGE_CASES: tiles past the end of a head at N =
    1000, groups of 1 and 8, Nq != Nk), by relative L2 error (BWD_REL_L2)
    and elementwise, a second call bit for bit and the delta that the dQ
-   launch writes; beside them SDPA's backward (``torch.autograd.grad``;
+   launch writes; the causal case also on FLASH_BWD_DRAWS draws of its own
+   generator (FLASH_BWD_SEED), each held the same way and against the f64
+   gradient of its inputs (the kernel no farther from it than the plain
+   version, F64_RMS_RATIO); beside them SDPA's backward
+   (``torch.autograd.grad``;
    with a window over an explicit band mask) and the name of its longest
    kernel; the backward library's SASS (wgmma and TMA, no mma.sync). Then
    the TMA + wgmma flash forward's edges (FWD_EDGE_CASES: N = 1000 tiles
@@ -129,8 +133,16 @@ Phases; any failure raises and the script exits non-zero:
           ``matmul_auto`` at training's 16384 rows over layer 0's
           projections and the output projection, and at the skewed shapes
           of tests/test_gemm.py; ``gemv`` / ``hgemv`` of one decode row and
-          ``rms_norm_gemv`` against layer 0's weights; the int8 matmul at
-          8192^3 and on the projections' int8 packs beside torch._int_mm.
+          ``rms_norm_gemv`` against layer 0's weights; the int8 matmul (a
+          transpose pass, counted on ``i8_transpose``, then one persistent
+          TMA + wgmma launch) at 8192^3 and on the projections' int8 packs
+          beside torch._int_mm (also on w column-major at 8192^3 and
+          ``w_gate_up``, where the kernel and that call are timed on the
+          device alone too), each twice bit for bit with its inputs
+          unchanged; the transpose pass alone, exact; then, untimed, at
+          ragged shapes (M 1000 or 200, K and N multiples of 16 off the
+          128-wide tiles), with every entry at -128, and replayed from a
+          CUDA graph, exact.
           Each case is held against its plain version (f32 at 1e-3, int8
           exactly) and timed beside it and the library call, with the
           launch counts left as they were (``uncounted``); at the headline
@@ -229,7 +241,13 @@ Phases; any failure raises and the script exits non-zero:
           and every activation (NaN where the plain version has it); NaN
           in the f32 sum and the max, e4m3's NaN bytes in its sum, an int8
           sum that wraps; every float sum, the max and every dot twice,
-          bit for bit; histogram values outside the bins, dropped, at 128,
+          bit for bit; the sum at (16384, 2048) in f32, int8 and e4m3 (the
+          registered and the 16-byte rungs) one launch a call with nothing
+          allocated past its output, twice bit for bit, and captured in a
+          CUDA graph, replayed 3 times equal to eager with the stream's
+          counter back at 0 (``sum_launch_checks``); the registered f32,
+          int8 and e4m3 sums, the f32 dot and the max also timed on the
+          device alone; histogram values outside the bins, dropped, at 128,
           32000 and 128256 bins (past the shared memory). Outside the
           registry sweep, a float sum or dot is held to one ulp of its
           accumulator plus f32 reordering (``flat_tol``). Every call's
@@ -504,10 +522,11 @@ PATH_KERNELS = {
 # reaches the quantized matmuls' registered rungs), the ladder with the
 # headline, and the model's shapes.
 PATH_KERNELS.update({
-    "j1": ("matmul", "matmul_i8i8i32", "gemv", "matmul_w8a16",
-           "matmul_w4a16"),
+    "j1": ("matmul", "matmul_i8i8i32", "i8_transpose", "gemv",
+           "matmul_w8a16", "matmul_w4a16"),
     "j2": ("matmul",),
-    "j3": ("matmul", "matmul_i8i8i32", "gemv", "rms_norm_gemv")})
+    "j3": ("matmul", "matmul_i8i8i32", "i8_transpose", "gemv",
+           "rms_norm_gemv")})
 # Path (k), the row ops and split-KV attention, in three parts: the registry
 # sweep of the four families, the model's shapes, and split-KV with the
 # merge (the flash forward with its lse, once per split).
@@ -1362,14 +1381,16 @@ def chunk_cases(rec, flush, cases, H, Hkv, S, D=128, sm_scale=None,
                 wrong_scale)
 
 
-def alone_in_turn(fns, flush, rounds=3):
+def alone_in_turn(fns, flush, label, rounds=3):
     """{name: median over ``rounds`` of each function's device time alone
-    (``device_alone_ms``)}, the functions taken in turn within each round;
-    None where no profile of it was whole. Launches uncounted."""
+    (``device_alone_ms``)}, ``fns`` {name: (function, its bound in ms)}
+    taken in turn within each round; None where no profile of it was
+    whole (each rejection printed with ``label`` and the name). Launches
+    uncounted."""
     times = {name: [] for name in fns}
     for _ in range(rounds):
-        for name, fn in fns.items():
-            t = device_alone_ms(fn, flush)
+        for name, (fn, bound_ms) in fns.items():
+            t = device_alone_ms(fn, flush, bound_ms, f"{label} {name}")
             if t is not None:
                 times[name].append(t)
     return {name: float(np.median(t)) if t else None
@@ -1446,8 +1467,9 @@ def check_fused(rec, flush, layer, cfg):
                                      flush))
         if label == "B=8":
             alone = alone_in_turn({
-                "kernel": call,
-                "matmul": lambda: torch.matmul(x, layer["wqkv"])}, flush)
+                "kernel": (call, row["bound_ms"]),
+                "matmul": (lambda: torch.matmul(x, layer["wqkv"]),
+                           mm_bound_ms(B, D, X))}, flush, check)
             row.update(device_alone_ms=alone["kernel"],
                        matmul_device_alone_ms=alone["matmul"])
 
@@ -1475,11 +1497,19 @@ def check_fused(rec, flush, layer, cfg):
                        lambda: tl._rms_norm(x, nw, cfg.norm_eps) @ w, flush),
                    matmul_ms=time_ms(lambda: torch.matmul(x, w), flush))
         if B == 8:
-            alone = alone_in_turn({"kernel": call,
-                                   "matmul": lambda: torch.matmul(x, w)},
-                                  flush)
+            alone = alone_in_turn({
+                "kernel": (call, row["bound_ms"]),
+                "matmul": (lambda: torch.matmul(x, w),
+                           mm_bound_ms(B, D, X))}, flush, check)
             row.update(device_alone_ms=alone["kernel"],
                        matmul_device_alone_ms=alone["matmul"])
+
+
+def mm_bound_ms(M, K, N):
+    """The bound of a bf16 (M, K) x (K, N) product: bf16 operands read
+    and the output written once, at the tensor cores' peak."""
+    b_s, _ = bound(2.0 * M * K * N, 2.0 * (M * K + K * N + M * N))
+    return b_s * 1e3
 
 
 def rel_l2(got, want):
@@ -1656,6 +1686,76 @@ def band_pairs(n, window):
     return window * (window + 1) // 2 + (n - window) * window
 
 
+# The causal backward's own draws (``bwd_draws``): FLASH_BWD_DRAWS inputs
+# from a generator of its own, each held like the causal case and against
+# the f64 gradient of its inputs
+FLASH_BWD_SEED = 26
+FLASH_BWD_DRAWS = 4
+# the kernel's RMS distance from the f64 gradient, at most this times the
+# plain version's (on every draw measured the two agreed to 3 digits)
+F64_RMS_RATIO = 1.05
+
+
+def bwd_draws(rec, flush):
+    """The causal backward at training's shape (8, 16, 2048, 128), 4 KV
+    heads, on FLASH_BWD_DRAWS draws of its own generator (FLASH_BWD_SEED):
+    out and lse from the kernel forward, dq, dk and dv against
+    ``flash_attention_bwd_plain`` by relative L2 (BWD_REL_L2) and
+    elementwise (KERNEL_TOL) on every draw, and both versions against the
+    f64 backward of the same inputs (``bench/attn_bench.py bwd_f64``): the
+    kernel's RMS error no more than F64_RMS_RATIO times the plain's, each
+    gradient. Records the draws' ratios to the bar in the causal rows."""
+    from leetcuda_tpu_torch.attention import flash as fl
+    from leetcuda_tpu_torch.attention import flash_bwd as fb
+    from leetcuda_tpu_torch.bench.attn_bench import bar_ratio, bwd_f64
+
+    own = Recorder(rec.dev)
+    own.rng = np.random.default_rng(FLASH_BWD_SEED)
+    B, H, Hkv, N, D = TRAIN_B, 16, 4, TRAIN_S, 128
+    scale = 1.0 / np.sqrt(D)
+    draws = []
+    for i in range(FLASH_BWD_DRAWS):
+        q, k, v = own.randn(B, H, N, D), own.randn(B, Hkv, N, D), own.randn(
+            B, Hkv, N, D)
+        out, lse = fl.flash_attention(q, k, v, causal=True, with_lse=True)
+        do = own.randn(B, H, N, D)
+        got = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        want = fb.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                            causal=True, sm_scale=scale)
+        exact = bwd_f64(q, k, v, out, lse, do, scale)
+        draw = {}
+        for n, g, w, e in zip(("dq", "dk", "dv"), got, want, exact):
+            err = rel_l2(g, w)
+            if not err <= BWD_REL_L2:
+                raise AssertionError(f"flash backward causal draw {i}: {n} "
+                                     f"relative L2 {err} over {BWD_REL_L2}")
+            to_plain = bar_ratio(g, w)
+            kern, plain = bar_ratio(g, e), bar_ratio(w, e)
+            draw[n] = {"bar_ratio": to_plain["ratio"],
+                       "max_abs_err": to_plain["max_abs"],
+                       "kernel_f64_rms": kern["rms"],
+                       "plain_f64_rms": plain["rms"],
+                       "kernel_f64_bar_ratio": kern["ratio"],
+                       "plain_f64_bar_ratio": plain["ratio"]}
+            if to_plain["misses"] or kern["rms"] > F64_RMS_RATIO * plain[
+                    "rms"]:
+                raise AssertionError(
+                    f"flash backward causal draw {i}: {n} misses KERNEL_TOL "
+                    f"on {to_plain['misses']} elements (worst "
+                    f"{to_plain['max_abs']:.4g} at {to_plain['where']}, "
+                    f"|plain| {to_plain['abs_ref_there']:.4g}); against the "
+                    f"f64 gradient the kernel's RMS error is {kern['rms']:.4g}"
+                    f" and the plain version's {plain['rms']:.4g} (worst "
+                    f"kernel {kern['max_abs']:.4g} at {kern['where']}, plain "
+                    f"{plain['max_abs']:.4g} at {plain['where']})")
+        draws.append(draw)
+        del q, k, v, out, lse, do, got, want, exact
+    for check in ("flash_attention_bwd_dq/causal",
+                  "flash_attention_bwd_dkv/causal"):
+        rec.rows[check]["own_draws"] = draws
+    return draws
+
+
 def check_flash_bwd(rec, flush):
     """The forward's lse (causal at training's shape (8, 16, 2048, 128)
     with 4 KV heads, and the ragged batch of the ragged check: rows past a
@@ -1670,7 +1770,9 @@ def check_flash_bwd(rec, flush):
     elementwise (KERNEL_TOL), a second call bit for bit and the dQ launch's
     delta against ``_delta``; at BWD_CAP the backward uncapped and at cap /
     log2(e) must fail BWD_REL_L2 (see CAP_Q_SCALE), and without the lse
-    cotangent the "dlse" case. The plain time is
+    cotangent the "dlse" case; then the causal case on FLASH_BWD_DRAWS
+    draws of its own generator, against the f64 gradient too
+    (``bwd_draws``). The plain time is
     the whole plain backward and the library time SDPA's (both give all
     three gradients; with a window SDPA takes the band as an explicit mask,
     and it has no softcap)."""
@@ -1744,6 +1846,9 @@ def check_flash_bwd(rec, flush):
             ("window 1000", 128, True, False, 1000, None)):
         bwd_case(rec, flush, label, (TRAIN_B, H, Hkv, TRAIN_S, D), causal,
                  with_dlse, window, cap)
+    # the causal case again on draws of its own generator, against the f64
+    # gradient too; the cases above keep the shared generator's inputs
+    bwd_draws(rec, flush)
     # the TMA kernels' edges (BWD_EDGE_CASES): tiles that run past N (zero
     # rows, never the next head's), groups of 1 and 8, Nq != Nk
     for label, shape, causal, window, cap, nk in BWD_EDGE_CASES:
@@ -2816,6 +2921,8 @@ def train(cfg, params, corpus, rng, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS,
 # --- path (j): the GEMM library -----------------------------------------------
 
 GEMM_SRC = {
+    "i8_transpose": ("leetcuda_tpu_torch/csrc/i8_matmul.cu",
+                     "leetcuda_tpu/gemm/quant.py:191"),
     "matmul": ("leetcuda_tpu_torch/csrc/matmul.cu",
                "leetcuda_tpu/gemm/matmul.py:173"),
     "matmul_i8i8i32": ("leetcuda_tpu_torch/csrc/i8_matmul.cu",
@@ -3097,10 +3204,11 @@ def gemm_model_shapes(run, layer, embed):
             {kl: lambda f=gv.make_gemv(k_lanes=kl): f(x, w)
              for kl in gv.K_LANES}, run.flush)
         if name == "gemv" and key == "wqkv":
-            row["device_alone_ms"] = device_alone_ms(lambda: fn(x, w),
-                                                     run.flush)
+            row["device_alone_ms"] = device_alone_ms(
+                lambda: fn(x, w), run.flush, row["bound_ms"], row["check"])
             row["library_device_alone_ms"] = device_alone_ms(
-                lambda: torch.matmul(x.reshape(1, -1), w), run.flush)
+                lambda: torch.matmul(x.reshape(1, -1), w), run.flush,
+                row["bound_ms"], f"{row['check']} torch.matmul")
     w = weights["w_gate_up"]
     x = run.rand(w.shape[0])
     silu = gv.make_gemv(epilogue=F.silu)
@@ -3134,12 +3242,26 @@ def gemm_model_shapes(run, layer, embed):
             row["matmul_ms"] = time_ms(
                 lambda: torch.matmul(x.reshape(1, -1), w), run.flush)
         if key == "wqkv":
+            what = row["check"]
             row["device_alone_ms"] = device_alone_ms(
-                lambda: gv.rms_norm_gemv(x, norm, w), run.flush)
+                lambda: gv.rms_norm_gemv(x, norm, w), run.flush,
+                row["bound_ms"], what)
             row["eager_unfused_device_alone_ms"] = device_alone_ms(
-                eager, run.flush)
+                eager, run.flush, row["bound_ms"], f"{what} eager")
             row["matmul_device_alone_ms"] = device_alone_ms(
-                lambda: torch.matmul(x.reshape(1, -1), w), run.flush)
+                lambda: torch.matmul(x.reshape(1, -1), w), run.flush,
+                mm_bound_ms(1, K, N), f"{what} torch.matmul")
+
+    i8_model_shapes(run, weights)
+
+
+def i8_model_shapes(run, weights):
+    """Path (j), part 3's int8 matmul: at 8192^3 and on the int8 packs of
+    ``weights`` at training's rows, each beside torch._int_mm (on w as
+    given; at 8192^3 and ``w_gate_up`` also on w column-major, and on the
+    device alone), twice bit for bit with its inputs unchanged; the
+    transpose pass alone; then ``i8_checks``."""
+    from leetcuda_tpu_torch.gemm import quant as gq
 
     n = HEADLINE_MNK
     i8_cases = [(f"{n}^3", run.ints(n, n), run.ints(n, n))]
@@ -3148,11 +3270,86 @@ def gemm_model_shapes(run, layer, embed):
                  for key, w in weights.items()]
     for key, x, w in i8_cases:
         (M, K), N = x.shape, w.shape[1]
-        run.case(f"matmul_i8i8i32/{key} ({M}, {N}, {K})", "matmul_i8i8i32",
+        row = run.case(f"matmul_i8i8i32/{key} ({M}, {N}, {K})",
+                       "matmul_i8i8i32", lambda: gq.matmul_i8i8i32(x, w),
+                       lambda: gq.matmul_i8i8i32_plain(x, w), _int_mm(x, w),
+                       2.0 * M * N * K, float(M * K + K * N + 4 * M * N),
+                       torch.int8, tol=EXACT, M=M, N=N, K=K,
+                       plan=gq.i8_plan(M, N, K))
+        i8_repeat(row, x, w)
+        if key == f"{n}^3" or key.startswith("w_gate_up"):
+            # torch._int_mm on w column-major, cuBLASLt's TN layout
+            lib_tn = _int_mm(x, w.t().contiguous().t())
+            with uncounted():
+                row["transpose_ms"] = time_ms(lambda: gq.i8_transpose(w),
+                                              run.flush)
+                if lib_tn is not None:
+                    row["library_column_major_ms"] = time_ms(lib_tn,
+                                                             run.flush)
+            row["device_alone_ms"] = device_alone_ms(
+                lambda: gq.matmul_i8i8i32(x, w), run.flush, row["bound_ms"],
+                row["check"])
+            if lib_tn is not None:
+                row["library_device_alone_ms"] = device_alone_ms(
+                    lib_tn, run.flush, row["bound_ms"],
+                    f"{row['check']} torch._int_mm, w column-major")
+    w = i8_cases[0][2]
+    K, N = w.shape
+    run.case(f"i8_transpose/w ({K}, {N})", "i8_transpose",
+             lambda: gq.i8_transpose(w), lambda: w.t().contiguous(),
+             lambda: w.t().contiguous(), 0.0, 2.0 * K * N, torch.int8,
+             tol=EXACT, K=K, N=N)
+    i8_checks(run)
+
+
+def i8_repeat(row, x, w):
+    """The int8 product twice, bit for bit, its inputs unchanged."""
+    from leetcuda_tpu_torch.gemm import quant as gq
+
+    before = (x.clone(), w.clone())
+    if not torch.equal(gq.matmul_i8i8i32(x, w), gq.matmul_i8i8i32(x, w)):
+        raise AssertionError(f"{row['check']}: two calls differ")
+    unchanged(row["check"], (x, w), before)
+    row["bitwise_repeat"] = True
+
+
+def i8_checks(run):
+    """The int8 product off its tiles, untimed, each exact against its
+    plain version: ragged M, K and N (multiples of 16, not of the 128-row
+    tile or the 128-deep stage), every entry at -128 (the largest sums),
+    and inside a captured CUDA graph (after an eager call on the capture
+    stream made its w^T scratch), equal to eager."""
+    from leetcuda_tpu_torch.gemm import quant as gq
+
+    for M, K, N in ((1000, 1040, 2064), (1000, 48, 272), (200, 2048, 3072)):
+        x, w = run.ints(M, K), run.ints(K, N)
+        run.case(f"matmul_i8i8i32/ragged ({M}, {N}, {K})", "matmul_i8i8i32",
                  lambda: gq.matmul_i8i8i32(x, w),
-                 lambda: gq.matmul_i8i8i32_plain(x, w), _int_mm(x, w),
-                 2.0 * M * N * K, float(M * K + K * N + 4 * M * N),
-                 torch.int8, tol=EXACT, M=M, N=N, K=K)
+                 lambda: gq.matmul_i8i8i32_plain(x, w), None, 0.0, 0.0,
+                 torch.int8, tol=EXACT, timed=False)
+    x = torch.full((1000, 1040), -128, dtype=torch.int8, device="cuda")
+    w = torch.full((1040, 2064), -128, dtype=torch.int8, device="cuda")
+    got = gq.matmul_i8i8i32(x, w)
+    if not (torch.equal(got, gq.matmul_i8i8i32_plain(x, w))
+            and bool((got == 1040 * 128 * 128).all())):
+        raise AssertionError("matmul_i8i8i32 at -128: not K * 2^14")
+    run.checks["matmul_i8i8i32/all -128 (1000, 2064, 1040)"] = 0.0
+    x, w = run.ints(2048, 2048), run.ints(2048, 11264)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = gq.matmul_i8i8i32(x, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = gq.matmul_i8i8i32(x, w)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, eager):
+            raise AssertionError("matmul_i8i8i32: a graph replay differs "
+                                 "from the eager call")
+    run.checks["matmul_i8i8i32/graph replay (2048, 11264, 2048)"] = 0.0
 
 
 def one_call(what, call, counter):
@@ -3241,6 +3438,10 @@ def print_gemm(rows, res):
                   f"{r['peak_bytes']} bytes allocated, repeat bit for bit; "
                   f"cluster {plan.get('cluster')}, grid {plan.get('grid')}"
                   f" in {plan.get('waves')} waves of {plan.get('wave')}")
+        if "transpose_ms" in r:
+            print(f"    the transpose pass alone {r['transpose_ms']:.4f} ms;"
+                  f" torch._int_mm on w column-major "
+                  f"{r.get('library_column_major_ms')} ms")
         if "device_alone_ms" in r:
             lib = r.get("library_device_alone_ms",
                         r.get("eager_unfused_device_alone_ms"))
@@ -3411,11 +3612,14 @@ def _rms_cases(run, layer):
             "rows": lambda: rms.rms_norm(x, wt), "block": block,
             "F.rms_norm": lambda: F.rms_norm(x, (K,), wt, eps=rms.EPS)},
             run.flush)
+        b_ms = row["bound_ms"]
         row["device_alone_ms"] = device_alone_ms(
-            lambda: rms.rms_norm(x, wt), run.flush)
+            lambda: rms.rms_norm(x, wt), run.flush, b_ms, check)
         row["library_device_alone_ms"] = device_alone_ms(
-            lambda: F.rms_norm(x, (K,), wt, eps=rms.EPS), run.flush)
-        row["block_device_alone_ms"] = device_alone_ms(block, run.flush)
+            lambda: F.rms_norm(x, (K,), wt, eps=rms.EPS), run.flush, b_ms,
+            f"{check} F.rms_norm")
+        row["block_device_alone_ms"] = device_alone_ms(
+            block, run.flush, b_ms, f"{check} block route")
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         x = fresh(TAIL_ROWS, 4096, dtype=dt)
         wt = fresh(4096, dtype=dt, scale=0.3, offset=1.0)
@@ -3660,13 +3864,40 @@ def _layer_norm_cases(run):
              None, 0.0, (x, g, b), tol=OFFSET_TOL, timed=False)
 
 
-def device_alone_ms(fn, flush, iters=20, tries=3):
+def whole_profile_ms(events, iters, bound_ms, what):
+    """One profile's device time a call from its ``key_averages()``
+    ``events`` (the flush's fill left out), or None where the profile is
+    not whole: a kernel that ran no whole multiple of ``iters`` times, or
+    a time a call below ``bound_ms``, the least time the card could take
+    for the call's work (on the card a profile taken right after another
+    one came back empty, or with only some of its launches, now and then:
+    a reading under the bound is such a profile). Prints each rejection
+    with ``what``, the reading and the bound."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kernels = [e for e in events if "FillFunctor" not in e.key and dev_us(e)]
+    if not kernels or any(e.count % iters for e in kernels):
+        print(f"  device alone {what}: a partial profile rejected "
+              f"({[(e.key[:40], e.count) for e in kernels]} of {iters} "
+              f"calls)", flush=True)
+        return None
+    ms = sum(dev_us(e) for e in kernels) / iters / 1e3
+    if ms < bound_ms:
+        print(f"  device alone {what}: {ms:.4f} ms a call is below its "
+              f"bound {bound_ms:.4f} ms; profile rejected", flush=True)
+        return None
+    return ms
+
+
+def device_alone_ms(fn, flush, bound_ms, what, iters=20, tries=3):
     """The device time of ``fn``'s kernels a call (torch.profiler's kernel
     times, the L2 flushed before each call; the flush's fill left out), or
-    None where none of ``tries`` profiles is whole: on the card a profile
-    taken right after another one came back empty or with only some of
-    its launches now and then, so a profile counts only when every kernel
-    it holds ran a whole multiple of ``iters`` times. Launches uncounted."""
+    None where none of ``tries`` profiles is whole (``whole_profile_ms``:
+    every kernel a whole multiple of ``iters`` times, the time a call at
+    least ``bound_ms``, the bound of the call's work). Launches
+    uncounted."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -3678,14 +3909,9 @@ def device_alone_ms(fn, flush, iters=20, tries=3):
                     flush.zero_()
                     fn()
                 torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if "FillFunctor" not in e.key and getattr(
-                       e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))]
-        if kernels and all(e.count % iters == 0 for e in kernels):
-            return sum(getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-                       for e in kernels) / iters / 1e3
+        ms = whole_profile_ms(prof.key_averages(), iters, bound_ms, what)
+        if ms is not None:
+            return ms
     return None
 
 
@@ -3722,10 +3948,11 @@ def _softmax_cases(run):
                 raise AssertionError(f"softmax {form} ({S}, {V}): two runs "
                                      "differ")
             if S == 8:
-                row["device_alone_ms"] = device_alone_ms(lambda: fn(x),
-                                                         run.flush)
+                row["device_alone_ms"] = device_alone_ms(
+                    lambda: fn(x), run.flush, row["bound_ms"], row["check"])
                 row["library_device_alone_ms"] = device_alone_ms(
-                    lambda: torch.softmax(x, dim=-1), run.flush)
+                    lambda: torch.softmax(x, dim=-1), run.flush,
+                    row["bound_ms"], f"{row['check']} torch.softmax")
     for name, spec in OPS.items():
         if spec.family != "softmax":
             continue
@@ -4536,11 +4763,15 @@ def _flat_model_cases(run):
                  tol=dict(atol=2e-2, rtol=1e-2), flops=float(h.numel()),
                  S=M, K=FFN_DIM)
     xf = run.rand(M, D)
-    run.case(f"block_all_reduce_max/f32 ({M}, {D})", "block_all_reduce_max",
-             lambda: rd.block_all_reduce_max_f32(xf),
-             lambda: rd.max_plain(xf, torch.float32),
-             lambda: torch.amax(xf), 4.0 * xf.numel(), (xf,), tol=EXACT,
-             flops=float(xf.numel()), S=M, K=D)
+    row = run.case(f"block_all_reduce_max/f32 ({M}, {D})",
+                   "block_all_reduce_max",
+                   lambda: rd.block_all_reduce_max_f32(xf),
+                   lambda: rd.max_plain(xf, torch.float32),
+                   lambda: torch.amax(xf), 4.0 * xf.numel(), (xf,),
+                   tol=EXACT, flops=float(xf.numel()), S=M, K=D)
+    row["device_alone_ms"] = device_alone_ms(
+        lambda: rd.block_all_reduce_max_f32(xf), run.flush, row["bound_ms"],
+        row["check"])
     v = torch.randint(0, hi.BINS, (M, D), generator=run.gen, device="cuda",
                       dtype=torch.int32)
     run.case(f"histogram/{hi.BINS} bins ({M}, {D})", "histogram",
@@ -4636,6 +4867,11 @@ def _nms_cases(run):
     return out
 
 
+# rows 31 and 33 on the device alone as well (device_alone_ms)
+ALONE_RUNGS = ("block_all_reduce_sum_f32_f32", "block_all_reduce_sum_i8_i32",
+               "block_all_reduce_sum_fp8_e4m3_f16", "dot_prod_f32")
+
+
 def flat_shapes(run, res):
     """Path (m), part 2, timed: the model's shapes, then every add and
     activation rung at 4096^2 and every sum and dot rung and both histogram
@@ -4649,9 +4885,14 @@ def flat_shapes(run, res):
         shape = ((FLAT_DIM, FLAT_DIM)
                  if spec.family in ("elementwise", "activation")
                  else (TRAIN_ROWS, MODEL_DIM))
-        _flat_case(run, spec, flat_args(run, spec, shape),
-                   f"{FLAT_KERNEL[spec.family]}/{name} {shape}",
-                   S=shape[0], K=shape[1])
+        args = flat_args(run, spec, shape)
+        row = _flat_case(run, spec, args,
+                         f"{FLAT_KERNEL[spec.family]}/{name} {shape}",
+                         S=shape[0], K=shape[1])
+        if name in ALONE_RUNGS:
+            row["device_alone_ms"] = device_alone_ms(
+                lambda: spec.fn(*args), run.flush, row["bound_ms"],
+                row["check"])
     res["nms"] = _nms_cases(run)
 
 
@@ -4774,6 +5015,54 @@ def flat_checks(run):
             if int(fn(v).sum()) != v.numel() - 8:
                 raise AssertionError("histogram: out-of-range values must "
                                      "be dropped")
+    sum_launch_checks(run, specs)
+
+
+def sum_launch_checks(run, specs):
+    """The sum at (16384, 2048) in f32, int8 and e4m3 (their registered
+    rungs and the 16-byte one): one launch a call with nothing allocated
+    past its output, twice bit for bit (``one_call``); then captured in a
+    CUDA graph on a stream that ran it eagerly, replayed 3 times, each
+    replay the eager bits, and the stream's counter back at 0."""
+    from leetcuda_tpu_torch.ops import reduce as rd
+
+    shape = (TRAIN_ROWS, MODEL_DIM)
+    cases = [(s.name, s.fn) for s in specs if s.name in (
+        "block_all_reduce_sum_f32_f32", "block_all_reduce_sum_i8_i32",
+        "block_all_reduce_sum_fp8_e4m3_f16")]
+    cases += [(f"16-byte rung {str(a)[6:]}", rd.make_block_all_reduce_sum(a))
+              for a in (torch.float32, torch.int32, torch.float16)]
+    for name, fn in cases:
+        dt = {torch.int32: torch.int8, torch.float16: torch.float8_e4m3fn}.get(
+            fn.acc_dtype, torch.float32)
+        if dt == torch.int8:
+            x = torch.randint(-128, 128, shape, generator=run.gen,
+                              device="cuda", dtype=torch.int8)
+        else:
+            x = run.rand(*shape).to(dt)
+        fn(x)  # the stream's scratch, made at its first sum
+        got = one_call(f"sum {name}", lambda: fn(x), "block_all_reduce_sum")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = fn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = fn(x)
+        counter = rd._SCRATCH[(x.device.index, side.cuda_stream)][0]
+        for i in range(3):
+            captured.fill_(0)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(bits(captured), bits(eager)):
+                raise AssertionError(f"sum {name}: graph replay {i} differs "
+                                     "from the eager call")
+            if int(counter) != 0:
+                raise AssertionError(f"sum {name}: the counter is "
+                                     f"{int(counter)} after a replay")
+        run.checks[f"block_all_reduce_sum/{name} one launch "
+                   f"({got['peak_bytes']} bytes), graph x 3"] = 0.0
 
 
 def flat_path():
@@ -4806,8 +5095,10 @@ def print_flat(rows, res):
     for r in rows.values():
         lib = ("library none" if r["library_ms"] is None
                else f"library {r['library_ms']:.4f} ms")
+        alone = ("" if "device_alone_ms" not in r else
+                 f" [device alone {r['device_alone_ms']} ms]")
         print(f"  {r['check']}: max_abs_err {r['max_abs_err']:.3g} kernel "
-              f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s) plain "
+              f"{r['ms']:.4f} ms ({r['gbytes_s']:.0f} GB/s){alone} plain "
               f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
     for what, r in res["nms"].items():
@@ -8190,6 +8481,12 @@ def main() -> int:
             if r.get("cap_controls_rel_l2"):
                 lib += (f" the cap's controls (relative L2, must fail "
                         f"{BWD_REL_L2}): {r['cap_controls_rel_l2']};")
+            if r.get("own_draws"):
+                lib += " own draws (KERNEL_TOL ratio; RMS from f64, kernel / "
+                lib += "plain): " + "; ".join(", ".join(
+                    f"{n} {d['bar_ratio']:.3f} ({d['kernel_f64_rms']:.3g} / "
+                    f"{d['plain_f64_rms']:.3g})" for n, d in draw.items())
+                    for draw in r["own_draws"]) + ";"
         print(f"kernel {r['check']}{route_tag(r)}: max_abs_err "
               f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms{tiles} plain "
               f"{r['plain_ms']:.4f} ms {lib} bound {r['bound_ms']:.4f} ms "

@@ -3,6 +3,8 @@
     python -m leetcuda_tpu_torch.bench.attn_bench --bwd --json bwd_bench.json
     python -m leetcuda_tpu_torch.bench.attn_bench --fwd --json fwd_bench.json
     python -m leetcuda_tpu_torch.bench.attn_bench --chunk --json chunk.json
+    python -m leetcuda_tpu_torch.bench.attn_bench --bwd-f64 --shared-draw \
+        --json bwd_f64.json
 
 ``--fwd`` builds ``csrc/flash_fwd.cu`` once per variant of ``FWD_VARIANTS``
 (its ``LC_FWD_*`` macros: the next tile's S issued behind P V or not, the
@@ -51,6 +53,23 @@ main paths' shapes (ModelConfig's verify, GPT-OSS's with the lse, Gemma's
 chunk) timed three ways: one call after an L2 flush, as chip_smoke.py
 times kernels; 200 calls back to back (the host's enqueue where that is
 the longer); and the device alone, 50 calls replayed from one CUDA graph.
+
+``--bwd-f64`` measures how far the backward kernels and
+``flash_attention_bwd_plain`` each lie from the exact gradient, at
+training's causal shape (8, 16, 2048, 128) with 4 KV heads, over the draws
+of ``--seeds`` (numpy generators drawing q, k, v and dO as chip_smoke.py's
+Recorder draws them; ``out`` and ``lse`` from the kernel forward, which
+both backward versions take). The references, per (b, h): the f64
+backward of the same inputs (``bwd_f64``), and the same f64 backward with
+P and dS rounded to bf16 before the second products, as both versions
+round them (``bwd_f64`` with ``rounded``). For dQ, dK and dV it prints the largest
+error of each pair and its ratio to chip_smoke.py's elementwise bar
+(KERNEL_TOL: atol + rtol |reference|, both 1e-2; a ratio above 1 fails),
+with where the worst one falls. ``--shared-draw`` adds the draw of a
+phase 3 in which the fused block's extra cases drew from the shared
+generator (chip_smoke.py before FUSED_SEED, where dK once missed the
+bar): it replays phase 3's checks up to the backward on the full-width
+model with the timings left out.
 
 Each build's ptxas registers and spills are printed. On a GPU each time
 is the median over ``--rounds`` rounds of the median of
@@ -333,6 +352,180 @@ def cap_controls(lib, dev):
         got = _whole(lib, q, k, v, out, lse, do, scale, c)
         res[label] = max(rel_l2(g, w) for g, w in zip(got, want))
     return res
+
+
+KERNEL_BAR = dict(atol=1e-2, rtol=1e-2)  # chip_smoke.py's KERNEL_TOL
+F64_SHAPE = (8, 16, 4, 2048, 128)  # training's (B, H, Hkv, N, D)
+
+
+def bwd_f64(q, k, v, out, lse, do, scale, rounded=False):
+    """The causal backward in f64 (dq, dk, dv) of the inputs the kernels
+    take: P = exp(S scale - lse) under the causal mask with the given lse,
+    delta = rowsum(dO * out). With ``rounded``, P and dS are rounded to
+    bf16 before the second products, where both backward versions round
+    them. One batch row at a time; dk and dv summed over each KV head's
+    group."""
+    B, H, N, D = q.shape
+    group = H // k.shape[1]
+    keep = torch.ones(N, N, dtype=torch.bool, device=q.device).tril()
+    dq = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float64, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        qb, dob, ob = q[b].double(), do[b].double(), out[b].double()
+        kb = k[b].double().repeat_interleave(group, 0)
+        vb = v[b].double().repeat_interleave(group, 0)
+        s = qb @ kb.transpose(1, 2) * scale - lse[b].double()[..., None]
+        p = torch.exp(s).masked_fill_(~keep, 0.0)
+        del s
+        delta = (dob * ob).sum(-1, keepdim=True)
+        ds = p * (dob @ vb.transpose(1, 2) - delta)
+        if rounded:
+            p = p.to(torch.bfloat16).double()
+            ds = ds.to(torch.bfloat16).double()
+        dq[b] = ds @ kb * scale
+        dk[b] = (ds.transpose(1, 2) @ qb * scale).view(
+            -1, group, N, D).sum(1)
+        dv[b] = (p.transpose(1, 2) @ dob).view(-1, group, N, D).sum(1)
+        del p, ds
+    return dq, dk, dv
+
+
+def bar_ratio(got, want):
+    """The largest |got - want| / (atol + rtol |want|) at KERNEL_BAR (above
+    1 fails the elementwise check), the largest |got - want|, and where the
+    worst ratio falls (index, |want| there)."""
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    ratio = err / (KERNEL_BAR["atol"] + KERNEL_BAR["rtol"] * w.abs())
+    i = int(ratio.argmax())
+    idx = np.unravel_index(i, tuple(w.shape))
+    return {"ratio": float(ratio.reshape(-1)[i]),
+            "max_abs": float(err.max()),
+            "rms": float(err.square().mean().sqrt()),
+            "where": [int(x) for x in idx],
+            "abs_ref_there": float(w.abs().reshape(-1)[i]),
+            "misses": int((ratio > 1).sum())}
+
+
+def _draw(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        dev, torch.bfloat16)
+
+
+def shared_draw_rng(dev):
+    """chip_smoke.py's phase-3 generator as check_flash_bwd found it in a
+    run whose fused cases all drew from it (before FUSED_SEED gave them a
+    generator of their own): phase 3's checks before the backward replayed
+    on the full-width model with every timing left out."""
+    import chip_smoke as cs
+    from leetcuda_tpu_torch.models.llama import (ModelConfig, fuse_params,
+                                                 init_params,
+                                                 quantize_params)
+
+    class Shared(cs.Recorder):  # every Recorder draws from one generator
+        _rng = None
+
+        @property
+        def rng(self):
+            return Shared._rng
+
+        @rng.setter
+        def rng(self, g):
+            if Shared._rng is None:
+                Shared._rng = g
+
+    class Found(Exception):
+        pass
+
+    def found(rec, flush):
+        raise Found()
+
+    def no_time(*a, **k):
+        return 0.0
+
+    saved = {n: getattr(cs, n) for n in (
+        "Recorder", "time_ms", "interleaved_ms", "alone_in_turn",
+        "device_alone_ms", "resident_sass", "check_flash_bwd")}
+    cs.Recorder, cs.time_ms, cs.check_flash_bwd = Shared, no_time, found
+    cs.interleaved_ms = lambda fns, *a, **k: {n: 0.0 for n in fns}
+    cs.alone_in_turn = lambda fns, *a, **k: {n: None for n in fns}
+    cs.device_alone_ms = lambda *a, **k: None
+    cs.resident_sass = lambda *a, **k: {}
+    try:
+        cfg = ModelConfig()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(gen, cfg, device=dev)
+        fparams = fuse_params(params)
+        qparams = {name: quantize_params(fparams if fuse else params, w)
+                   for name, (w, fuse, _) in cs.QUANT_PATHS.items()}
+        sweep = (16, 32, 64, 128)  # main()'s path_rows
+        path_rows = {"a": (1, 8, 9, 72, 8 * 1536, 384, *sweep),
+                     "b": (8, 1024), "c": (1, 8, 9, 72, 1024, *sweep)}
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)
+        try:
+            cs.check_kernels(flush, cs.matmul_cases(qparams, path_rows),
+                             fparams["layers"][0], cfg)
+        except Found:
+            pass
+        else:
+            raise RuntimeError("phase 3 never reached the backward")
+        del params, fparams, qparams
+    finally:
+        for n, f in saved.items():
+            setattr(cs, n, f)
+    got = Shared._rng
+    # check_flash_bwd's draws before its causal case: the lse checks
+    B, H, Hkv, N, D = F64_SHAPE
+    for shape in ((B, H, N, D), (B, Hkv, N, D), (B, Hkv, N, D),
+                  (B, H, 1536, D), (B, Hkv, 1536, D), (B, Hkv, 1536, D)):
+        got.standard_normal(shape, dtype=np.float32)
+    torch.cuda.empty_cache()
+    return got
+
+
+def bwd_f64_draw(rng, dev):
+    """One draw at F64_SHAPE from ``rng``: each version's distance from each
+    reference, for dq, dk and dv."""
+    B, H, Hkv, N, D = F64_SHAPE
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = (_draw(rng, s, dev) for s in ((B, H, N, D), (B, Hkv, N, D),
+                                            (B, Hkv, N, D)))
+    out, lse = fl.flash_attention(q, k, v, causal=True, with_lse=True)
+    do = _draw(rng, (B, H, N, D), dev)
+    got = fb.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    plain = fb.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                         sm_scale=scale)
+    res = {}
+    for rounded in (False, True):
+        ref = bwd_f64(q, k, v, out, lse, do, scale, rounded)
+        tag = "f64_rounded" if rounded else "f64"
+        for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+            res.setdefault(name, {})[f"kernel_vs_{tag}"] = bar_ratio(g, r)
+            res[name][f"plain_vs_{tag}"] = bar_ratio(p, r)
+        del ref
+    for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+        res[name]["kernel_vs_plain"] = bar_ratio(g, p)
+    return res
+
+
+def bench_bwd_f64(dev, seeds, shared):
+    """--bwd-f64: each draw's errors (see bwd_f64_draw), printed."""
+    draws = [(f"seed {s}", np.random.default_rng(s)) for s in seeds]
+    if shared:
+        draws.insert(0, ("shared draw", shared_draw_rng(dev)))
+    rows = []
+    for label, rng in draws:
+        res = bwd_f64_draw(rng, dev)
+        rows.append({"draw": label, **res})
+        for name in ("dk", "dq", "dv"):
+            print(f"{label} {name}: " + "; ".join(
+                f"{pair} ratio {r['ratio']:.3f} max {r['max_abs']:.4g} rms "
+                f"{r['rms']:.3g} misses {r['misses']} at {r['where']} "
+                f"|ref| {r['abs_ref_there']:.4g}"
+                for pair, r in res[name].items()), flush=True)
+    return rows
 
 
 def bench_bwd(dev, iters, rounds, flush, cases=None):
@@ -670,6 +863,13 @@ def main(argv=None):
                     help="the A/B of the flash forward's builds")
     ap.add_argument("--chunk", action="store_true",
                     help="the chunk attention's routes and builds")
+    ap.add_argument("--bwd-f64", action="store_true",
+                    help="the backward's distance from the f64 gradient")
+    ap.add_argument("--seeds", type=int, nargs="*", default=list(range(8)),
+                    help="--bwd-f64: the numpy seeds of the draws")
+    ap.add_argument("--shared-draw", action="store_true",
+                    help="--bwd-f64: add the draw of a phase 3 whose fused "
+                         "cases drew from the shared generator")
     ap.add_argument("--chunk-t", type=int, nargs="*",
                     default=[4, 8, 16, 32, 64, 128])
     ap.add_argument("--chunk-g", type=int, nargs="*", default=[2, 4, 8])
@@ -689,8 +889,8 @@ def main(argv=None):
                          "CLI on the CPU)")
     ap.add_argument("--json", help="write the rows here")
     args = ap.parse_args(argv)
-    if args.bwd + args.fwd + args.chunk != 1:
-        ap.error("pass one of --bwd, --fwd and --chunk")
+    if args.bwd + args.fwd + args.chunk + args.bwd_f64 != 1:
+        ap.error("pass one of --bwd, --fwd, --chunk and --bwd-f64")
     CASE_FILTER[:] = args.fwd_cases
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -708,7 +908,9 @@ def main(argv=None):
     else:
         print(f"device {dev} (host clock: a check of the CLI, no device "
               f"metric)")
-    if args.chunk:
+    if args.bwd_f64:
+        rows = bench_bwd_f64(dev, args.seeds, args.shared_draw)
+    elif args.chunk:
         rows = bench_chunk(dev, args.iters, args.rounds, flush, args.chunk_t,
                            args.chunk_g, args.chunk_s, args.chunk_fmt)
     elif args.bwd:

@@ -19,6 +19,10 @@ same dtype.
     python -m leetcuda_tpu_torch.bench.gemm_bench --map --repeats 5
     python -m leetcuda_tpu_torch.bench.gemm_bench --fused --repeats 3
     python -m leetcuda_tpu_torch.bench.gemm_bench --rms --repeats 3
+    python -m leetcuda_tpu_torch.bench.gemm_bench --i8 --repeats 3 \
+        --before PARENT
+    python -m leetcuda_tpu_torch.bench.gemm_bench --reduce --repeats 3 \
+        --before PARENT
 
 ``--w4`` is the A/B of the w4a16 kernel (``csrc/w4_matmul.cu``): the
 package's build and variant builds of its macros (prefill CTAs of 64 rows,
@@ -137,6 +141,39 @@ block route (the earlier kernel) and ``F.rms_norm``, taken in turn at
 (16384, 2048) and (16384, 4096) in bf16, f32 and f16, each held against
 ``rms_norm_plain`` (atol / rtol 1e-2; f32 1e-3).
 
+``--i8`` is the A/B of the int8 matmul (``csrc/i8_matmul.cu``): the
+package's build (w^T by a transpose pass, then the TMA + wgmma product at
+128 x 256 tiles, 4 stages, CTA pairs, the column group of ``i8_plan``)
+with its group and without, the transpose pass alone and the product alone
+on a w^T made beforehand, variant builds of 128 x 128 tiles with 6 stages,
+3 stages, single CTAs (LC_I8_BN, LC_I8_STAGES, LC_I8_CLUSTER) and a probe
+whose results are wrong (LC_I8_PROBE 1: no wgmma), each printed with its
+ptxas registers and spills, ``torch._int_mm`` on w as given and on w
+column-major (``w.t().contiguous().t()``, cuBLASLt's TN layout), and with
+``--before DIR`` the kernel of the checkout at DIR (an earlier commit:
+its ``csrc/i8_matmul.cu`` built here, ``lc_i8_matmul(x, w, out, M, N, K,
+stream)``), taken in turn at 8192^3, at ModelConfig's ``w_gate_up`` pack
+(2048 x 11264) at training's 16384 rows, and at 16, 128 and 1000 rows of
+2048 x 2048; each held exactly against ``matmul_i8i8i32_plain`` but the
+probe.
+
+``--reduce`` is the A/B of the whole-array reductions (``csrc/reduce.cu``):
+the package's build (one launch, ``reduce_plan``'s grid of 4 CTAs an SM, 16
+loads a thread in flight), variant builds of 2 and 8 CTAs an SM, 1 and 4
+loads in flight (LC_REDUCE_CTAS_PER_SM, LC_REDUCE_INFLIGHT), two launches
+(LC_REDUCE_LAUNCHES 2), plain loads in place of evict-first ones
+(LC_REDUCE_CS 0) and a probe without arithmetic (LC_REDUCE_PROBE 1),
+each printed with its ptxas registers and spills, the library call
+(``torch.sum``, ``x.to(f16).sum()`` for fp8, ``torch.amax``,
+``torch.dot``) and with ``--before DIR`` the earlier commit's
+``csrc/reduce.cu`` (two passes, ``lc_reduce(..., partials, out,
+out_dtype, stream)``), taken in turn at (16384, 2048) for every registered
+sum rung, the default 16-byte rung in f32, int8 and e4m3, the f32 max and
+the f32 dot rungs, each held against its plain version (int8 exactly, the
+rest at the registry's tolerance) but the probe; then the SASS of the
+int8 and e4m3 kernels of both builds (``cuobjdump -sass``: instructions,
+loads by width, dp4a, fp8 converts).
+
 ``--resident`` is the A/B of the resident chain's build
 (``csrc/matmul_resident.cu``): every stage count (3-5) that fits the
 shared memory, the 128 x 256 tile against 128 x 128 (two consumer
@@ -148,6 +185,11 @@ probes whose results are wrong: what the feed alone takes), at the chains
 beside 5 (reps) ``torch.matmul`` and the port's ``hgemm``; the candidates
 of a shape are timed in turn, ``--repeats`` rounds, and each reports its
 median over the rounds.
+
+Device-alone times (torch.profiler's kernel times) count only from a
+profile whose kernels all ran a whole multiple of ``--iters`` times and
+whose time a call is at least the case's bound; other profiles are
+printed and dropped.
 
 On a GPU each time is the median over ``--iters`` launches of CUDA-event
 times, with the 50 MB L2 flushed by a 256 MB write before each launch (as
@@ -1196,9 +1238,10 @@ def bench_gemv(dev, iters, rounds, flush):
     return rows
 
 
-def _device_alone(fn, iters, flush):
+def _device_alone(fn, iters, flush, bound=0.0):
     """torch.profiler's kernel time of ``fn`` a call (the flush's fill left
-    out), or None where a profile came back without whole counts."""
+    out), or None where a profile came back without whole counts or below
+    ``bound`` ms a call (a profile that lost launches; printed)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1217,7 +1260,12 @@ def _device_alone(fn, iters, flush):
                if "FillFunctor" not in e.key and t(e)]
     if not kernels or any(e.count % iters for e in kernels):
         return None
-    return sum(t(e) for e in kernels) / iters / 1e3
+    ms = sum(t(e) for e in kernels) / iters / 1e3
+    if ms < bound:
+        print(f"  device alone {ms:.4f} ms below the bound {bound:.4f} ms: "
+              f"profile dropped", flush=True)
+        return None
+    return ms
 
 
 def _report_turns(rows, label, fns, want, dev, iters, rounds, flush, bound,
@@ -1228,7 +1276,12 @@ def _report_turns(rows, label, fns, want, dev, iters, rounds, flush, bound,
     for n, fn in fns.items():
         got = fn()
         errs[n] = float((got.float() - want.float()).abs().max())
-        if n not in probes:
+        if n in probes:
+            continue
+        if not got.dtype.is_floating_point:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label} {n}: not exact")
+        else:
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
     times = _in_turn(fns, dev, iters, rounds, flush)
@@ -1236,7 +1289,8 @@ def _report_turns(rows, label, fns, want, dev, iters, rounds, flush, bound,
     if dev.type == "cuda":
         for _ in range(rounds):
             for n, fn in fns.items():
-                alone[n].append(_device_alone(fn, iters, flush))
+                alone[n].append(_device_alone(
+                    fn, iters, flush, 0.0 if n in probes else bound))
     print(f"--- {label} (bound {bound:.4f} ms) ---")
     for n in fns:
         ms = float(np.median(times[n]))
@@ -1413,6 +1467,313 @@ def bench_rms(dev, iters, rounds, flush, S=16384):
     return rows
 
 
+def before_lib(root, name):
+    """``csrc/<name>.cu`` of the checkout at ``root`` (an earlier commit of
+    the repository) built with the package's flags and loaded, for the
+    "before" of an A/B: (library, ptxas report)."""
+    import ctypes
+    import hashlib
+    import subprocess
+    from pathlib import Path
+
+    from leetcuda_tpu_torch.build import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    src = Path(root) / "leetcuda_tpu_torch" / "csrc" / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"before-{name}-{tag}.so"
+    log = ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                               str(src)], capture_output=True, text=True)
+        log = done.stdout + done.stderr
+        if done.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    return ctypes.CDLL(str(out)), log
+
+
+def sass_counts(lib_path, tags):
+    """{tag: instruction counts} of the first kernel of a build whose name
+    holds each tag (cuobjdump -sass): every instruction, loads by width,
+    dp4a (IDP), fp8 converts (F2FP) and float adds."""
+    import re
+    import subprocess
+    from collections import Counter
+    from pathlib import Path
+
+    from leetcuda_tpu_torch.build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    parts = sass.split("Function : ")[1:]
+    res = {}
+    for tag in tags:
+        part = next((p for p in parts if tag in p.split("\n", 1)[0]), None)
+        if part is None:
+            res[tag] = None
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", part)
+        c = Counter(o.split(".")[0] for o in ops)
+        res[tag] = {"instructions": len(ops),
+                    "LDG": {w: sum(o.startswith("LDG") and w in o
+                                   for o in ops)
+                            for w in (".U8", ".S8", ".U16", ".128", ".64")},
+                    "LDG_all": c["LDG"], "IDP": c["IDP"], "F2FP": c["F2FP"],
+                    "HADD2": c["HADD2"], "FADD": c["FADD"],
+                    "BRA": c["BRA"]}
+    return res
+
+
+# the int8 matmul's variant builds and probe; its cases (label, M, K, N)
+I8_VARIANTS = [{"LC_I8_BN": 128, "LC_I8_STAGES": 6}, {"LC_I8_STAGES": 3},
+               {"LC_I8_CLUSTER": 1}, {"LC_I8_PROBE": 1}]
+I8_CASES = (("8192^3", 8192, 8192, 8192),
+            ("w_gate_up pack, 16384 rows", 16384, 2048, 11264),
+            ("2048^2, 1000 rows", 1000, 2048, 2048),
+            ("2048^2, 128 rows", 128, 2048, 2048),
+            ("2048^2, 16 rows", 16, 2048, 2048))
+
+
+def _i8_label(v):
+    return ", ".join(f"{k[6:].lower()} {x}" for k, x in sorted(v.items()))
+
+
+def bench_i8(dev, iters, rounds, flush, before=None):
+    """The int8 matmul's builds, group, passes, the earlier kernel and
+    torch._int_mm in turn at I8_CASES (on the CPU the plain version at a
+    cut size). Returns the rows."""
+    import ctypes
+
+    from leetcuda_tpu_torch.build import kernel
+    from leetcuda_tpu_torch.gemm import quant as gq
+
+    cuda = dev.type == "cuda"
+    builds = _builds("i8_matmul", I8_VARIANTS, _i8_label) if cuda else []
+    old = None
+    if cuda and before:
+        old, log = before_lib(before, "i8_matmul")
+        fn = old.lc_i8_matmul
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        print(f"  built before: {log.count('registers')} ptxas entries")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for label, M, K, N in (I8_CASES if cuda else (("cut", 64, 48, 32),)):
+        x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        want = gq.matmul_i8i8i32_plain(x, w)
+        fns, probes, extra = {}, [], {}
+        if cuda:
+            plan = gq.i8_plan(M, N, K)
+            fns[f"package ({plan['grid']} CTAs, group {plan['group']})"] = (
+                lambda: gq.matmul_i8i8i32(x, w))
+            fns["package, group 0" if plan["group"] else "package, group 8"] \
+                = lambda g=8 - plan["group"]: gq._launch_i8(x, w, group=g)
+            wt = w.t().contiguous()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            out = torch.empty((M, N), dtype=torch.int32, device=dev)
+            tile, ctas = gq.i8_build_info(dev)
+            pl = gq.i8_plan(M, N, K, ctas, **tile)
+            product = kernel("i8_matmul", "lc_i8_matmul", gq._I8_ARGS)
+
+            def product_alone():
+                gq.check_launch(product(
+                    x.data_ptr(), wt.data_ptr(), out.data_ptr(), M, N, K,
+                    pl["group"], pl["grid"], stream), "product")
+                return out
+            fns["product alone (w^T made before)"] = product_alone
+            for v, lib in builds:
+                name = _i8_label(v)
+                fns[name] = lambda lib=lib: gq._launch_i8(x, w, lib)
+                if v.get("LC_I8_PROBE"):
+                    probes.append(name)
+            if old is not None:
+                def run_old():
+                    o = torch.empty((M, N), dtype=torch.int32, device=dev)
+                    gq.check_launch(old.lc_i8_matmul(
+                        x.data_ptr(), w.data_ptr(), o.data_ptr(), M, N, K,
+                        stream), "before")
+                    return o
+                fns["before (mma.sync, 128 x 128 x 64)"] = run_old
+            try:
+                torch._int_mm(x, w)
+                fns["torch._int_mm"] = lambda: torch._int_mm(x, w)
+            except RuntimeError as e:
+                extra["int_mm_refused"] = str(e).splitlines()[0]
+            wc = w.t().contiguous().t()
+            try:
+                torch._int_mm(x, wc)
+                fns["torch._int_mm, w column-major"] = (
+                    lambda: torch._int_mm(x, wc))
+            except RuntimeError as e:
+                extra["int_mm_cm_refused"] = str(e).splitlines()[0]
+            tt = torch.empty(K * N, dtype=torch.int8, device=dev)
+            transpose = kernel("i8_matmul", "lc_i8_transpose",
+                               gq._I8_T_ARGS)
+            extra["transpose_ms"] = float(np.median(_in_turn(
+                {"t": lambda: transpose(w.data_ptr(), tt.data_ptr(), K, N,
+                                        stream)},
+                dev, iters, rounds, flush)["t"]))
+            extra["transpose_bound_ms"] = 2.0 * K * N / 3.35e12 * 1e3
+            if not torch.equal(tt.view(N, K), wt):
+                raise AssertionError(f"{label}: the transpose pass is wrong")
+            extra["plan"] = plan
+        else:
+            fns["plain"] = lambda: gq.matmul_i8i8i32_plain(x, w)
+        _report_turns(rows, f"i8 matmul {label} (M {M}, K {K}, N {N})",
+                      fns, want, dev, iters, rounds, flush,
+                      2.0 * M * N * K / 1979e12 * 1e3, probes=probes,
+                      M=M, K=K, N=N, **extra)
+        if "transpose_ms" in extra:
+            print(f"  transpose pass alone {extra['transpose_ms']:.4f} ms "
+                  f"(bound {extra['transpose_bound_ms']:.4f} ms)")
+    return rows
+
+
+# the reductions' variant builds and probe
+REDUCE_VARIANTS = [{"LC_REDUCE_CTAS_PER_SM": 2}, {"LC_REDUCE_CTAS_PER_SM": 8},
+                   {"LC_REDUCE_INFLIGHT": 1}, {"LC_REDUCE_INFLIGHT": 4},
+                   {"LC_REDUCE_LAUNCHES": 2}, {"LC_REDUCE_CS": 0},
+                   {"LC_REDUCE_PROBE": 1}]
+
+
+def _reduce_label(v):
+    return ", ".join(f"{k[10:].lower()} {x}" for k, x in sorted(v.items()))
+
+
+def bench_reduce(dev, iters, rounds, flush, before=None, S=16384, K=2048):
+    """The reductions' builds, the earlier kernel and the library call in
+    turn at (S, K) for the registered sum rungs, the default rung in f32,
+    int8 and e4m3, the f32 max and the f32 dot rungs (on the CPU the plain
+    versions at a cut size); then the SASS of the int8 and e4m3 kernels.
+    Returns the rows."""
+    import ctypes
+
+    from leetcuda_tpu_torch.ops import dot_product as dp
+    from leetcuda_tpu_torch.ops import flat
+    from leetcuda_tpu_torch.ops import reduce as rd
+
+    cuda = dev.type == "cuda"
+    builds = _builds("reduce", REDUCE_VARIANTS, _reduce_label) if cuda \
+        else []
+    old = None
+    if cuda and before:
+        old, _ = before_lib(before, "reduce")
+        old.lc_reduce.restype = ctypes.c_int
+        old.lc_reduce.argtypes = list(rd.ARGS[:10]) + [ctypes.c_void_p]
+    if not cuda:
+        S, K = 64, 96
+    gen = torch.Generator(device=dev).manual_seed(0)
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    cases = []  # (label, op, x dtype, acc dtype, vec, pack, tol)
+    for name, spec in OPS.items():
+        if spec.family == "reduce":
+            edt = spec.fn.acc_dtype
+            xdt = {"f32": torch.float32, "f16": torch.float16,
+                   "bf16": torch.bfloat16, "i8": torch.int8,
+                   "fp8_e4m3": e4, "fp8_e5m2": e5}[
+                next(t for t in ("fp8_e4m3", "fp8_e5m2", "bf16", "f16",
+                                 "f32", "i8") if spec.tags[0].startswith(t))]
+            cases.append((name, rd.SUM, xdt, edt, spec.fn.vec,
+                          spec.fn.pack, spec.atol))
+        elif (spec.family == "dot-product"
+              and name.startswith("dot_prod_f32")):
+            cases.append((name, rd.DOT, torch.float32, torch.float32,
+                          spec.fn.vec, spec.fn.pack, spec.atol))
+    cases += [(f"sum, 16-byte rung, {t}", rd.SUM, d, a, None, True, tol)
+              for t, d, a, tol in (("f32", torch.float32, torch.float32, 1e-3),
+                                   ("int8", torch.int8, torch.int32, 0),
+                                   ("e4m3", e4, torch.float16, 16.0))]
+    cases.append(("max f32", rd.MAX, torch.float32, torch.float32, None,
+                  True, 0.0))
+    rows = []
+    for label, op, xdt, adt, vec, pack, tol in cases:
+        if xdt == torch.int8:
+            x = torch.randint(-128, 128, (S, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+        else:
+            x = torch.randn((S, K), generator=gen, device=dev).to(xdt)
+        y = torch.randn((S, K), generator=gen, device=dev) if op == rd.DOT \
+            else None
+        counter = {rd.SUM: rd.REDUCE_SUM, rd.MAX: rd.REDUCE_MAX,
+                   rd.DOT: dp.DOT_PRODUCT}[op]
+        dtypes = rd.SUM_INPUTS if op == rd.SUM else flat.FLOATS
+        if op == rd.SUM:
+            want = rd.sum_plain(x, adt)
+        elif op == rd.MAX:
+            want = rd.max_plain(x, adt)
+        else:
+            want = (x.double() * y.double()).sum().float()
+        fns, probes = {}, []
+        if cuda:
+            def call(lib="reduce"):
+                return rd.launch_reduce(counter, x, y, op, adt, vec, pack,
+                                        dtypes, lib)
+            fns["package"] = call
+            for v, lib in builds:
+                name = _reduce_label(v)
+                fns[name] = lambda lib=lib: call(lib)
+                if v.get("LC_REDUCE_PROBE"):
+                    probes.append(name)
+            if old is not None:
+                parts = torch.empty(1024, dtype=torch.int32, device=dev)
+                v_, lb = flat.rung_bytes(vec, pack, x.element_size())
+
+                def run_old():
+                    o = torch.empty((), dtype=adt, device=dev)
+                    err = old.lc_reduce(
+                        x.data_ptr(), (x if y is None else y).data_ptr(),
+                        x.numel(), flat.DTYPES[x.dtype], op, v_, lb,
+                        parts.data_ptr(), o.data_ptr(), flat.DTYPES[adt],
+                        torch.cuda.current_stream(dev).cuda_stream)
+                    if err:
+                        raise RuntimeError(f"before: CUDA error {err}")
+                    return o
+                fns["before (two passes)"] = run_old
+            if op == rd.SUM:
+                fns["library"] = (
+                    (lambda: x.to(torch.float16).sum()) if x.element_size()
+                    == 1 and xdt != torch.int8 else
+                    (lambda: torch.sum(x, dtype=adt)))
+            elif op == rd.MAX:
+                fns["library"] = lambda: torch.amax(x)
+            else:
+                fns["library"] = lambda: torch.dot(x.reshape(-1),
+                                                   y.reshape(-1))
+        else:
+            fns["plain"] = lambda: want
+        nbytes = x.numel() * x.element_size() * (2 if y is not None else 1)
+        # the library's fp8 sum accumulates in f16: timed, not held
+        _report_turns(rows, f"{label} ({S}, {K})", fns, want, dev, iters,
+                      rounds, flush, nbytes / 3.35e12 * 1e3,
+                      probes=probes + (["library"] if cuda and xdt in (e4, e5)
+                                       else []),
+                      tol=tol, op=op, S=S, K=K,
+                      plan=rd.reduce_plan(x.numel(), x.element_size(),
+                                          *flat.rung_bytes(
+                                              vec, pack, x.element_size())))
+    if cuda:
+        from leetcuda_tpu_torch.build import _lib_path
+        tags = ("reduce_flatILi3ELi0ELi1ELi1E", "reduce_flatILi3ELi0ELi16E",
+                "reduce_flatILi4ELi0ELi1ELi1E", "reduce_flatILi4ELi0ELi16E",
+                "reduce_flatILi0ELi0ELi1ELi4E")
+        sass = {"package": sass_counts(_lib_path("reduce"), tags)}
+        if old is not None:
+            sass["before"] = sass_counts(old._name, tuple(
+                t.replace("reduce_flat", "pass1") for t in tags))
+        for k, v in sass.items():
+            for tag, c in v.items():
+                print(f"  SASS {k} {tag}: {c}")
+        rows.append({"case": "sass", **sass})
+    return rows
+
+
 def _write_rows(path, dev, rows):
     import json
     from pathlib import Path
@@ -1490,10 +1851,19 @@ def main(argv=None):
     ap.add_argument("--rms", action="store_true",
                     help="the A/B of the rms-norm's groups, grid and routes "
                          "at (16384, 2048) and (16384, 4096)")
+    ap.add_argument("--i8", action="store_true",
+                    help="the A/B of the int8 matmul's builds, passes and "
+                         "group at 8192^3, the w_gate_up pack and small M")
+    ap.add_argument("--reduce", action="store_true",
+                    help="the A/B of the reductions' builds, grid, loads in "
+                         "flight and launches at (16384, 2048)")
+    ap.add_argument("--before", default=None, metavar="DIR",
+                    help="--i8, --reduce: also time the kernel of the "
+                         "checkout at DIR (an earlier commit)")
     ap.add_argument("--json", help="--resident, --w4, --w8, --hgemm, --gmm, "
                                    "--ln-bwd, --ln-fwd, --map, --softmax, "
-                                   "--gemv, --fused, --rms: write the rows "
-                                   "here")
+                                   "--gemv, --fused, --rms, --i8, --reduce: "
+                                   "write the rows here")
     args = ap.parse_args(argv)
 
     load_all()
@@ -1534,6 +1904,11 @@ def main(argv=None):
         rows = bench_fused(dev, args.iters, args.repeats, flush)
     elif args.rms:
         rows = bench_rms(dev, args.iters, args.repeats, flush)
+    elif args.i8:
+        rows = bench_i8(dev, args.iters, args.repeats, flush, args.before)
+    elif args.reduce:
+        rows = bench_reduce(dev, args.iters, args.repeats, flush,
+                            args.before)
     elif args.w4:
         rows = bench_w4(args.w4_kn or W4_KN, args.m or W4_ROWS, dev,
                         args.iters, args.repeats, flush)

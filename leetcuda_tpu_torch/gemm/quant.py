@@ -29,7 +29,9 @@ weights and x convert exactly), so the port has one kernel per pack format,
 and the six registered w8a16 / w4a16 rungs go to those two functions.
 
 ``make_matmul_i8i8i32`` is the exact int8 x int8 -> int32 matmul
-(``csrc/i8_matmul.cu`` on CUDA tensors, registered as ``hgemm_w8a8_i32``).
+(``csrc/i8_matmul.cu`` on CUDA tensors, registered as ``hgemm_w8a8_i32``):
+a pass that writes w^T into a per-stream scratch, then one persistent TMA +
+wgmma launch (``i8_plan``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ W8A16 = LaunchCounter("matmul_w8a16")
 W8_TO_BF16 = LaunchCounter("w8_to_bf16")  # the prefill route's first pass
 W4A16 = LaunchCounter("matmul_w4a16")
 I8I8I32 = LaunchCounter("matmul_i8i8i32")
+I8_TRANSPOSE = LaunchCounter("i8_transpose")  # the int8 product's first pass
 # lc_wq_matmul_bf16(x, w, s, out, ws, counters, M, N, K, fp8, route, bm,
 #                   splits, group, grid, stream); lc_wq_matmul_info(info);
 # lc_w8_to_bf16(w, wb, n, fp8, stream)
@@ -58,8 +61,20 @@ _W8_CONVERT_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_longlong, ctypes.c_int,
 #                   splits, stream); lc_w4_matmul_info(info)
 _W4A16_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _W4_INFO_ARGS = (ctypes.c_void_p,)
-# lc_i8_matmul(x, w, out, M, N, K, stream)
-_I8_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+# lc_i8_matmul(x, wt, out, M, N, K, group, grid, stream);
+# lc_i8_transpose(w, wt, K, N, stream); lc_i8_info(info)
+_I8_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_I8_T_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+_I8_INFO_ARGS = (ctypes.c_void_p,)
+
+# The int8 product's tile (csrc/i8_matmul.cu LC_I8_BN / LC_I8_STAGES /
+# LC_I8_CLUSTER, checked against the library's lc_i8_info): 128 x 256 output
+# tiles over stages of 128 k, CTA pairs along M sharing w^T's boxes, one CTA
+# an SM, tile columns walked HALF_GROUP at a time from GROUP_MIN_COLS
+# columns (as pick_matmul_config walks the dense matmul's). The A/B behind
+# it is bench/gemm_bench.py --i8 (PERF.md row 11).
+I8_TILE = {"block_m": 128, "block_n": 256, "block_k": 128, "stages": 4,
+           "cluster": 2}
 
 # The w8a16 kernel's routes (csrc/wq_matmul.cu): up to W8_DECODE_MAX_ROWS
 # rows, CTAs of 128 columns by the fewest rows of (8, 16, 32, 64) that hold
@@ -521,11 +536,124 @@ def matmul_i8i8i32_plain(x, w):
     return torch.round(x.double() @ w.double()).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=256)
+def i8_plan(M, N, K, ctas=None, block_m=128, block_n=256, block_k=128,
+            stages=4, cluster=2):
+    """What one product launch of csrc/i8_matmul.cu runs for x (M, K) @ w
+    (K, N) at a tile (``I8_TILE``'s by default): output tiles, work units
+    (row blocks paired along M with ``cluster`` 2), the persistent grid (at
+    most ``ctas`` CTAs, the co-resident count, default one an SM of 132, in
+    whole clusters), the column group of the walk, the k stages, the shared
+    memory and the bytes of w^T the first pass writes. Cached (read it, do
+    not change it)."""
+    nbm, nbn = cdiv(M, block_m), cdiv(N, block_n)
+    units = cdiv(nbm, cluster) * nbn
+    ctas = 132 if ctas is None else ctas
+    return {"block_m": block_m, "block_n": block_n, "block_k": block_k,
+            "stages": stages, "cluster": cluster, "tiles": (nbm, nbn),
+            "units": units,
+            "grid": min(ctas // cluster, units) * cluster,
+            "group": HALF_GROUP if nbn >= GROUP_MIN_COLS else 0,
+            "k_stages": cdiv(K, block_k), "threads": 384,
+            "smem": 1024 + stages * (block_m + block_n) * block_k
+            + 8 * (2 * stages + 2),
+            "scratch": N * K}
+
+
+_I8_INFO: dict = {}
+
+
+def i8_build_info(device, lib="i8_matmul"):
+    """(tile, co-resident CTAs) of ``lib`` (a source name or a variant build)
+    on ``device``; the package's build must have I8_TILE."""
+    from leetcuda_tpu_torch.build import entry
+
+    key = (lib if isinstance(lib, str) else id(lib), device.index)
+    got = _I8_INFO.get(key)
+    if got is None:
+        info = (ctypes.c_int * 8)()
+        with torch.cuda.device(device):
+            check_launch(entry(lib, "lc_i8_info", _I8_INFO_ARGS)(
+                ctypes.addressof(info)), I8I8I32.name)
+        tile = dict(zip(("block_m", "block_n", "block_k", "stages",
+                         "cluster"), info[:5]))
+        got = _I8_INFO[key] = (tile, info[5])
+        if lib == "i8_matmul" and (tile != I8_TILE or info[7]):
+            raise RuntimeError(f"csrc/i8_matmul.cu was built with the tile "
+                               f"{tile} (probe {info[7]}); the wrapper plans "
+                               f"{I8_TILE}")
+    return got
+
+
+# One w^T scratch per (device, stream), grown on demand; a buffer that growth
+# replaces stays alive in _I8_RETIRED for the life of the process, since a
+# CUDA graph captured on the stream before the growth still launches into
+# it (as _split_scratch keeps its own).
+_I8_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_I8_RETIRED: list[torch.Tensor] = []
+
+
+def _i8_scratch(device, stream: int, nbytes: int):
+    """At least ``nbytes`` of int8 scratch for ``stream`` on ``device``, made
+    at its first use and replaced (never inside a capture: launch once on
+    the stream first) by one at least twice as large when too small."""
+    key = (device.index, stream)
+    buf = _I8_SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("i8 matmul: this stream has no w^T scratch of "
+                               "that size yet; launch the call once on it "
+                               "before capturing a graph")
+        if buf is not None:
+            _I8_RETIRED.append(buf)
+        buf = torch.empty(max(nbytes, 0 if buf is None else 2 * buf.numel()),
+                          dtype=torch.int8, device=device)
+        _I8_SCRATCH[key] = buf
+    return buf
+
+
+def i8_transpose(w, lib="i8_matmul"):
+    """The int8 product's first pass on the current stream: w (K, N) int8
+    (contiguous, 16-byte aligned, K and N multiples of 16) -> w^T (N, K), a
+    view of the stream's scratch that the next call on the stream
+    overwrites."""
+    from leetcuda_tpu_torch.build import entry
+
+    K, N = w.shape
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    wt = _i8_scratch(w.device, stream, K * N)
+    check_launch(entry(lib, "lc_i8_transpose", _I8_T_ARGS)(
+        w.data_ptr(), wt.data_ptr(), K, N, stream), I8_TRANSPOSE.name)
+    I8_TRANSPOSE.add()
+    return wt[:K * N].view(N, K)
+
+
+def _launch_i8(x, w, lib="i8_matmul", group=None):
+    """Both launches of csrc/i8_matmul.cu (or the variant build ``lib``) on
+    the current stream, on operands the wrapper has checked: w^T into the
+    stream's scratch (counted on ``i8_transpose``), then the product
+    (``i8_plan``; ``group`` replaces the plan's column group)."""
+    from leetcuda_tpu_torch.build import entry
+
+    tile, ctas = i8_build_info(x.device, lib)
+    (M, K), N = x.shape, w.shape[1]
+    plan = i8_plan(M, N, K, ctas, **tile)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    wt = i8_transpose(w, lib)
+    out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    check_launch(entry(lib, "lc_i8_matmul", _I8_ARGS)(
+        x.data_ptr(), wt.data_ptr(), out.data_ptr(), M, N, K,
+        plan["group"] if group is None else group, plan["grid"], stream),
+        I8I8I32.name)
+    I8I8I32.add()
+    return out
+
+
 def make_matmul_i8i8i32():
     """x (M, K) int8 @ w (K, N) int8 -> (M, N) int32, exact. The kernel
     takes any M, and K and N that are multiples of 16 (16-byte rows). Its
-    one tile is 128 x 128 x 64, so the JAX factory's ``block`` (a TPU VMEM
-    tile) is not taken."""
+    tile is ``I8_TILE``, so the JAX factory's ``block`` (a TPU VMEM tile) is
+    not taken."""
 
     def fn(x, w):
         if (x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]
@@ -545,15 +673,7 @@ def make_matmul_i8i8i32():
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"i8 matmul kernel: {name} must be "
                                  "contiguous and 16-byte aligned")
-        from leetcuda_tpu_torch.build import kernel
-
-        out = torch.empty((M, N), dtype=torch.int32, device=x.device)
-        err = kernel("i8_matmul", "lc_i8_matmul", _I8_ARGS)(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        check_launch(err, I8I8I32.name)
-        I8I8I32.add()
-        return out
+        return _launch_i8(x, w)
 
     return fn
 

@@ -5,10 +5,12 @@ Counterpart of ``leetcuda_tpu/ops/reduce.py``
 (``make_block_all_reduce_sum``, ``make_block_all_reduce_max``, ``_MATRIX``
 and its 9 registrations, ``block_all_reduce_sum_f32``,
 ``block_all_reduce_max_f32``). On CUDA tensors the wrappers launch
-``lc_reduce`` of ``csrc/reduce.cu``: two passes with no atomics, so a
-result is the same bits on every run. Each returns a 0-d tensor on x's
-device in the accumulator dtype, with no host synchronisation. On CPU
-tensors they run ``sum_plain`` / ``max_plain``.
+``lc_reduce`` of ``csrc/reduce.cu``: one launch (``reduce_plan``), each
+CTA's partial in its slot of a per-stream scratch and the last CTA adding
+the slots in slot order, no float atomics, so a result is the same bits on
+every run. Each returns a 0-d tensor on x's device in the accumulator dtype,
+with no host synchronisation and nothing allocated but it. On CPU tensors
+they run ``sum_plain`` / ``max_plain``.
 
 Float inputs (f32, f16, bf16, e4m3, e5m2; e4m3's bytes 0x7F and 0xFF are
 NaN, as ``upcast_for_vpu`` decodes them) accumulate in f32 and the sum is
@@ -26,25 +28,136 @@ elements a thread takes (``ops/flat.py``), by default one 16-byte word.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from leetcuda_tpu_torch.core.registry import register_op
-from leetcuda_tpu_torch.core.runtime import LaunchCounter
+from leetcuda_tpu_torch.core.runtime import LaunchCounter, cdiv, check_launch
 from leetcuda_tpu_torch.ops import flat
 from leetcuda_tpu_torch.ops import rowwise as rw
 
 REDUCE_SUM = LaunchCounter("block_all_reduce_sum")
 REDUCE_MAX = LaunchCounter("block_all_reduce_max")
 SUM, MAX, DOT = 0, 1, 2  # lc_reduce's op codes
-MAX_PARTIALS = 1024  # reduce.cu kMaxPartials: pass 1's CTAs at most
+# csrc/reduce.cu's constants (checked against the library's lc_reduce_info):
+# threads a CTA, CTAs an SM, loads and bytes a thread has in flight, and the
+# per-stream scratch: the counter padded to HEADER_INTS, then MAX_SLOTS
+# 4-byte slots, one a CTA
+THREADS, CTAS_PER_SM, INFLIGHT, MAX_BYTES = 256, 4, 16, 64
+HEADER_INTS, MAX_SLOTS = 32, 2048
+SCRATCH_INTS = HEADER_INTS + MAX_SLOTS
 SUM_INPUTS = flat.FLOATS + (torch.int8, torch.float8_e4m3fn,
                             torch.float8_e5m2)
 ACCUMULATORS = flat.FLOATS + (torch.int32,)
-# lc_reduce(x, y, n, in_dtype, op, vec, load_bytes, partials, out,
-#           out_dtype, stream)
+# lc_reduce(x, y, n, in_dtype, op, vec, load_bytes, scratch, out,
+#           out_dtype, grid, stream); lc_reduce_info(info)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-ARGS = (_P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _I, _P)
+ARGS = (_P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _I, _I, _P)
+INFO_ARGS = (_P,)
+
+
+def vectors_in_flight(itemsize: int, vec: int, lb: int,
+                      inflight: int = INFLIGHT) -> int:
+    """Vectors a thread loads before it adds (reduce.cu
+    vectors_in_flight): ``inflight`` loads of ``lb`` bytes and MAX_BYTES
+    bytes at most, at least one."""
+    loads, nbytes = vec * itemsize // lb, vec * itemsize
+    return max(1, min(inflight // loads, MAX_BYTES // nbytes))
+
+
+def split_flat(offset: int, n: int, itemsize: int, vec: int, lb: int):
+    """(head, nvec, tail) of csrc/vec_io.cuh split_flat for n elements
+    whose first lies ``offset`` bytes past an ``lb``-aligned address: the
+    elements before the first aligned one, the whole vectors after them,
+    and the index of the first element past the last whole vector."""
+    per = lb // itemsize
+    mis = (offset // itemsize) % per
+    head = min((per - mis) % per, n)
+    nvec = (n - head) // vec
+    return head, nvec, head + nvec * vec
+
+
+@functools.lru_cache(maxsize=1024)
+def reduce_plan(n: int, itemsize: int, vec: int, lb: int, offset: int = 0,
+                sms: int = 132, ctas_per_sm: int = CTAS_PER_SM,
+                inflight: int = INFLIGHT) -> dict:
+    """What one launch of lc_reduce runs over n elements (``offset`` bytes
+    past an lb-aligned address) at a rung: the split, the vectors a thread
+    has in flight (``unroll``), and the grid: ``ctas_per_sm`` CTAs an SM of
+    ``sms``, fewer where the array gives a thread less than one round of
+    ``unroll`` vectors, at least one; each CTA owns the slot of its index.
+    Cached (read it, do not change it)."""
+    head, nvec, tail = split_flat(offset, n, itemsize, vec, lb)
+    unroll = vectors_in_flight(itemsize, vec, lb, inflight)
+    grid = max(1, min(ctas_per_sm * sms, cdiv(nvec, THREADS * unroll)))
+    if grid > MAX_SLOTS:
+        raise ValueError(f"reduce: {grid} CTAs exceed {MAX_SLOTS} slots")
+    return {"head": head, "nvec": nvec, "tail": tail, "unroll": unroll,
+            "grid": grid, "threads": THREADS, "slots": grid,
+            "scratch_ints": SCRATCH_INTS}
+
+
+_INFO: dict = {}
+
+
+def build_info(lib="reduce"):
+    """{"ctas_per_sm", "inflight", "launches", "probe", "cs"} of ``lib`` (a
+    source name or a variant build); every build has THREADS, MAX_BYTES and
+    the scratch's layout, and the package's build CTAS_PER_SM, INFLIGHT,
+    one launch, no probe and evict-first loads."""
+    from leetcuda_tpu_torch.build import entry
+
+    key = lib if isinstance(lib, str) else id(lib)
+    got = _INFO.get(key)
+    if got is None:
+        info = (ctypes.c_int * 9)()
+        check_launch(entry(lib, "lc_reduce_info", INFO_ARGS)(
+            ctypes.addressof(info)), REDUCE_SUM.name)
+        fixed = (info[0], info[3], info[4], info[5])
+        got = _INFO[key] = dict(ctas_per_sm=info[1], inflight=info[2],
+                                launches=info[6], probe=info[7], cs=info[8])
+        if fixed != (THREADS, MAX_BYTES, HEADER_INTS, MAX_SLOTS) or (
+                lib == "reduce" and got != dict(
+                    ctas_per_sm=CTAS_PER_SM, inflight=INFLIGHT, launches=1,
+                    probe=0, cs=1)):
+            raise RuntimeError(f"csrc/reduce.cu was built with {list(info)};"
+                               f" the wrapper plans {THREADS} threads, "
+                               f"{CTAS_PER_SM} CTAs an SM, {INFLIGHT} loads")
+    return got
+
+
+# One scratch per (device, stream): the counter (0 between launches: the
+# last CTA of each launch sets it back) and the slots. Made once, never
+# replaced, so a CUDA graph captured on the stream launches into it for the
+# life of the process; a graph's replays must not overlap launches on its
+# capture stream's scratch from another stream.
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_SMS: dict[int, int] = {}
+
+
+def stream_scratch(device, stream: int) -> torch.Tensor:
+    """The reduce scratch (SCRATCH_INTS int32, zeros when made) of
+    ``stream`` on ``device``; made outside any capture (launch once on the
+    stream before capturing a graph)."""
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("reduce: this stream has no scratch yet; "
+                               "launch the call once on it before capturing "
+                               "a graph")
+        buf = _SCRATCH[key] = torch.zeros(SCRATCH_INTS, dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
+def _sms(device) -> int:
+    got = _SMS.get(device.index)
+    if got is None:
+        got = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return got
 
 
 def sum_plain(x, acc_dtype):
@@ -72,18 +185,26 @@ def _check_acc(x, acc_dtype):
                          f"{acc_dtype}")
 
 
-def launch_reduce(counter, x, y, op: int, acc_dtype, vec, pack, dtypes):
-    """``op`` of csrc/reduce.cu over x (and y, for the dot) on the card:
-    a 0-d tensor of ``acc_dtype`` on x's device."""
+def launch_reduce(counter, x, y, op: int, acc_dtype, vec, pack, dtypes,
+                  lib="reduce"):
+    """``op`` of csrc/reduce.cu (or the variant build ``lib``) over x (and
+    y, for the dot) on the card, one launch (two for a variant with
+    LC_REDUCE_LAUNCHES 2): a 0-d tensor of ``acc_dtype`` on x's device."""
     rw.check_kernel_operands(counter.name, x, *(() if y is None else (y,)),
                              dtypes=dtypes)
-    out = torch.empty((), dtype=acc_dtype, device=x.device)
-    partials = torch.empty(MAX_PARTIALS, dtype=torch.int32, device=x.device)
+    built = build_info(lib)
     vec, lb = flat.rung_bytes(vec, pack, x.element_size())
+    plan = reduce_plan(x.numel(), x.element_size(), vec, lb,
+                       x.data_ptr() % lb, _sms(x.device),
+                       built["ctas_per_sm"], built["inflight"])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = stream_scratch(x.device, stream)
+    out = torch.empty((), dtype=acc_dtype, device=x.device)
     rw.launch(counter, "lc_reduce", ARGS, x.device, x.data_ptr(),
-                (x if y is None else y).data_ptr(), x.numel(),
-                flat.DTYPES[x.dtype], op, vec, lb, partials.data_ptr(),
-                out.data_ptr(), flat.DTYPES[acc_dtype], source="reduce")
+              (x if y is None else y).data_ptr(), x.numel(),
+              flat.DTYPES[x.dtype], op, vec, lb, scratch.data_ptr(),
+              out.data_ptr(), flat.DTYPES[acc_dtype], plan["grid"],
+              source=lib)
     return out
 
 

@@ -263,3 +263,51 @@ def test_bwd_plain_counts_nothing():
                                         torch.ones_like(out), causal=True)
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
     assert (fb.FLASH_BWD_DQ.launches, fb.FLASH_BWD_DKV.launches) == before
+
+
+def test_bf16_rounding_of_the_backward_against_f64():
+    """In bf16, the plain backward and JAX's _bwd kernels (interpret mode)
+    both round P and dS to bf16 before the second products and the
+    gradients to bf16 at the end: each is the same distance from the f64
+    gradient of the same inputs (``bench/attn_bench.py bwd_f64``), within
+    25% in RMS for dq, dk and dv, and the two lie closer to each other than
+    either lies to f64, so an elementwise bar between two such versions
+    compares two bf16 roundings (PERF.md, the FA-2 backward's dK bar)."""
+    from leetcuda_tpu_torch.bench.attn_bench import bwd_f64
+
+    Hq, Hkv, n, d = 4, 2, 256, 64
+    q, k, v = (torch.from_numpy(a * 2).to(torch.bfloat16)
+               for a in _qkv(7, Hkv, h=Hq, n=n, d=d))
+    rng = np.random.default_rng(8)
+    do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(
+        torch.bfloat16)
+    out, lse = flash_attention(q, k, v, causal=True, with_lse=True)
+    out = out.to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    g = Hq // Hkv
+
+    def flat(x):
+        return jnp.asarray(x.float().numpy()).astype(
+            jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32
+        ).reshape(B * Hq, *x.shape[2:])
+
+    jgrads = _bwd(True, None, scale, None, 128, 128, flat(q),
+                  flat(k.repeat_interleave(g, 1)),
+                  flat(v.repeat_interleave(g, 1)), flat(out), flat(lse),
+                  flat(do))
+    jdq = np.asarray(jgrads[0], np.float64).reshape(q.shape)
+    jdk, jdv = (np.asarray(t, np.float64).reshape(B, Hkv, g, n, d).sum(2)
+                for t in jgrads[1:])
+    plain = fb.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                         sm_scale=scale)
+    exact = bwd_f64(q, k, v, out, lse, do, scale)
+
+    def rms(a, b):
+        return float(np.sqrt(np.mean((np.asarray(a, np.float64)
+                                      - np.asarray(b, np.float64)) ** 2)))
+
+    for p, j, e in zip(plain, (jdq, jdk, jdv), exact):
+        p, e = p.double().numpy(), e.numpy()
+        to_f64, jax_to_f64 = rms(p, e), rms(j, e)
+        assert 0.8 < to_f64 / jax_to_f64 < 1.25
+        assert rms(p, j) < max(to_f64, jax_to_f64)
